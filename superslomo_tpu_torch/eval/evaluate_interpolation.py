@@ -1,0 +1,160 @@
+"""Interpolation-quality evaluator: PSNR / SSIM / IE over sliding windows.
+
+Protocol of the JAX package's evaluator: /32-aligned padded dims with a
+centre crop back to the input size, 8x interpolation (7 t-values; Sintel-HFR
+32x; a single t=0.5 for Vimeo), edge-window trimming by per-sample
+``n_avail``, and denormalize → unclipped uint8 → skimage-compatible metrics.
+All t-values of a batch run in one fused multi-t step.
+
+The readers are not ported yet: ``run`` takes any iterable of ``(frames,
+targets, n_avail)`` batches, as a reader yields them (frames (B, 2, H_REF,
+W_REF, 3) and targets (B, n_t, H_REF, W_REF, 3), normalized and padded).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Iterable
+
+import numpy as np
+import torch
+
+from superslomo_tpu_torch.config import Config
+from superslomo_tpu_torch.data.augmentations import Normalize
+from superslomo_tpu_torch.device import resolve_device
+from superslomo_tpu_torch.models.superslomo import SuperSloMo
+from superslomo_tpu_torch.utils.metrics import score_image
+from superslomo_tpu_torch.utils.validators import check_eval_result_count, check_t_interp
+
+log = logging.getLogger(__name__)
+
+
+class Evaluator:
+    """:param cfg: the evaluation config.
+    :param model_or_state: a ``SuperSloMo`` on ``device``, or its weights as
+        ``{"stage1": state_dict, "stage2": state_dict}``.
+    :param device: ``None`` for the CUDA card (raises without one), or
+        ``"cpu"``.
+    """
+
+    def __init__(self, cfg: Config, model_or_state, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dataset = cfg.get("DATA", "DATASET").upper()
+        if self.dataset not in ("SINTEL_HFR", "ADOBE", "SLOWFLOW", "VIMEO"):
+            raise ValueError(f"Invalid dataset {self.dataset!r}")
+        if isinstance(model_or_state, SuperSloMo):
+            if model_or_state.device != self.device:
+                raise ValueError(f"model lies on {model_or_state.device}, evaluator on {self.device}")
+            self.model = model_or_state
+        else:
+            self.model = SuperSloMo(cfg.model_spec(), device=self.device).load_state(model_or_state)
+        self.interp_factor = 32 if self.dataset == "SINTEL_HFR" else 8
+        (self.H_REF, self.W_REF), (self.H_IN, self.W_IN), (self.H_START, self.W_START) = (
+            self.get_dims()
+        )
+        self.normalize = Normalize(cfg.pixel_mean(), cfg.pixel_std())
+        self.psnr, self.ssim, self.ie, self.bounds = [], [], [], []
+
+        if self.dataset == "VIMEO":
+            t_values = np.asarray([0.5], dtype=np.float32)
+        else:
+            t_values = np.arange(1, self.interp_factor, dtype=np.float32) / self.interp_factor
+        check_t_interp(t_values)
+        self.t_values = torch.from_numpy(t_values).to(self.device)
+
+    def get_dims(self):
+        """/32-aligned dims, input dims and crop offsets."""
+        section = self.dataset + "_DATA"
+        h_in = self.cfg.getint(section, "H_IN")
+        w_in = self.cfg.getint(section, "W_IN")
+        h_ref = int(np.ceil(h_in / 32) * 32)
+        w_ref = int(np.ceil(w_in / 32) * 32)
+        return (h_ref, w_ref), (h_in, w_in), ((h_ref - h_in) // 2, (w_ref - w_in) // 2)
+
+    def to_uint8(self, batch: np.ndarray) -> np.ndarray:
+        """Crop the /32 pad, denormalize, uint8.
+
+        Deliberately no clipping before the uint8 cast: the reference casts
+        unclipped, so out-of-range predictions wrap, and published PSNR /
+        SSIM / IE numbers bake that in."""
+        batch = batch[
+            :,
+            self.H_START : self.H_START + self.H_IN,
+            self.W_START : self.W_START + self.W_IN,
+            :,
+        ]
+        return self.normalize.inverse(batch).astype(np.uint8)
+
+    def _submit(self, frames, targets, n_avail):
+        """Launch one batch's fused step and its copy back to the host without
+        waiting: the card computes while the host scores the previous batch."""
+        cuda = self.device.type == "cuda"
+        frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32))
+        if cuda:
+            frames = frames.pin_memory()
+        frames = frames.to(self.device, non_blocking=True)
+        out, bound = self.model.interpolate_multi_t(frames, self.t_values, with_bounds=True)
+        if not cuda:
+            return out, bound, None, targets, n_avail
+        host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in (out, bound)]
+        for h, x in zip(host, (out, bound)):
+            h.copy_(x, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host[0], host[1], done, targets, n_avail
+
+    def _score(self, pending) -> None:
+        """Wait for one submitted batch's copy and score it."""
+        out, bound, done, targets, n_avail = pending
+        if done is not None:
+            done.synchronize()
+        out = out.numpy()  # (B, n_t, H, W, 3)
+        self.bounds.append(float(bound))
+        log.debug("flow bound %.2f px", self.bounds[-1])
+        check_eval_result_count(out.shape[1], self.interp_factor, self.dataset)
+
+        preds, gts = [], []
+        for i, n in enumerate(np.asarray(n_avail).tolist()):
+            preds.append(out[i, :n])
+            gts.append(targets[i, :n])
+        preds = self.to_uint8(np.concatenate(preds, axis=0))
+        gts = self.to_uint8(np.concatenate(gts, axis=0))
+        for p, g in zip(preds, gts):
+            ps, ss, ie = score_image(g, p)
+            self.psnr.append(ps)
+            self.ssim.append(ss)
+            self.ie.append(ie)
+
+    def eval_batch(self, frames: np.ndarray, targets: np.ndarray, n_avail: np.ndarray):
+        """One batch, submitted and scored back to back."""
+        self._score(self._submit(frames, targets, n_avail))
+
+    def results(self) -> dict:
+        return {
+            "PSNR": float(np.mean(self.psnr)),
+            "IE": float(np.mean(self.ie)),
+            "SSIM": float(np.mean(self.ssim)),
+            "n_images": len(self.psnr),
+            "max_flow_bound": max(self.bounds),
+        }
+
+    def run(self, batches: Iterable) -> dict:
+        """Pipelined loop over ``(frames, targets, n_avail)`` batches: batch
+        k+1 is launched before batch k is copied back and scored."""
+        pending = None
+        for i, (frames, targets, n_avail) in enumerate(batches):
+            submitted = self._submit(frames, targets, n_avail)
+            if pending is not None:
+                self._score(pending)
+                if (i - 1) % 10 == 0:
+                    log.info(
+                        "batch %d  PSNR %.3f  IE %.3f  SSIM %.3f",
+                        i - 1, np.mean(self.psnr), np.mean(self.ie), np.mean(self.ssim),
+                    )
+            pending = submitted
+        if pending is not None:
+            self._score(pending)
+        results = self.results()
+        log.info("Final: %s", results)
+        return results

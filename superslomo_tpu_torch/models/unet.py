@@ -1,0 +1,106 @@
+"""The shared 6-level Super SloMo U-Net (stages 1 and 2), NCHW.
+
+The plain reference topology: an encoder of 5 conv-pair blocks (channels
+32/64/128/256/512, kernels 7/5/3/3/3) with a 2x2 average pool before each
+block after the first, a CONV bottleneck pair at 1/32 resolution, a decoder of
+5 "bilinear 2x upsample + conv pair" blocks with skip concats, a fuse conv at
+full resolution and a linear 3x3 head. The cross-stage skip is a channel
+concat: stage 1 emits its bottleneck output and stage 2 takes it beside its
+own at ``conv7a`` (1024 channels).
+
+The JAX package runs the same function through TPU layout rewrites
+(space-to-depth polyphase convs, folded upsample+conv, prepared weights);
+those are exact rewrites for the TPU's matrix unit and are not ported.
+Submodule names follow the reference state dict (``conv1a.0.weight``,
+``conv6.0.0.weight``, ``final_conv.weight``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from superslomo_tpu_torch.models.layers import conv_lrelu, final_conv
+from superslomo_tpu_torch.ops import avg_pool_2x2, upsample_2x_bilinear
+
+# (name, in_channels, out_channels, kernel) of every conv block before conv6
+_ENCODER = (
+    ("conv1a", None, 32, 7), ("conv1b", 32, 32, 7),
+    ("conv2a", 32, 64, 5), ("conv2b", 64, 64, 5),
+    ("conv3a", 64, 128, 3), ("conv3b", 128, 128, 3),
+    ("conv4a", 128, 256, 3), ("conv4b", 256, 256, 3),
+    ("conv5a", 256, 512, 3), ("conv5b", 512, 512, 3),
+)
+# decoder blocks after conv7: (name_a, name_b, in_channels of a, out_channels)
+_DECODER = (
+    ("conv8a", "conv8b", 1024, 256),
+    ("conv9a", "conv9b", 512, 128),
+    ("conv10a", "conv10b", 256, 64),
+    ("conv11a", "conv11b", 128, 32),
+)
+
+
+class UNet(nn.Module):
+    """One Super SloMo U-Net stage with the CONV bottleneck.
+
+    ``forward(x (N, in_channels, H, W), cross_encoding=None)`` returns
+    ``(out (N, out_channels, H, W), encoding)``; ``encoding`` is the
+    (N, 512, H/32, W/32) bottleneck output when ``emit_encoding``, else None.
+    H and W must be divisible by 32.
+    """
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        bottleneck: str = "CONV",
+        emit_encoding: bool = False,
+        accept_encoding: bool = False,
+    ):
+        super().__init__()
+        if bottleneck in ("CLSTM", "CGRU"):
+            raise NotImplementedError(
+                f"the {bottleneck} bottleneck (SuperSloMo-R) is not ported yet; it "
+                "comes with the recurrent-bottleneck slice of the port"
+            )
+        if bottleneck != "CONV":
+            raise ValueError(f"unknown bottleneck {bottleneck!r}")
+        self.emit_encoding = emit_encoding
+        self.accept_encoding = accept_encoding
+        for name, cin, cout, k in _ENCODER:
+            self.add_module(name, conv_lrelu(in_channels if cin is None else cin, cout, k))
+        self.conv6 = nn.Sequential(conv_lrelu(512, 512, 3), conv_lrelu(512, 512, 3))
+        self.conv7a = conv_lrelu(1024 if accept_encoding else 512, 512, 3)
+        self.conv7b = conv_lrelu(512, 512, 3)
+        for na, nb, cin, cout in _DECODER:
+            self.add_module(na, conv_lrelu(cin, cout, 3))
+            self.add_module(nb, conv_lrelu(cout, cout, 3))
+        self.fuse_conv = conv_lrelu(64, 32, 3)
+        self.final_conv = final_conv(32, out_channels)
+
+    def forward(self, x: torch.Tensor, cross_encoding: Optional[torch.Tensor] = None):
+        H, W = x.shape[-2:]
+        if H % 32 or W % 32:
+            raise ValueError(f"H, W must be /32-divisible, got {H}x{W}")
+        skips = []
+        h = x
+        for i in range(0, len(_ENCODER), 2):
+            if i:
+                h = avg_pool_2x2(h)
+            h = getattr(self, _ENCODER[i + 1][0])(getattr(self, _ENCODER[i][0])(h))
+            skips.append(h)  # conv1b .. conv5b
+        h = self.conv6(avg_pool_2x2(h))
+        encoding = h if self.emit_encoding else None
+
+        if self.accept_encoding:
+            if cross_encoding is None:
+                raise ValueError("this stage was built with accept_encoding=True")
+            h = torch.cat([h, cross_encoding.to(h.dtype)], dim=1)
+        h = self.conv7b(self.conv7a(upsample_2x_bilinear(h)))
+        for (na, nb, _, _), skip in zip(_DECODER, reversed(skips[1:])):
+            h = torch.cat([h, skip], dim=1)
+            h = getattr(self, nb)(getattr(self, na)(upsample_2x_bilinear(h)))
+        h = self.fuse_conv(torch.cat([h, skips[0]], dim=1))
+        return self.final_conv(h), encoding

@@ -1,0 +1,77 @@
+"""The port's Evaluator on the CPU: its metrics equal the JAX package's
+score_image and Normalize.inverse applied to the same predictions, and the
+pipelined run() equals sequential eval_batch calls."""
+
+import numpy as np
+import pytest
+
+from superslomo_tpu.data.augmentations import Normalize as JaxNormalize
+from superslomo_tpu.utils.metrics import score_image as jax_score_image
+from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config, weights
+from superslomo_tpu_torch.data.augmentations import Normalize, eval_padding_for
+
+H_IN, W_IN = 30, 60  # padded to 32x64: exercises the /32 pad and crop
+
+
+def _cfg():
+    cfg = default_config(DATA_DATASET="ADOBE", EVAL_EVAL_MODE="TRUE", DATALOADER_T_SAMPLE="NIL")
+    cfg.set("ADOBE_DATA", "H_IN", H_IN)
+    cfg.set("ADOBE_DATA", "W_IN", W_IN)
+    cfg.validate()
+    return cfg
+
+
+def _batches(cfg, n_batches=2, B=2, seed=0):
+    """Synthetic reader output: uint8 clips normalized, then zero-padded to
+    /32 dims; the inner frames are the targets; the second sample of each
+    batch is an edge window with 5 of its 7 targets available."""
+    rng = np.random.default_rng(seed)
+    norm = Normalize(cfg.pixel_mean(), cfg.pixel_std())
+    left, right, top, bottom = eval_padding_for(H_IN, W_IN)
+    pad = ((0, 0), (0, 0), (top, bottom), (left, right), (0, 0))
+    out = []
+    for _ in range(n_batches):
+        clip = rng.integers(0, 256, (B, 9, H_IN, W_IN, 3)).astype(np.uint8)
+        x = np.pad(norm(clip), pad)
+        out.append((x[:, [0, 8]], x[:, 1:8], np.array([7, 5])))
+    return out
+
+
+@pytest.fixture(scope="module")
+def state():
+    return weights.seeded_state(_cfg().model_spec(), seed=0)
+
+
+def test_metrics_equal_jax_scoring_of_same_predictions(state):
+    cfg = _cfg()
+    ev = Evaluator(cfg, state, device="cpu")
+    assert (ev.H_REF, ev.W_REF, ev.H_START, ev.W_START) == (32, 64, 1, 2)
+    np.testing.assert_array_equal(ev.t_values.numpy(), np.arange(1, 8, dtype=np.float32) / 8)
+    model = SuperSloMo(cfg.model_spec(), device="cpu").load_state(state)
+    jnorm = JaxNormalize(cfg.pixel_mean(), cfg.pixel_std())
+    want = []
+    for frames, targets, n_avail in _batches(cfg):
+        ev.eval_batch(frames, targets, n_avail)
+        pred = model.interpolate_multi_t(frames, ev.t_values).numpy()
+        for i, n in enumerate(n_avail):
+            for k in range(n):
+                crop = np.s_[1 : 1 + H_IN, 2 : 2 + W_IN]
+                p = jnorm.inverse(pred[i, k][crop]).astype(np.uint8)
+                g = jnorm.inverse(targets[i, k][crop]).astype(np.uint8)
+                want.append(jax_score_image(g, p))
+    assert len(ev.psnr) == len(want) == 2 * (7 + 5)
+    np.testing.assert_array_equal(np.array([ev.psnr, ev.ssim, ev.ie]).T, np.array(want))
+    assert all(np.isfinite(b) and b > 0 for b in ev.bounds)
+
+
+def test_run_equals_sequential_eval_batch(state):
+    cfg = _cfg()
+    batches = _batches(cfg, n_batches=3, seed=1)
+    seq = Evaluator(cfg, state, device="cpu")
+    for b in batches:
+        seq.eval_batch(*b)
+    piped = Evaluator(cfg, SuperSloMo(cfg.model_spec(), device="cpu").load_state(state), device="cpu")
+    results = piped.run(iter(batches))
+    assert (piped.psnr, piped.ssim, piped.ie, piped.bounds) == (seq.psnr, seq.ssim, seq.ie, seq.bounds)
+    assert results == seq.results() and results["n_images"] == 3 * 12
+    assert all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"]]))

@@ -1,0 +1,116 @@
+"""Package rules of the PyTorch port: it imports nothing of JAX or of the JAX
+package, its entry points refuse to run on the CPU unless asked to, its CUDA
+wrapper takes only CUDA tensors, and it reads the repo's configs as the JAX
+package does."""
+
+import ast
+import dataclasses
+import glob
+import os
+import pkgutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from superslomo_tpu.config import load_config as jax_load_config
+from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config
+from superslomo_tpu_torch.config import load_config
+from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "superslomo_tpu_torch")
+CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.ini")))
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([PKG], prefix="superslomo_tpu_torch.")
+    )
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == top or name.startswith(top + ".") for top in ("jax", "flax", "superslomo_tpu"))
+
+
+def test_importing_every_port_module_leaves_jax_out():
+    modules = _port_modules()
+    assert "superslomo_tpu_torch.ops.warp_cuda" in modules and len(modules) >= 20
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'superslomo_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+def test_no_jax_imports_in_port_sources_or_chip_smoke():
+    files = glob.glob(os.path.join(PKG, "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert os.path.exists(files[-1])
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            offenders += [(path, n) for n in names if _forbidden(n)]
+    assert not offenders
+    assert not _forbidden("superslomo_tpu_torch") and _forbidden("superslomo_tpu.ops")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SuperSloMo()
+    cfg = default_config()
+    cfg.set("ADOBE_DATA", "H_IN", 32)
+    cfg.set("ADOBE_DATA", "W_IN", 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Evaluator(cfg, {"stage1": {}, "stage2": {}})
+    with pytest.raises(RuntimeError):
+        SuperSloMo(device="cuda")
+
+
+def test_cuda_wrapper_raises_on_cpu_tensors():
+    planes = torch.zeros(1, 3, 8, 8)
+    flow = torch.zeros(1, 2, 8, 8)
+    before = warp_multiflow_planar_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_multiflow_planar_cuda(planes, flow, flow)
+    assert warp_multiflow_planar_cuda.launches == before
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_configs_load_as_in_jax(path):
+    ours, theirs = load_config(path), jax_load_config(path)
+    ours.validate()
+    theirs.validate()
+    spec, jspec = ours.model_spec(), theirs.model_spec()
+    for field in dataclasses.fields(spec):
+        assert getattr(spec, field.name) == getattr(jspec, field.name), field.name
+    assert ours.pixel_mean() == theirs.pixel_mean() and ours.pixel_std() == theirs.pixel_std()
+    if spec.stage1_bottleneck == "CONV":
+        model = SuperSloMo(spec, device="cpu")
+        assert next(model.parameters()).dtype == getattr(torch, spec.compute_dtype)
+    else:
+        with pytest.raises(NotImplementedError, match="recurrent"):
+            SuperSloMo(spec, device="cpu")
+
+
+def test_bfloat16_compute_dtype_is_honoured():
+    spec = default_config(TPU_COMPUTE_DTYPE="bfloat16").model_spec()
+    model = SuperSloMo(spec, device="cpu")
+    assert model.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.bfloat16 for p in model.parameters())
+    assert model.stage1.conv1a[0].weight.is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):
+        default_config(TPU_COMPUTE_DTYPE="float16").validate()
