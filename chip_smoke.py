@@ -4,17 +4,34 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure:
-  1. device: the card's name and power limit, the CUDA version, and the
-     warp kernel's nvcc build (from csrc/ in this checkout, at first use);
-  2. kernel against plain: the multi-flow warp kernel against its plain
-     PyTorch version at the main path's shapes (736x1280, C=3, n=7, B=2),
-     with flows beyond the Pallas kernel's +-128 px band, in f32 and with
-     bf16 planes and store, timed beside grid_sample and the memory bound;
-  3. slice on the card against the same slice on the CPU: the full-width
-     model with seeded weights at 128x224, f32 with TF32 off;
-  4. main path: the Evaluator at 720p (padded to 736), 8x, B=2, over three
-     synthetic batches, in f32 and bf16, with the step's time, frames/s and
-     peak memory, and the warp kernel's launches counted per step.
+  1. device: the card's name and power limit, the CUDA version, and the nvcc
+     build of every kernel source in csrc/ of this checkout (one nvcc per
+     source, all started together);
+  2. multi-flow kernel against plain: the multi-flow warp kernel against its
+     plain PyTorch version at the serving path's shapes (736x1280, C=3, n=7,
+     B=2), with flows beyond the Pallas kernel's +-128 px band, in f32 and
+     with bf16 planes and store, timed beside grid_sample and the memory bound;
+  3. single-flow kernels against plain: the forward kernel at the training
+     shape (B=32, C=3, 224x224) through the strided channels_last views the
+     step passes, and at 736x1280 B=2 with flows beyond +-128 px in f32 and
+     bf16; the backward kernel's flow and image gradients against autograd of
+     the plain version; each timed beside grid_sample (forward, and forward +
+     backward) and its memory bound;
+  4. serving slice on the card against the same slice on the CPU: the
+     full-width model with seeded weights at 128x224, f32 with TF32 off;
+  5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
+     three synthetic batches, in f32 and bf16, with the step's time, frames/s
+     and peak memory, and the multi-flow kernel's launches counted per step;
+  6. train step on the card against the same step on the CPU (64x64, B=2,
+     f32, panning-texture frames): the loss vector, and the gradient of all
+     parameters together;
+  7. convergence: 30 steps on an exactly solvable translating scene at 32x32;
+  8. training main path: the Trainer at configs/superslomo_original.ini
+     (B=32, 224x224, f32, TF32 off) with seeded weights and random VGG
+     features, over synthetic panning-texture batches: 2 warm-up and 10 timed
+     steps, then 2 steps of the training loop, which saves a checkpoint; the
+     single-flow kernels' launches counted per step; the checkpoint reloaded
+     and resumed to identical weights and Adam moments.
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result.
@@ -25,6 +42,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -34,7 +52,15 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 KERNEL_ATOL = 1e-5
+# backward kernels against autograd of the plain version, as a share of the
+# reference's max |g|: both sum a few f32 products per tap in another order
+# (the image gradient with atomics, in an order that varies run to run), so
+# they differ by a few f32 ulps of the largest terms
+GRAD_KERNEL_REL = 1e-5
 SLICE_ATOL, SLICE_RTOL = 5e-4, 1e-3  # the full-model bar of the JAX package
+# a train step on the card against the CPU: the loss bar of
+# tests/test_torch_train.py, and its gradient bar over all parameters together
+LOSS_RTOL, GRAD_REL = 1e-4, 1e-3
 
 
 def emit(obj):
@@ -65,7 +91,8 @@ def warp_bound(B, C, n, H, W, in_bytes, out_bytes):
 
 
 def phase_kernel():
-    """The warp kernel against its plain version at the main path's shapes."""
+    """The multi-flow warp kernel against its plain version at the serving
+    path's shapes."""
     from superslomo_tpu_torch import ops
     from superslomo_tpu_torch.ops import warp_cuda
 
@@ -125,6 +152,159 @@ def phase_kernel():
     return out
 
 
+def single_bounds(B, C, H, W, esize):
+    """Least times of the single-flow kernels, as (ms, bound_by) each: every
+    input read once and every output written once, against the f32
+    operations per pixel (12 for the position and weights; per channel 7 for
+    the forward's taps, 12 for the flow gradient's, 8 for the image
+    gradient's scatter)."""
+    img, flow, px = B * C * H * W * esize, B * 2 * H * W * 4, B * H * W
+
+    def bound(nbytes, ops):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+    return {
+        "forward": bound(2 * img + flow, px * (12 + 7 * C)),
+        "flow_grad": bound(2 * img + 2 * flow, px * (12 + 12 * C)),  # img, g, flow in; grad_flow out
+        "img_grad": bound(img + flow + B * C * H * W * 4, px * (12 + 8 * C)),  # g, flow in; f32 grad out
+    }
+
+
+def _flow_field(rng, B, H, W, std, shift):
+    """(B, H, W, 2) f32 flows of std ``std`` px with two patches shifted by
+    ``shift`` px (beyond the Pallas band when shift > 128)."""
+    f = rng.normal(0.0, std, (B, H, W, 2)).astype(np.float32)
+    f[:, H // 4 : H // 2, W // 4 : W // 2, 0] += shift
+    f[:, H // 2 : 3 * H // 4, : W // 3, 1] -= shift
+    return f
+
+
+def phase_single_kernels():
+    """The single-flow forward and backward kernels against the plain warp
+    and its autograd, at the training shape and at 720p."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda, warp_single_cuda
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    res = {}
+
+    def grid_for(flow):  # grid_sample's normalised sample positions of a (B, 2, H, W) flow
+        H, W = flow.shape[-2:]
+        xs = torch.arange(W, device=dev, dtype=torch.float32)
+        ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
+        return torch.stack([2 * (xs + flow[:, 0]) / (W - 1) - 1, 2 * (ys + flow[:, 1]) / (H - 1) - 1], dim=-1)
+
+    # the training shape, through the views the step passes: the second frame
+    # of a 6-channel pair and the first flow of a 4-channel head, channels_last
+    B, C, H, W = 32, 3, 224, 224
+    pairs = torch.from_numpy(rng.standard_normal((B, H, W, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    head = np.concatenate([_flow_field(rng, B, H, W, 4.0, 150.0), rng.normal(0, 4, (B, H, W, 2))], -1)
+    head = torch.from_numpy(head.astype(np.float32)).to(dev).permute(0, 3, 1, 2)
+    img, flow = pairs[:, 3:6], head[:, 0:2]
+    if (img.stride(1), img.stride(3), flow.stride(1), flow.stride(3)) != (1, 6, 1, 4):
+        raise AssertionError(f"not the step's strided views: {img.stride()} {flow.stride()}")
+    g = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    got = warp_single_cuda(img, flow)
+    want = ops.warp_single_reference(img, flow)
+    grid = grid_for(flow)
+    lib = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    torch.cuda.synchronize()
+    fwd_err = (got - want).abs().max().item()
+    if fwd_err > KERNEL_ATOL:
+        raise AssertionError(f"single-flow forward kernel differs from the plain warp by {fwd_err}")
+
+    # the backward kernel against autograd of the plain version
+    flow_req, img_req = flow.detach().clone().requires_grad_(True), img.detach().clone().requires_grad_(True)
+    want_gi, want_gf = torch.autograd.grad(ops.warp_single_reference(img_req, flow_req), (img_req, flow_req), g)
+    _, got_gf = warp_single_backward_cuda(img, flow, g, False, True)
+    got_gi, _ = warp_single_backward_cuda(img, flow, g, True, False)
+    both_gi, both_gf = warp_single_backward_cuda(img, flow, g, True, True)
+    torch.cuda.synchronize()
+    gf_err = (got_gf - want_gf).abs().max().item()
+    gi_err = (got_gi - want_gi).abs().max().item()
+    gf_bar = GRAD_KERNEL_REL * want_gf.abs().max().item()
+    gi_bar = GRAD_KERNEL_REL * want_gi.abs().max().item()
+    if gf_err > gf_bar or gi_err > gi_bar:
+        raise AssertionError(f"backward kernel: flow grad err {gf_err} (bar {gf_bar}), image grad err {gi_err} (bar {gi_bar})")
+    if not (torch.equal(both_gf, got_gf) and (both_gi - want_gi).abs().max().item() <= gi_bar):
+        raise AssertionError("the backward kernel computing both gradients disagrees with the single-gradient modes")
+    # grid_sample's grid gradient is in normalised coordinates
+    grid_req = grid.detach().clone().requires_grad_(True)
+    (lib_gg,) = torch.autograd.grad(
+        F.grid_sample(img, grid_req, mode="bilinear", padding_mode="zeros", align_corners=True), grid_req, g)
+    lib_gf = torch.stack([lib_gg[..., 0] * 2 / (W - 1), lib_gg[..., 1] * 2 / (H - 1)], dim=1)
+
+    def plain_fwd_bwd():
+        f = flow.detach().requires_grad_(True)
+        torch.autograd.grad(ops.warp_single_reference(img, f), f, g)
+
+    def library_fwd_bwd():
+        gr = grid.detach().requires_grad_(True)
+        torch.autograd.grad(F.grid_sample(img, gr, mode="bilinear", padding_mode="zeros", align_corners=True), gr, g)
+
+    bounds = single_bounds(B, C, H, W, 4)
+    res["train_shape"] = {
+        "shape": [B, C, H, W], "max_abs_err": fwd_err,
+        "library_max_abs_diff": (lib - got).abs().max().item(),
+        "ms": cuda_ms(lambda: warp_single_cuda(img, flow)),
+        "plain_ms": cuda_ms(lambda: ops.warp_single_reference(img, flow), reps=10, warmup=1),
+        "library_ms": cuda_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                                    align_corners=True)),
+        "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
+        "flow_grad": {
+            "max_abs_err": gf_err, "bar": gf_bar,
+            "library_max_abs_diff": (lib_gf - got_gf).abs().max().item(),
+            "ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, False, True)),
+            "plain_ms": cuda_ms(plain_fwd_bwd, reps=10, warmup=1),  # forward + backward
+            "library_ms": cuda_ms(library_fwd_bwd),  # grid_sample forward + backward to the grid
+            "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1],
+        },
+        "img_grad": {
+            "max_abs_err": gi_err, "bar": gi_bar,
+            "ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, True, False)),
+            "bound_ms": bounds["img_grad"][0], "bound_by": bounds["img_grad"][1],
+        },
+    }
+    emit({"phase": "single_kernels_vs_plain", "case": "train_shape", **res["train_shape"]})
+
+    # 720p, flows beyond the band, f32 and bf16
+    B, C, H, W = 2, 3, 736, 1280
+    img = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    flow = torch.from_numpy(_flow_field(rng, B, H, W, 7.0, 150.0)).to(dev).permute(0, 3, 1, 2).contiguous()
+    g = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        im = img.to(dt)
+        got = warp_single_cuda(im, flow)
+        want = ops.warp_single_reference(im, flow)
+        flow_req = flow.detach().clone().requires_grad_(True)
+        (want_gf,) = torch.autograd.grad(ops.warp_single_reference(im, flow_req), flow_req, g.to(dt))
+        _, got_gf = warp_single_backward_cuda(im, flow, g.to(dt), False, True)
+        torch.cuda.synchronize()
+        case = {
+            "shape": [B, C, H, W], "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "flow_grad_max_abs_err": (got_gf - want_gf).abs().max().item(),
+            "flow_grad_bar": GRAD_KERNEL_REL * want_gf.abs().max().item(),
+            "ms": cuda_ms(lambda: warp_single_cuda(im, flow)),
+        }
+        if case["flow_grad_max_abs_err"] > case["flow_grad_bar"]:
+            raise AssertionError(f"{tag} flow gradient at 720p differs from autograd of the plain warp: {case}")
+        if tag == "f32":
+            if case["max_abs_err"] > KERNEL_ATOL:
+                raise AssertionError(f"f32 forward kernel at 720p differs from the plain warp by {case['max_abs_err']}")
+        else:
+            case["bit_identical_to_f32_cast"] = torch.equal(
+                got.view(torch.int16), warp_single_cuda(im.float(), flow).bfloat16().view(torch.int16))
+            if not case["bit_identical_to_f32_cast"]:
+                raise AssertionError("bf16 store of the single-flow kernel is not the f32 result cast")
+            if case["max_abs_err"] > 2.0**-7 * want.float().abs().max().item():  # one bf16 ulp
+                raise AssertionError(f"bf16 single-flow kernel differs from the plain warp by {case['max_abs_err']}")
+        res[f"720p_{tag}"] = case
+        emit({"phase": "single_kernels_vs_plain", "case": f"720p_{tag}", **case})
+    return res
+
+
 def phase_slice():
     """The full-width slice on the card against the same slice on the CPU."""
     from superslomo_tpu_torch import ModelSpec, SuperSloMo, weights
@@ -150,25 +330,43 @@ def phase_slice():
         raise AssertionError(f"card and CPU disagree: {res}")
 
 
+def panning_clips(rng, B, H, W):
+    """(B, 9, H, W, 3) uint8 clips: a smooth random texture panning 3 px a frame."""
+    yy, xx = np.mgrid[0:H, 0 : W + 32].astype(np.float32)
+    clips = []
+    for _ in range(B):
+        tex = np.zeros((H, W + 32, 3), np.float32)
+        for _ in range(6):
+            fy, fx = rng.uniform(0.005, 0.05, 2)
+            tex += np.sin(fy * yy + fx * xx + rng.uniform(0, 6.3))[..., None] * rng.uniform(10, 40, 3)
+        tex = np.clip(tex + 128, 0, 255).astype(np.uint8)
+        clips.append(np.stack([tex[:, 3 * i : 3 * i + W] for i in range(9)]))
+    return np.stack(clips)
+
+
 def synthetic_batches(norm, padding, n_batches, B, H, W, seed):
-    """Reader-shaped batches: a smooth texture panning 3 px a frame over a
-    9-frame clip; ends are the inputs, the 7 inner frames the targets."""
+    """Reader-shaped evaluation batches of panning clips: the ends are the
+    inputs, the 7 inner frames the targets."""
     rng = np.random.default_rng(seed)
     left, right, top, bottom = padding
     pad = ((0, 0), (0, 0), (top, bottom), (left, right), (0, 0))
-    yy, xx = np.mgrid[0:H, 0 : W + 32].astype(np.float32)
     out = []
     for _ in range(n_batches):
-        clips = []
-        for _ in range(B):
-            tex = np.zeros((H, W + 32, 3), np.float32)
-            for _ in range(6):
-                fy, fx = rng.uniform(0.005, 0.05, 2)
-                tex += np.sin(fy * yy + fx * xx + rng.uniform(0, 6.3))[..., None] * rng.uniform(10, 40, 3)
-            tex = np.clip(tex + 128, 0, 255).astype(np.uint8)
-            clips.append(np.stack([tex[:, 3 * i : 3 * i + W] for i in range(9)]))
-        x = np.pad(norm(np.stack(clips)), pad)
+        x = np.pad(norm(panning_clips(rng, B, H, W)), pad)
         out.append((x[:, [0, 8]], x[:, 1:8], np.full(B, 7)))
+    return out
+
+
+def synthetic_train_batches(norm, n_batches, B, H, W, seed):
+    """Training batches of panning clips: frames (B, 2, H, W, 3) = the ends,
+    one inner frame per sample as the target (B, 1, H, W, 3), and its
+    instant t = i/8 (B, 1)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_batches):
+        x = norm(panning_clips(rng, B, H, W))
+        i = rng.integers(1, 8, B)
+        out.append((x[:, [0, 8]], x[np.arange(B), i][:, None], (i / 8).astype(np.float32)[:, None]))
     return out
 
 
@@ -217,6 +415,157 @@ def phase_main_path(dtype, batches, steps=8):
     return res
 
 
+def _train_config(ckpt_dir, path=None, **overrides):
+    from superslomo_tpu_torch import default_config, load_config
+
+    cfg = load_config(path) if path else default_config()
+    cfg.set("TRAIN", "ALLOW_RANDOM_VGG", "TRUE")  # no VGG-16 file ships with the repo
+    cfg.set("TRAIN", "CKPT_DIR", ckpt_dir)
+    for key, value in overrides.items():
+        section, _, k = key.partition("_")
+        cfg.set(section, k, value)
+    return cfg
+
+
+def phase_train_vs_cpu(ckpt_dir, norm):
+    """One train step on the card against the same step on the CPU (64x64,
+    B=2, f32, panning-texture frames): the loss vector within the CPU test's
+    1e-4, and the gradient of all parameters together within its 1e-3, as a
+    relative L2 error. Per tensor the max-relative error is reported beside
+    the same quantity between two CPU steps whose frames differ by 1e-5: the
+    step's gradient is discontinuous (the warp's floor, the leaky ReLU's and
+    max pool's switches, the L1 kinks), and in the deep layers, which see few
+    positions at 64x64, one switch moves a tensor's gradient by a visible
+    share of its max, on the CPU alone as much as between two devices."""
+    from superslomo_tpu_torch import Trainer
+
+    frames, targets, t = synthetic_train_batches(norm, n_batches=1, B=2, H=64, W=64, seed=4)[0]
+    cfg = _train_config(ckpt_dir, TRAIN_BATCH_SIZE=2, TRAIN_CROP_IMH=64, TRAIN_CROP_IMW=64)
+
+    def step(device, f):
+        tr = Trainer(cfg, device=device)
+        loss = tr.train_step(f, targets, t).cpu().numpy()
+        return loss, {f"{stage}.{n}": p.grad.cpu() for stage in ("stage1", "stage2")
+                      for n, p in getattr(tr.model, stage).named_parameters()}
+
+    def compare(got, want):
+        per_tensor = {k: ((got[k] - w).abs().max() / w.abs().max()).item() for k, w in want.items()}
+        worst = max(per_tensor, key=per_tensor.get)
+        num = sum(((got[k] - w) ** 2).sum() for k, w in want.items())
+        den = sum((w ** 2).sum() for w in want.values())
+        return (num / den).sqrt().item(), worst, per_tensor[worst]
+
+    loss_card, grads_card = step(None, frames)
+    loss_cpu, grads_cpu = step("cpu", frames)
+    nudge = np.random.default_rng(9).standard_normal(frames.shape).astype(np.float32) * 1e-5
+    _, grads_nudged = step("cpu", frames + nudge)
+    rel, worst, worst_rel = compare(grads_card, grads_cpu)
+    cpu_rel, cpu_worst, cpu_worst_rel = compare(grads_nudged, grads_cpu)
+    res = {
+        "phase": "train_step_card_vs_cpu", "shape": [2, 2, 64, 64, 3],
+        "loss_card": loss_card.tolist(), "loss_cpu": loss_cpu.tolist(),
+        "loss_max_rel_err": float(np.max(np.abs(loss_card - loss_cpu) / np.abs(loss_cpu))),
+        "grad_rel_l2_err": rel, "grad_worst_tensor": worst, "grad_worst_tensor_max_rel_err": worst_rel,
+        "cpu_nudged_1e-5": {"grad_rel_l2_err": cpu_rel, "grad_worst_tensor": cpu_worst,
+                            "grad_worst_tensor_max_rel_err": cpu_worst_rel},
+        "grad_tensors": len(grads_cpu),
+    }
+    emit(res)
+    if not (np.isfinite(loss_card).all() and res["loss_max_rel_err"] <= LOSS_RTOL and rel <= GRAD_REL):
+        raise AssertionError(f"train step on the card and the CPU disagree: {res}")
+
+
+def translating_pattern(shift, H=32, W=32):
+    """A smooth 3-channel pattern translated by ``shift`` px in x and
+    ``shift/2`` in y: a constant-flow scene with an exact interpolation."""
+    ys, xs = np.mgrid[0:H, 0:W].astype(np.float32)
+    u = 2 * np.pi * (xs - shift) / 16.0
+    v = 2 * np.pi * (ys - 0.5 * shift) / 16.0
+    return np.stack([np.sin(u) * np.cos(v), np.cos(u + v), np.sin(v) * np.sin(u + 1.0)], axis=-1)
+
+
+def phase_convergence(ckpt_dir):
+    """30 steps on the card on an exactly solvable scene at 32x32: the mean
+    of the last 5 losses must be below 0.7 of the first."""
+    from superslomo_tpu_torch import Trainer
+
+    cfg = _train_config(ckpt_dir, TRAIN_BATCH_SIZE=1, TRAIN_CROP_IMH=32, TRAIN_CROP_IMW=32)
+    tr = Trainer(cfg)
+    frames = np.stack([translating_pattern(0.0), translating_pattern(2.0)])[None].astype(np.float32)
+    targets = translating_pattern(1.0)[None, None].astype(np.float32)
+    t = np.full((1, 1), 0.5, np.float32)
+    losses = [float(tr.train_step(frames, targets, t)[0]) for _ in range(30)]
+    res = {"phase": "train_convergence", "first": losses[0], "last5_mean": float(np.mean(losses[-5:])),
+           "last": losses[-1], "losses": losses}
+    emit(res)
+    if not (np.isfinite(losses).all() and res["last5_mean"] < 0.7 * losses[0] and losses[-1] < losses[0]):
+        raise AssertionError(f"training did not converge on the translating scene: {res}")
+
+
+def phase_train_main(ckpt_dir, norm, timed=10):
+    """The Trainer at the shipped training config over synthetic batches:
+    2 warm-up and ``timed`` timed steps, then 2 steps of ``train``, which
+    saves a checkpoint; the checkpoint reloaded and resumed."""
+    from superslomo_tpu_torch import Trainer
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = _train_config(ckpt_dir, os.path.join(root, "configs", "superslomo_original.ini"))
+    B, H, W = cfg.getint("TRAIN", "BATCH_SIZE"), cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")
+    batches = synthetic_train_batches(norm, n_batches=3, B=B, H=H, W=W, seed=5)
+    tr = Trainer(cfg, expt_name="chip_smoke")
+
+    fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = 0
+    losses, times = [], []
+    for i in range(2 + timed):
+        if i == 2:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses.append(tr.train_step(*batches[i % len(batches)]))
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    last = tr.train(batches[:1], max_steps=tr.step + 2)  # two epochs of one batch; saves at the end
+    steps = 2 + timed + 2
+    launches = {"forward": fwd.launches, "backward": bwd.launches,
+                "flow_grad": bwd.flow_grad_launches, "img_grad": bwd.img_grad_launches}
+    losses = torch.stack(losses).cpu().numpy()
+
+    path = tr.checkpoint_path(tr.epoch)
+    resumed = Trainer(_train_config(
+        ckpt_dir, os.path.join(root, "configs", "superslomo_original.ini"), STAGE1_LOADPREV="TRUE",
+        STAGE1_WEIGHTS=path, STAGE2_LOADPREV="TRUE", STAGE2_WEIGHTS=path), expt_name="chip_smoke_resumed")
+    same_weights = all(
+        torch.equal(a, b) for stage in ("stage1", "stage2")
+        for a, b in zip(getattr(tr.model, stage).state_dict().values(),
+                        getattr(resumed.model, stage).state_dict().values()))
+    same_moments = all(
+        torch.equal(tr.optimizer.state[p][key], resumed.optimizer.state[q][key])
+        for p, q in zip(tr.optimizer.param_groups[0]["params"], resumed.optimizer.param_groups[0]["params"])
+        for key in ("exp_avg", "exp_avg_sq"))
+    med = statistics.median(times)
+    res = {
+        "phase": "train_main_path", "config": "configs/superslomo_original.ini", "batch": B, "crop_hw": [H, W],
+        "compute_dtype": "float32", "steps": steps, "step_ms_median": med, "step_ms": times,
+        "samples_per_s": B / (med / 1e3), "peak_mem_gib": peak / 2**30,
+        "loss_first": losses[0].tolist(), "loss_last": last.tolist(), "launches": launches,
+        "checkpoint_mib": os.path.getsize(path) / 2**20, "resumed_epoch_step": [resumed.epoch, resumed.step],
+        "resumed_identical_weights": same_weights, "resumed_identical_moments": same_moments,
+    }
+    emit(res)
+    if not (np.isfinite(losses).all() and np.isfinite(last).all()):
+        raise AssertionError(f"non-finite training losses: {res}")
+    want = {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0}
+    if launches != want:
+        raise AssertionError(f"single-flow kernel launches {launches} over {steps} steps, expected {want}")
+    if not (same_weights and same_moments and (resumed.epoch, resumed.step) == (tr.epoch, tr.step)):
+        raise AssertionError(f"the resumed trainer differs from the one that saved: {res}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -228,30 +577,36 @@ def main() -> int:
     sys.path.insert(0, root)
     from superslomo_tpu_torch import default_config
     from superslomo_tpu_torch.data.augmentations import Normalize, eval_padding_for
-    from superslomo_tpu_torch.ops import warp_cuda
+    from superslomo_tpu_torch.ops import cuda_build
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     t0 = time.perf_counter()
-    warp_cuda.load_library()
+    cuda_build.build()  # one nvcc per source in csrc/, all at once
     emit({
         "phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "kernel_build_s": time.perf_counter() - t0,
-        "nvcc_ptxas": [ln for ln in warp_cuda.build_log.splitlines() if "registers" in ln],
+        "nvcc_ptxas": {name: [ln for ln in log.splitlines() if "registers" in ln]
+                       for name, log in cuda_build.build_logs.items()},
     })
 
     kern = phase_kernel()
+    single = phase_single_kernels()
     phase_slice()
     cfg = default_config()
     norm = Normalize(cfg.pixel_mean(), cfg.pixel_std())
     batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=3, B=2, H=720, W=1280, seed=2)
     main_f32 = phase_main_path("float32", batches)
     main_bf16 = phase_main_path("bfloat16", batches)
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        phase_train_vs_cpu(ckpt_dir, norm)
+        phase_convergence(ckpt_dir)
+        train = phase_train_main(ckpt_dir, norm)
 
     f32, bf16 = kern["f32"], kern["bf16"]
-    entry = {
+    mf = {
         "name": "warp_multiflow_planar", "route": "cuda",
         "source": "superslomo_tpu_torch/csrc/warp_multiflow.cu",
         "replaces": "superslomo_tpu/ops/warp_pallas.py:216",
@@ -265,8 +620,25 @@ def main() -> int:
             "bit_identical_to_f32_cast": bf16["bit_identical_to_f32_cast"],
         },
     }
+    ts = single["train_shape"]
+    fwd = {
+        "name": "warp_single", "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
+        "replaces": "superslomo_tpu/ops/warp_pallas.py:70", "launches": train["launches"]["forward"],
+        "max_abs_err": ts["max_abs_err"], "ms": ts["ms"], "plain_ms": ts["plain_ms"],
+        "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"], "library_ms": ts["library_ms"],
+        "shape": ts["shape"],
+    }
+    gf = ts["flow_grad"]
+    bwd = {
+        "name": "warp_single_backward", "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
+        "replaces": "superslomo_tpu/ops/warp_pallas.py:663", "launches": train["launches"]["backward"],
+        "max_abs_err": gf["max_abs_err"], "ms": gf["ms"], "plain_ms": gf["plain_ms"],
+        "bound_ms": gf["bound_ms"], "bound_by": gf["bound_by"], "library_ms": gf["library_ms"],
+        "shape": ts["shape"], "mode": "flow gradient; plain_ms and library_ms include their forward",
+        "img_grad": dict(ts["img_grad"], launches=train["launches"]["img_grad"]),
+    }
     print(smi, flush=True)
-    emit({"kernels": [entry]})
+    emit({"kernels": [mf, fwd, bwd]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -106,6 +106,13 @@ class Config:
             return False
         raise ValueError(f"Not a boolean: [{section}] {key} = {v!r}")
 
+    def has(self, section: str, key: str) -> bool:
+        try:
+            self.get(section, key)
+            return True
+        except (configparser.NoSectionError, configparser.NoOptionError):
+            return False
+
     def set(self, section: str, key: str, value) -> None:
         if not self._p.has_section(section):
             self._p.add_section(section)

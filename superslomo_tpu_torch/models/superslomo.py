@@ -1,4 +1,12 @@
-"""The composite Super SloMo model and its fused multi-t interpolation step.
+"""The composite Super SloMo model: its forward over T-frame windows (the
+training step's model) and its fused multi-t interpolation step.
+
+``SuperSloMo.forward`` is the counterpart of the JAX model's ``__call__``: the
+windows of adjacent frame pairs are folded into the batch, the stage-1 U-Net
+gives the bidirectional flow, two single-flow warps build the stage-2 input,
+the stage-2 U-Net refines, and two more warps and the visibility blend give
+the interpolated frame. Autograd stays on; the outputs come back in the JAX
+layout, (B, T-1, H, W, c).
 
 ``SuperSloMo.interpolate_multi_t`` is the serving path (the "8x slow-mo"
 step): the stage-1 U-Net runs once per frame pair, the t-interpolated flows
@@ -20,6 +28,7 @@ warps, the blend and the output are f32.
 from __future__ import annotations
 
 import contextlib
+from typing import NamedTuple
 
 import torch
 import torch.nn as nn
@@ -31,13 +40,29 @@ from superslomo_tpu_torch.models.unet import UNet
 from superslomo_tpu_torch.ops import warp_multiflow_planar
 
 
+class ModelOutputs(NamedTuple):
+    """Everything the losses and the image dump need, (B, T-1, H, W, c) f32."""
+
+    image_pairs: torch.Tensor  # (B, T-1, H, W, 6)
+    flowC_out: torch.Tensor  # (B, T-1, H, W, 4) stage-1 bidirectional flow
+    flowI_in: torch.Tensor  # (B, T-1, H, W, 16) stage-2 input
+    flowI_out: torch.Tensor  # (B, T-1, H, W, 5) stage-2 head
+    pred_images: torch.Tensor  # (B, T-1, H, W, 3) interpolated frames
+    t_interp: torch.Tensor  # (B, T-1, 1, 1, 1)
+
+
+def mid_window(outputs: ModelOutputs) -> int:
+    """The reference's mid-window convention: T_windows // 2."""
+    return outputs.pred_images.shape[1] // 2
+
+
 def make_pairs(frames: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, 3) frames → (B, T-1, H, W, 6) adjacent-pair windows."""
     return torch.cat([frames[:, :-1], frames[:, 1:]], dim=-1)
 
 
 @contextlib.contextmanager
-def _tf32_off():
+def tf32_off():
     """TF32 off for cuDNN convolutions and matmuls, restored on exit."""
     flags = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = flags[0].allow_tf32, flags[1].allow_tf32
@@ -88,6 +113,37 @@ class SuperSloMo(nn.Module):
         self.stage2.load_state_dict(state["stage2"])
         return self
 
+    def forward(self, frames, t_interp) -> ModelOutputs:
+        """Forward over all windows, with autograd (training and single-t
+        inference).
+
+        :param frames: (B, T, H, W, 3) normalized frames, T = N_FRAMES; H, W
+            /32-divisible.
+        :param t_interp: per-window instants in (0, 1): (B, T-1) or
+            (B, T-1, 1, 1, 1).
+        """
+        f32, cdt = torch.float32, self.compute_dtype
+        frames = torch.as_tensor(frames, dtype=f32, device=self.device)
+        pairs = make_pairs(frames)  # (B, W_n, H, W, 6)
+        B, W_n, H, W, _ = pairs.shape
+        t = torch.as_tensor(t_interp, dtype=f32, device=self.device).reshape(B, W_n, 1, 1, 1)
+        BW = B * W_n
+        x1 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
+        t_f = t.reshape(BW, 1, 1, 1)
+        with tf32_off():
+            head1, encoding = self.stage1(x1.to(cdt))
+            flowC = head1.to(f32)
+            flowI_in = physics.compute_stage2_inputs(
+                x1, flowC, t_f, warp_dtype=cdt if cdt != f32 else None)
+            head2, _ = self.stage2(flowI_in.to(cdt), encoding)
+            flowI_out = head2.to(f32)
+            pred = physics.compute_output_image(x1, flowI_in, flowI_out, t_f)
+
+        def unfold(x):  # (BW, c, H, W) → (B, W_n, H, W, c)
+            return x.permute(0, 2, 3, 1).reshape(B, W_n, H, W, x.shape[1])
+
+        return ModelOutputs(pairs, unfold(flowC), unfold(flowI_in), unfold(flowI_out), unfold(pred), t)
+
     def interpolate_multi_t(self, frames, t_values, with_bounds: bool = False):
         """The fused multi-t interpolation step.
 
@@ -103,7 +159,7 @@ class SuperSloMo(nn.Module):
         t_values = torch.as_tensor(t_values, dtype=torch.float32, device=self.device)
         if frames.dim() != 5 or frames.shape[-1] != 3 or frames.shape[1] < 2:
             raise ValueError(f"frames must be (B, T>=2, H, W, 3), got {tuple(frames.shape)}")
-        with torch.inference_mode(), _tf32_off():
+        with torch.inference_mode(), tf32_off():
             pred, bound = self._multi_t_planar(frames, t_values.reshape(-1))
         return (pred, bound) if with_bounds else pred
 
@@ -144,7 +200,7 @@ class SuperSloMo(nn.Module):
 
         mid = W_n // 2
         head2_mid = head2.reshape(B, n_t, W_n, 5, H, W)[:, :, mid]
-        s2 = physics.extract_stage2_outputs(
+        s2 = physics.extract_stage2_planes(
             head2_mid.to(f32).permute(2, 0, 1, 3, 4).contiguous()
         )  # planes (B, n_t, H, W)
 

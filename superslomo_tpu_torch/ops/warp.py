@@ -4,9 +4,10 @@ Semantics of the reference warp (``grid_sample(align_corners=True,
 padding_mode='zeros')``): output pixel (y, x) is the bilinear sample of the
 image at (y + v, x + u) in pixel coordinates, and taps outside the image
 count zero. Position and weight math is f32, the sum is f32, and only the
-result is rounded to the output dtype. That is the contract of the multi-flow
-CUDA kernel (ops/warp_cuda.py), which this module's plain version is held
-against on the card and which the CPU path runs.
+result is rounded to the output dtype. That is the contract of the CUDA
+kernels (ops/warp_cuda.py, ops/warp_single_cuda.py), which this module's plain
+versions are held against on the card and which the CPU path runs; on the CPU
+their gradients come from PyTorch's autograd of these functions.
 """
 
 from __future__ import annotations
@@ -53,18 +54,11 @@ def warp_multiflow_planar_reference(
     return acc.to(out_dtype)
 
 
-def backward_warp(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Warp a batch of images by one flow each.
-
-    :param img: (B, H, W, C) source images.
-    :param flow: (B, H, W, 2) flow, channel 0 = u (x displacement), channel
-        1 = v (y displacement).
-    :returns: (B, H, W, C) in the image dtype.
-    """
-    if img.dim() != 4 or flow.dim() != 4 or flow.shape[-1] != 2:
+def warp_single_reference(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) image x (B, 2, H, W) flow (u, v) → (B, C, H, W) in the
+    image dtype: the plain version of the single-flow kernel, NCHW."""
+    if img.dim() != 4 or flow.dim() != 4 or flow.shape[1] != 2:
         raise ValueError(f"bad shapes img={tuple(img.shape)} flow={tuple(flow.shape)}")
-    out = warp_multiflow_planar_reference(
-        img.permute(0, 3, 1, 2), flow[..., 0:1].permute(0, 3, 1, 2),
-        flow[..., 1:2].permute(0, 3, 1, 2), out_dtype=img.dtype,
-    )
-    return out[:, :, 0].permute(0, 2, 3, 1)
+    out = warp_multiflow_planar_reference(img, flow[:, 0:1], flow[:, 1:2], out_dtype=img.dtype)
+    return out[:, :, 0]
+

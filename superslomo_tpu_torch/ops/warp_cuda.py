@@ -1,61 +1,21 @@
-"""The multi-flow warp's CUDA kernel (csrc/warp_multiflow.cu): its build, its
-ctypes binding and its launch count.
-
-The shared library is compiled by ``nvcc`` for ``sm_90a`` at first use, from
-the source in this package only, into ``superslomo_tpu_torch/_build/``. Its
-file name carries a hash of the source, so an edited source is rebuilt. A
-failed build raises; nothing falls back to the plain version.
+"""The multi-flow warp's CUDA kernel (csrc/warp_multiflow.cu): its ctypes
+binding and its launch count. ops/cuda_build.py compiles it with nvcc for
+``sm_90a`` at first use; a failed build raises, and nothing falls back to the
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "warp_multiflow.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from superslomo_tpu_torch.ops import cuda_build
 
-_lib = None
-build_log = ""  # nvcc's output (register and spill counts) from this process's build
+SOURCE = cuda_build.CSRC / "warp_multiflow.cu"
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-
-
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel's shared library."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"warp_multiflow_{tag}.so"
-    if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-            capture_output=True, text=True,
-        )
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{build_log}")
-        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-    lib = ctypes.CDLL(str(so))
+def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.warp_multiflow_planar
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -63,8 +23,11 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel's shared library."""
+    return cuda_build.load_library(SOURCE, _declare)
 
 
 _DTYPES = (torch.float32, torch.bfloat16)

@@ -1,40 +1,47 @@
-"""Where the fused 8x step's device time goes, on the CUDA card.
+"""Where a step's device time goes, on the CUDA card.
 
     python3 -m superslomo_tpu_torch.profile_step [--dtype bfloat16]
+    python3 -m superslomo_tpu_torch.profile_step --train
 
-Runs ``SuperSloMo.interpolate_multi_t`` at 720p (736x1280 after the /32 pad),
-n_t=7, B=2, with seeded weights, and traces three steps after two warm-up
-steps with ``torch.profiler``. Prints one JSON object: the step's wall time,
-the device's busy share of the traced window, the device time per step by
-kernel category (convolution, warp kernel, layout conversion, concat,
-resize/pool, other elementwise), the share of convolution time in kernels
-whose names say NHWC, the convolutions' FLOPs per step (counted from their
-shapes) and the rate they reach against the card's peak for the compute dtype,
-and the heaviest kernels by name.
+By default runs the fused 8x step ``SuperSloMo.interpolate_multi_t`` at 720p
+(736x1280 after the /32 pad), n_t=7, B=2, with seeded weights. With
+``--train`` it runs ``Trainer.train_step`` at configs/superslomo_original.ini
+(B=32, 224x224 crops, f32, TF32 off) on seeded weights, random VGG features
+and seeded frames. Either way it traces three steps after two warm-up steps
+with ``torch.profiler`` and prints one JSON object: the step's wall time, the
+device's busy share of the traced window, the device time per step by kernel
+category (convolution, warp kernels, layout conversion, concat, resize/pool,
+optimizer, other elementwise), the share of convolution time in kernels whose
+names say NHWC, the convolutions' FLOPs per step (counted from their shapes,
+the backward's from which of each conv's input and weight take a gradient)
+and the rate they reach against the card's peak for the compute dtype, the
+peak device memory, and the heaviest kernels by name.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
 
-from superslomo_tpu_torch import SuperSloMo, default_config, weights
+from superslomo_tpu_torch import SuperSloMo, Trainer, default_config, load_config, weights
 
 # H100 SXM dense peaks, bf16 tensor cores and float32 outside them (TF32 is off)
 PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}
 
 # first match wins; matched against the lower-cased kernel name
 _CATEGORIES = (
-    ("warp_kernel", ("warp_multiflow",)),
+    ("warp_kernel", ("warp_multiflow", "warp_single")),
     ("layout_conversion", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("optimizer", ("multi_tensor_apply", "adam")),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "cutlass", "gemm", "sm90_", "wgrad", "fprop")),
     ("concat", ("catarray",)),
-    ("resize_pool", ("upsample", "avg_pool", "avgpool")),
+    ("resize_pool", ("upsample", "avg_pool", "avgpool", "max_pool", "maxpool")),
     ("elementwise_other", ("",)),
 )
 
@@ -44,45 +51,78 @@ def _category(name: str) -> str:
     return next(cat for cat, keys in _CATEGORIES if any(k in low for k in keys))
 
 
-def conv_flops(model: SuperSloMo, frames, t_values) -> int:
-    """FLOPs of every convolution in one step (2 per multiply-add), counted
-    from the output shapes by forward hooks during one call."""
+def conv_flops(modules, run) -> int:
+    """FLOPs of every convolution in ``modules`` during ``run()`` (2 per
+    multiply-add), counted from the output shapes by forward hooks: the
+    forward once, and under autograd once more for each of the input and the
+    weight that takes a gradient (the backward's data and weight passes)."""
     total = 0
 
-    def count(conv, _inputs, out):
+    def count(conv, inputs, out):
         nonlocal total
         kh, kw = conv.kernel_size
-        total += 2 * out.numel() * kh * kw * conv.in_channels // conv.groups
+        fwd = 2 * out.numel() * kh * kw * conv.in_channels // conv.groups
+        passes = 1
+        if torch.is_grad_enabled():
+            passes += int(inputs[0].requires_grad) + int(conv.weight.requires_grad)
+        total += fwd * passes
 
-    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    hooks = [m.register_forward_hook(count) for mod in modules for m in mod.modules()
+             if isinstance(m, torch.nn.Conv2d)]
     try:
-        model.interpolate_multi_t(frames, t_values)
+        run()
     finally:
         for h in hooks:
             h.remove()
     return total
 
 
+def _serving_step(dtype):
+    """(step, modules, shape facts) of the fused 8x step at 720p, B=2."""
+    spec = default_config(TPU_COMPUTE_DTYPE=dtype).model_spec()
+    model = SuperSloMo(spec).load_state(weights.seeded_state(spec, seed=0))
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((2, 2, 736, 1280, 3), dtype=np.float32)).cuda()
+    t_values = torch.arange(1, 8, dtype=torch.float32, device="cuda") / 8
+    return (lambda: model.interpolate_multi_t(frames, t_values, with_bounds=True)), [model], {
+        "step": "interpolate_multi_t", "compute_dtype": dtype, "batch": 2, "n_t": 7, "frame_hw": [736, 1280]}
+
+
+def _train_step():
+    """(step, modules, shape facts) of Trainer.train_step at the shipped
+    training config."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "superslomo_original.ini"))
+    cfg.set("TRAIN", "ALLOW_RANDOM_VGG", "TRUE")
+    B, H, W = cfg.getint("TRAIN", "BATCH_SIZE"), cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")
+    tr = Trainer(cfg)
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((B, 2, H, W, 3), dtype=np.float32)
+    targets = rng.standard_normal((B, 1, H, W, 3), dtype=np.float32)
+    t = rng.uniform(0.125, 0.875, (B, 1)).astype(np.float32)
+    return (lambda: tr.train_step(frames, targets, t)), [tr.model, tr.vgg], {
+        "step": "train_step", "compute_dtype": "float32", "batch": B, "crop_hw": [H, W]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dtype", default="bfloat16", choices=("float32", "bfloat16"))
+    ap.add_argument("--train", action="store_true", help="profile Trainer.train_step (float32) instead")
     args = ap.parse_args()
-    batch, steps, top_n = 2, 3, 12
+    steps, top_n = 3, 12
 
-    spec = default_config(TPU_COMPUTE_DTYPE=args.dtype).model_spec()
-    model = SuperSloMo(spec).load_state(weights.seeded_state(spec, seed=0))
-    rng = np.random.default_rng(0)
-    frames = torch.from_numpy(rng.standard_normal((batch, 2, 736, 1280, 3), dtype=np.float32)).cuda()
-    t_values = torch.arange(1, 8, dtype=torch.float32, device="cuda") / 8
-    flops = conv_flops(model, frames, t_values)  # also the first warm-up step
-    model.interpolate_multi_t(frames, t_values, with_bounds=True)
+    step, modules, facts = _train_step() if args.train else _serving_step(args.dtype)
+    dtype = facts["compute_dtype"]
+    flops = conv_flops(modules, step)  # also the first warm-up step
+    step()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            model.interpolate_multi_t(frames, t_values, with_bounds=True)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -104,8 +144,7 @@ def main() -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     conv_s = per_step(by_cat["convolution"]) / 1e3
     print(json.dumps({
-        "device": torch.cuda.get_device_name(0), "compute_dtype": args.dtype,
-        "batch": batch, "n_t": 7, "frame_hw": [736, 1280], "steps": steps,
+        "device": torch.cuda.get_device_name(0), **facts, "steps": steps,
         "step_wall_ms": wall_ms / steps,
         "device_busy_ms_per_step": per_step(busy),
         "device_busy_share_of_kernel_span": busy / span,
@@ -113,8 +152,9 @@ def main() -> None:
         "ms_per_step_by_category": {k: per_step(v) for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "nhwc_share_of_convolution": nhwc_conv / by_cat["convolution"] if by_cat["convolution"] else None,
         "conv_tflop_per_step": flops / 1e12,
-        "conv_share_of_peak": flops / conv_s / PEAK_FLOP_S[args.dtype] if conv_s else None,
-        "step_share_of_peak": flops / (per_step(busy) / 1e3) / PEAK_FLOP_S[args.dtype],
+        "conv_share_of_peak": flops / conv_s / PEAK_FLOP_S[dtype] if conv_s else None,
+        "step_share_of_peak": flops / (per_step(busy) / 1e3) / PEAK_FLOP_S[dtype],
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels_ms_per_step": [[name[:120], per_step(us)] for name, us in top],
     }))
 

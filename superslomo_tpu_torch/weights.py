@@ -1,5 +1,5 @@
-"""Model weights: conversion from the JAX package's parameter tree, and seeded
-random weights.
+"""Model weights: conversion from the JAX package's parameter trees, seeded
+random weights, and the reference ``.pt`` checkpoint layout.
 
 The JAX tree is ``{"params": {"stage1": {...}, "stage2": {...}}}`` with each
 conv at ``<layer>/conv/{kernel (HWIO), bias}``. The port's state dicts use the
@@ -8,10 +8,19 @@ reference names, OIHW:
     conv1a/conv/kernel    → conv1a.0.weight
     conv6_0/conv/kernel   → conv6.0.0.weight
     final_conv/conv/kernel → final_conv.weight
+
+The reference checkpoint is a ``torch.save``d dict with ``stage1_state_dict``,
+``stage2_state_dict``, ``self.optimizer`` (a ``torch.optim.Adam`` state dict
+whose parameters are stage 1's state-dict keys, then stage 2's) and
+``epoch``; the JAX package reads the same keys
+(``training/checkpoint.py::convert_torch_checkpoint``,
+``convert_torch_opt_state``). The JAX package's native msgpack checkpoint is
+not read: the port has no msgpack decoder.
 """
 
 from __future__ import annotations
 
+import os
 import re
 from collections import OrderedDict
 
@@ -84,3 +93,58 @@ def seeded_state(spec: ModelSpec, seed: int) -> dict:
             sd[key] = torch.from_numpy((rng.standard_normal(tuple(t.shape)) * std).astype(np.float32))
         state[stage] = sd
     return state
+
+
+def vgg_state_from_jax(params: dict) -> "OrderedDict[str, torch.Tensor]":
+    """JAX VGG tree ``{"params": {"features_{i}": {kernel (HWIO), bias}}}`` →
+    the state dict of ``models.vgg.VGG16Features`` (OIHW)."""
+    sd = OrderedDict()
+    for name, node in sorted(params["params"].items(), key=lambda kv: int(kv[0].split("_")[1])):
+        idx = int(name.split("_")[1])
+        kernel = np.asarray(node["kernel"], dtype=np.float32)
+        sd[f"features.{idx}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+        sd[f"features.{idx}.bias"] = torch.from_numpy(np.asarray(node["bias"], dtype=np.float32).copy())
+    return sd
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(path: str, stage1: dict, stage2: dict, optimizer: dict, epoch: int, step: int) -> str:
+    """Write the reference ``.pt`` layout (all tensors on the CPU) through a
+    temporary file and an atomic rename; returns ``path``."""
+    blob = {
+        "stage1_state_dict": _to_cpu(stage1), "stage2_state_dict": _to_cpu(stage2),
+        "self.optimizer": _to_cpu(optimizer), "epoch": int(epoch), "step": int(step),
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str) -> dict:
+    """Read a ``.pt`` checkpoint onto the CPU. A directory (the JAX package's
+    native msgpack checkpoint) raises NotImplementedError."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a native msgpack checkpoint of the JAX package; the port reads only "
+            "the reference .pt layout (stage1_state_dict / stage2_state_dict / self.optimizer / epoch)")
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def stage_state_from_checkpoint(blob: dict, stage: str):
+    """One stage's state dict from a loaded ``.pt``: ``{stage}_state_dict``,
+    or the whole blob as stage 1's raw state dict when it holds neither
+    stage key (as the reference's loader allows); None when absent."""
+    if "stage1_state_dict" in blob or "stage2_state_dict" in blob:
+        return blob.get(f"{stage}_state_dict")
+    return blob if stage == "stage1" else None

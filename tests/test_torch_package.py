@@ -1,11 +1,13 @@
 """Package rules of the PyTorch port: it imports nothing of JAX or of the JAX
 package, its entry points refuse to run on the CPU unless asked to, its CUDA
-wrapper takes only CUDA tensors, and it reads the repo's configs as the JAX
+wrappers take only CUDA tensors, its nvcc build names libraries by source hash
+and raises without a working nvcc, and it reads the repo's configs as the JAX
 package does."""
 
 import ast
 import dataclasses
 import glob
+import hashlib
 import os
 import pkgutil
 import subprocess
@@ -15,9 +17,11 @@ import pytest
 import torch
 
 from superslomo_tpu.config import load_config as jax_load_config
-from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config
+from superslomo_tpu_torch import Evaluator, SuperSloMo, Trainer, default_config
 from superslomo_tpu_torch.config import load_config
+from superslomo_tpu_torch.ops import cuda_build
 from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda
+from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda, warp_single_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "superslomo_tpu_torch")
@@ -36,7 +40,11 @@ def _forbidden(name: str) -> bool:
 
 def test_importing_every_port_module_leaves_jax_out():
     modules = _port_modules()
-    assert "superslomo_tpu_torch.ops.warp_cuda" in modules and len(modules) >= 20
+    assert {
+        "superslomo_tpu_torch.ops.warp_cuda", "superslomo_tpu_torch.ops.warp_single_cuda",
+        "superslomo_tpu_torch.ops.cuda_build", "superslomo_tpu_torch.models.vgg",
+        "superslomo_tpu_torch.models.losses", "superslomo_tpu_torch.training.trainer",
+    } <= set(modules) and len(modules) >= 26
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -78,15 +86,44 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         Evaluator(cfg, {"stage1": {}, "stage2": {}})
     with pytest.raises(RuntimeError):
         SuperSloMo(device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(default_config(TRAIN_ALLOW_RANDOM_VGG="TRUE"))
 
 
 def test_cuda_wrapper_raises_on_cpu_tensors():
     planes = torch.zeros(1, 3, 8, 8)
     flow = torch.zeros(1, 2, 8, 8)
-    before = warp_multiflow_planar_cuda.launches
+    counters = (warp_multiflow_planar_cuda.launches, warp_single_cuda.launches, warp_single_backward_cuda.launches)
     with pytest.raises(ValueError, match="CUDA"):
         warp_multiflow_planar_cuda(planes, flow, flow)
-    assert warp_multiflow_planar_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_single_cuda(planes, flow)
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_single_backward_cuda(planes, flow, planes, True, True)
+    assert counters == (
+        warp_multiflow_planar_cuda.launches, warp_single_cuda.launches, warp_single_backward_cuda.launches)
+
+
+def test_build_names_libraries_by_source_hash(tmp_path):
+    src = tmp_path / "kern.cu"
+    src.write_text("// one\n")
+    first = cuda_build.library_path(src)
+    assert first.parent == cuda_build.BUILD_DIR
+    assert first.name == f"kern_{hashlib.sha256(b'// one' + bytes([10])).hexdigest()[:16]}.so"
+    src.write_text("// two\n")
+    assert cuda_build.library_path(src) != first
+    assert {p.name for p in cuda_build.SOURCES} >= {"warp_multiflow.cu", "warp_single.cu"}
+
+
+@pytest.mark.parametrize("compiler,message", [("/nonexistent/bin/nvcc", "nvcc not found"), ("/bin/false", "nvcc failed")])
+def test_build_raises_without_a_working_nvcc(tmp_path, monkeypatch, compiler, message):
+    src = tmp_path / "kern.cu"
+    src.write_text("extern \"C\" int f() { return 0; }\n")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(cuda_build, "nvcc", lambda: compiler)
+    with pytest.raises(RuntimeError, match=message):
+        cuda_build.load_library(src, lambda lib: None)
+    assert not list(tmp_path.glob("_build/*")), "a failed build leaves no library behind"
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
