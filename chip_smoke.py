@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (superslomo_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels against plain
+    python3 chip_smoke.py --sweep          # phases 1-3, then every tile x budget plan
 
 Phases, each of which raises on failure:
   1. device: the card's name and power limit, the CUDA version, and the nvcc
@@ -9,14 +11,19 @@ Phases, each of which raises on failure:
      source, all started together);
   2. multi-flow kernel against plain: the multi-flow warp kernel against its
      plain PyTorch version at the serving path's shapes (736x1280, C=3, n=7,
-     B=2), with flows beyond the Pallas kernel's +-128 px band, in f32 and
-     with bf16 planes and store, timed beside grid_sample and the memory bound;
+     B=2), in f32 and with bf16 planes and store: on noise flows beyond the
+     Pallas kernel's +-128 px band, and on the step's kind of flows (smooth,
+     up to ~30 px) with contiguous planes and with the channels_last slices of
+     a 6-channel pair that the step passes (timed through ops.warp_multiflow_planar,
+     the op the step calls); each timed beside grid_sample and the memory bound;
   3. single-flow kernels against plain: the forward kernel at the training
      shape (B=32, C=3, 224x224) through the strided channels_last views the
-     step passes, and at 736x1280 B=2 with flows beyond +-128 px in f32 and
-     bf16; the backward kernel's flow and image gradients against autograd of
-     the plain version; each timed beside grid_sample (forward, and forward +
-     backward) and its memory bound;
+     step passes (the flow of a 4-channel head, and a dense 2-channel flow),
+     and at 736x1280 B=2 with flows beyond +-128 px in f32 and bf16; the
+     backward kernel's flow and image gradients against autograd of the plain
+     version; each timed beside grid_sample (forward, and forward + backward)
+     and its memory bound. The card's SM clock is read before phase 2 and
+     after phase 3;
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
@@ -34,11 +41,20 @@ Phases, each of which raises on failure:
      and resumed to identical weights and Adam moments.
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
-prints no result.
+prints no result. Phases 2 and 3 use only wrapper calls that earlier versions
+of the package have too, so a copy of this script placed in an older
+checkout runs them there (``--kernels-only``) for a same-card comparison.
+``--sweep`` times every launch plan (ops/warp_plan.py: tile and
+shared-memory budget) of the two tiled kernels on the phases' inputs, checks
+each against the plain version, and reports the share of blocks whose source
+window fits the budget.
 """
 
+import argparse
+import importlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -67,11 +83,20 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps=25, warmup=3):
-    """Median device time of ``fn`` in ms, from CUDA events around each call."""
+def cuda_ms(fn, reps=25, warmup=3, queued=True):
+    """Median device time of ``fn`` in ms, from CUDA events around each call.
+
+    ``queued``: the calls and their events are queued behind a device-side
+    sleep, so each interval holds only device work. Without it each call is
+    timed as the host launches it, and where the host takes longer to launch
+    a call than the device takes to run it, the interval holds the host's
+    launch time too (``paced_ms`` in the results)."""
     for _ in range(warmup):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(50_000_000)  # ~25 ms at 1.98 GHz: longer than the host takes to queue the calls
     for start, end in pairs:
         start.record()
         fn()
@@ -90,12 +115,66 @@ def warp_bound(B, C, n, H, W, in_bytes, out_bytes):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernel():
-    """The multi-flow warp kernel against its plain version at the serving
-    path's shapes."""
-    from superslomo_tpu_torch import ops
-    from superslomo_tpu_torch.ops import warp_cuda
+def smooth_flows(rng, B, H, W, amp):
+    """(B, 2, H, W) f32 smooth, low-frequency flows, as a flow network gives
+    them: per component a sum of four sinusoids with wavelengths of 1/4 to 1
+    frame, scaled so that the largest |component| is ``amp`` px."""
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32) / max(H, W)
+    f = np.zeros((B, 2, H, W), np.float32)
+    for b in range(B):
+        for c in range(2):
+            for _ in range(4):
+                fy, fx = rng.uniform(-4, 4, 2)
+                f[b, c] += rng.uniform(0.3, 1.0) * np.sin(2 * np.pi * (fy * yy + fx * xx) + rng.uniform(0, 6.3))
+    return f * (amp / np.abs(f).max())
 
+
+def step_flows(rng, B, n, H, W, dev, amp=30.0):
+    """u, v (B, n, H, W) f32 on ``dev`` as the fused step makes them: the n
+    intermediate flows F_t1 = (1-t)^2 F_01 - t(1-t) F_10 at t = k/(n+1) of
+    smooth bidirectional flows up to ``amp`` px."""
+    f01, f10 = (torch.from_numpy(smooth_flows(rng, B, H, W, amp)).to(dev) for _ in range(2))
+    t = (torch.arange(1, n + 1, device=dev, dtype=torch.float32) / (n + 1)).reshape(1, n, 1, 1)
+    ft1 = (1 - t)[:, :, None] ** 2 * f01[:, None] - (t * (1 - t))[:, :, None] * f10[:, None]  # (B, n, 2, H, W)
+    return ft1[:, :, 0].contiguous(), ft1[:, :, 1].contiguous()
+
+
+def _mf_library(p, u, v):
+    """grid_sample over the planes tiled n times: one f32 call computing the
+    same warp (a bf16 grid could not address 1280 columns; for bf16 planes it
+    samples the same bf16 values in f32, as the kernel does)."""
+    B, n, H, W = u.shape
+    C = p.shape[1]
+    xs = torch.arange(W, device=u.device, dtype=torch.float32)
+    ys = torch.arange(H, device=u.device, dtype=torch.float32)[:, None]
+    grid = torch.stack([2 * (xs + u) / (W - 1) - 1, 2 * (ys + v) / (H - 1) - 1], dim=-1).reshape(B * n, H, W, 2)
+    tiled = p.float()[:, None].expand(B, n, C, H, W).reshape(B * n, C, H, W)
+    return lambda: F.grid_sample(tiled, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def check_mf(tag, p, u, v, got, want, f32_of):
+    """Raise unless a multi-flow result is exact: 0.0 from the plain version
+    in f32; in bf16 the f32 result (``f32_of()``) cast, bit for bit, and
+    within one bf16 ulp of the plain version."""
+    err = (got.float() - want.float()).abs().max().item()
+    if p.dtype == torch.float32:
+        if err > KERNEL_ATOL:
+            raise AssertionError(f"{tag}: f32 kernel differs from the plain warp by {err}")
+        return err, None
+    same = torch.equal(got.view(torch.int16), f32_of().bfloat16().view(torch.int16))
+    if not same:
+        raise AssertionError(f"{tag}: bf16 store is not the f32 result cast")
+    if err > 2.0**-7 * want.float().abs().max().item():  # one bf16 ulp
+        raise AssertionError(f"{tag}: bf16 kernel differs from the plain warp by {err}")
+    return err, same
+
+
+def multiflow_cases():
+    """(case, dtype tag, planes, u, v) at the serving path's shapes: noise
+    flows with contiguous planes, and the step's kind of flows with
+    contiguous planes and with the step's channels_last pair slices (a view
+    of the 6-channel pair in the dtype, pixel stride 6, as
+    models/superslomo.py passes them)."""
     B, C, n, H, W = 2, 3, 7, 736, 1280
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -105,50 +184,47 @@ def phase_kernel():
     u[:, :, 200:400, 300:600] += 150.0  # a patch shifted beyond the Pallas band
     v[:, :, 400:600, 100:400] -= 140.0
     u, v = torch.from_numpy(u).to(dev), torch.from_numpy(v).to(dev)
+    su, sv = step_flows(np.random.default_rng(11), B, n, H, W, dev)
+    pair = torch.from_numpy(rng.standard_normal((B, H, W, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    cases = []
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        cases.append(("noise", tag, planes.to(dt).contiguous(), u, v))
+        cases.append(("step_flows", tag, planes.to(dt).contiguous(), su, sv))
+        cases.append(("step_flows_strided", tag, pair.to(dt)[:, 3:6], su, sv))
+    return cases
+
+
+def phase_kernel():
+    """The multi-flow warp kernel against its plain version at the serving
+    path's shapes, on noise flows and on the step's kind of flows."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops import warp_cuda
+
     kernel, plain = warp_cuda.warp_multiflow_planar_cuda, ops.warp_multiflow_planar_reference
-
-    # the library yardstick: f32 grid_sample over the image tiled n times (a
-    # bf16 grid could not address 1280 columns; for bf16 planes it samples
-    # the same bf16 values in f32, as the kernel does)
-    xs = torch.arange(W, device=dev, dtype=torch.float32)
-    ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-    grid = torch.stack([2 * (xs + u) / (W - 1) - 1, 2 * (ys + v) / (H - 1) - 1], dim=-1)
-    grid = grid.reshape(B * n, H, W, 2)
-
-    def library(p):
-        tiled = p.float()[:, None].expand(B, n, C, H, W).reshape(B * n, C, H, W)
-        return lambda: F.grid_sample(tiled, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
-
     out = {}
-    for tag, pdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        p = planes.to(pdt).contiguous()
-        got = kernel(p, u, v)
-        want = plain(p, u, v, pdt)
-        lib = library(p)()
+    for case, tag, p, u, v in multiflow_cases():
+        B, C, H, W = p.shape
+        n = u.shape[1]
+        # the strided case goes through the op the step calls, copies and all
+        call = (lambda: ops.warp_multiflow_planar(p, u, v)) if case == "step_flows_strided" else (lambda: kernel(p, u, v))
+        got, want, lib = call(), plain(p, u, v, p.dtype), _mf_library(p, u, v)()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        lib_diff = (lib.reshape(B, n, C, H, W).transpose(1, 2) - got.float()).abs().max().item()
+        err, same = check_mf(f"{case} {tag}", p, u, v, got, want, lambda: ops.warp_multiflow_planar(p.float(), u, v))
         res = {
-            "shape": [B, C, n, H, W], "max_abs_err": err,
-            "library_max_abs_diff": lib_diff,
-            "ms": cuda_ms(lambda: kernel(p, u, v)),
-            "plain_ms": cuda_ms(lambda: plain(p, u, v, pdt), reps=20, warmup=1),
-            "library_ms": cuda_ms(library(p)),
+            "shape": [B, C, n, H, W], "planes_strides": list(p.stride()), "max_abs_err": err,
+            "library_max_abs_diff": (lib.reshape(B, n, C, H, W).transpose(1, 2) - got.float()).abs().max().item(),
+            "ms": cuda_ms(call), "paced_ms": cuda_ms(call, queued=False),
+            "plain_ms": cuda_ms(lambda: plain(p, u, v, p.dtype), reps=20, warmup=1),
+            "library_ms": cuda_ms(_mf_library(p, u, v)),
+            "max_abs_flow": max(u.abs().max().item(), v.abs().max().item()),
         }
+        if same is not None:
+            res["bit_identical_to_f32_cast"] = same
+        if hasattr(warp_cuda, "blocks_per_sm"):  # the tiled kernel: its occupancy
+            res["blocks_per_sm"] = warp_cuda.blocks_per_sm(p, u, v)
         res["bound_ms"], res["bound_by"] = warp_bound(B, C, n, H, W, p.element_size(), got.element_size())
-        if tag == "f32":
-            if err > KERNEL_ATOL:
-                raise AssertionError(f"f32 kernel differs from the plain warp by {err}")
-        else:
-            f32_store = kernel(p.float(), u, v)  # the upcast is exact
-            res["bit_identical_to_f32_cast"] = torch.equal(
-                got.view(torch.int16), f32_store.bfloat16().view(torch.int16))
-            if not res["bit_identical_to_f32_cast"]:
-                raise AssertionError("bf16 store is not the f32 result cast")
-            if err > 2.0**-7 * want.float().abs().max().item():  # one bf16 ulp
-                raise AssertionError(f"bf16 kernel differs from the plain warp by {err}")
-        out[tag] = res
-        emit({"phase": "kernel_vs_plain", "dtype": tag, **res})
+        out[(case, tag)] = res
+        emit({"phase": "kernel_vs_plain", "case": case, "dtype": tag, **res})
     return out
 
 
@@ -244,11 +320,16 @@ def phase_single_kernels():
         gr = grid.detach().requires_grad_(True)
         torch.autograd.grad(F.grid_sample(img, gr, mode="bilinear", padding_mode="zeros", align_corners=True), gr, g)
 
+    def library_fwd_bwd_img():
+        im = img.detach().requires_grad_(True)
+        torch.autograd.grad(F.grid_sample(im, grid, mode="bilinear", padding_mode="zeros", align_corners=True), im, g)
+
     bounds = single_bounds(B, C, H, W, 4)
     res["train_shape"] = {
         "shape": [B, C, H, W], "max_abs_err": fwd_err,
         "library_max_abs_diff": (lib - got).abs().max().item(),
         "ms": cuda_ms(lambda: warp_single_cuda(img, flow)),
+        "paced_ms": cuda_ms(lambda: warp_single_cuda(img, flow), queued=False),
         "plain_ms": cuda_ms(lambda: ops.warp_single_reference(img, flow), reps=10, warmup=1),
         "library_ms": cuda_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                                                     align_corners=True)),
@@ -257,6 +338,7 @@ def phase_single_kernels():
             "max_abs_err": gf_err, "bar": gf_bar,
             "library_max_abs_diff": (lib_gf - got_gf).abs().max().item(),
             "ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, False, True)),
+            "paced_ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, False, True), queued=False),
             "plain_ms": cuda_ms(plain_fwd_bwd, reps=10, warmup=1),  # forward + backward
             "library_ms": cuda_ms(library_fwd_bwd),  # grid_sample forward + backward to the grid
             "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1],
@@ -264,10 +346,34 @@ def phase_single_kernels():
         "img_grad": {
             "max_abs_err": gi_err, "bar": gi_bar,
             "ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, True, False)),
+            "library_ms": cuda_ms(library_fwd_bwd_img),  # grid_sample forward + backward to the input
             "bound_ms": bounds["img_grad"][0], "bound_by": bounds["img_grad"][1],
         },
     }
+    single_module = importlib.import_module("superslomo_tpu_torch.ops.warp_single_cuda")
+    if hasattr(single_module, "forward_blocks_per_sm"):  # the tiled kernel: its occupancy
+        res["train_shape"]["blocks_per_sm"] = single_module.forward_blocks_per_sm(img, flow)
     emit({"phase": "single_kernels_vs_plain", "case": "train_shape", **res["train_shape"]})
+
+    # the same image with a dense 2-channel channels_last flow, as the
+    # refined flows (est + residual) of models/physics.py reach the warp
+    flow2 = head[:, 0:2].contiguous(memory_format=torch.channels_last)
+    if flow2.stride(1) != 1 or flow2.stride(3) != 2:
+        raise AssertionError(f"not a dense 2-channel channels_last flow: {flow2.stride()}")
+    got2 = warp_single_cuda(img, flow2)
+    torch.cuda.synchronize()
+    err2 = (got2 - want).abs().max().item()
+    if err2 > KERNEL_ATOL:
+        raise AssertionError(f"single-flow forward kernel with a dense flow differs from the plain warp by {err2}")
+    res["dense_flow"] = {
+        "shape": [B, C, H, W], "flow_strides": list(flow2.stride()), "max_abs_err": err2,
+        "ms": cuda_ms(lambda: warp_single_cuda(img, flow2)),
+        "paced_ms": cuda_ms(lambda: warp_single_cuda(img, flow2), queued=False),
+        "library_ms": cuda_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
+                                                    align_corners=True)),
+        "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
+    }
+    emit({"phase": "single_kernels_vs_plain", "case": "dense_flow", **res["dense_flow"]})
 
     # 720p, flows beyond the band, f32 and bf16
     B, C, H, W = 2, 3, 736, 1280
@@ -303,6 +409,131 @@ def phase_single_kernels():
         res[f"720p_{tag}"] = case
         emit({"phase": "single_kernels_vs_plain", "case": f"720p_{tag}", **case})
     return res
+
+
+def window_fit_share(u, v, C, tile, budget_floats, max_area_ratio=2):
+    """Share of a tiled kernel's blocks that stage their source window (the
+    union of the in-image taps of the tile's pixels over all n flows), as the
+    kernels decide it: at most ``max_area_ratio`` times the tile's area, and
+    within the budget. u, v (B, n, H, W); tile (width, height, _)."""
+    B, n, H, W = u.shape
+    tw, th = tile[0], tile[1]
+    big = 1 << 30
+    x0 = torch.floor((torch.arange(W, device=u.device) + u).clamp(-2, W + 1)).long()
+    y0 = torch.floor((torch.arange(H, device=u.device)[:, None] + v).clamp(-2, H + 1)).long()
+    in_x0, in_x1 = (x0 >= 0) & (x0 < W), (x0 >= -1) & (x0 < W - 1)
+    in_y0, in_y1 = (y0 >= 0) & (y0 < H), (y0 >= -1) & (y0 < H - 1)
+    inside = (in_x0 | in_x1) & (in_y0 | in_y1)
+
+    def reduce(lo, hi):
+        lo = F.pad(torch.where(inside, lo, big), (0, -W % tw, 0, -H % th), value=big)
+        hi = F.pad(torch.where(inside, hi, -big), (0, -W % tw, 0, -H % th), value=-big)
+        shape = (B, n, lo.shape[2] // th, th, lo.shape[3] // tw, tw)
+        return lo.reshape(shape).amin(dim=(1, 3, 5)), hi.reshape(shape).amax(dim=(1, 3, 5))
+
+    xl, xh = reduce(torch.where(in_x0, x0, x0 + 1), torch.where(in_x1, x0 + 1, x0))
+    yl, yh = reduce(torch.where(in_y0, y0, y0 + 1), torch.where(in_y1, y0 + 1, y0))
+    nx, ny = (xh - xl + 1).clamp(min=0), (yh - yl + 1).clamp(min=0)
+    area = nx * ny
+    return ((area * C <= budget_floats) & (area <= max_area_ratio * tw * th)).float().mean().item()
+
+
+def single_cases():
+    """(case, image, flow) for the single-flow forward: the training shape
+    through the step's views (pair slice with a head flow, and with a dense
+    2-channel flow), NCHW tensors at the training shape, 720p in f32 and
+    bf16, and an odd shape with ragged tiles."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    B, H, W = 32, 224, 224
+    pairs = torch.from_numpy(rng.standard_normal((B, H, W, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    head = np.concatenate([_flow_field(rng, B, H, W, 4.0, 150.0), rng.normal(0, 4, (B, H, W, 2))], -1)
+    head = torch.from_numpy(head.astype(np.float32)).to(dev).permute(0, 3, 1, 2)
+    img, flow = pairs[:, 3:6], head[:, 0:2]
+    big = torch.from_numpy(rng.standard_normal((2, 3, 736, 1280), dtype=np.float32)).to(dev)
+    big_flow = torch.from_numpy(_flow_field(rng, 2, 736, 1280, 7.0, 150.0)).to(dev).permute(0, 3, 1, 2).contiguous()
+    odd = torch.from_numpy(rng.standard_normal((3, 37, 53, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    odd_flow = torch.from_numpy(_flow_field(rng, 3, 37, 53, 5.0, 20.0)).to(dev).permute(0, 3, 1, 2)
+    smooth = torch.from_numpy(smooth_flows(rng, B, H, W, 10.0)).to(dev)
+    smooth_head = torch.cat([smooth, smooth], 1).permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)[:, 0:2]
+    return [
+        ("train_shape", img, flow),
+        ("train_shape_smooth_flow", img, smooth_head),
+        ("dense_flow", img, flow.contiguous(memory_format=torch.channels_last)),
+        ("nchw", img.contiguous(), flow.contiguous()),
+        ("720p_f32", big, big_flow),
+        ("720p_bf16", big.bfloat16(), big_flow),
+        ("odd_strided", odd[:, 3:6], odd_flow),
+        ("odd_nchw_bf16", odd[:, 3:6].contiguous().bfloat16(), odd_flow.contiguous()),
+    ]
+
+
+def exact_result(got, want, f32=None):
+    """f32: 0.0 from the plain version; bf16: the f32 result ``f32`` cast, bit
+    for bit."""
+    if f32 is None:
+        return (got - want).abs().max().item() == 0.0
+    return torch.equal(got.view(torch.int16), f32.bfloat16().view(torch.int16))
+
+
+def phase_sweep(budgets=(0, 24 * 1024, 48 * 1024)):
+    """Every launch plan (tile x shared-memory budget) of the two tiled
+    kernels on the kernel phases' inputs and a few odd shapes: each checked
+    exact against the plain version, timed, with the share of blocks that
+    stage their window."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops import warp_plan
+    from superslomo_tpu_torch.ops.warp_cuda import blocks_per_sm, warp_multiflow_planar_cuda
+    from superslomo_tpu_torch.ops.warp_single_cuda import forward_blocks_per_sm, warp_single_cuda
+
+    dev = torch.device("cuda")
+    failed = []
+    su, sv = step_flows(np.random.default_rng(12), 1, 3, 37, 53, dev)
+    odd_pair = torch.from_numpy(np.random.default_rng(13).standard_normal((1, 37, 53, 6), dtype=np.float32))
+    odd_pair = odd_pair.to(dev).permute(0, 3, 1, 2)
+    mf_cases = multiflow_cases() + [("odd_strided", "f32", odd_pair[:, 0:3], su * 3, sv * 3),
+                                    ("odd_strided", "bf16", odd_pair[:, 0:3].bfloat16(), su * 3, sv * 3)]
+    for case, tag, p, u, v in mf_cases:
+        want = ops.warp_multiflow_planar_reference(p, u, v, p.dtype)
+        f32 = warp_multiflow_planar_cuda(p.float(), u, v) if p.dtype == torch.bfloat16 else None
+        plans = []
+        for tile in range(len(warp_plan.TILES)):
+            for budget in budgets:
+                def call():
+                    return warp_multiflow_planar_cuda(p, u, v, tile=tile, budget_bytes=budget)
+                got = call()
+                torch.cuda.synchronize()
+                exact = exact_result(got, want, f32)
+                if not exact:
+                    failed.append(f"warp_multiflow {case} {tag} tile {tile} budget {budget}")
+                plans.append({"tile": warp_plan.TILES[tile], "budget_kib": budget // 1024, "exact": exact,
+                              "ms": cuda_ms(call),
+                              "blocks_per_sm": blocks_per_sm(p, u, v, tile=tile, budget_bytes=budget),
+                              "staged_share": window_fit_share(u, v, p.shape[1], warp_plan.TILES[tile], budget // 4)})
+        emit({"phase": "sweep", "kernel": "warp_multiflow", "case": case, "dtype": tag,
+              "planes_strides": list(p.stride()), "plans": plans})
+    for case, img, flow in single_cases():
+        want = ops.warp_single_reference(img, flow)
+        f32 = warp_single_cuda(img.float(), flow) if img.dtype == torch.bfloat16 else None
+        plans = []
+        for tile in range(len(warp_plan.TILES)):
+            for budget in budgets:
+                def call():
+                    return warp_single_cuda(img, flow, tile=tile, budget_bytes=budget)
+                got = call()
+                torch.cuda.synchronize()
+                exact = exact_result(got, want, f32)
+                if not exact:
+                    failed.append(f"warp_single_forward {case} tile {tile} budget {budget}")
+                plans.append({"tile": warp_plan.TILES[tile], "budget_kib": budget // 1024, "exact": exact,
+                              "ms": cuda_ms(call),
+                              "blocks_per_sm": forward_blocks_per_sm(img, flow, tile=tile, budget_bytes=budget),
+                              "staged_share": window_fit_share(flow[:, 0:1], flow[:, 1:2], img.shape[1],
+                                                               warp_plan.TILES[tile], budget // 4)})
+        emit({"phase": "sweep", "kernel": "warp_single_forward", "case": case, "dtype": str(img.dtype),
+              "img_strides": list(img.stride()), "flow_strides": list(flow.stride()), "plans": plans})
+    if failed:
+        raise AssertionError(f"plans that are not exact: {failed}")
 
 
 def phase_slice():
@@ -566,7 +797,36 @@ def phase_train_main(ckpt_dir, norm, timed=10):
     return res
 
 
+def ptxas_usage(log):
+    """{kernel instance: ptxas's register, stack and shared-memory line} from
+    an nvcc -Xptxas -v log; instances named by kernel, dtype and template
+    arguments (the tile (width, height, pixels a thread), or the backward's
+    (flow gradient, image gradient))."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            kernel = re.search(r"warp_(?:multiflow|single_forward|single_backward)_kernel", mangled)
+            args = re.findall(r"L[ib](\d+)E", mangled)
+            dtype = "bf16" if "bfloat16" in mangled else "f32"
+            name = f"{kernel.group(0) if kernel else mangled} {dtype} {','.join(args)}"
+        elif name and "registers" in line:
+            out[name] = line.split(":", 1)[1].strip()
+            name = None
+    return out
+
+
+def nvidia_smi(query):
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    ap.add_argument("--kernels-only", action="store_true", help="build, then only the kernel phases")
+    ap.add_argument("--sweep", action="store_true", help="the kernel phases, then every launch plan")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -579,21 +839,26 @@ def main() -> int:
     from superslomo_tpu_torch.data.augmentations import Normalize, eval_padding_for
     from superslomo_tpu_torch.ops import cuda_build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = nvidia_smi("name,power.limit")
     t0 = time.perf_counter()
     cuda_build.build()  # one nvcc per source in csrc/, all at once
     emit({
         "phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
         "cuda": torch.version.cuda, "kernel_build_s": time.perf_counter() - t0,
-        "nvcc_ptxas": {name: [ln for ln in log.splitlines() if "registers" in ln]
-                       for name, log in cuda_build.build_logs.items()},
+        "nvcc_ptxas": {name: ptxas_usage(log) for name, log in cuda_build.build_logs.items()},
     })
 
+    clock_before = nvidia_smi("clocks.sm,clocks.max.sm")
     kern = phase_kernel()
     single = phase_single_kernels()
+    emit({"phase": "sm_clock", "before_kernel_phases": clock_before, "after_kernel_phases": nvidia_smi(
+        "clocks.sm,clocks.max.sm"), "query": "clocks.sm,clocks.max.sm"})
+    if args.sweep:
+        phase_sweep()
+    if args.kernels_only or args.sweep:
+        print(smi, flush=True)
+        emit({"kernels_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
+        return 0
     phase_slice()
     cfg = default_config()
     norm = Normalize(cfg.pixel_mean(), cfg.pixel_std())
@@ -605,7 +870,7 @@ def main() -> int:
         phase_convergence(ckpt_dir)
         train = phase_train_main(ckpt_dir, norm)
 
-    f32, bf16 = kern["f32"], kern["bf16"]
+    f32, bf16 = kern[("noise", "f32")], kern[("noise", "bf16")]
     mf = {
         "name": "warp_multiflow_planar", "route": "cuda",
         "source": "superslomo_tpu_torch/csrc/warp_multiflow.cu",
@@ -619,6 +884,9 @@ def main() -> int:
             "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
             "bit_identical_to_f32_cast": bf16["bit_identical_to_f32_cast"],
         },
+        "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
+        "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "library_ms", "bound_ms", "planes_strides")}
+                  for (case, tag), r in kern.items()},
     }
     ts = single["train_shape"]
     fwd = {
@@ -627,6 +895,7 @@ def main() -> int:
         "max_abs_err": ts["max_abs_err"], "ms": ts["ms"], "plain_ms": ts["plain_ms"],
         "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"], "library_ms": ts["library_ms"],
         "shape": ts["shape"],
+        "dense_flow": {k: single["dense_flow"][k] for k in ("max_abs_err", "ms", "library_ms", "bound_ms")},
     }
     gf = ts["flow_grad"]
     bwd = {

@@ -14,124 +14,145 @@
 // code up to the store). Unlike the Pallas kernel there is no +-128 px band:
 // a Hopper gather reaches any address, so the kernel is exact for any flow.
 //
-// Bound: device-memory bandwidth. Each thread reads one u and one v value and
-// writes C outputs; the 4*C gathered taps come from the planes, which all n
-// flows share and which stay resident in the 50 MB L2 (11 MB for a 736x1280
-// f32 image). At the fused 8x step's shapes (C=3, n=7, 736x1280, per image)
-// that is ~98 MB for the bf16 stage-2 input warps (~29 us at 3.35 TB/s) and
-// ~143 MB for the f32 final warps (~43 us).
+// Bound: device-memory bandwidth. Each (pixel, flow) reads one u and one v
+// value and writes C outputs; the planes are read once for all n flows. At
+// the fused 8x step's shapes (B=2, C=3, n=7, 736x1280) that is ~286 MB for
+// the f32 final warps (~85 us at 3.35 TB/s) and ~196 MB for the bf16 stage-2
+// input warps (~59 us).
 //
-// Design: one thread per output pixel (b, k, y, x), x fastest, so the u/v
-// loads and every channel's store coalesce; the sample position and the four
-// weights are computed once and reused for all C channels; taps go through
-// the read-only path. Products and sums use the round-to-nearest intrinsics
-// in the plain version's order, so no FMA contraction changes the result.
+// Design (warp_tile.cuh): a block owns one output tile of one image and loops
+// over all n flows, so the plane lines around the tile come from device
+// memory once and serve every flow from L1, the Hopper form of the Pallas
+// kernel's VMEM residency. For each flow a thread reads its kPX pixels' u and
+// v with one vector load each, samples, gathers, and stores each channel's
+// kPX values with one vector store (the output is (B, C, n, H, W)
+// contiguous). With a shared-memory budget, a first pass over the tile's
+// flows finds the union of all n flows' tap windows and stages it when it
+// fits. The planes are read through element strides, so the step's
+// channels_last slices of its 6-channel pairs need no copy.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace warp;
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  // bf16 -> f32 is exact: the bf16 bits are the top half of the f32 bits.
-  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned int>(bits) << 16);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, class Tl>
+__global__ void __launch_bounds__(Tl::kThreads)
 warp_multiflow_kernel(const T* __restrict__ planes, const float* __restrict__ u,
-                      const float* __restrict__ v, T* __restrict__ out, int C, int n, int H,
-                      int W) {
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= hw) return;
-  const int k = blockIdx.y;
+                      const float* __restrict__ v, T* __restrict__ out, int C, int n, int H, int W,
+                      Strides sp, Strides su, Strides sv, Plan plan) {
+  extern __shared__ float4 smem_f4[];
+  float* win = reinterpret_cast<float*>(smem_f4);
+  __shared__ int red[4 * Tl::kWarps];
+  constexpr int kPX = Tl::kPX;
   const int b = blockIdx.z;
-  const int y = static_cast<int>(p / W);
-  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
+  const int x = blockIdx.x * Tl::kW + (threadIdx.x % Tl::kCols) * kPX;
+  const int y = blockIdx.y * Tl::kH + threadIdx.x / Tl::kCols;
+  const int valid = y < H ? min(kPX, W - x) : 0;  // this thread's pixels inside the image
+  const T* img = planes + b * sp.b;
+  const float* ub = u + b * su.b + static_cast<int64_t>(min(y, H - 1)) * su.y + min(x, W - 1) * su.x;
+  const float* vb = v + b * sv.b + static_cast<int64_t>(min(y, H - 1)) * sv.y + min(x, W - 1) * sv.x;
 
-  const int64_t flow_off = (static_cast<int64_t>(b) * n + k) * hw + p;
-  // Clamp before the float->int conversion (out of range is undefined on
-  // CUDA); every tap of a clamped position lies outside and is masked.
-  const float sx = fminf(fmaxf(__fadd_rn(static_cast<float>(x), load_f32(u + flow_off)), -2.0f),
-                         static_cast<float>(W) + 1.0f);
-  const float sy = fminf(fmaxf(__fadd_rn(static_cast<float>(y), load_f32(v + flow_off)), -2.0f),
-                         static_cast<float>(H) + 1.0f);
-  const float x0f = floorf(sx);
-  const float y0f = floorf(sy);
-  const float wx = __fsub_rn(sx, x0f);
-  const float wy = __fsub_rn(sy, y0f);
-  const int x0 = static_cast<int>(x0f);
-  const int y0 = static_cast<int>(y0f);
-  const int x1 = x0 + 1;
-  const int y1 = y0 + 1;
-
-  const bool in_x0 = x0 >= 0 && x0 < W;
-  const bool in_x1 = x1 >= 0 && x1 < W;
-  const bool in_y0 = y0 >= 0 && y0 < H;
-  const bool in_y1 = y1 >= 0 && y1 < H;
-  const bool m00 = in_y0 && in_x0;
-  const bool m01 = in_y0 && in_x1;
-  const bool m10 = in_y1 && in_x0;
-  const bool m11 = in_y1 && in_x1;
-
-  const float ax = __fsub_rn(1.0f, wx);
-  const float ay = __fsub_rn(1.0f, wy);
-  const float w00 = m00 ? __fmul_rn(ay, ax) : 0.0f;
-  const float w01 = m01 ? __fmul_rn(ay, wx) : 0.0f;
-  const float w10 = m10 ? __fmul_rn(wy, ax) : 0.0f;
-  const float w11 = m11 ? __fmul_rn(wy, wx) : 0.0f;
-
-  const int64_t i00 = static_cast<int64_t>(y0) * W + x0;
-  const int64_t i01 = i00 + 1;
-  const int64_t i10 = i00 + W;
-  const int64_t i11 = i10 + 1;
-
-  for (int c = 0; c < C; ++c) {
-    const T* plane = planes + (static_cast<int64_t>(b) * C + c) * hw;
-    const float v00 = m00 ? load_f32(plane + i00) : 0.0f;
-    const float v01 = m01 ? load_f32(plane + i01) : 0.0f;
-    const float v10 = m10 ? load_f32(plane + i10) : 0.0f;
-    const float v11 = m11 ? load_f32(plane + i11) : 0.0f;
-    float acc = __fmul_rn(v00, w00);
-    acc = __fadd_rn(acc, __fmul_rn(v01, w01));
-    acc = __fadd_rn(acc, __fmul_rn(v10, w10));
-    acc = __fadd_rn(acc, __fmul_rn(v11, w11));
-    store(out + ((static_cast<int64_t>(b) * C + c) * n + k) * hw + p, acc);
+  bool staged = false;
+  Window w{0, 0, 0, 0};
+  if (plan.budget > 0) {
+    int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
+    for (int k = 0; k < n; ++k) {
+      float uu[kPX], vv[kPX];
+      load_uv<kPX>(ub + k * su.c, su.x, vb + k * sv.c, sv.x, plan.flow_mode, valid, uu, vv);
+#pragma unroll
+      for (int i = 0; i < kPX; ++i)
+        if (i < valid) extend(make_sample(x + i, y, uu[i], vv[i], H, W), xlo, xhi, ylo, yhi);
+    }
+    w = block_window(xlo, xhi, ylo, yhi, red);
+    staged = window_fits(w, C, plan.img_mode, sp.x, plan.budget, Tl::kW * Tl::kH);
+    if (staged) {
+      stage_window(img, sp, C, plan.img_mode, plan.img_vec != 0, w, win);
+      __syncthreads();
+    }
   }
+  if (valid <= 0) return;
+
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  auto warp_all = [&](auto fetch) {
+    for (int k = 0; k < n; ++k) {
+      float uu[kPX], vv[kPX];
+      load_uv<kPX>(ub + k * su.c, su.x, vb + k * sv.c, sv.x, plan.flow_mode, valid, uu, vv);
+      Sample s[kPX];
+#pragma unroll
+      for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
+      for (int c = 0; c < C; ++c) {
+        float acc[kPX];
+#pragma unroll
+        for (int i = 0; i < kPX; ++i)
+          acc[i] = bilinear(s[i], [&](int yy, int xx) { return fetch(c, yy, xx); });
+        T* dst = out + ((static_cast<int64_t>(b) * C + c) * n + k) * hw + static_cast<int64_t>(y) * W + x;
+        store_px<kPX>(dst, acc, 1, plan.out_mode, valid);
+      }
+    }
+  };
+  if (staged)
+    warp_all(StagedTaps{win, w});
+  else
+    warp_all(GlobalTaps<T>{img, sp});
+}
+
+template <typename T, class Tl>
+cudaError_t launch_tile(const void* planes, const float* u, const float* v, void* out, int B, int C,
+                        int n, int H, int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
+  auto kernel = warp_multiflow_kernel<T, Tl>;
+  const cudaError_t err = allow_smem(kernel, plan.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + Tl::kW - 1) / Tl::kW, (H + Tl::kH - 1) / Tl::kH, B);
+  kernel<<<grid, Tl::kThreads, plan.smem, stream>>>(
+      static_cast<const T*>(planes), u, v, static_cast<T*>(out), C, n, H, W,
+      Strides{s[0], s[1], s[2], s[3]}, Strides{s[4], s[5], s[6], s[7]},
+      Strides{s[8], s[9], s[10], s[11]}, plan);
+  return cudaGetLastError();
 }
 
 template <typename T>
-void launch(const void* planes, const float* u, const float* v, void* out, int B, int C, int n,
-            int H, int W, cudaStream_t stream) {
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  const dim3 grid(static_cast<unsigned int>((hw + kThreads - 1) / kThreads), n, B);
-  warp_multiflow_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(planes), u, v, static_cast<T*>(out), C, n, H, W);
+cudaError_t launch(const void* planes, const float* u, const float* v, void* out, int B, int C,
+                   int n, int H, int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
+  return with_tile(plan.tile, [&](auto tile) {
+    return launch_tile<T, decltype(tile)>(planes, u, v, out, B, C, n, H, W, s, plan, stream);
+  });
 }
 
 }  // namespace
 
 // planes (B, C, H, W) f32 or bf16; u, v (B, n, H, W) f32; out (B, C, n, H, W)
-// in the planes' dtype; all contiguous on one device. Returns cudaGetLastError().
+// contiguous in the planes' dtype; all on one device. strides: 12 element
+// strides (b, c, y, x) of planes, u, v (any). plan: the 7 ints of Plan
+// (ops/warp_plan.py). Returns the launch's CUDA error (0: launched).
 extern "C" int warp_multiflow_planar(const void* planes, const void* u, const void* v, void* out,
-                                     int bf16, int B, int C, int n, int H, int W, void* stream) {
+                                     int bf16, int B, int C, int n, int H, int W,
+                                     const int64_t* strides, const int* plan, void* stream) {
   const float* uf = static_cast<const float*>(u);
   const float* vf = static_cast<const float*>(v);
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    launch<__nv_bfloat16>(planes, uf, vf, out, B, C, n, H, W, s);
-  else
-    launch<float>(planes, uf, vf, out, B, C, n, H, W, s);
-  return static_cast<int>(cudaGetLastError());
+  if (bf16) return static_cast<int>(launch<__nv_bfloat16>(planes, uf, vf, out, B, C, n, H, W, strides, p, s));
+  return static_cast<int>(launch<float>(planes, uf, vf, out, B, C, n, H, W, strides, p, s));
+}
+
+// Blocks of the kernel that one SM holds at once for a plan (CUDA's
+// occupancy calculator: registers, shared memory, threads), or minus the
+// CUDA error.
+extern "C" int warp_multiflow_blocks_per_sm(int bf16, const int* plan) {
+  int blocks = 0;
+  const cudaError_t err = with_tile(plan[0], [&](auto tile) {
+    using Tl = decltype(tile);
+    const int smem = plan[6];
+    if (bf16) {
+      allow_smem(warp_multiflow_kernel<__nv_bfloat16, Tl>, smem);
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, warp_multiflow_kernel<__nv_bfloat16, Tl>, Tl::kThreads, smem);
+    }
+    allow_smem(warp_multiflow_kernel<float, Tl>, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, warp_multiflow_kernel<float, Tl>,
+                                                         Tl::kThreads, smem);
+  });
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

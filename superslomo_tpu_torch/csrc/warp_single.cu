@@ -23,15 +23,21 @@
 // f32) the forward reads the image (19.3 MB) and the flow (12.8 MB) and
 // writes the output (19.3 MB): ~15 us at 3.35 TB/s. The flow gradient reads
 // the image, the flow and the output gradient and writes the flow gradient
-// (~64 MB, ~19 us). The image's 4*C taps per pixel mostly hit L1/L2, since
-// neighbouring threads sample neighbouring positions for smooth flows.
+// (~64 MB, ~19 us). Read through the step's views, a 32-pixel warp access
+// spans 4 (flow) to 6 (image) times the bytes it uses, so one-thread-per-pixel
+// code is paced by L1 wavefronts and load/store instructions, not by bytes.
 //
-// Design: one thread per output pixel (b, y, x), x fastest, so flow loads and
-// output stores coalesce; the sample position and the four weights are
-// computed once per pixel and reused for all C channels.
-// - Forward: the round-to-nearest intrinsics in the plain version's order
-//   (((v00*w00 + v01*w01) + v10*w10) + v11*w11), so no FMA contraction
-//   separates the kernel from the plain version (ops/warp.py).
+// Design: the sample position and the four weights are computed once per
+// pixel and reused for all C channels, with the round-to-nearest intrinsics
+// in the plain version's order (((v00*w00 + v01*w01) + v10*w10) + v11*w11),
+// so no FMA contraction separates the kernels from the plain version
+// (ops/warp.py).
+// - Forward: the tiled design of warp_tile.cuh: a block owns a 2-D output
+//   tile, a thread 2 pixels of it; each pixel's (u, v) is one 8-byte load
+//   where the pair is adjacent; a channels_last output goes out through a
+//   shared tile as contiguous 16-byte row stores (the staged source window
+//   is available to a plan with a budget, and off by default).
+// - Backward: one thread per output pixel (b, y, x), x fastest.
 // - Flow gradient: a gather with no atomics,
 //     d/du = sum_c g_c [(1-wy)(v01 - v00) + wy(v11 - v10)],
 //     d/dv = sum_c g_c [(1-wx)(v10 - v00) + wx(v11 - v01)],
@@ -46,98 +52,97 @@
 // position lies outside and is masked, so its value and gradient are 0 either
 // way. Offsets are 64-bit.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "warp_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using namespace warp;
 
-struct Strides {  // element strides of a (B, C, H, W) tensor
-  int64_t b, c, y, x;
-};
+constexpr int kThreads = 256;  // the backward kernel's block
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  // bf16 -> f32 is exact: the bf16 bits are the top half of the f32 bits.
-  const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned int>(bits) << 16);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
-
-// The sample position of one output pixel: its top-left tap, the in-image
-// masks of the four taps and the fractional offsets.
-struct Taps {
-  int x0, y0;
-  bool m00, m01, m10, m11;
-  float wx, wy, ax, ay;  // ax = 1 - wx, ay = 1 - wy
-};
-
-__device__ __forceinline__ Taps sample_taps(int x, int y, float u, float v, int H, int W) {
-  Taps t;
-  const float sx =
-      fminf(fmaxf(__fadd_rn(static_cast<float>(x), u), -2.0f), static_cast<float>(W) + 1.0f);
-  const float sy =
-      fminf(fmaxf(__fadd_rn(static_cast<float>(y), v), -2.0f), static_cast<float>(H) + 1.0f);
-  const float x0f = floorf(sx);
-  const float y0f = floorf(sy);
-  t.wx = __fsub_rn(sx, x0f);
-  t.wy = __fsub_rn(sy, y0f);
-  t.ax = __fsub_rn(1.0f, t.wx);
-  t.ay = __fsub_rn(1.0f, t.wy);
-  t.x0 = static_cast<int>(x0f);
-  t.y0 = static_cast<int>(y0f);
-  const bool in_x0 = t.x0 >= 0 && t.x0 < W;
-  const bool in_x1 = t.x0 + 1 >= 0 && t.x0 + 1 < W;
-  const bool in_y0 = t.y0 >= 0 && t.y0 < H;
-  const bool in_y1 = t.y0 + 1 >= 0 && t.y0 + 1 < H;
-  t.m00 = in_y0 && in_x0;
-  t.m01 = in_y0 && in_x1;
-  t.m10 = in_y1 && in_x0;
-  t.m11 = in_y1 && in_x1;
-  return t;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// The forward kernel (warp_tile.cuh's tiled design). Each thread reads its
+// kPX pixels' flows and samples them once for all C channels, keeping the
+// samples in registers while the block stages its window (if it does). With
+// kOutRows (a dense channels_last output) the block writes its results to a
+// shared tile and then stores each tile row, kW * C contiguous values, with
+// 16-byte stores where aligned; otherwise each thread stores its pixels.
+template <typename T, class Tl>
+__global__ void __launch_bounds__(Tl::kThreads)
 warp_single_forward_kernel(const T* __restrict__ img, const float* __restrict__ flow,
                            T* __restrict__ out, int C, int H, int W, Strides si, Strides sf,
-                           Strides so) {
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (p >= static_cast<int64_t>(H) * W) return;
-  const int64_t b = blockIdx.y;
-  const int y = static_cast<int>(p / W);
-  const int x = static_cast<int>(p - static_cast<int64_t>(y) * W);
-
-  const float* f = flow + b * sf.b + y * sf.y + x * sf.x;
-  const Taps t = sample_taps(x, y, load_f32(f), load_f32(f + sf.c), H, W);
-  const float w00 = t.m00 ? __fmul_rn(t.ay, t.ax) : 0.0f;
-  const float w01 = t.m01 ? __fmul_rn(t.ay, t.wx) : 0.0f;
-  const float w10 = t.m10 ? __fmul_rn(t.wy, t.ax) : 0.0f;
-  const float w11 = t.m11 ? __fmul_rn(t.wy, t.wx) : 0.0f;
-  const int64_t i00 = t.y0 * si.y + t.x0 * si.x;
-  const int64_t i01 = i00 + si.x;
-  const int64_t i10 = i00 + si.y;
-  const int64_t i11 = i10 + si.x;
-
+                           Strides so, Plan plan) {
+  extern __shared__ float4 smem_f4[];
+  float* win = reinterpret_cast<float*>(smem_f4);
+  T* out_tile = reinterpret_cast<T*>(win + plan.budget);  // kH rows of kW * C values
+  __shared__ int red[4 * Tl::kWarps];
+  constexpr int kPX = Tl::kPX;
+  const int b = blockIdx.z;
+  const int col = (threadIdx.x % Tl::kCols) * kPX, row = threadIdx.x / Tl::kCols;
+  const int tx0 = blockIdx.x * Tl::kW, ty0 = blockIdx.y * Tl::kH;
+  const int x = tx0 + col, y = ty0 + row;
+  const int valid = y < H ? min(kPX, W - x) : 0;  // this thread's pixels inside the image
   const T* src = img + b * si.b;
-  T* dst = out + b * so.b + y * so.y + x * so.x;
-  for (int c = 0; c < C; ++c) {
-    const T* plane = src + c * si.c;
-    const float v00 = t.m00 ? load_f32(plane + i00) : 0.0f;
-    const float v01 = t.m01 ? load_f32(plane + i01) : 0.0f;
-    const float v10 = t.m10 ? load_f32(plane + i10) : 0.0f;
-    const float v11 = t.m11 ? load_f32(plane + i11) : 0.0f;
-    float acc = __fmul_rn(v00, w00);
-    acc = __fadd_rn(acc, __fmul_rn(v01, w01));
-    acc = __fadd_rn(acc, __fmul_rn(v10, w10));
-    acc = __fadd_rn(acc, __fmul_rn(v11, w11));
-    store(dst + c * so.c, acc);
+
+  const float* f = flow + b * sf.b + static_cast<int64_t>(min(y, H - 1)) * sf.y + min(x, W - 1) * sf.x;
+  float uu[kPX], vv[kPX];
+  load_uv<kPX>(f, sf.x, f + sf.c, sf.x, plan.flow_mode, valid, uu, vv);
+  Sample s[kPX];
+#pragma unroll
+  for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
+
+  bool staged = false;
+  Window w{0, 0, 0, 0};
+  if (plan.budget > 0) {
+    int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
+#pragma unroll
+    for (int i = 0; i < kPX; ++i)
+      if (i < valid) extend(s[i], xlo, xhi, ylo, yhi);
+    w = block_window(xlo, xhi, ylo, yhi, red);
+    staged = window_fits(w, C, plan.img_mode, si.x, plan.budget, Tl::kW * Tl::kH);
+    if (staged) {
+      stage_window(src, si, C, plan.img_mode, plan.img_vec != 0, w, win);
+      __syncthreads();
+    }
+  }
+
+  auto sample_all = [&](auto fetch) {
+    if (valid <= 0) return;
+    for (int c = 0; c < C; ++c) {
+      float acc[kPX];
+#pragma unroll
+      for (int i = 0; i < kPX; ++i)
+        acc[i] = bilinear(s[i], [&](int yy, int xx) { return fetch(c, yy, xx); });
+      if (plan.out_mode == kOutRows) {
+#pragma unroll
+        for (int i = 0; i < kPX; ++i)
+          if (i < valid) store(out_tile + (row * Tl::kW + col + i) * C + c, acc[i]);
+      } else {
+        T* dst = out + b * so.b + c * so.c + static_cast<int64_t>(y) * so.y + x * so.x;
+        store_px<kPX>(dst, acc, so.x, plan.out_mode, valid);
+      }
+    }
+  };
+  if (staged)
+    sample_all(StagedTaps{win, w});
+  else
+    sample_all(GlobalTaps<T>{src, si});
+  if (plan.out_mode != kOutRows) return;
+
+  // out is dense channels_last (so.c == 1, so.x == C): a tile row is one span
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int span = min(Tl::kW, W - tx0) * C;  // values of one tile row inside the image
+  for (int r = warp; r < Tl::kH; r += Tl::kWarps) {
+    if (ty0 + r >= H) break;
+    T* dst = out + b * so.b + static_cast<int64_t>(ty0 + r) * so.y + tx0 * so.x;
+    const T* row_vals = out_tile + r * Tl::kW * C;
+    if (reinterpret_cast<uintptr_t>(dst) % 16 == 0 && (span * sizeof(T)) % 16 == 0) {
+      const int chunks = static_cast<int>(span * sizeof(T) / 16);
+      for (int k = lane; k < chunks; k += 32)
+        reinterpret_cast<uint4*>(dst)[k] = reinterpret_cast<const uint4*>(row_vals)[k];
+    } else {
+      for (int e = lane; e < span; e += 32) dst[e] = row_vals[e];
+    }
   }
 }
 
@@ -194,12 +199,25 @@ dim3 grid_for(int B, int H, int W) {
   return dim3(static_cast<unsigned int>((hw + kThreads - 1) / kThreads), B);
 }
 
+template <typename T, class Tl>
+cudaError_t launch_forward_tile(const void* img, const float* flow, void* out, int B, int C, int H,
+                                int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
+  auto kernel = warp_single_forward_kernel<T, Tl>;
+  const cudaError_t err = allow_smem(kernel, plan.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + Tl::kW - 1) / Tl::kW, (H + Tl::kH - 1) / Tl::kH, B);
+  kernel<<<grid, Tl::kThreads, plan.smem, stream>>>(static_cast<const T*>(img), flow,
+                                                    static_cast<T*>(out), C, H, W, strides_at(s),
+                                                    strides_at(s + 4), strides_at(s + 8), plan);
+  return cudaGetLastError();
+}
+
 template <typename T>
-void launch_forward(const void* img, const float* flow, void* out, int B, int C, int H, int W,
-                    const int64_t* s, cudaStream_t stream) {
-  warp_single_forward_kernel<T><<<grid_for(B, H, W), kThreads, 0, stream>>>(
-      static_cast<const T*>(img), flow, static_cast<T*>(out), C, H, W, strides_at(s),
-      strides_at(s + 4), strides_at(s + 8));
+cudaError_t launch_forward(const void* img, const float* flow, void* out, int B, int C, int H, int W,
+                           const int64_t* s, const Plan& plan, cudaStream_t stream) {
+  return with_tile(plan.tile, [&](auto tile) {
+    return launch_forward_tile<T, decltype(tile)>(img, flow, out, B, C, H, W, s, plan, stream);
+  });
 }
 
 template <typename T, bool kFlowGrad, bool kImgGrad>
@@ -228,16 +246,16 @@ void dispatch_backward(const void* img, const float* flow, const void* grad_out,
 
 // img (B, C, H, W) f32 or bf16; flow (B, 2, H, W) f32; out (B, C, H, W) in the
 // image's dtype; all on one device, any strides. strides: 12 element strides
-// (b, c, y, x) of img, flow, out. Returns cudaGetLastError().
+// (b, c, y, x) of img, flow, out. plan: the 7 ints of Plan
+// (ops/warp_plan.py). Returns the launch's CUDA error (0: launched).
 extern "C" int warp_single_forward(const void* img, const void* flow, void* out, int bf16, int B,
-                                   int C, int H, int W, const int64_t* strides, void* stream) {
+                                   int C, int H, int W, const int64_t* strides, const int* plan,
+                                   void* stream) {
   const float* f = static_cast<const float*>(flow);
+  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    launch_forward<__nv_bfloat16>(img, f, out, B, C, H, W, strides, s);
-  else
-    launch_forward<float>(img, f, out, B, C, H, W, strides, s);
-  return static_cast<int>(cudaGetLastError());
+  if (bf16) return static_cast<int>(launch_forward<__nv_bfloat16>(img, f, out, B, C, H, W, strides, p, s));
+  return static_cast<int>(launch_forward<float>(img, f, out, B, C, H, W, strides, p, s));
 }
 
 // grad_out (B, C, H, W) in the image's dtype; grad_flow (B, 2, H, W) f32 or
@@ -257,4 +275,24 @@ extern "C" int warp_single_backward(const void* img, const void* flow, const voi
   else
     dispatch_backward<float>(img, f, grad_out, gf, gi, B, C, H, W, strides, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of the forward kernel that one SM holds at once for a plan (CUDA's
+// occupancy calculator: registers, shared memory, threads), or minus the
+// CUDA error.
+extern "C" int warp_single_forward_blocks_per_sm(int bf16, const int* plan) {
+  int blocks = 0;
+  const cudaError_t err = with_tile(plan[0], [&](auto tile) {
+    using Tl = decltype(tile);
+    const int smem = plan[6];
+    if (bf16) {
+      allow_smem(warp_single_forward_kernel<__nv_bfloat16, Tl>, smem);
+      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, warp_single_forward_kernel<__nv_bfloat16, Tl>, Tl::kThreads, smem);
+    }
+    allow_smem(warp_single_forward_kernel<float, Tl>, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, warp_single_forward_kernel<float, Tl>,
+                                                         Tl::kThreads, smem);
+  });
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

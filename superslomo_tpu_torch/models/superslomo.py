@@ -170,7 +170,8 @@ class SuperSloMo(nn.Module):
         BW, n_t = B * W_n, t_values.shape[0]
         planes6 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
 
-        head1, encoding = self.stage1(planes6.to(cdt))  # (BW, 4, H, W) cdt
+        x6 = planes6.to(cdt)  # the pairs in the compute dtype, channels-last
+        head1, encoding = self.stage1(x6)  # (BW, 4, H, W) cdt
         bound_c = head1.abs().amax().to(f32)
         u01, v01, u10, v10 = head1.to(f32).permute(1, 0, 2, 3).contiguous()
 
@@ -179,7 +180,7 @@ class SuperSloMo(nn.Module):
         v_t0, v_t1 = physics.interpolate_flows(v01[:, None], v10[:, None], tc)  # (BW, n_t, H, W)
 
         # stage-2 input warps store the compute dtype (f32 accumulation)
-        pl0, pl1 = planes6[:, 0:3].to(cdt), planes6[:, 3:6].to(cdt)
+        pl0, pl1 = x6[:, 0:3], x6[:, 3:6]  # views: the warp reads them in place
         w1t = warp_multiflow_planar(pl1, u_t1, v_t1, out_dtype=cdt)  # (BW, 3, n_t, H, W)
         w0t = warp_multiflow_planar(pl0, u_t0, v_t0, out_dtype=cdt)
 

@@ -28,7 +28,7 @@ def warp_multiflow_planar(planes, u, v, out_dtype=None):
         raise ValueError(f"the warp stores the planes' dtype {planes.dtype}, not {out_dtype}")
     u, v = u.to(torch.float32), v.to(torch.float32)
     if planes.device.type == "cuda":
-        return warp_multiflow_planar_cuda(planes.contiguous(), u.contiguous(), v.contiguous())
+        return warp_multiflow_planar_cuda(planes, u, v)  # any strides: views are read in place
     if planes.device.type == "cpu":
         return warp_multiflow_planar_reference(planes, u, v, planes.dtype)
     raise ValueError(f"no warp for device {planes.device}")

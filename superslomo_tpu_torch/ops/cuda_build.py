@@ -2,10 +2,10 @@
 
 Each source compiles for ``sm_90a`` into a shared library with a plain C
 interface, at first use, into the git-ignored ``superslomo_tpu_torch/_build/``.
-The library's file name carries a hash of its source, so an edited source is
-rebuilt. ``build`` starts one nvcc per source that is not built yet, all at
-once, and waits for all of them. A missing or failing nvcc raises; nothing
-falls back to a plain version.
+The library's file name carries a hash of its source and of the headers in
+``csrc/``, so an edited source or header is rebuilt. ``build`` starts one nvcc
+per source that is not built yet, all at once, and waits for all of them. A
+missing or failing nvcc raises; nothing falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ _PKG = Path(__file__).resolve().parent.parent
 BUILD_DIR = _PKG / "_build"
 CSRC = _PKG / "csrc"
 SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))  # included by the sources
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,8 +40,12 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """``_build/<stem>_<first 16 hex digits of the source's sha256>.so``."""
-    tag = hashlib.sha256(Path(source).read_bytes()).hexdigest()[:16]
+    """``_build/<stem>_<first 16 hex digits of a sha256>.so``, hashing the
+    source and every header in csrc/, so an edited header rebuilds too."""
+    digest = hashlib.sha256()
+    for path in (Path(source), *HEADERS):
+        digest.update(path.read_bytes())
+    tag = digest.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}_{tag}.so"
 
 

@@ -2,6 +2,9 @@
 binding and its launch count. ops/cuda_build.py compiles it with nvcc for
 ``sm_90a`` at first use; a failed build raises, and nothing falls back to the
 plain version.
+
+The planes, u and v are read through their strides, so the channels_last
+slices of the step's 6-channel pairs are read in place, with no copy.
 """
 
 from __future__ import annotations
@@ -10,19 +13,18 @@ import ctypes
 
 import torch
 
-from superslomo_tpu_torch.ops import cuda_build
+from superslomo_tpu_torch.ops import cuda_build, warp_plan
 
 SOURCE = cuda_build.CSRC / "warp_multiflow.cu"
 
 
 def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.warp_multiflow_planar
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
+    fn.restype = i
+    lib.warp_multiflow_blocks_per_sm.argtypes = [i, ctypes.POINTER(i)]
+    lib.warp_multiflow_blocks_per_sm.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -33,17 +35,20 @@ def load_library() -> ctypes.CDLL:
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
+                               tile: int = warp_plan.TILE,
+                               budget_bytes: int = warp_plan.SMEM_BUDGET) -> torch.Tensor:
     """Launch the kernel: (B, C, H, W) f32/bf16 planes x (B, n, H, W) f32 u/v →
-    (B, C, n, H, W) in the planes' dtype, on the current stream.
+    (B, C, n, H, W) contiguous in the planes' dtype, on the current stream.
+    Any strides. ``tile`` (an index of ``warp_plan.TILES``) and
+    ``budget_bytes`` (the shared memory a block may stage its source window
+    in; 0, the default, gathers from device memory) set the launch plan.
 
     Raises on anything the kernel does not take: a tensor off the card,
-    another dtype, a bad shape or a non-contiguous tensor."""
+    another dtype or a bad shape."""
     for name, t in (("planes", planes), ("u", u), ("v", v)):
         if t.device.type != "cuda" or t.device != planes.device:
             raise ValueError(f"{name} must lie on the planes' CUDA device, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if planes.dtype not in _DTYPES:
         raise TypeError(f"planes must be float32 or bfloat16, got {planes.dtype}")
     if u.dtype != torch.float32 or v.dtype != torch.float32:
@@ -57,12 +62,14 @@ def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.T
     out = torch.empty((B, C, n, H, W), device=planes.device, dtype=planes.dtype)
     if out.numel() == 0:
         return out
+    plan = _plan(planes, u, v, out.data_ptr(), tile, budget_bytes)
+    strides = (ctypes.c_int64 * 12)(*planes.stride(), *u.stride(), *v.stride())
     lib = load_library()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.warp_multiflow_planar(
             planes.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(planes.dtype == torch.bfloat16), B, C, n, H, W, stream,
+            int(planes.dtype == torch.bfloat16), B, C, n, H, W, strides, warp_plan.as_ints(plan), stream,
         )
     if err != 0:
         raise RuntimeError(f"warp_multiflow_planar launch failed: CUDA error {err}")
@@ -71,3 +78,22 @@ def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.T
 
 
 warp_multiflow_planar_cuda.launches = 0  # kernel launches since the last reset
+
+
+def _plan(planes, u, v, out_ptr, tile, budget_bytes) -> warp_plan.Plan:
+    B, C, H, W = planes.shape
+    n = u.shape[1]
+    # the contiguous (B, C, n, H, W) output as (B, C·n, H, W) planes
+    out_layout = warp_plan.Layout((C * n * H * W, H * W, W, 1), out_ptr % 16, planes.element_size(), True)
+    return warp_plan.plan_multiflow(warp_plan.layout(planes), warp_plan.layout(u), warp_plan.layout(v),
+                                    out_layout, C, W, tile=tile, budget_bytes=budget_bytes)
+
+
+def blocks_per_sm(planes, u, v, *, tile: int = warp_plan.TILE, budget_bytes: int = warp_plan.SMEM_BUDGET) -> int:
+    """How many blocks of the kernel one SM holds at once, as CUDA's occupancy
+    calculator finds it for the plan the wrapper launches on these inputs."""
+    plan = _plan(planes, u, v, 0, tile, budget_bytes)
+    blocks = load_library().warp_multiflow_blocks_per_sm(int(planes.dtype == torch.bfloat16), warp_plan.as_ints(plan))
+    if blocks < 0:
+        raise RuntimeError(f"warp_multiflow_blocks_per_sm failed: CUDA error {-blocks}")
+    return blocks

@@ -15,7 +15,8 @@ optimizer, other elementwise), the share of convolution time in kernels whose
 names say NHWC, the convolutions' FLOPs per step (counted from their shapes,
 the backward's from which of each conv's input and weight take a gradient)
 and the rate they reach against the card's peak for the compute dtype, the
-peak device memory, and the heaviest kernels by name.
+peak device memory, the heaviest kernels by name, and the kernel that ran
+just before each warp launch of one step.
 """
 
 from __future__ import annotations
@@ -138,6 +139,11 @@ def main() -> None:
         by_name[e.name] += us
         if cat == "convolution" and "nhwc" in e.name.lower():
             nhwc_conv += us
+    # the kernel that ran just before each warp launch of the first traced
+    # step: shows whether a copy of the warp's inputs precedes it
+    ordered = sorted(kernels, key=lambda e: e.time_range.start)
+    before_warp = [ordered[i - 1].name[:200] if i else None for i, e in enumerate(ordered)
+                   if _category(e.name) == "warp_kernel"]
     busy = sum(by_cat.values())
     span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
     per_step = lambda us: us / steps / 1e3  # noqa: E731
@@ -156,6 +162,7 @@ def main() -> None:
         "step_share_of_peak": flops / (per_step(busy) / 1e3) / PEAK_FLOP_S[dtype],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels_ms_per_step": [[name[:120], per_step(us)] for name, us in top],
+        "kernel_before_each_warp": before_warp[: len(before_warp) // steps],
     }))
 
 

@@ -172,3 +172,122 @@ def test_max_pool_matches_jax():
     np.testing.assert_array_equal(got, np.asarray(jops.pooling.max_pool_2x2(jnp.asarray(x))))
     with pytest.raises(ValueError, match="even"):
         tops.max_pool_2x2(torch.zeros(1, 1, 5, 4))
+
+
+@pytest.mark.parametrize("first", [0, 3], ids=["frame0", "frame1"])
+def test_warp_multiflow_planar_reads_pair_slices_like_jax(first):
+    """The planes the fused step passes: channels_last slices of its 6-channel
+    pairs (pixel stride 6), held against the JAX package's planar warp on the
+    same values; the result equals the warp of the same planes made dense."""
+    rng = np.random.default_rng(20 + first)
+    B, n, H, W = 2, 7, 32, 32
+    pair = torch.from_numpy(rng.standard_normal((B, H, W, 6)).astype(np.float32)).permute(0, 3, 1, 2)
+    planes = pair[:, first:first + 3]
+    assert planes.stride()[1:] == (1, 6 * W, 6)
+    u, v = _flows(rng, B, n, H, W, big=True)
+    want = np.asarray(jops.warp_multiflow_planar(jnp.asarray(planes.contiguous().numpy()), jnp.asarray(u),
+                                                 jnp.asarray(v)))
+    got = tops.warp_multiflow_planar(planes, torch.from_numpy(u), torch.from_numpy(v))
+    assert got.shape == (B, 3, n, H, W) and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=WARP_ATOL)
+    dense = tops.warp_multiflow_planar(planes.contiguous(), torch.from_numpy(u), torch.from_numpy(v))
+    assert torch.equal(got, dense)
+
+
+def _pair_views(B=2, H=32, W=32):
+    """The layouts the step hands the single-flow warp, as CPU tensors."""
+    pair = torch.zeros(B, H, W, 6).permute(0, 3, 1, 2)
+    head = torch.zeros(B, H, W, 4).permute(0, 3, 1, 2)
+    images = {
+        "pixel_stride_6": pair[:, 3:6],  # a frame of the pair, f32
+        "pixel_stride_3": pair[:, 3:6].to(torch.bfloat16),  # that frame cast: dense channels_last
+        "nchw": pair[:, 3:6].contiguous(),
+    }
+    flows = {
+        "pixel_stride_4": head[:, 0:2],  # a flow of the stage-1 head
+        "pixel_stride_2": head[:, 0:2] + head[:, 2:4],  # est + residual: dense channels_last
+        "nchw": head[:, 0:2].contiguous(),
+    }
+    return images, flows
+
+
+_IMAGES, _FLOWS = _pair_views()
+_BUDGETS = [0, 48 * 1024, 200 * 1024]
+
+
+@pytest.mark.parametrize("budget", _BUDGETS)
+@pytest.mark.parametrize("flow_name", list(_FLOWS))
+@pytest.mark.parametrize("img_name", list(_IMAGES))
+def test_single_flow_plan(img_name, flow_name, budget):
+    """The forward kernel's plan for each layout the step passes: interleaved
+    row spans for channels_last images and planar ones for NCHW, both read in
+    16-byte chunks; one 8-byte load a pixel for adjacent (u, v), px-wide
+    loads for planar flows; a channels_last output through a shared tile of
+    rows, a planar one in px-wide stores; and a window budget that keeps the
+    launch within a Hopper block's shared memory."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+    from superslomo_tpu_torch.ops.warp_single_cuda import _like
+
+    img, flow = _IMAGES[img_name], _FLOWS[flow_name]
+    B, C, H, W = img.shape
+    assert flow.stride(3) == {"pixel_stride_4": 4, "pixel_stride_2": 2, "nchw": 1}[flow_name]
+    out = _like(img, C, img.dtype)
+    plan = wp.plan_single(wp.layout(img), wp.layout(flow), wp.layout(out), C, W, budget_bytes=budget)
+    tw, th, px = wp.TILES[plan.tile]
+    assert plan.tile == wp.TILE and tw * th // px % 32 == 0
+    channels_last = img_name != "nchw"
+    assert plan.img_mode == (wp.IMAGE_INTERLEAVED if channels_last else wp.IMAGE_PLANAR) and plan.img_vec == 1
+    assert plan.flow_mode == (wp.FLOW_PLANAR_VEC if flow_name == "nchw" else wp.FLOW_PAIR)
+    tile_bytes = tw * th * C * img.element_size() if channels_last else 0
+    assert plan.out_mode == (wp.OUT_ROWS if channels_last else wp.OUT_PLANAR_VEC)
+    assert plan.budget == budget // 16 * 4 and plan.budget % 4 == 0
+    assert plan.smem == plan.budget * 4 + tile_bytes <= wp.SMEM_MAX
+    assert list(wp.as_ints(plan)) == list(plan)
+
+
+@pytest.mark.parametrize("budget", _BUDGETS + [1 << 20])
+@pytest.mark.parametrize("img_name", list(_IMAGES))
+def test_multiflow_plan(img_name, budget):
+    """The multi-flow kernel's plan for the planes the step passes (the pair
+    slice in f32, that slice cast to bf16, NCHW): the planes read in place,
+    u and v and the (B, C, n, H, W) output px-wide, and a budget capped at
+    what a Hopper block can take."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+
+    planes = _IMAGES[img_name]
+    B, C, H, W = planes.shape
+    u = torch.zeros(B, 7, H, W)
+    out = torch.empty(B, C, 7, H, W, dtype=planes.dtype)
+    out_layout = wp.Layout((out.stride(0), out.stride(2), out.stride(3), out.stride(4)), out.data_ptr(),
+                           out.element_size(), True)
+    plan = wp.plan_multiflow(wp.layout(planes), wp.layout(u), wp.layout(u), out_layout, C, W, budget_bytes=budget)
+    assert plan.tile == wp.TILE
+    assert plan.img_mode == (wp.IMAGE_PLANAR if img_name == "nchw" else wp.IMAGE_INTERLEAVED) and plan.img_vec == 1
+    assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_PLANAR_VEC, wp.OUT_PLANAR_VEC)
+    assert plan.budget == min(budget, wp.SMEM_MAX) // 16 * 4 and plan.smem == plan.budget * 4 <= wp.SMEM_MAX
+
+
+def test_plans_fall_back_to_scalar_access():
+    """Where a layout allows no vector access the plans read and write one
+    element at a time: a width that the pixels of a thread do not divide, an
+    (u, v) pair off 8-byte alignment, an image whose x stride is neither 1
+    nor (with channel stride 1) at least C, a storage off 16-byte
+    alignment."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+
+    W = 33
+    planar = wp.Layout((3 * 32 * W, 32 * W, W, 1), 4096, 4, True)
+    flow = wp.Layout((2 * 32 * W, 32 * W, W, 1), 4096, 4, True)
+    odd_pair = wp.Layout((4 * 32 * W, 1, 4 * W, 4), 4100, 4, True)  # (u, v) not 8-byte aligned
+    transposed = wp.Layout((3 * 32 * W, 32 * W, 1, 32), 4096, 4, True)  # an NCHW image with H and W swapped
+    assert wp.image_mode(planar, 3) == (wp.IMAGE_PLANAR, 1)
+    assert wp.image_mode(planar._replace(storage_aligned=False), 3) == (wp.IMAGE_PLANAR, 0)
+    assert wp.image_mode(wp.Layout((96, 1, 2, 2), 0, 4, True), 3) == (wp.IMAGE_GENERIC, 0)  # pixels overlap
+    assert wp.image_mode(transposed, 3) == (wp.IMAGE_GENERIC, 0)
+    assert wp.flow_mode(flow, W, 2) == wp.FLOW_SCALAR
+    assert wp.flow_mode(flow, 32, 2) == wp.FLOW_SCALAR  # the strides hold W = 33
+    assert wp.flow_mode(odd_pair, W, 2) == wp.FLOW_SCALAR
+    plan = wp.plan_single(planar, flow, planar, 3, W)
+    assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_SCALAR, wp.OUT_SCALAR)
+    plan = wp.plan_multiflow(planar, flow, flow, planar, 3, W)
+    assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_SCALAR, wp.OUT_SCALAR)

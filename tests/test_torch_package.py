@@ -104,15 +104,27 @@ def test_cuda_wrapper_raises_on_cpu_tensors():
         warp_multiflow_planar_cuda.launches, warp_single_cuda.launches, warp_single_backward_cuda.launches)
 
 
-def test_build_names_libraries_by_source_hash(tmp_path):
+def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
+    """The name hashes the source and every header in csrc/, so an edited
+    source or header builds a new library."""
     src = tmp_path / "kern.cu"
     src.write_text("// one\n")
     first = cuda_build.library_path(src)
     assert first.parent == cuda_build.BUILD_DIR
-    assert first.name == f"kern_{hashlib.sha256(b'// one' + bytes([10])).hexdigest()[:16]}.so"
+    headers = b"".join(h.read_bytes() for h in cuda_build.HEADERS)
+    assert first.name == f"kern_{hashlib.sha256(b'// one' + bytes([10]) + headers).hexdigest()[:16]}.so"
     src.write_text("// two\n")
-    assert cuda_build.library_path(src) != first
+    second = cuda_build.library_path(src)
+    assert second != first
+    header = tmp_path / "kern.cuh"
+    header.write_text("// a header\n")
+    monkeypatch.setattr(cuda_build, "HEADERS", (*cuda_build.HEADERS, header))
+    third = cuda_build.library_path(src)
+    assert third != second
+    header.write_text("// the header edited\n")
+    assert cuda_build.library_path(src) != third
     assert {p.name for p in cuda_build.SOURCES} >= {"warp_multiflow.cu", "warp_single.cu"}
+    assert {p.name for p in cuda_build.HEADERS} >= {"warp_tile.cuh"}
 
 
 @pytest.mark.parametrize("compiler,message", [("/nonexistent/bin/nvcc", "nvcc not found"), ("/bin/false", "nvcc failed")])
