@@ -3,7 +3,6 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels against plain
-    python3 chip_smoke.py --sweep          # phases 1-3, then every tile x budget plan
 
 Phases, each of which raises on failure:
   1. device: the card's name and power limit, the CUDA version, and the nvcc
@@ -15,15 +14,22 @@ Phases, each of which raises on failure:
      Pallas kernel's +-128 px band, and on the step's kind of flows (smooth,
      up to ~30 px) with contiguous planes and with the channels_last slices of
      a 6-channel pair that the step passes (timed through ops.warp_multiflow_planar,
-     the op the step calls); each timed beside grid_sample and the memory bound;
+     the op the step calls), and an odd shape with ragged tiles; each timed
+     beside grid_sample and the memory bound;
   3. single-flow kernels against plain: the forward kernel at the training
      shape (B=32, C=3, 224x224) through the strided channels_last views the
-     step passes (the flow of a 4-channel head, and a dense 2-channel flow),
-     and at 736x1280 B=2 with flows beyond +-128 px in f32 and bf16; the
+     step passes (the flow of a 4-channel head on noise flows and on the
+     step's kind of smooth flows, and a dense 2-channel flow), at 736x1280
+     B=2 with flows beyond +-128 px in f32 and bf16, and at odd shapes; the
      backward kernel's flow and image gradients against autograd of the plain
      version; each timed beside grid_sample (forward, and forward + backward)
      and its memory bound. The card's SM clock is read before phase 2 and
-     after phase 3;
+     after phase 3. Every kernel time is given three ways: ``ms``, CUDA
+     events around each call as the host launches it (where the host takes
+     longer to launch a call than the device takes to run it, this holds the
+     host's time too); ``device_ms``, the same calls queued behind a
+     device-side sleep, so each interval holds only device work; and
+     ``host_ms``, the host's time to launch one call;
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
@@ -44,14 +50,9 @@ device, or without the package beside this script, it exits non-zero and
 prints no result. Phases 2 and 3 use only wrapper calls that earlier versions
 of the package have too, so a copy of this script placed in an older
 checkout runs them there (``--kernels-only``) for a same-card comparison.
-``--sweep`` times every launch plan (ops/warp_plan.py: tile and
-shared-memory budget) of the two tiled kernels on the phases' inputs, checks
-each against the plain version, and reports the share of blocks whose source
-window fits the budget.
 """
 
 import argparse
-import importlib
 import json
 import os
 import re
@@ -83,14 +84,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def cuda_ms(fn, reps=25, warmup=3, queued=True):
-    """Median device time of ``fn`` in ms, from CUDA events around each call.
+def cuda_ms(fn, reps=25, warmup=3, queued=False):
+    """Median time of ``fn`` in ms, from CUDA events around each call, timed
+    as the host launches it (``ms`` in the results): where the host takes
+    longer to launch a call than the device takes to run it, the interval
+    holds the host's launch time too.
 
     ``queued``: the calls and their events are queued behind a device-side
-    sleep, so each interval holds only device work. Without it each call is
-    timed as the host launches it, and where the host takes longer to launch
-    a call than the device takes to run it, the interval holds the host's
-    launch time too (``paced_ms`` in the results)."""
+    sleep, so each interval holds only device work (``device_ms``)."""
     for _ in range(warmup):
         fn()
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
@@ -103,6 +104,26 @@ def cuda_ms(fn, reps=25, warmup=3, queued=True):
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_ms(fn, reps=200, warmup=3):
+    """The host's time to launch one call of ``fn`` in ms: the mean over
+    ``reps`` calls made back to back with no synchronisation, fewer than the
+    device's launch queue holds, so the host never waits for the device."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
+
+
+def timings(fn):
+    """``ms``, ``device_ms`` and ``host_ms`` of ``fn`` (see cuda_ms, host_ms)."""
+    return {"ms": cuda_ms(fn), "device_ms": cuda_ms(fn, queued=True), "host_ms": host_ms(fn)}
 
 
 def warp_bound(B, C, n, H, W, in_bytes, out_bytes):
@@ -174,7 +195,8 @@ def multiflow_cases():
     flows with contiguous planes, and the step's kind of flows with
     contiguous planes and with the step's channels_last pair slices (a view
     of the 6-channel pair in the dtype, pixel stride 6, as
-    models/superslomo.py passes them)."""
+    models/superslomo.py passes them); and a pair slice at an odd shape
+    (37x53: ragged tiles, no vector access) with flows up to ~90 px."""
     B, C, n, H, W = 2, 3, 7, 736, 1280
     rng = np.random.default_rng(0)
     dev = torch.device("cuda")
@@ -186,11 +208,14 @@ def multiflow_cases():
     u, v = torch.from_numpy(u).to(dev), torch.from_numpy(v).to(dev)
     su, sv = step_flows(np.random.default_rng(11), B, n, H, W, dev)
     pair = torch.from_numpy(rng.standard_normal((B, H, W, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    ou, ov = step_flows(np.random.default_rng(12), 1, 3, 37, 53, dev, amp=90.0)
+    odd_pair = torch.from_numpy(rng.standard_normal((1, 37, 53, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
     cases = []
     for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         cases.append(("noise", tag, planes.to(dt).contiguous(), u, v))
         cases.append(("step_flows", tag, planes.to(dt).contiguous(), su, sv))
         cases.append(("step_flows_strided", tag, pair.to(dt)[:, 3:6], su, sv))
+        cases.append(("odd_strided", tag, odd_pair.to(dt)[:, 0:3], ou, ov))
     return cases
 
 
@@ -205,23 +230,22 @@ def phase_kernel():
     for case, tag, p, u, v in multiflow_cases():
         B, C, H, W = p.shape
         n = u.shape[1]
-        # the strided case goes through the op the step calls, copies and all
-        call = (lambda: ops.warp_multiflow_planar(p, u, v)) if case == "step_flows_strided" else (lambda: kernel(p, u, v))
+        # strided planes go through the op the step calls (earlier versions of
+        # the package copied them there first)
+        call = (lambda: kernel(p, u, v)) if p.is_contiguous() else (lambda: ops.warp_multiflow_planar(p, u, v))
         got, want, lib = call(), plain(p, u, v, p.dtype), _mf_library(p, u, v)()
         torch.cuda.synchronize()
         err, same = check_mf(f"{case} {tag}", p, u, v, got, want, lambda: ops.warp_multiflow_planar(p.float(), u, v))
         res = {
             "shape": [B, C, n, H, W], "planes_strides": list(p.stride()), "max_abs_err": err,
             "library_max_abs_diff": (lib.reshape(B, n, C, H, W).transpose(1, 2) - got.float()).abs().max().item(),
-            "ms": cuda_ms(call), "paced_ms": cuda_ms(call, queued=False),
+            **timings(call),
             "plain_ms": cuda_ms(lambda: plain(p, u, v, p.dtype), reps=20, warmup=1),
             "library_ms": cuda_ms(_mf_library(p, u, v)),
             "max_abs_flow": max(u.abs().max().item(), v.abs().max().item()),
         }
         if same is not None:
             res["bit_identical_to_f32_cast"] = same
-        if hasattr(warp_cuda, "blocks_per_sm"):  # the tiled kernel: its occupancy
-            res["blocks_per_sm"] = warp_cuda.blocks_per_sm(p, u, v)
         res["bound_ms"], res["bound_by"] = warp_bound(B, C, n, H, W, p.element_size(), got.element_size())
         out[(case, tag)] = res
         emit({"phase": "kernel_vs_plain", "case": case, "dtype": tag, **res})
@@ -328,8 +352,7 @@ def phase_single_kernels():
     res["train_shape"] = {
         "shape": [B, C, H, W], "max_abs_err": fwd_err,
         "library_max_abs_diff": (lib - got).abs().max().item(),
-        "ms": cuda_ms(lambda: warp_single_cuda(img, flow)),
-        "paced_ms": cuda_ms(lambda: warp_single_cuda(img, flow), queued=False),
+        **timings(lambda: warp_single_cuda(img, flow)),
         "plain_ms": cuda_ms(lambda: ops.warp_single_reference(img, flow), reps=10, warmup=1),
         "library_ms": cuda_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                                                     align_corners=True)),
@@ -337,22 +360,18 @@ def phase_single_kernels():
         "flow_grad": {
             "max_abs_err": gf_err, "bar": gf_bar,
             "library_max_abs_diff": (lib_gf - got_gf).abs().max().item(),
-            "ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, False, True)),
-            "paced_ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, False, True), queued=False),
+            **timings(lambda: warp_single_backward_cuda(img, flow, g, False, True)),
             "plain_ms": cuda_ms(plain_fwd_bwd, reps=10, warmup=1),  # forward + backward
             "library_ms": cuda_ms(library_fwd_bwd),  # grid_sample forward + backward to the grid
             "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1],
         },
         "img_grad": {
             "max_abs_err": gi_err, "bar": gi_bar,
-            "ms": cuda_ms(lambda: warp_single_backward_cuda(img, flow, g, True, False)),
+            **timings(lambda: warp_single_backward_cuda(img, flow, g, True, False)),
             "library_ms": cuda_ms(library_fwd_bwd_img),  # grid_sample forward + backward to the input
             "bound_ms": bounds["img_grad"][0], "bound_by": bounds["img_grad"][1],
         },
     }
-    single_module = importlib.import_module("superslomo_tpu_torch.ops.warp_single_cuda")
-    if hasattr(single_module, "forward_blocks_per_sm"):  # the tiled kernel: its occupancy
-        res["train_shape"]["blocks_per_sm"] = single_module.forward_blocks_per_sm(img, flow)
     emit({"phase": "single_kernels_vs_plain", "case": "train_shape", **res["train_shape"]})
 
     # the same image with a dense 2-channel channels_last flow, as the
@@ -367,13 +386,54 @@ def phase_single_kernels():
         raise AssertionError(f"single-flow forward kernel with a dense flow differs from the plain warp by {err2}")
     res["dense_flow"] = {
         "shape": [B, C, H, W], "flow_strides": list(flow2.stride()), "max_abs_err": err2,
-        "ms": cuda_ms(lambda: warp_single_cuda(img, flow2)),
-        "paced_ms": cuda_ms(lambda: warp_single_cuda(img, flow2), queued=False),
+        **timings(lambda: warp_single_cuda(img, flow2)),
         "library_ms": cuda_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
                                                     align_corners=True)),
         "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
     }
     emit({"phase": "single_kernels_vs_plain", "case": "dense_flow", **res["dense_flow"]})
+
+    # the same image with the train step's kind of flows: smooth, up to 10 px,
+    # through the head's view (pixel stride 4); forward and flow gradient
+    smooth = torch.from_numpy(smooth_flows(rng, B, H, W, 10.0)).to(dev)
+    flow_s = torch.cat([smooth, smooth], 1).permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)[:, 0:2]
+    got_s = warp_single_cuda(img, flow_s)
+    want_s = ops.warp_single_reference(img, flow_s)
+    flow_req = flow_s.detach().clone().requires_grad_(True)
+    (want_gf_s,) = torch.autograd.grad(ops.warp_single_reference(img, flow_req), flow_req, g)
+    _, got_gf_s = warp_single_backward_cuda(img, flow_s, g, False, True)
+    grid_s = grid_for(flow_s)
+    torch.cuda.synchronize()
+    err_s = (got_s - want_s).abs().max().item()
+    gf_err_s, gf_bar_s = (got_gf_s - want_gf_s).abs().max().item(), GRAD_KERNEL_REL * want_gf_s.abs().max().item()
+    if err_s > KERNEL_ATOL or gf_err_s > gf_bar_s:
+        raise AssertionError(f"single-flow kernels on smooth flows: forward err {err_s}, flow grad err {gf_err_s}")
+    res["smooth_flow"] = {
+        "shape": [B, C, H, W], "flow_strides": list(flow_s.stride()), "max_abs_err": err_s,
+        "max_abs_flow": smooth.abs().max().item(),
+        **timings(lambda: warp_single_cuda(img, flow_s)),
+        "library_ms": cuda_ms(lambda: F.grid_sample(img, grid_s, mode="bilinear", padding_mode="zeros",
+                                                    align_corners=True)),
+        "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
+        "flow_grad": {"max_abs_err": gf_err_s, "bar": gf_bar_s,
+                      **timings(lambda: warp_single_backward_cuda(img, flow_s, g, False, True)),
+                      "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1]},
+    }
+    emit({"phase": "single_kernels_vs_plain", "case": "smooth_flow", **res["smooth_flow"]})
+
+    # odd shapes (ragged tiles, no vector access): a pair slice with a head
+    # flow in f32, and NCHW bf16 against the f32 result cast
+    odd = torch.from_numpy(rng.standard_normal((3, 37, 53, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    odd_flow = torch.from_numpy(_flow_field(rng, 3, 37, 53, 5.0, 20.0)).to(dev).permute(0, 3, 1, 2)
+    odd_err = (warp_single_cuda(odd[:, 3:6], odd_flow) - ops.warp_single_reference(odd[:, 3:6], odd_flow)).abs().max().item()
+    odd_bf16 = odd[:, 3:6].contiguous().bfloat16()
+    odd_flow_nchw = odd_flow.contiguous()
+    odd_same = torch.equal(warp_single_cuda(odd_bf16, odd_flow_nchw).view(torch.int16),
+                           warp_single_cuda(odd_bf16.float(), odd_flow_nchw).bfloat16().view(torch.int16))
+    res["odd"] = {"shape": [3, 3, 37, 53], "max_abs_err": odd_err, "bf16_bit_identical_to_f32_cast": odd_same}
+    emit({"phase": "single_kernels_vs_plain", "case": "odd", **res["odd"]})
+    if odd_err > KERNEL_ATOL or not odd_same:
+        raise AssertionError(f"single-flow forward kernel at an odd shape: {res['odd']}")
 
     # 720p, flows beyond the band, f32 and bf16
     B, C, H, W = 2, 3, 736, 1280
@@ -392,7 +452,7 @@ def phase_single_kernels():
             "shape": [B, C, H, W], "max_abs_err": (got.float() - want.float()).abs().max().item(),
             "flow_grad_max_abs_err": (got_gf - want_gf).abs().max().item(),
             "flow_grad_bar": GRAD_KERNEL_REL * want_gf.abs().max().item(),
-            "ms": cuda_ms(lambda: warp_single_cuda(im, flow)),
+            **timings(lambda: warp_single_cuda(im, flow)),
         }
         if case["flow_grad_max_abs_err"] > case["flow_grad_bar"]:
             raise AssertionError(f"{tag} flow gradient at 720p differs from autograd of the plain warp: {case}")
@@ -409,131 +469,6 @@ def phase_single_kernels():
         res[f"720p_{tag}"] = case
         emit({"phase": "single_kernels_vs_plain", "case": f"720p_{tag}", **case})
     return res
-
-
-def window_fit_share(u, v, C, tile, budget_floats, max_area_ratio=2):
-    """Share of a tiled kernel's blocks that stage their source window (the
-    union of the in-image taps of the tile's pixels over all n flows), as the
-    kernels decide it: at most ``max_area_ratio`` times the tile's area, and
-    within the budget. u, v (B, n, H, W); tile (width, height, _)."""
-    B, n, H, W = u.shape
-    tw, th = tile[0], tile[1]
-    big = 1 << 30
-    x0 = torch.floor((torch.arange(W, device=u.device) + u).clamp(-2, W + 1)).long()
-    y0 = torch.floor((torch.arange(H, device=u.device)[:, None] + v).clamp(-2, H + 1)).long()
-    in_x0, in_x1 = (x0 >= 0) & (x0 < W), (x0 >= -1) & (x0 < W - 1)
-    in_y0, in_y1 = (y0 >= 0) & (y0 < H), (y0 >= -1) & (y0 < H - 1)
-    inside = (in_x0 | in_x1) & (in_y0 | in_y1)
-
-    def reduce(lo, hi):
-        lo = F.pad(torch.where(inside, lo, big), (0, -W % tw, 0, -H % th), value=big)
-        hi = F.pad(torch.where(inside, hi, -big), (0, -W % tw, 0, -H % th), value=-big)
-        shape = (B, n, lo.shape[2] // th, th, lo.shape[3] // tw, tw)
-        return lo.reshape(shape).amin(dim=(1, 3, 5)), hi.reshape(shape).amax(dim=(1, 3, 5))
-
-    xl, xh = reduce(torch.where(in_x0, x0, x0 + 1), torch.where(in_x1, x0 + 1, x0))
-    yl, yh = reduce(torch.where(in_y0, y0, y0 + 1), torch.where(in_y1, y0 + 1, y0))
-    nx, ny = (xh - xl + 1).clamp(min=0), (yh - yl + 1).clamp(min=0)
-    area = nx * ny
-    return ((area * C <= budget_floats) & (area <= max_area_ratio * tw * th)).float().mean().item()
-
-
-def single_cases():
-    """(case, image, flow) for the single-flow forward: the training shape
-    through the step's views (pair slice with a head flow, and with a dense
-    2-channel flow), NCHW tensors at the training shape, 720p in f32 and
-    bf16, and an odd shape with ragged tiles."""
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(3)
-    B, H, W = 32, 224, 224
-    pairs = torch.from_numpy(rng.standard_normal((B, H, W, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
-    head = np.concatenate([_flow_field(rng, B, H, W, 4.0, 150.0), rng.normal(0, 4, (B, H, W, 2))], -1)
-    head = torch.from_numpy(head.astype(np.float32)).to(dev).permute(0, 3, 1, 2)
-    img, flow = pairs[:, 3:6], head[:, 0:2]
-    big = torch.from_numpy(rng.standard_normal((2, 3, 736, 1280), dtype=np.float32)).to(dev)
-    big_flow = torch.from_numpy(_flow_field(rng, 2, 736, 1280, 7.0, 150.0)).to(dev).permute(0, 3, 1, 2).contiguous()
-    odd = torch.from_numpy(rng.standard_normal((3, 37, 53, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
-    odd_flow = torch.from_numpy(_flow_field(rng, 3, 37, 53, 5.0, 20.0)).to(dev).permute(0, 3, 1, 2)
-    smooth = torch.from_numpy(smooth_flows(rng, B, H, W, 10.0)).to(dev)
-    smooth_head = torch.cat([smooth, smooth], 1).permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)[:, 0:2]
-    return [
-        ("train_shape", img, flow),
-        ("train_shape_smooth_flow", img, smooth_head),
-        ("dense_flow", img, flow.contiguous(memory_format=torch.channels_last)),
-        ("nchw", img.contiguous(), flow.contiguous()),
-        ("720p_f32", big, big_flow),
-        ("720p_bf16", big.bfloat16(), big_flow),
-        ("odd_strided", odd[:, 3:6], odd_flow),
-        ("odd_nchw_bf16", odd[:, 3:6].contiguous().bfloat16(), odd_flow.contiguous()),
-    ]
-
-
-def exact_result(got, want, f32=None):
-    """f32: 0.0 from the plain version; bf16: the f32 result ``f32`` cast, bit
-    for bit."""
-    if f32 is None:
-        return (got - want).abs().max().item() == 0.0
-    return torch.equal(got.view(torch.int16), f32.bfloat16().view(torch.int16))
-
-
-def phase_sweep(budgets=(0, 24 * 1024, 48 * 1024)):
-    """Every launch plan (tile x shared-memory budget) of the two tiled
-    kernels on the kernel phases' inputs and a few odd shapes: each checked
-    exact against the plain version, timed, with the share of blocks that
-    stage their window."""
-    from superslomo_tpu_torch import ops
-    from superslomo_tpu_torch.ops import warp_plan
-    from superslomo_tpu_torch.ops.warp_cuda import blocks_per_sm, warp_multiflow_planar_cuda
-    from superslomo_tpu_torch.ops.warp_single_cuda import forward_blocks_per_sm, warp_single_cuda
-
-    dev = torch.device("cuda")
-    failed = []
-    su, sv = step_flows(np.random.default_rng(12), 1, 3, 37, 53, dev)
-    odd_pair = torch.from_numpy(np.random.default_rng(13).standard_normal((1, 37, 53, 6), dtype=np.float32))
-    odd_pair = odd_pair.to(dev).permute(0, 3, 1, 2)
-    mf_cases = multiflow_cases() + [("odd_strided", "f32", odd_pair[:, 0:3], su * 3, sv * 3),
-                                    ("odd_strided", "bf16", odd_pair[:, 0:3].bfloat16(), su * 3, sv * 3)]
-    for case, tag, p, u, v in mf_cases:
-        want = ops.warp_multiflow_planar_reference(p, u, v, p.dtype)
-        f32 = warp_multiflow_planar_cuda(p.float(), u, v) if p.dtype == torch.bfloat16 else None
-        plans = []
-        for tile in range(len(warp_plan.TILES)):
-            for budget in budgets:
-                def call():
-                    return warp_multiflow_planar_cuda(p, u, v, tile=tile, budget_bytes=budget)
-                got = call()
-                torch.cuda.synchronize()
-                exact = exact_result(got, want, f32)
-                if not exact:
-                    failed.append(f"warp_multiflow {case} {tag} tile {tile} budget {budget}")
-                plans.append({"tile": warp_plan.TILES[tile], "budget_kib": budget // 1024, "exact": exact,
-                              "ms": cuda_ms(call),
-                              "blocks_per_sm": blocks_per_sm(p, u, v, tile=tile, budget_bytes=budget),
-                              "staged_share": window_fit_share(u, v, p.shape[1], warp_plan.TILES[tile], budget // 4)})
-        emit({"phase": "sweep", "kernel": "warp_multiflow", "case": case, "dtype": tag,
-              "planes_strides": list(p.stride()), "plans": plans})
-    for case, img, flow in single_cases():
-        want = ops.warp_single_reference(img, flow)
-        f32 = warp_single_cuda(img.float(), flow) if img.dtype == torch.bfloat16 else None
-        plans = []
-        for tile in range(len(warp_plan.TILES)):
-            for budget in budgets:
-                def call():
-                    return warp_single_cuda(img, flow, tile=tile, budget_bytes=budget)
-                got = call()
-                torch.cuda.synchronize()
-                exact = exact_result(got, want, f32)
-                if not exact:
-                    failed.append(f"warp_single_forward {case} tile {tile} budget {budget}")
-                plans.append({"tile": warp_plan.TILES[tile], "budget_kib": budget // 1024, "exact": exact,
-                              "ms": cuda_ms(call),
-                              "blocks_per_sm": forward_blocks_per_sm(img, flow, tile=tile, budget_bytes=budget),
-                              "staged_share": window_fit_share(flow[:, 0:1], flow[:, 1:2], img.shape[1],
-                                                               warp_plan.TILES[tile], budget // 4)})
-        emit({"phase": "sweep", "kernel": "warp_single_forward", "case": case, "dtype": str(img.dtype),
-              "img_strides": list(img.stride()), "flow_strides": list(flow.stride()), "plans": plans})
-    if failed:
-        raise AssertionError(f"plans that are not exact: {failed}")
 
 
 def phase_slice():
@@ -799,9 +734,8 @@ def phase_train_main(ckpt_dir, norm, timed=10):
 
 def ptxas_usage(log):
     """{kernel instance: ptxas's register, stack and shared-memory line} from
-    an nvcc -Xptxas -v log; instances named by kernel, dtype and template
-    arguments (the tile (width, height, pixels a thread), or the backward's
-    (flow gradient, image gradient))."""
+    an nvcc -Xptxas -v log; instances named by kernel, dtype and the
+    backward's template arguments (flow gradient, image gradient)."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
@@ -825,7 +759,6 @@ def nvidia_smi(query):
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--kernels-only", action="store_true", help="build, then only the kernel phases")
-    ap.add_argument("--sweep", action="store_true", help="the kernel phases, then every launch plan")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -853,9 +786,7 @@ def main() -> int:
     single = phase_single_kernels()
     emit({"phase": "sm_clock", "before_kernel_phases": clock_before, "after_kernel_phases": nvidia_smi(
         "clocks.sm,clocks.max.sm"), "query": "clocks.sm,clocks.max.sm"})
-    if args.sweep:
-        phase_sweep()
-    if args.kernels_only or args.sweep:
+    if args.kernels_only:
         print(smi, flush=True)
         emit({"kernels_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
@@ -876,33 +807,36 @@ def main() -> int:
         "source": "superslomo_tpu_torch/csrc/warp_multiflow.cu",
         "replaces": "superslomo_tpu/ops/warp_pallas.py:216",
         "launches": main_f32["warp_launches"], "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
-        "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "shape": f32["shape"],
+        "ms": f32["ms"], "device_ms": f32["device_ms"], "host_ms": f32["host_ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "shape": f32["shape"],
         "bf16": {
             "launches": main_bf16["warp_launches"], "max_abs_err": bf16["max_abs_err"],
-            "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
-            "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"],
+            "ms": bf16["ms"], "device_ms": bf16["device_ms"], "host_ms": bf16["host_ms"],
+            "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+            "library_ms": bf16["library_ms"],
             "bit_identical_to_f32_cast": bf16["bit_identical_to_f32_cast"],
         },
         "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
-        "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "library_ms", "bound_ms", "planes_strides")}
+        "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
+                                                      "bound_ms", "planes_strides")}
                   for (case, tag), r in kern.items()},
     }
     ts = single["train_shape"]
     fwd = {
         "name": "warp_single", "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
         "replaces": "superslomo_tpu/ops/warp_pallas.py:70", "launches": train["launches"]["forward"],
-        "max_abs_err": ts["max_abs_err"], "ms": ts["ms"], "plain_ms": ts["plain_ms"],
-        "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"], "library_ms": ts["library_ms"],
-        "shape": ts["shape"],
-        "dense_flow": {k: single["dense_flow"][k] for k in ("max_abs_err", "ms", "library_ms", "bound_ms")},
+        "max_abs_err": ts["max_abs_err"], "ms": ts["ms"], "device_ms": ts["device_ms"], "host_ms": ts["host_ms"],
+        "plain_ms": ts["plain_ms"], "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
+        "library_ms": ts["library_ms"], "shape": ts["shape"],
+        **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
+           for case in ("dense_flow", "smooth_flow")},
     }
     gf = ts["flow_grad"]
     bwd = {
         "name": "warp_single_backward", "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
         "replaces": "superslomo_tpu/ops/warp_pallas.py:663", "launches": train["launches"]["backward"],
-        "max_abs_err": gf["max_abs_err"], "ms": gf["ms"], "plain_ms": gf["plain_ms"],
-        "bound_ms": gf["bound_ms"], "bound_by": gf["bound_by"], "library_ms": gf["library_ms"],
+        "max_abs_err": gf["max_abs_err"], "ms": gf["ms"], "device_ms": gf["device_ms"], "host_ms": gf["host_ms"],
+        "plain_ms": gf["plain_ms"], "bound_ms": gf["bound_ms"], "bound_by": gf["bound_by"], "library_ms": gf["library_ms"],
         "shape": ts["shape"], "mode": "flow gradient; plain_ms and library_ms include their forward",
         "img_grad": dict(ts["img_grad"], launches=train["launches"]["img_grad"]),
     }

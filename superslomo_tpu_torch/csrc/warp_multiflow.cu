@@ -26,9 +26,7 @@
 // kernel's VMEM residency. For each flow a thread reads its kPX pixels' u and
 // v with one vector load each, samples, gathers, and stores each channel's
 // kPX values with one vector store (the output is (B, C, n, H, W)
-// contiguous). With a shared-memory budget, a first pass over the tile's
-// flows finds the union of all n flows' tap windows and stages it when it
-// fits. The planes are read through element strides, so the step's
+// contiguous). The planes are read through element strides, so the step's
 // channels_last slices of its 6-channel pairs need no copy.
 
 #include "warp_tile.cuh"
@@ -37,122 +35,61 @@ namespace {
 
 using namespace warp;
 
-template <typename T, class Tl>
-__global__ void __launch_bounds__(Tl::kThreads)
+template <typename T>
+__global__ void __launch_bounds__(Tile::kThreads)
 warp_multiflow_kernel(const T* __restrict__ planes, const float* __restrict__ u,
                       const float* __restrict__ v, T* __restrict__ out, int C, int n, int H, int W,
                       Strides sp, Strides su, Strides sv, Plan plan) {
-  extern __shared__ float4 smem_f4[];
-  float* win = reinterpret_cast<float*>(smem_f4);
-  __shared__ int red[4 * Tl::kWarps];
-  constexpr int kPX = Tl::kPX;
+  constexpr int kPX = Tile::kPX;
   const int b = blockIdx.z;
-  const int x = blockIdx.x * Tl::kW + (threadIdx.x % Tl::kCols) * kPX;
-  const int y = blockIdx.y * Tl::kH + threadIdx.x / Tl::kCols;
+  const int x = blockIdx.x * Tile::kW + (threadIdx.x % Tile::kCols) * kPX;
+  const int y = blockIdx.y * Tile::kH + threadIdx.x / Tile::kCols;
   const int valid = y < H ? min(kPX, W - x) : 0;  // this thread's pixels inside the image
+  if (valid <= 0) return;
   const T* img = planes + b * sp.b;
-  const float* ub = u + b * su.b + static_cast<int64_t>(min(y, H - 1)) * su.y + min(x, W - 1) * su.x;
-  const float* vb = v + b * sv.b + static_cast<int64_t>(min(y, H - 1)) * sv.y + min(x, W - 1) * sv.x;
-
-  bool staged = false;
-  Window w{0, 0, 0, 0};
-  if (plan.budget > 0) {
-    int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
-    for (int k = 0; k < n; ++k) {
-      float uu[kPX], vv[kPX];
-      load_uv<kPX>(ub + k * su.c, su.x, vb + k * sv.c, sv.x, plan.flow_mode, valid, uu, vv);
+  const float* ub = u + b * su.b + static_cast<int64_t>(y) * su.y + x * su.x;
+  const float* vb = v + b * sv.b + static_cast<int64_t>(y) * sv.y + x * sv.x;
+  const int64_t hw = static_cast<int64_t>(H) * W;
+  for (int k = 0; k < n; ++k) {
+    float uu[kPX], vv[kPX];
+    load_uv(ub + k * su.c, su.x, vb + k * sv.c, sv.x, plan.flow_mode, valid, uu, vv);
+    Sample s[kPX];
 #pragma unroll
-      for (int i = 0; i < kPX; ++i)
-        if (i < valid) extend(make_sample(x + i, y, uu[i], vv[i], H, W), xlo, xhi, ylo, yhi);
-    }
-    w = block_window(xlo, xhi, ylo, yhi, red);
-    staged = window_fits(w, C, plan.img_mode, sp.x, plan.budget, Tl::kW * Tl::kH);
-    if (staged) {
-      stage_window(img, sp, C, plan.img_mode, plan.img_vec != 0, w, win);
-      __syncthreads();
+    for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
+    for (int c = 0; c < C; ++c) {
+      float acc[kPX];
+#pragma unroll
+      for (int i = 0; i < kPX; ++i) acc[i] = bilinear(s[i], img, sp, c);
+      T* dst = out + ((static_cast<int64_t>(b) * C + c) * n + k) * hw + static_cast<int64_t>(y) * W + x;
+      store_px(dst, acc, 1, plan.out_mode, valid);
     }
   }
-  if (valid <= 0) return;
-
-  const int64_t hw = static_cast<int64_t>(H) * W;
-  auto warp_all = [&](auto fetch) {
-    for (int k = 0; k < n; ++k) {
-      float uu[kPX], vv[kPX];
-      load_uv<kPX>(ub + k * su.c, su.x, vb + k * sv.c, sv.x, plan.flow_mode, valid, uu, vv);
-      Sample s[kPX];
-#pragma unroll
-      for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
-      for (int c = 0; c < C; ++c) {
-        float acc[kPX];
-#pragma unroll
-        for (int i = 0; i < kPX; ++i)
-          acc[i] = bilinear(s[i], [&](int yy, int xx) { return fetch(c, yy, xx); });
-        T* dst = out + ((static_cast<int64_t>(b) * C + c) * n + k) * hw + static_cast<int64_t>(y) * W + x;
-        store_px<kPX>(dst, acc, 1, plan.out_mode, valid);
-      }
-    }
-  };
-  if (staged)
-    warp_all(StagedTaps{win, w});
-  else
-    warp_all(GlobalTaps<T>{img, sp});
 }
 
-template <typename T, class Tl>
-cudaError_t launch_tile(const void* planes, const float* u, const float* v, void* out, int B, int C,
-                        int n, int H, int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
-  auto kernel = warp_multiflow_kernel<T, Tl>;
-  const cudaError_t err = allow_smem(kernel, plan.smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + Tl::kW - 1) / Tl::kW, (H + Tl::kH - 1) / Tl::kH, B);
-  kernel<<<grid, Tl::kThreads, plan.smem, stream>>>(
+template <typename T>
+cudaError_t launch(const void* planes, const float* u, const float* v, void* out, int B, int C,
+                   int n, int H, int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
+  const dim3 grid((W + Tile::kW - 1) / Tile::kW, (H + Tile::kH - 1) / Tile::kH, B);
+  warp_multiflow_kernel<T><<<grid, Tile::kThreads, 0, stream>>>(
       static_cast<const T*>(planes), u, v, static_cast<T*>(out), C, n, H, W,
       Strides{s[0], s[1], s[2], s[3]}, Strides{s[4], s[5], s[6], s[7]},
       Strides{s[8], s[9], s[10], s[11]}, plan);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* planes, const float* u, const float* v, void* out, int B, int C,
-                   int n, int H, int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
-  return with_tile(plan.tile, [&](auto tile) {
-    return launch_tile<T, decltype(tile)>(planes, u, v, out, B, C, n, H, W, s, plan, stream);
-  });
-}
-
 }  // namespace
 
 // planes (B, C, H, W) f32 or bf16; u, v (B, n, H, W) f32; out (B, C, n, H, W)
 // contiguous in the planes' dtype; all on one device. strides: 12 element
-// strides (b, c, y, x) of planes, u, v (any). plan: the 7 ints of Plan
+// strides (b, c, y, x) of planes, u, v (any). plan: the 3 ints of Plan
 // (ops/warp_plan.py). Returns the launch's CUDA error (0: launched).
 extern "C" int warp_multiflow_planar(const void* planes, const void* u, const void* v, void* out,
                                      int bf16, int B, int C, int n, int H, int W,
                                      const int64_t* strides, const int* plan, void* stream) {
   const float* uf = static_cast<const float*>(u);
   const float* vf = static_cast<const float*>(v);
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
+  const Plan p{plan[0], plan[1], plan[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return static_cast<int>(launch<__nv_bfloat16>(planes, uf, vf, out, B, C, n, H, W, strides, p, s));
   return static_cast<int>(launch<float>(planes, uf, vf, out, B, C, n, H, W, strides, p, s));
-}
-
-// Blocks of the kernel that one SM holds at once for a plan (CUDA's
-// occupancy calculator: registers, shared memory, threads), or minus the
-// CUDA error.
-extern "C" int warp_multiflow_blocks_per_sm(int bf16, const int* plan) {
-  int blocks = 0;
-  const cudaError_t err = with_tile(plan[0], [&](auto tile) {
-    using Tl = decltype(tile);
-    const int smem = plan[6];
-    if (bf16) {
-      allow_smem(warp_multiflow_kernel<__nv_bfloat16, Tl>, smem);
-      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, warp_multiflow_kernel<__nv_bfloat16, Tl>, Tl::kThreads, smem);
-    }
-    allow_smem(warp_multiflow_kernel<float, Tl>, smem);
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, warp_multiflow_kernel<float, Tl>,
-                                                         Tl::kThreads, smem);
-  });
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

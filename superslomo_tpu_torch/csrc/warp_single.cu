@@ -35,8 +35,7 @@
 // - Forward: the tiled design of warp_tile.cuh: a block owns a 2-D output
 //   tile, a thread 2 pixels of it; each pixel's (u, v) is one 8-byte load
 //   where the pair is adjacent; a channels_last output goes out through a
-//   shared tile as contiguous 16-byte row stores (the staged source window
-//   is available to a plan with a budget, and off by default).
+//   shared tile as contiguous 16-byte row stores.
 // - Backward: one thread per output pixel (b, y, x), x fastest.
 // - Flow gradient: a gather with no atomics,
 //     d/du = sum_c g_c [(1-wy)(v01 - v00) + wy(v11 - v10)],
@@ -61,81 +60,56 @@ using namespace warp;
 constexpr int kThreads = 256;  // the backward kernel's block
 
 // The forward kernel (warp_tile.cuh's tiled design). Each thread reads its
-// kPX pixels' flows and samples them once for all C channels, keeping the
-// samples in registers while the block stages its window (if it does). With
-// kOutRows (a dense channels_last output) the block writes its results to a
-// shared tile and then stores each tile row, kW * C contiguous values, with
-// 16-byte stores where aligned; otherwise each thread stores its pixels.
-template <typename T, class Tl>
-__global__ void __launch_bounds__(Tl::kThreads)
+// kPX pixels' flows and samples them once for all C channels. With kOutRows
+// (a dense channels_last output) the block writes its results to a shared
+// tile and then stores each tile row, kW * C contiguous values, with 16-byte
+// stores where aligned; otherwise each thread stores its pixels.
+template <typename T>
+__global__ void __launch_bounds__(Tile::kThreads)
 warp_single_forward_kernel(const T* __restrict__ img, const float* __restrict__ flow,
                            T* __restrict__ out, int C, int H, int W, Strides si, Strides sf,
                            Strides so, Plan plan) {
   extern __shared__ float4 smem_f4[];
-  float* win = reinterpret_cast<float*>(smem_f4);
-  T* out_tile = reinterpret_cast<T*>(win + plan.budget);  // kH rows of kW * C values
-  __shared__ int red[4 * Tl::kWarps];
-  constexpr int kPX = Tl::kPX;
+  T* out_tile = reinterpret_cast<T*>(smem_f4);  // kH rows of kW * C values
+  constexpr int kPX = Tile::kPX;
   const int b = blockIdx.z;
-  const int col = (threadIdx.x % Tl::kCols) * kPX, row = threadIdx.x / Tl::kCols;
-  const int tx0 = blockIdx.x * Tl::kW, ty0 = blockIdx.y * Tl::kH;
+  const int col = (threadIdx.x % Tile::kCols) * kPX, row = threadIdx.x / Tile::kCols;
+  const int tx0 = blockIdx.x * Tile::kW, ty0 = blockIdx.y * Tile::kH;
   const int x = tx0 + col, y = ty0 + row;
   const int valid = y < H ? min(kPX, W - x) : 0;  // this thread's pixels inside the image
   const T* src = img + b * si.b;
 
-  const float* f = flow + b * sf.b + static_cast<int64_t>(min(y, H - 1)) * sf.y + min(x, W - 1) * sf.x;
-  float uu[kPX], vv[kPX];
-  load_uv<kPX>(f, sf.x, f + sf.c, sf.x, plan.flow_mode, valid, uu, vv);
-  Sample s[kPX];
+  if (valid > 0) {
+    const float* f = flow + b * sf.b + static_cast<int64_t>(y) * sf.y + x * sf.x;
+    float uu[kPX], vv[kPX];
+    load_uv(f, sf.x, f + sf.c, sf.x, plan.flow_mode, valid, uu, vv);
+    Sample s[kPX];
 #pragma unroll
-  for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
-
-  bool staged = false;
-  Window w{0, 0, 0, 0};
-  if (plan.budget > 0) {
-    int xlo = INT_MAX, xhi = INT_MIN, ylo = INT_MAX, yhi = INT_MIN;
-#pragma unroll
-    for (int i = 0; i < kPX; ++i)
-      if (i < valid) extend(s[i], xlo, xhi, ylo, yhi);
-    w = block_window(xlo, xhi, ylo, yhi, red);
-    staged = window_fits(w, C, plan.img_mode, si.x, plan.budget, Tl::kW * Tl::kH);
-    if (staged) {
-      stage_window(src, si, C, plan.img_mode, plan.img_vec != 0, w, win);
-      __syncthreads();
-    }
-  }
-
-  auto sample_all = [&](auto fetch) {
-    if (valid <= 0) return;
+    for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
     for (int c = 0; c < C; ++c) {
       float acc[kPX];
 #pragma unroll
-      for (int i = 0; i < kPX; ++i)
-        acc[i] = bilinear(s[i], [&](int yy, int xx) { return fetch(c, yy, xx); });
+      for (int i = 0; i < kPX; ++i) acc[i] = bilinear(s[i], src, si, c);
       if (plan.out_mode == kOutRows) {
 #pragma unroll
         for (int i = 0; i < kPX; ++i)
-          if (i < valid) store(out_tile + (row * Tl::kW + col + i) * C + c, acc[i]);
+          if (i < valid) store(out_tile + (row * Tile::kW + col + i) * C + c, acc[i]);
       } else {
         T* dst = out + b * so.b + c * so.c + static_cast<int64_t>(y) * so.y + x * so.x;
-        store_px<kPX>(dst, acc, so.x, plan.out_mode, valid);
+        store_px(dst, acc, so.x, plan.out_mode, valid);
       }
     }
-  };
-  if (staged)
-    sample_all(StagedTaps{win, w});
-  else
-    sample_all(GlobalTaps<T>{src, si});
+  }
   if (plan.out_mode != kOutRows) return;
 
   // out is dense channels_last (so.c == 1, so.x == C): a tile row is one span
   __syncthreads();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int span = min(Tl::kW, W - tx0) * C;  // values of one tile row inside the image
-  for (int r = warp; r < Tl::kH; r += Tl::kWarps) {
+  const int span = min(Tile::kW, W - tx0) * C;  // values of one tile row inside the image
+  for (int r = warp; r < Tile::kH; r += Tile::kWarps) {
     if (ty0 + r >= H) break;
     T* dst = out + b * so.b + static_cast<int64_t>(ty0 + r) * so.y + tx0 * so.x;
-    const T* row_vals = out_tile + r * Tl::kW * C;
+    const T* row_vals = out_tile + r * Tile::kW * C;
     if (reinterpret_cast<uintptr_t>(dst) % 16 == 0 && (span * sizeof(T)) % 16 == 0) {
       const int chunks = static_cast<int>(span * sizeof(T) / 16);
       for (int k = lane; k < chunks; k += 32)
@@ -199,25 +173,14 @@ dim3 grid_for(int B, int H, int W) {
   return dim3(static_cast<unsigned int>((hw + kThreads - 1) / kThreads), B);
 }
 
-template <typename T, class Tl>
-cudaError_t launch_forward_tile(const void* img, const float* flow, void* out, int B, int C, int H,
-                                int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
-  auto kernel = warp_single_forward_kernel<T, Tl>;
-  const cudaError_t err = allow_smem(kernel, plan.smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((W + Tl::kW - 1) / Tl::kW, (H + Tl::kH - 1) / Tl::kH, B);
-  kernel<<<grid, Tl::kThreads, plan.smem, stream>>>(static_cast<const T*>(img), flow,
-                                                    static_cast<T*>(out), C, H, W, strides_at(s),
-                                                    strides_at(s + 4), strides_at(s + 8), plan);
-  return cudaGetLastError();
-}
-
 template <typename T>
 cudaError_t launch_forward(const void* img, const float* flow, void* out, int B, int C, int H, int W,
                            const int64_t* s, const Plan& plan, cudaStream_t stream) {
-  return with_tile(plan.tile, [&](auto tile) {
-    return launch_forward_tile<T, decltype(tile)>(img, flow, out, B, C, H, W, s, plan, stream);
-  });
+  const dim3 grid((W + Tile::kW - 1) / Tile::kW, (H + Tile::kH - 1) / Tile::kH, B);
+  warp_single_forward_kernel<T><<<grid, Tile::kThreads, plan.smem, stream>>>(
+      static_cast<const T*>(img), flow, static_cast<T*>(out), C, H, W, strides_at(s),
+      strides_at(s + 4), strides_at(s + 8), plan);
+  return cudaGetLastError();
 }
 
 template <typename T, bool kFlowGrad, bool kImgGrad>
@@ -246,13 +209,13 @@ void dispatch_backward(const void* img, const float* flow, const void* grad_out,
 
 // img (B, C, H, W) f32 or bf16; flow (B, 2, H, W) f32; out (B, C, H, W) in the
 // image's dtype; all on one device, any strides. strides: 12 element strides
-// (b, c, y, x) of img, flow, out. plan: the 7 ints of Plan
+// (b, c, y, x) of img, flow, out. plan: the 3 ints of Plan
 // (ops/warp_plan.py). Returns the launch's CUDA error (0: launched).
 extern "C" int warp_single_forward(const void* img, const void* flow, void* out, int bf16, int B,
                                    int C, int H, int W, const int64_t* strides, const int* plan,
                                    void* stream) {
   const float* f = static_cast<const float*>(flow);
-  const Plan p{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6]};
+  const Plan p{plan[0], plan[1], plan[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) return static_cast<int>(launch_forward<__nv_bfloat16>(img, f, out, B, C, H, W, strides, p, s));
   return static_cast<int>(launch_forward<float>(img, f, out, B, C, H, W, strides, p, s));
@@ -275,24 +238,4 @@ extern "C" int warp_single_backward(const void* img, const void* flow, const voi
   else
     dispatch_backward<float>(img, f, grad_out, gf, gi, B, C, H, W, strides, s);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Blocks of the forward kernel that one SM holds at once for a plan (CUDA's
-// occupancy calculator: registers, shared memory, threads), or minus the
-// CUDA error.
-extern "C" int warp_single_forward_blocks_per_sm(int bf16, const int* plan) {
-  int blocks = 0;
-  const cudaError_t err = with_tile(plan[0], [&](auto tile) {
-    using Tl = decltype(tile);
-    const int smem = plan[6];
-    if (bf16) {
-      allow_smem(warp_single_forward_kernel<__nv_bfloat16, Tl>, smem);
-      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, warp_single_forward_kernel<__nv_bfloat16, Tl>, Tl::kThreads, smem);
-    }
-    allow_smem(warp_single_forward_kernel<float, Tl>, smem);
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, warp_single_forward_kernel<float, Tl>,
-                                                         Tl::kThreads, smem);
-  });
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

@@ -8,29 +8,20 @@
 // float->int conversion (out of range is undefined on CUDA; every tap of a
 // clamped position lies outside and is masked).
 //
-// The tiled kernels share one design:
+// The tiled forward kernels share one design:
 // - A block owns a Tile::kW x Tile::kH output tile of one image; a thread owns
-//   kPX adjacent pixels of one tile row, x fastest.
+//   Tile::kPX adjacent pixels of one tile row, x fastest.
 // - Flows are read with one 8-byte load per pixel where (u, v) are adjacent
 //   (the channels_last heads), or one kPX-wide load of u and of v where they
 //   are planar; the wrapper picks the mode from the strides and alignment
 //   (ops/warp_plan.py). Taps are gathered from device memory through L1.
-// - Optional source window (a plan with a shared-memory budget; the default
-//   plans have none, as staging measured slower on the H100, PERF.md): the
-//   block takes the union of its in-image taps with a block-wide min/max
-//   (`block_window`). If the window is close to the tile and its planes fit
-//   the budget, the block copies them there as planar f32 with coalesced
-//   reads of the source's row spans (`stage_window`; 16-byte loads where the
-//   storage allows) and gathers its taps from shared memory. Otherwise the
-//   whole block gathers from device memory. Both branches read the same
-//   values and do the same arithmetic, so the result does not depend on the
-//   branch.
+//   (Staging the tile's source window in shared memory measured slower than
+//   L1 at every budget, tile and flow field tried on the H100: PERF.md.)
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace warp {
@@ -87,41 +78,25 @@ __device__ __forceinline__ Taps sample_taps(int x, int y, float u, float v, int 
 // ---------------------------------------------------------------------------
 // The tiled forward kernels.
 
-// A block's output tile: kW x kH pixels, kPX adjacent ones of a row a thread.
-template <int kW_, int kH_, int kPX_>
+// A block's output tile: kW x kH pixels, kPX adjacent ones of a row a thread
+// (ops/warp_plan.py holds the same numbers). 64 x 8 x 2 measured fastest of
+// the tiles tried on the H100 for both kernels (PERF.md).
 struct Tile {
-  static constexpr int kW = kW_, kH = kH_, kPX = kPX_;
+  static constexpr int kW = 64, kH = 8, kPX = 2;
   static constexpr int kCols = kW / kPX;  // threads across a tile row
   static constexpr int kThreads = kCols * kH;
   static constexpr int kWarps = kThreads / 32;
 };
 
-// Calls f(Tile<...>{}) for the tile with index `tile` of ops/warp_plan.py
-// TILES (the same list, in the same order).
-template <typename F>
-cudaError_t with_tile(int tile, F&& f) {
-  switch (tile) {
-    case 0: return f(Tile<64, 8, 2>{});
-    case 1: return f(Tile<32, 16, 2>{});
-    case 2: return f(Tile<64, 16, 4>{});
-    case 3: return f(Tile<32, 8, 1>{});
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// How a kernel reads and writes, chosen by the wrapper (ops/warp_plan.py).
-enum ImageMode { kImageGeneric = 0, kImageInterleaved = 1, kImagePlanar = 2 };
+// How a kernel reads its flows and writes its output, chosen by the wrapper
+// (ops/warp_plan.py).
 enum FlowMode { kFlowScalar = 0, kFlowPair = 1, kFlowPlanarVec = 2 };
 enum OutMode { kOutScalar = 0, kOutRows = 1, kOutPlanarVec = 2 };
 
 struct Plan {
-  int tile;       // index of the tile shape
-  int budget;     // f32 elements of shared memory for the source window; 0: never stage
-  int img_mode;   // ImageMode
-  int img_vec;    // 1: the image's storage may be read in aligned 16-byte chunks
   int flow_mode;  // FlowMode
   int out_mode;   // OutMode
-  int smem;       // dynamic shared memory bytes of the launch
+  int smem;       // dynamic shared memory bytes of the launch (at most 48 KB)
 };
 
 // One pixel's sample: its top-left tap, masks, and the four weights (0 where
@@ -148,14 +123,15 @@ __device__ __forceinline__ Sample make_sample(int x, int y, float u, float v, in
   return s;
 }
 
-// (((v00*w00 + v01*w01) + v10*w10) + v11*w11) with masked taps read as 0;
-// fetch(y, x) reads one in-image tap of the current channel.
-template <typename Fetch>
-__device__ __forceinline__ float bilinear(const Sample& s, Fetch fetch) {
-  const float v00 = s.m00 ? fetch(s.y0, s.x0) : 0.0f;
-  const float v01 = s.m01 ? fetch(s.y0, s.x0 + 1) : 0.0f;
-  const float v10 = s.m10 ? fetch(s.y0 + 1, s.x0) : 0.0f;
-  const float v11 = s.m11 ? fetch(s.y0 + 1, s.x0 + 1) : 0.0f;
+// (((v00*w00 + v01*w01) + v10*w10) + v11*w11) with masked taps read as 0,
+// gathering channel c of img (one image) from device memory.
+template <typename T>
+__device__ __forceinline__ float bilinear(const Sample& s, const T* img, const Strides& st, int c) {
+  const T* plane = img + c * st.c;
+  const float v00 = s.m00 ? load_f32(plane + s.y0 * st.y + s.x0 * st.x) : 0.0f;
+  const float v01 = s.m01 ? load_f32(plane + s.y0 * st.y + (s.x0 + 1) * st.x) : 0.0f;
+  const float v10 = s.m10 ? load_f32(plane + (s.y0 + 1) * st.y + s.x0 * st.x) : 0.0f;
+  const float v11 = s.m11 ? load_f32(plane + (s.y0 + 1) * st.y + (s.x0 + 1) * st.x) : 0.0f;
   float acc = __fmul_rn(v00, s.w00);
   acc = __fadd_rn(acc, __fmul_rn(v01, s.w01));
   acc = __fadd_rn(acc, __fmul_rn(v10, s.w10));
@@ -163,32 +139,25 @@ __device__ __forceinline__ float bilinear(const Sample& s, Fetch fetch) {
   return acc;
 }
 
+static_assert(Tile::kPX == 2, "the vector paths below read and write pixel pairs");
+
 // The (u, v) of up to kPX adjacent pixels (the first `valid`): u[i] at
 // pu + i*sxu, v[i] at pv + i*sxv. kFlowPair: pv == pu + 1, 8-byte aligned.
 // kFlowPlanarVec: x strides 1, pu and pv kPX*4-byte aligned, valid 0 or kPX.
-template <int kPX>
 __device__ __forceinline__ void load_uv(const float* pu, int64_t sxu, const float* pv, int64_t sxv,
                                         int mode, int valid, float* u, float* v) {
 #pragma unroll
-  for (int i = 0; i < kPX; ++i) u[i] = v[i] = 0.0f;
+  for (int i = 0; i < Tile::kPX; ++i) u[i] = v[i] = 0.0f;
   if (valid <= 0) return;
   if (mode == kFlowPlanarVec) {
-    if constexpr (kPX == 4) {
-      const float4 a = __ldg(reinterpret_cast<const float4*>(pu));
-      const float4 c = __ldg(reinterpret_cast<const float4*>(pv));
-      u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
-      v[0] = c.x; v[1] = c.y; v[2] = c.z; v[3] = c.w;
-      return;
-    } else if constexpr (kPX == 2) {
-      const float2 a = __ldg(reinterpret_cast<const float2*>(pu));
-      const float2 c = __ldg(reinterpret_cast<const float2*>(pv));
-      u[0] = a.x; u[1] = a.y;
-      v[0] = c.x; v[1] = c.y;
-      return;
-    }
+    const float2 a = __ldg(reinterpret_cast<const float2*>(pu));
+    const float2 c = __ldg(reinterpret_cast<const float2*>(pv));
+    u[0] = a.x; u[1] = a.y;
+    v[0] = c.x; v[1] = c.y;
+    return;
   }
 #pragma unroll
-  for (int i = 0; i < kPX; ++i) {
+  for (int i = 0; i < Tile::kPX; ++i) {
     if (i < valid) {
       if (mode == kFlowPair) {
         const float2 f = __ldg(reinterpret_cast<const float2*>(pu + i * sxu));
@@ -202,178 +171,15 @@ __device__ __forceinline__ void load_uv(const float* pu, int64_t sxu, const floa
   }
 }
 
-// Grows [xlo, xhi] x [ylo, yhi] by the in-image taps of s (a pixel whose
-// taps all lie outside adds nothing). With any tap inside, (m00 || m10) is
-// "column x0 is inside", and so on.
-__device__ __forceinline__ void extend(const Sample& s, int& xlo, int& xhi, int& ylo, int& yhi) {
-  if (!(s.m00 || s.m01 || s.m10 || s.m11)) return;
-  xlo = min(xlo, (s.m00 || s.m10) ? s.x0 : s.x0 + 1);
-  xhi = max(xhi, (s.m01 || s.m11) ? s.x0 + 1 : s.x0);
-  ylo = min(ylo, (s.m00 || s.m01) ? s.y0 : s.y0 + 1);
-  yhi = max(yhi, (s.m10 || s.m11) ? s.y0 + 1 : s.y0);
-}
-
-struct Window {  // columns [x0, x0 + nx), rows [y0, y0 + ny); nx = ny = 0: no tap inside
-  int x0, y0, nx, ny;
-};
-
-// The union of every thread's window, in every thread. Every thread of the
-// block calls it. red: shared memory for 4 ints a warp.
-__device__ __forceinline__ Window block_window(int xlo, int xhi, int ylo, int yhi, int* red) {
-  xlo = __reduce_min_sync(0xffffffffu, xlo);
-  xhi = __reduce_max_sync(0xffffffffu, xhi);
-  ylo = __reduce_min_sync(0xffffffffu, ylo);
-  yhi = __reduce_max_sync(0xffffffffu, yhi);
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[4 * warp] = xlo;
-    red[4 * warp + 1] = xhi;
-    red[4 * warp + 2] = ylo;
-    red[4 * warp + 3] = yhi;
-  }
-  __syncthreads();
-  const int warps = blockDim.x >> 5;
-  for (int i = 0; i < warps; ++i) {
-    xlo = min(xlo, red[4 * i]);
-    xhi = max(xhi, red[4 * i + 1]);
-    ylo = min(ylo, red[4 * i + 2]);
-    yhi = max(yhi, red[4 * i + 3]);
-  }
-  Window w{0, 0, 0, 0};
-  if (xhi >= xlo && yhi >= ylo) w = Window{xlo, ylo, xhi - xlo + 1, yhi - ylo + 1};
-  return w;
-}
-
-// Whether staging pays and fits: the window's area is at most kStageArea
-// times the tile's (a wider window copies more than the gathers would read),
-// and its C planes fit `budget` f32 elements. An interleaved span must stay
-// below 2^22 elements, where `span_pixel` divides exactly.
-constexpr int kStageArea = 2;
-
-__device__ __forceinline__ bool window_fits(const Window& w, int C, int img_mode, int64_t pixel_stride,
-                                            int budget, int tile_area) {
-  if (w.nx == 0) return true;
-  const int64_t area = static_cast<int64_t>(w.nx) * w.ny;
-  if (area > kStageArea * tile_area || area * C > budget) return false;
-  return img_mode != kImageInterleaved || (w.nx - 1) * pixel_stride + C < (1 << 22);
-}
-
-// e / P for 0 <= e < 2^22: (e + 0.5) / P lies at least 0.5 / P from an
-// integer, and the two f32 roundings move it by less than that.
-__device__ __forceinline__ int span_pixel(int e, float inv_p) {
-  return __float2int_rz(__fmul_rn(__int2float_rn(e) + 0.5f, inv_p));
-}
-
-// Element j of a 16-byte chunk as f32.
-template <typename T>
-__device__ __forceinline__ float chunk_value(const uint4& raw, int j);
-
-template <>
-__device__ __forceinline__ float chunk_value<float>(const uint4& raw, int j) {
-  const unsigned int w = j == 0 ? raw.x : j == 1 ? raw.y : j == 2 ? raw.z : raw.w;
-  return __uint_as_float(w);
-}
-
-template <>
-__device__ __forceinline__ float chunk_value<__nv_bfloat16>(const uint4& raw, int j) {
-  const int k = j >> 1;
-  const unsigned int w = k == 0 ? raw.x : k == 1 ? raw.y : k == 2 ? raw.z : raw.w;
-  return __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));  // little-endian halves
-}
-
-// One warp copies a span of L elements at p, whose pixels lie P elements
-// apart with C channels each (planar rows: P = C = 1), into dst[ch * plane +
-// pixel]. Lanes take consecutive elements, or consecutive aligned 16-byte
-// chunks when vec (the chunks around the span lie in the same storage).
-template <typename T>
-__device__ __forceinline__ void stage_span(const T* p, int L, int P, int C, float* dst, int plane,
-                                           bool vec, int lane) {
-  const float inv_p = 1.0f / static_cast<float>(P);
-  if (vec) {
-    constexpr int kE = 16 / sizeof(T);
-    const T* base = reinterpret_cast<const T*>(reinterpret_cast<uintptr_t>(p) & ~uintptr_t(15));
-    const int lead = static_cast<int>(p - base);
-    const int chunks = (lead + L + kE - 1) / kE;
-    for (int k = lane; k < chunks; k += 32) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(base) + k);
-#pragma unroll
-      for (int j = 0; j < kE; ++j) {
-        const int e = k * kE + j - lead;
-        if (e >= 0 && e < L) {
-          const int q = span_pixel(e, inv_p);
-          const int ch = e - q * P;
-          if (ch < C) dst[ch * plane + q] = chunk_value<T>(raw, j);
-        }
-      }
-    }
-  } else {
-    for (int e = lane; e < L; e += 32) {
-      const int q = span_pixel(e, inv_p);
-      const int ch = e - q * P;
-      if (ch < C) dst[ch * plane + q] = load_f32(p + e);
-    }
-  }
-}
-
-// Copies the window of the C planes of one image (img at batch b) into
-// win[(c * ny + r) * nx + j] as f32; every thread of the block calls it.
-template <typename T>
-__device__ void stage_window(const T* img, const Strides& s, int C, int img_mode, bool vec,
-                             const Window& w, float* win) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, warps = blockDim.x >> 5;
-  const int plane = w.nx * w.ny;
-  if (img_mode == kImageInterleaved) {  // channel stride 1: one span a row holds every channel
-    const int P = static_cast<int>(s.x);
-    const int L = (w.nx - 1) * P + C;
-    for (int r = warp; r < w.ny; r += warps)
-      stage_span(img + (w.y0 + r) * s.y + w.x0 * s.x, L, P, C, win + r * w.nx, plane, vec, lane);
-  } else if (img_mode == kImagePlanar) {  // x stride 1: one span a (channel, row)
-    for (int i = warp; i < C * w.ny; i += warps) {
-      const int c = i / w.ny, r = i - c * w.ny;
-      stage_span(img + c * s.c + (w.y0 + r) * s.y + w.x0, w.nx, 1, 1, win + i * w.nx, 0, vec, lane);
-    }
-  } else {
-    for (int i = threadIdx.x; i < C * plane; i += blockDim.x) {
-      const int c = i / plane, rem = i - c * plane, r = rem / w.nx, j = rem - r * w.nx;
-      win[i] = load_f32(img + c * s.c + (w.y0 + r) * s.y + (w.x0 + j) * s.x);
-    }
-  }
-}
-
-// Reads taps of channel c from the staged window.
-struct StagedTaps {
-  const float* win;
-  Window w;
-  __device__ __forceinline__ float operator()(int c, int y, int x) const {
-    return win[(c * w.ny + (y - w.y0)) * w.nx + (x - w.x0)];
-  }
-};
-
-// Reads taps of channel c from device memory.
-template <typename T>
-struct GlobalTaps {
-  const T* img;
-  Strides s;
-  __device__ __forceinline__ float operator()(int c, int y, int x) const {
-    return load_f32(img + c * s.c + y * s.y + x * s.x);
-  }
-};
-
 // kPX values to p; kOutPlanarVec: one aligned kPX-wide store, else the first
 // `valid` one by one, sx apart.
-template <int kPX>
 __device__ __forceinline__ void store_px(float* p, const float* a, int64_t sx, int mode, int valid) {
   if (mode == kOutPlanarVec) {
-    if constexpr (kPX == 4) {
-      *reinterpret_cast<float4*>(p) = make_float4(a[0], a[1], a[2], a[3]);
-      return;
-    } else if constexpr (kPX == 2) {
-      *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
-      return;
-    }
+    *reinterpret_cast<float2*>(p) = make_float2(a[0], a[1]);
+    return;
   }
 #pragma unroll
-  for (int i = 0; i < kPX; ++i)
+  for (int i = 0; i < Tile::kPX; ++i)
     if (i < valid) p[i * sx] = a[i];
 }
 
@@ -381,30 +187,15 @@ __device__ __forceinline__ unsigned int bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
-template <int kPX>
 __device__ __forceinline__ void store_px(__nv_bfloat16* p, const float* a, int64_t sx, int mode,
                                          int valid) {
   if (mode == kOutPlanarVec) {
-    if constexpr (kPX == 4) {
-      *reinterpret_cast<uint2*>(p) = make_uint2(bf16_bits(a[0]) | (bf16_bits(a[1]) << 16),
-                                                bf16_bits(a[2]) | (bf16_bits(a[3]) << 16));
-      return;
-    } else if constexpr (kPX == 2) {
-      *reinterpret_cast<unsigned int*>(p) = bf16_bits(a[0]) | (bf16_bits(a[1]) << 16);
-      return;
-    }
+    *reinterpret_cast<unsigned int*>(p) = bf16_bits(a[0]) | (bf16_bits(a[1]) << 16);
+    return;
   }
 #pragma unroll
-  for (int i = 0; i < kPX; ++i)
+  for (int i = 0; i < Tile::kPX; ++i)
     if (i < valid) store(p + i * sx, a[i]);
-}
-
-// Lets a kernel take `bytes` of dynamic shared memory: beyond 48 KB, static
-// and dynamic together, only after this opt-in.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes) {
-  if (bytes == 0) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 }  // namespace warp

@@ -23,8 +23,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn = lib.warp_multiflow_planar
     fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
     fn.restype = i
-    lib.warp_multiflow_blocks_per_sm.argtypes = [i, ctypes.POINTER(i)]
-    lib.warp_multiflow_blocks_per_sm.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -35,14 +33,10 @@ def load_library() -> ctypes.CDLL:
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
-                               tile: int = warp_plan.TILE,
-                               budget_bytes: int = warp_plan.SMEM_BUDGET) -> torch.Tensor:
+def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: (B, C, H, W) f32/bf16 planes x (B, n, H, W) f32 u/v →
     (B, C, n, H, W) contiguous in the planes' dtype, on the current stream.
-    Any strides. ``tile`` (an index of ``warp_plan.TILES``) and
-    ``budget_bytes`` (the shared memory a block may stage its source window
-    in; 0, the default, gathers from device memory) set the launch plan.
+    Any strides.
 
     Raises on anything the kernel does not take: a tensor off the card,
     another dtype or a bad shape."""
@@ -62,7 +56,9 @@ def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.T
     out = torch.empty((B, C, n, H, W), device=planes.device, dtype=planes.dtype)
     if out.numel() == 0:
         return out
-    plan = _plan(planes, u, v, out.data_ptr(), tile, budget_bytes)
+    # the contiguous (B, C, n, H, W) output as (B, C·n, H, W) planes
+    out_layout = warp_plan.Layout((C * n * H * W, H * W, W, 1), out.data_ptr() % 16, out.element_size())
+    plan = warp_plan.plan_multiflow(warp_plan.layout(u), warp_plan.layout(v), out_layout, W)
     strides = (ctypes.c_int64 * 12)(*planes.stride(), *u.stride(), *v.stride())
     lib = load_library()
     with torch.cuda.device(planes.device):
@@ -78,22 +74,3 @@ def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.T
 
 
 warp_multiflow_planar_cuda.launches = 0  # kernel launches since the last reset
-
-
-def _plan(planes, u, v, out_ptr, tile, budget_bytes) -> warp_plan.Plan:
-    B, C, H, W = planes.shape
-    n = u.shape[1]
-    # the contiguous (B, C, n, H, W) output as (B, C·n, H, W) planes
-    out_layout = warp_plan.Layout((C * n * H * W, H * W, W, 1), out_ptr % 16, planes.element_size(), True)
-    return warp_plan.plan_multiflow(warp_plan.layout(planes), warp_plan.layout(u), warp_plan.layout(v),
-                                    out_layout, C, W, tile=tile, budget_bytes=budget_bytes)
-
-
-def blocks_per_sm(planes, u, v, *, tile: int = warp_plan.TILE, budget_bytes: int = warp_plan.SMEM_BUDGET) -> int:
-    """How many blocks of the kernel one SM holds at once, as CUDA's occupancy
-    calculator finds it for the plan the wrapper launches on these inputs."""
-    plan = _plan(planes, u, v, 0, tile, budget_bytes)
-    blocks = load_library().warp_multiflow_blocks_per_sm(int(planes.dtype == torch.bfloat16), warp_plan.as_ints(plan))
-    if blocks < 0:
-        raise RuntimeError(f"warp_multiflow_blocks_per_sm failed: CUDA error {-blocks}")
-    return blocks

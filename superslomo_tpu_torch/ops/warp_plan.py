@@ -1,11 +1,9 @@
 """Launch plans of the tiled warp kernels (csrc/warp_tile.cuh).
 
-A plan says which output tile a block owns, how each tensor is read and
-written (from its strides and alignment), and how much shared memory a block
-may take for its source window. The plans are plain functions of shapes,
-strides and address alignment, so the CPU tests hold them, and they are
-cached, so a launch pays for one lookup; the kernels only decide, block by
-block, whether this run's window fits the budget.
+A plan says how a kernel reads its flows and writes its output, from the
+strides and address alignment of the tensors. Plans are plain functions of
+those, so the CPU tests hold them, and they are cached, so a launch pays for
+one lookup.
 """
 
 from __future__ import annotations
@@ -16,17 +14,13 @@ from typing import NamedTuple, Sequence
 
 import torch
 
-# (width, height, pixels a thread) of a block's output tile, in the order of
-# csrc/warp_tile.cuh's with_tile
-TILES = ((64, 8, 2), (32, 16, 2), (64, 16, 4), (32, 8, 1))
-TILE = 0  # 64 x 8, 2 pixels a thread: the fastest on the card for both kernels (PERF.md)
-# Bytes of source window a block may stage in shared memory. 0: the kernels
-# gather from device memory through L1, which measured faster on the card
-# than staging at every budget, tile and flow field tried (PERF.md).
-SMEM_BUDGET = 0
-SMEM_MAX = 226 * 1024  # a Hopper block's 227 KB, less room for the kernels' static scratch
+# a block's output tile (width, height) and the adjacent pixels of a row a
+# thread owns: csrc/warp_tile.cuh's Tile
+TILE_W, TILE_H, PX = 64, 8, 2
+# a launch's dynamic shared memory stays within what every kernel may take
+# without an opt-in
+SMEM_DEFAULT = 48 * 1024
 
-IMAGE_GENERIC, IMAGE_INTERLEAVED, IMAGE_PLANAR = 0, 1, 2
 FLOW_SCALAR, FLOW_PAIR, FLOW_PLANAR_VEC = 0, 1, 2
 OUT_SCALAR, OUT_ROWS, OUT_PLANAR_VEC = 0, 1, 2
 
@@ -35,92 +29,56 @@ class Layout(NamedTuple):
     """What a plan needs to know of a (B, C, H, W) tensor."""
 
     strides: tuple  # element strides (b, c, y, x)
-    ptr: int  # address of element (0, 0, 0, 0), or its residue mod 16 (all a plan reads)
+    ptr: int  # address of element (0, 0, 0, 0) mod 16 (all a plan reads of it)
     esize: int  # bytes an element
-    storage_aligned: bool  # its storage starts and ends on 16-byte boundaries
 
 
 class Plan(NamedTuple):
-    """The 7 ints of the kernels' Plan struct (csrc/warp_tile.cuh)."""
+    """The 3 ints of the kernels' Plan struct (csrc/warp_tile.cuh)."""
 
-    tile: int
-    budget: int  # f32 elements of source window; 0: never stage
-    img_mode: int
-    img_vec: int
     flow_mode: int
     out_mode: int
     smem: int  # dynamic shared memory bytes of the launch
 
 
 def layout(t: torch.Tensor) -> Layout:
-    storage = t.untyped_storage()
-    aligned = storage.data_ptr() % 16 == 0 and storage.nbytes() % 16 == 0
-    return Layout(tuple(t.stride()), t.data_ptr() % 16, t.element_size(), aligned)
+    return Layout(tuple(t.stride()), t.data_ptr() % 16, t.element_size())
 
 
-def image_mode(img: Layout, C: int) -> tuple:
-    """(mode, vec): planar rows where the x stride is 1, else interleaved rows
-    where the channel stride is 1 (a pixel's channels adjacent), else one
-    element at a time; 16-byte chunk reads where the storage allows."""
-    _, sc, _, sx = img.strides
-    if sx == 1:
-        mode = IMAGE_PLANAR
-    elif sc == 1 and sx >= C:
-        mode = IMAGE_INTERLEAVED
-    else:
-        mode = IMAGE_GENERIC
-    vec = int(mode != IMAGE_GENERIC and img.storage_aligned)
-    return mode, vec
+def planar_vec_ok(t: Layout, W: int) -> bool:
+    """Whether every thread's PX adjacent values of t (x stride 1) make one
+    aligned PX-wide access: PX divides W and every stride, and the base
+    address is PX elements aligned."""
+    return (t.strides[3] == 1 and W % PX == 0 and t.ptr % (PX * t.esize) == 0
+            and all(s % PX == 0 for s in t.strides[:3]))
 
 
-def planar_vec_ok(t: Layout, W: int, px: int) -> bool:
-    """Whether every thread's px adjacent values of t (x stride 1) make one
-    aligned px-wide access: px > 1 divides W and every stride, and the base
-    address is px elements aligned."""
-    return (px > 1 and t.strides[3] == 1 and W % px == 0 and t.ptr % (px * t.esize) == 0
-            and all(s % px == 0 for s in t.strides[:3]))
-
-
-def flow_mode(flow: Layout, W: int, px: int) -> int:
+def flow_mode(flow: Layout, W: int) -> int:
     """One 8-byte load a pixel where (u, v) are adjacent and 8-byte aligned;
-    else px-wide loads of u and of v where they are planar; else scalars."""
+    else PX-wide loads of u and of v where they are planar; else scalars."""
     if flow.strides[1] == 1 and flow.ptr % 8 == 0 and all(s % 2 == 0 for s in (flow.strides[0], *flow.strides[2:])):
         return FLOW_PAIR
-    return FLOW_PLANAR_VEC if planar_vec_ok(flow, W, px) else FLOW_SCALAR
-
-
-def _budget_floats(budget_bytes: int) -> int:
-    return max(0, budget_bytes) // 16 * 4  # keeps what follows 16-byte aligned
+    return FLOW_PLANAR_VEC if planar_vec_ok(flow, W) else FLOW_SCALAR
 
 
 @functools.lru_cache(maxsize=256)
-def plan_single(img: Layout, flow: Layout, out: Layout, C: int, W: int,
-                tile: int = TILE, budget_bytes: int = SMEM_BUDGET) -> Plan:
+def plan_single(flow: Layout, out: Layout, C: int, W: int) -> Plan:
     """The single-flow forward's plan. A dense channels_last output goes out
-    through a shared tile of whole rows; a planar one in px-wide stores."""
-    tw, th, px = TILES[tile]
-    mode, vec = image_mode(img, C)
-    out_mode = OUT_SCALAR
-    tile_bytes = 0
-    if out.strides[1] == 1 and out.strides[3] == C and tw * th * C * out.esize <= SMEM_MAX:
-        out_mode, tile_bytes = OUT_ROWS, tw * th * C * out.esize
-    elif planar_vec_ok(out, W, px):
-        out_mode = OUT_PLANAR_VEC
-    budget = _budget_floats(min(budget_bytes, SMEM_MAX - tile_bytes))
-    return Plan(tile, budget, mode, vec, flow_mode(flow, W, px), out_mode, budget * 4 + tile_bytes)
+    through a shared tile of whole rows (where the tile fits SMEM_DEFAULT); a
+    planar one in PX-wide stores."""
+    tile_bytes = TILE_W * TILE_H * C * out.esize
+    if out.strides[1] == 1 and out.strides[3] == C and tile_bytes <= SMEM_DEFAULT:
+        return Plan(flow_mode(flow, W), OUT_ROWS, tile_bytes)
+    return Plan(flow_mode(flow, W), OUT_PLANAR_VEC if planar_vec_ok(out, W) else OUT_SCALAR, 0)
 
 
 @functools.lru_cache(maxsize=256)
-def plan_multiflow(planes: Layout, u: Layout, v: Layout, out: Layout, C: int, W: int,
-                   tile: int = TILE, budget_bytes: int = SMEM_BUDGET) -> Plan:
-    """The multi-flow warp's plan: u and v (B, n, H, W) each read px-wide where
-    both allow it; the contiguous (B, C, n, H, W) output stored px-wide."""
-    _, _, px = TILES[tile]
-    mode, vec = image_mode(planes, C)
-    fmode = FLOW_PLANAR_VEC if planar_vec_ok(u, W, px) and planar_vec_ok(v, W, px) else FLOW_SCALAR
-    omode = OUT_PLANAR_VEC if planar_vec_ok(out, W, px) else OUT_SCALAR
-    budget = _budget_floats(min(budget_bytes, SMEM_MAX))
-    return Plan(tile, budget, mode, vec, fmode, omode, budget * 4)
+def plan_multiflow(u: Layout, v: Layout, out: Layout, W: int) -> Plan:
+    """The multi-flow warp's plan: u and v (B, n, H, W) each read PX-wide
+    where both allow it; the contiguous (B, C, n, H, W) output, as (B, C·n,
+    H, W) planes, stored PX-wide where aligned."""
+    fmode = FLOW_PLANAR_VEC if planar_vec_ok(u, W) and planar_vec_ok(v, W) else FLOW_SCALAR
+    return Plan(fmode, OUT_PLANAR_VEC if planar_vec_ok(out, W) else OUT_SCALAR, 0)
 
 
 def as_ints(plan: Sequence[int]):

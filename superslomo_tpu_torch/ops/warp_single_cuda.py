@@ -28,8 +28,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.warp_single_forward.restype = i
     lib.warp_single_backward.argtypes = [p, p, p, p, p, i, i, i, i, i, strides, p]
     lib.warp_single_backward.restype = i
-    lib.warp_single_forward_blocks_per_sm.argtypes = [i, ctypes.POINTER(i)]
-    lib.warp_single_forward_blocks_per_sm.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -69,19 +67,16 @@ def _check(img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor | None 
             f"grad_out must be {tuple(img.shape)} {img.dtype}, got {tuple(grad_out.shape)} {grad_out.dtype}")
 
 
-def warp_single_cuda(img: torch.Tensor, flow: torch.Tensor, *, tile: int = warp_plan.TILE,
-                     budget_bytes: int = warp_plan.SMEM_BUDGET) -> torch.Tensor:
+def warp_single_cuda(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Launch the forward kernel: (B, C, H, W) f32/bf16 image x (B, 2, H, W)
     f32 flow (u, v) → (B, C, H, W) in the image's dtype and memory format, on
-    the current stream. ``tile`` (an index of ``warp_plan.TILES``) and
-    ``budget_bytes`` (the shared memory a block may stage its source window
-    in; 0, the default, gathers from device memory) set the launch plan."""
+    the current stream."""
     _check(img, flow)
     B, C, H, W = img.shape
     out = _like(img, C, img.dtype)
     if out.numel() == 0:
         return out
-    plan = _plan(img, flow, out, tile, budget_bytes)
+    plan = warp_plan.plan_single(warp_plan.layout(flow), warp_plan.layout(out), C, W)
     lib = load_library()
     with torch.cuda.device(img.device):
         err = lib.warp_single_forward(
@@ -93,22 +88,6 @@ def warp_single_cuda(img: torch.Tensor, flow: torch.Tensor, *, tile: int = warp_
         raise RuntimeError(f"warp_single_forward launch failed: CUDA error {err}")
     warp_single_cuda.launches += 1
     return out
-
-
-def _plan(img, flow, out, tile, budget_bytes) -> warp_plan.Plan:
-    return warp_plan.plan_single(warp_plan.layout(img), warp_plan.layout(flow), warp_plan.layout(out),
-                                 img.shape[1], img.shape[3], tile=tile, budget_bytes=budget_bytes)
-
-
-def forward_blocks_per_sm(img, flow, *, tile: int = warp_plan.TILE, budget_bytes: int = warp_plan.SMEM_BUDGET) -> int:
-    """How many blocks of the forward kernel one SM holds at once, as CUDA's
-    occupancy calculator finds it for the plan the wrapper launches on these
-    inputs."""
-    plan = _plan(img, flow, _like(img, img.shape[1], img.dtype), tile, budget_bytes)
-    blocks = load_library().warp_single_forward_blocks_per_sm(int(img.dtype == torch.bfloat16), warp_plan.as_ints(plan))
-    if blocks < 0:
-        raise RuntimeError(f"warp_single_forward_blocks_per_sm failed: CUDA error {-blocks}")
-    return blocks
 
 
 def warp_single_backward_cuda(img, flow, grad_out, need_img: bool, need_flow: bool):

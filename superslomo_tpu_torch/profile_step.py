@@ -15,8 +15,9 @@ optimizer, other elementwise), the share of convolution time in kernels whose
 names say NHWC, the convolutions' FLOPs per step (counted from their shapes,
 the backward's from which of each conv's input and weight take a gradient)
 and the rate they reach against the card's peak for the compute dtype, the
-peak device memory, the heaviest kernels by name, and the kernel that ran
-just before each warp launch of one step.
+peak device memory, the heaviest kernels by name, the warp kernels' time and
+launches per step by kernel, and the kernel that ran just before each warp
+launch of one step.
 """
 
 from __future__ import annotations
@@ -45,6 +46,10 @@ _CATEGORIES = (
     ("resize_pool", ("upsample", "avg_pool", "avgpool", "max_pool", "maxpool")),
     ("elementwise_other", ("",)),
 )
+
+
+# the warp kernels by name (csrc/), for their time per step each
+_WARP_KERNELS = ("warp_multiflow_kernel", "warp_single_forward_kernel", "warp_single_backward_kernel")
 
 
 def _category(name: str) -> str:
@@ -131,6 +136,7 @@ def main() -> None:
     if not kernels:
         raise RuntimeError("the profiler recorded no device events")
     by_cat, by_name = defaultdict(float), defaultdict(float)
+    warps = defaultdict(lambda: [0.0, 0])  # warp kernel → [us, launches]
     nhwc_conv = 0.0
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -139,6 +145,10 @@ def main() -> None:
         by_name[e.name] += us
         if cat == "convolution" and "nhwc" in e.name.lower():
             nhwc_conv += us
+        if cat == "warp_kernel":
+            key = next((k for k in _WARP_KERNELS if k in e.name), e.name[:120])
+            warps[key][0] += us
+            warps[key][1] += 1
     # the kernel that ran just before each warp launch of the first traced
     # step: shows whether a copy of the warp's inputs precedes it
     ordered = sorted(kernels, key=lambda e: e.time_range.start)
@@ -162,6 +172,7 @@ def main() -> None:
         "step_share_of_peak": flops / (per_step(busy) / 1e3) / PEAK_FLOP_S[dtype],
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels_ms_per_step": [[name[:120], per_step(us)] for name, us in top],
+        "warp_ms_and_launches_per_step": {k: [per_step(us), n / steps] for k, (us, n) in sorted(warps.items())},
         "kernel_before_each_warp": before_warp[: len(before_warp) // steps],
     }))
 

@@ -212,19 +212,15 @@ def _pair_views(B=2, H=32, W=32):
 
 
 _IMAGES, _FLOWS = _pair_views()
-_BUDGETS = [0, 48 * 1024, 200 * 1024]
 
 
-@pytest.mark.parametrize("budget", _BUDGETS)
 @pytest.mark.parametrize("flow_name", list(_FLOWS))
 @pytest.mark.parametrize("img_name", list(_IMAGES))
-def test_single_flow_plan(img_name, flow_name, budget):
-    """The forward kernel's plan for each layout the step passes: interleaved
-    row spans for channels_last images and planar ones for NCHW, both read in
-    16-byte chunks; one 8-byte load a pixel for adjacent (u, v), px-wide
-    loads for planar flows; a channels_last output through a shared tile of
-    rows, a planar one in px-wide stores; and a window budget that keeps the
-    launch within a Hopper block's shared memory."""
+def test_single_flow_plan(img_name, flow_name):
+    """The forward kernel's plan for each layout the step passes: one 8-byte
+    load a pixel for adjacent (u, v), PX-wide loads for planar flows; a
+    channels_last output through a shared tile of rows that needs no
+    shared-memory opt-in, a planar one in PX-wide stores."""
     from superslomo_tpu_torch.ops import warp_plan as wp
     from superslomo_tpu_torch.ops.warp_single_cuda import _like
 
@@ -232,62 +228,71 @@ def test_single_flow_plan(img_name, flow_name, budget):
     B, C, H, W = img.shape
     assert flow.stride(3) == {"pixel_stride_4": 4, "pixel_stride_2": 2, "nchw": 1}[flow_name]
     out = _like(img, C, img.dtype)
-    plan = wp.plan_single(wp.layout(img), wp.layout(flow), wp.layout(out), C, W, budget_bytes=budget)
-    tw, th, px = wp.TILES[plan.tile]
-    assert plan.tile == wp.TILE and tw * th // px % 32 == 0
+    plan = wp.plan_single(wp.layout(flow), wp.layout(out), C, W)
+    assert wp.TILE_W * wp.TILE_H // wp.PX % 32 == 0
     channels_last = img_name != "nchw"
-    assert plan.img_mode == (wp.IMAGE_INTERLEAVED if channels_last else wp.IMAGE_PLANAR) and plan.img_vec == 1
     assert plan.flow_mode == (wp.FLOW_PLANAR_VEC if flow_name == "nchw" else wp.FLOW_PAIR)
-    tile_bytes = tw * th * C * img.element_size() if channels_last else 0
     assert plan.out_mode == (wp.OUT_ROWS if channels_last else wp.OUT_PLANAR_VEC)
-    assert plan.budget == budget // 16 * 4 and plan.budget % 4 == 0
-    assert plan.smem == plan.budget * 4 + tile_bytes <= wp.SMEM_MAX
+    tile_bytes = wp.TILE_W * wp.TILE_H * C * img.element_size()
+    assert plan.smem == (tile_bytes if channels_last else 0) <= wp.SMEM_DEFAULT
     assert list(wp.as_ints(plan)) == list(plan)
 
 
-@pytest.mark.parametrize("budget", _BUDGETS + [1 << 20])
 @pytest.mark.parametrize("img_name", list(_IMAGES))
-def test_multiflow_plan(img_name, budget):
+def test_multiflow_plan(img_name):
     """The multi-flow kernel's plan for the planes the step passes (the pair
-    slice in f32, that slice cast to bf16, NCHW): the planes read in place,
-    u and v and the (B, C, n, H, W) output px-wide, and a budget capped at
-    what a Hopper block can take."""
+    slice in f32, that slice cast to bf16, NCHW): u and v and the (B, C, n,
+    H, W) output PX-wide, and no shared memory; the planes are read in place
+    through their strides whatever their layout."""
     from superslomo_tpu_torch.ops import warp_plan as wp
 
     planes = _IMAGES[img_name]
     B, C, H, W = planes.shape
     u = torch.zeros(B, 7, H, W)
     out = torch.empty(B, C, 7, H, W, dtype=planes.dtype)
-    out_layout = wp.Layout((out.stride(0), out.stride(2), out.stride(3), out.stride(4)), out.data_ptr(),
-                           out.element_size(), True)
-    plan = wp.plan_multiflow(wp.layout(planes), wp.layout(u), wp.layout(u), out_layout, C, W, budget_bytes=budget)
-    assert plan.tile == wp.TILE
-    assert plan.img_mode == (wp.IMAGE_PLANAR if img_name == "nchw" else wp.IMAGE_INTERLEAVED) and plan.img_vec == 1
-    assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_PLANAR_VEC, wp.OUT_PLANAR_VEC)
-    assert plan.budget == min(budget, wp.SMEM_MAX) // 16 * 4 and plan.smem == plan.budget * 4 <= wp.SMEM_MAX
+    out_layout = wp.Layout((out.stride(0), out.stride(2), out.stride(3), out.stride(4)), out.data_ptr() % 16,
+                           out.element_size())
+    plan = wp.plan_multiflow(wp.layout(u), wp.layout(u), out_layout, W)
+    assert plan == wp.Plan(wp.FLOW_PLANAR_VEC, wp.OUT_PLANAR_VEC, 0)
+
+
+@pytest.mark.parametrize("C,dtype", [(3, torch.float32), (24, torch.float32), (25, torch.float32),
+                                     (48, torch.bfloat16), (49, torch.bfloat16)])
+def test_single_flow_plan_row_tile_fits_default_smem(C, dtype):
+    """The channels_last output goes through the shared row tile only while
+    the tile (64 x 8 pixels of C values) fits 48 KB, the shared memory a
+    launch may take without an opt-in; beyond that each thread stores its
+    own pixels."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+    from superslomo_tpu_torch.ops.warp_single_cuda import _like
+
+    img = torch.zeros(1, 32, 32, C, dtype=dtype).permute(0, 3, 1, 2)
+    flow = torch.zeros(1, 2, 32, 32)
+    plan = wp.plan_single(wp.layout(flow), wp.layout(_like(img, C, dtype)), C, 32)
+    tile_bytes = wp.TILE_W * wp.TILE_H * C * img.element_size()
+    fits = tile_bytes <= wp.SMEM_DEFAULT
+    assert fits == (C <= (24 if dtype == torch.float32 else 48))
+    assert (plan.out_mode, plan.smem) == ((wp.OUT_ROWS, tile_bytes) if fits else (wp.OUT_SCALAR, 0))
 
 
 def test_plans_fall_back_to_scalar_access():
     """Where a layout allows no vector access the plans read and write one
     element at a time: a width that the pixels of a thread do not divide, an
-    (u, v) pair off 8-byte alignment, an image whose x stride is neither 1
-    nor (with channel stride 1) at least C, a storage off 16-byte
-    alignment."""
+    (u, v) pair off 8-byte alignment, strides that hold another width."""
     from superslomo_tpu_torch.ops import warp_plan as wp
 
     W = 33
-    planar = wp.Layout((3 * 32 * W, 32 * W, W, 1), 4096, 4, True)
-    flow = wp.Layout((2 * 32 * W, 32 * W, W, 1), 4096, 4, True)
-    odd_pair = wp.Layout((4 * 32 * W, 1, 4 * W, 4), 4100, 4, True)  # (u, v) not 8-byte aligned
-    transposed = wp.Layout((3 * 32 * W, 32 * W, 1, 32), 4096, 4, True)  # an NCHW image with H and W swapped
-    assert wp.image_mode(planar, 3) == (wp.IMAGE_PLANAR, 1)
-    assert wp.image_mode(planar._replace(storage_aligned=False), 3) == (wp.IMAGE_PLANAR, 0)
-    assert wp.image_mode(wp.Layout((96, 1, 2, 2), 0, 4, True), 3) == (wp.IMAGE_GENERIC, 0)  # pixels overlap
-    assert wp.image_mode(transposed, 3) == (wp.IMAGE_GENERIC, 0)
-    assert wp.flow_mode(flow, W, 2) == wp.FLOW_SCALAR
-    assert wp.flow_mode(flow, 32, 2) == wp.FLOW_SCALAR  # the strides hold W = 33
-    assert wp.flow_mode(odd_pair, W, 2) == wp.FLOW_SCALAR
-    plan = wp.plan_single(planar, flow, planar, 3, W)
+    planar = wp.Layout((3 * 32 * W, 32 * W, W, 1), 0, 4)
+    flow = wp.Layout((2 * 32 * W, 32 * W, W, 1), 0, 4)
+    odd_pair = wp.Layout((4 * 32 * W, 1, 4 * W, 4), 4, 4)  # (u, v) not 8-byte aligned
+    assert wp.flow_mode(flow, W) == wp.FLOW_SCALAR
+    assert wp.flow_mode(flow, 32) == wp.FLOW_SCALAR  # the strides hold W = 33
+    assert wp.flow_mode(odd_pair, W) == wp.FLOW_SCALAR
+    assert wp.flow_mode(odd_pair._replace(ptr=8), W) == wp.FLOW_PAIR
+    dense = wp.Layout((2 * 32 * 32, 32 * 32, 32, 1), 0, 4)
+    assert wp.flow_mode(dense, 32) == wp.FLOW_PLANAR_VEC
+    assert wp.flow_mode(dense._replace(ptr=4), 32) == wp.FLOW_SCALAR  # u off 8-byte alignment
+    plan = wp.plan_single(flow, planar, 3, W)
     assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_SCALAR, wp.OUT_SCALAR)
-    plan = wp.plan_multiflow(planar, flow, flow, planar, 3, W)
+    plan = wp.plan_multiflow(flow, flow, planar, W)
     assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_SCALAR, wp.OUT_SCALAR)
