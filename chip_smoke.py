@@ -21,9 +21,14 @@ Phases, each of which raises on failure:
      step passes (the flow of a 4-channel head on noise flows and on the
      step's kind of smooth flows, and a dense 2-channel flow), at 736x1280
      B=2 with flows beyond +-128 px in f32 and bf16, and at odd shapes; the
-     backward kernel's flow and image gradients against autograd of the plain
-     version; each timed beside grid_sample (forward, and forward + backward)
-     and its memory bound. The card's SM clock is read before phase 2 and
+     flow-gradient and image-gradient kernels against autograd of the plain
+     version, each alone and launched together, at the training shape in
+     each layout the train step's backward launches receive (phase 8 records
+     them and the run fails if one has no case here), on smooth flows, with a
+     bf16 image, at an odd shape (ragged tiles) and, for the flow gradient,
+     at 720p; each kernel timed beside its memory bound and grid_sample
+     (the forward; grid_sample's backward computing the same gradient alone,
+     and forward + backward). The card's SM clock is read before phase 2 and
      after phase 3. Every kernel time is given three ways: ``ms``, CUDA
      events around each call as the host launches it (where the host takes
      longer to launch a call than the device takes to run it, this holds the
@@ -43,8 +48,9 @@ Phases, each of which raises on failure:
      (B=32, 224x224, f32, TF32 off) with seeded weights and random VGG
      features, over synthetic panning-texture batches: 2 warm-up and 10 timed
      steps, then 2 steps of the training loop, which saves a checkpoint; the
-     single-flow kernels' launches counted per step; the checkpoint reloaded
-     and resumed to identical weights and Adam moments.
+     single-flow kernels' launches counted per step and the strides that
+     each backward launch of the first step receives recorded; the
+     checkpoint reloaded and resumed to identical weights and Adam moments.
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result. Phases 2 and 3 use only wrapper calls that earlier versions
@@ -267,7 +273,7 @@ def single_bounds(B, C, H, W, esize):
     return {
         "forward": bound(2 * img + flow, px * (12 + 7 * C)),
         "flow_grad": bound(2 * img + 2 * flow, px * (12 + 12 * C)),  # img, g, flow in; grad_flow out
-        "img_grad": bound(img + flow + B * C * H * W * 4, px * (12 + 8 * C)),  # g, flow in; f32 grad out
+        "img_grad": bound(2 * img + flow, px * (12 + 8 * C)),  # g, flow in; grad_img out in the image's dtype
     }
 
 
@@ -280,8 +286,105 @@ def _flow_field(rng, B, H, W, std, shift):
     return f
 
 
+def _channels_last(rng, B, C, H, W, dev, dtype=torch.float32):
+    """(B, C, H, W) standard normal values as a channels_last view of a
+    (B, H, W, C) tensor."""
+    x = torch.from_numpy(rng.standard_normal((B, H, W, C), dtype=np.float32)).to(dev, dtype)
+    return x.permute(0, 3, 1, 2)
+
+
+def _grid_for(flow):
+    """grid_sample's normalised sample positions of a (B, 2, H, W) flow."""
+    H, W = flow.shape[-2:]
+    xs = torch.arange(W, device=flow.device, dtype=torch.float32)
+    ys = torch.arange(H, device=flow.device, dtype=torch.float32)[:, None]
+    return torch.stack([2 * (xs + flow[:, 0]) / (W - 1) - 1, 2 * (ys + flow[:, 1]) / (H - 1) - 1], dim=-1)
+
+
+def _grid_sample(img, grid):
+    return F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def _library_grads(img, grid, g, mask):
+    """One library call computing the warp's image gradient (mask [True,
+    False]) or grid gradient ([False, True]) alone: grid_sample's backward."""
+    return torch.ops.aten.grid_sampler_2d_backward(g, img, grid, 0, 0, True, mask)
+
+
+def plain_grads(img, flow, g):
+    """(image gradient, flow gradient) by autograd of the plain warp, in f32:
+    for a bf16 image, of the image and output gradient upcast (exact), which
+    gives the plain bf16 warp's flow gradient and its image gradient before
+    the one rounding to bf16."""
+    from superslomo_tpu_torch import ops
+
+    im = img.detach().float().requires_grad_(True)
+    fl = flow.detach().clone().requires_grad_(True)
+    return torch.autograd.grad(ops.warp_single_reference(im, fl), (im, fl), g.float())
+
+
+def check_grads(tag, img, flow, g):
+    """Both gradient kernels against autograd of the plain warp, each alone
+    and launched together (one backward that asks for both). The flow
+    gradient within GRAD_KERNEL_REL of the reference's max |g|, and the
+    both-gradients launch's bit for bit equal to the single one (a gather, no
+    atomics). The image gradient within GRAD_KERNEL_REL of its max, plus, for
+    a bf16 image, the one rounding of the f32 sum to bf16 (half a bf16 ulp,
+    at most 2^-8 of the value)."""
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+
+    want_gi, want_gf = plain_grads(img, flow, g)
+    _, got_gf = bwd(img, flow, g, False, True)
+    got_gi, _ = bwd(img, flow, g, True, False)
+    both_gi, both_gf = bwd(img, flow, g, True, True)
+    torch.cuda.synchronize()
+    gf_bar = GRAD_KERNEL_REL * want_gf.abs().max().item()
+    gi_bar = GRAD_KERNEL_REL * want_gi.abs().max().item()
+    gi_tol = gi_bar + (2.0**-8 * want_gi.abs() if img.dtype == torch.bfloat16 else 0.0)
+    gf_err = (got_gf - want_gf).abs().max().item()
+    res = {
+        "shape": list(img.shape), "dtype": str(img.dtype).replace("torch.", ""),
+        "strides": {"img": list(img.stride()), "flow": list(flow.stride()), "grad_out": list(g.stride())},
+        "flow_grad": {"max_abs_err": gf_err, "bar": gf_bar},
+        "img_grad": {"max_abs_err": (got_gi.float() - want_gi).abs().max().item(), "bar": gi_bar,
+                     "bf16_rounding_allowed": img.dtype == torch.bfloat16},
+        "both_launch_equal": bool(torch.equal(both_gf, got_gf)
+                                  and ((both_gi.float() - want_gi).abs() <= gi_tol).all()),
+    }
+    ok = (gf_err <= gf_bar and bool(((got_gi.float() - want_gi).abs() <= gi_tol).all())
+          and res["both_launch_equal"] and got_gi.dtype == img.dtype and got_gf.dtype == torch.float32)
+    if not ok:
+        raise AssertionError(f"gradient kernels, {tag}: {res}")
+    return res
+
+
+def time_grads(img, flow, g, bounds, library=True):
+    """Each gradient kernel's ms / device_ms / host_ms beside its bound and,
+    for an f32 image, grid_sample's backward computing the same gradient
+    alone (``library_ms``) and grid_sample forward + backward
+    (``library_fwd_bwd_ms``)."""
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+
+    out = {}
+    for key, need_img, mask in (("flow_grad", False, [False, True]), ("img_grad", True, [True, False])):
+        r = {**timings(lambda: bwd(img, flow, g, need_img, not need_img)),
+             "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
+        if library:
+            grid = _grid_for(flow)
+            r["library_ms"] = cuda_ms(lambda: _library_grads(img, grid, g, mask))
+
+            def fwd_bwd():
+                x = (img if need_img else grid).detach().requires_grad_(True)
+                out_ = _grid_sample(x, grid) if need_img else _grid_sample(img, x)
+                torch.autograd.grad(out_, x, g)
+
+            r["library_fwd_bwd_ms"] = cuda_ms(fwd_bwd)
+        out[key] = r
+    return out
+
+
 def phase_single_kernels():
-    """The single-flow forward and backward kernels against the plain warp
+    """The single-flow forward and gradient kernels against the plain warp
     and its autograd, at the training shape and at 720p."""
     from superslomo_tpu_torch import ops
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda, warp_single_cuda
@@ -290,87 +393,31 @@ def phase_single_kernels():
     rng = np.random.default_rng(3)
     res = {}
 
-    def grid_for(flow):  # grid_sample's normalised sample positions of a (B, 2, H, W) flow
-        H, W = flow.shape[-2:]
-        xs = torch.arange(W, device=dev, dtype=torch.float32)
-        ys = torch.arange(H, device=dev, dtype=torch.float32)[:, None]
-        return torch.stack([2 * (xs + flow[:, 0]) / (W - 1) - 1, 2 * (ys + flow[:, 1]) / (H - 1) - 1], dim=-1)
-
     # the training shape, through the views the step passes: the second frame
     # of a 6-channel pair and the first flow of a 4-channel head, channels_last
     B, C, H, W = 32, 3, 224, 224
-    pairs = torch.from_numpy(rng.standard_normal((B, H, W, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    pairs = _channels_last(rng, B, 6, H, W, dev)
     head = np.concatenate([_flow_field(rng, B, H, W, 4.0, 150.0), rng.normal(0, 4, (B, H, W, 2))], -1)
     head = torch.from_numpy(head.astype(np.float32)).to(dev).permute(0, 3, 1, 2)
     img, flow = pairs[:, 3:6], head[:, 0:2]
     if (img.stride(1), img.stride(3), flow.stride(1), flow.stride(3)) != (1, 6, 1, 4):
         raise AssertionError(f"not the step's strided views: {img.stride()} {flow.stride()}")
-    g = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
     got = warp_single_cuda(img, flow)
     want = ops.warp_single_reference(img, flow)
-    grid = grid_for(flow)
-    lib = F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+    grid = _grid_for(flow)
+    lib = _grid_sample(img, grid)
     torch.cuda.synchronize()
     fwd_err = (got - want).abs().max().item()
     if fwd_err > KERNEL_ATOL:
         raise AssertionError(f"single-flow forward kernel differs from the plain warp by {fwd_err}")
-
-    # the backward kernel against autograd of the plain version
-    flow_req, img_req = flow.detach().clone().requires_grad_(True), img.detach().clone().requires_grad_(True)
-    want_gi, want_gf = torch.autograd.grad(ops.warp_single_reference(img_req, flow_req), (img_req, flow_req), g)
-    _, got_gf = warp_single_backward_cuda(img, flow, g, False, True)
-    got_gi, _ = warp_single_backward_cuda(img, flow, g, True, False)
-    both_gi, both_gf = warp_single_backward_cuda(img, flow, g, True, True)
-    torch.cuda.synchronize()
-    gf_err = (got_gf - want_gf).abs().max().item()
-    gi_err = (got_gi - want_gi).abs().max().item()
-    gf_bar = GRAD_KERNEL_REL * want_gf.abs().max().item()
-    gi_bar = GRAD_KERNEL_REL * want_gi.abs().max().item()
-    if gf_err > gf_bar or gi_err > gi_bar:
-        raise AssertionError(f"backward kernel: flow grad err {gf_err} (bar {gf_bar}), image grad err {gi_err} (bar {gi_bar})")
-    if not (torch.equal(both_gf, got_gf) and (both_gi - want_gi).abs().max().item() <= gi_bar):
-        raise AssertionError("the backward kernel computing both gradients disagrees with the single-gradient modes")
-    # grid_sample's grid gradient is in normalised coordinates
-    grid_req = grid.detach().clone().requires_grad_(True)
-    (lib_gg,) = torch.autograd.grad(
-        F.grid_sample(img, grid_req, mode="bilinear", padding_mode="zeros", align_corners=True), grid_req, g)
-    lib_gf = torch.stack([lib_gg[..., 0] * 2 / (W - 1), lib_gg[..., 1] * 2 / (H - 1)], dim=1)
-
-    def plain_fwd_bwd():
-        f = flow.detach().requires_grad_(True)
-        torch.autograd.grad(ops.warp_single_reference(img, f), f, g)
-
-    def library_fwd_bwd():
-        gr = grid.detach().requires_grad_(True)
-        torch.autograd.grad(F.grid_sample(img, gr, mode="bilinear", padding_mode="zeros", align_corners=True), gr, g)
-
-    def library_fwd_bwd_img():
-        im = img.detach().requires_grad_(True)
-        torch.autograd.grad(F.grid_sample(im, grid, mode="bilinear", padding_mode="zeros", align_corners=True), im, g)
-
     bounds = single_bounds(B, C, H, W, 4)
     res["train_shape"] = {
         "shape": [B, C, H, W], "max_abs_err": fwd_err,
         "library_max_abs_diff": (lib - got).abs().max().item(),
         **timings(lambda: warp_single_cuda(img, flow)),
         "plain_ms": cuda_ms(lambda: ops.warp_single_reference(img, flow), reps=10, warmup=1),
-        "library_ms": cuda_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
-                                                    align_corners=True)),
+        "library_ms": cuda_ms(lambda: _grid_sample(img, grid)),
         "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
-        "flow_grad": {
-            "max_abs_err": gf_err, "bar": gf_bar,
-            "library_max_abs_diff": (lib_gf - got_gf).abs().max().item(),
-            **timings(lambda: warp_single_backward_cuda(img, flow, g, False, True)),
-            "plain_ms": cuda_ms(plain_fwd_bwd, reps=10, warmup=1),  # forward + backward
-            "library_ms": cuda_ms(library_fwd_bwd),  # grid_sample forward + backward to the grid
-            "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1],
-        },
-        "img_grad": {
-            "max_abs_err": gi_err, "bar": gi_bar,
-            **timings(lambda: warp_single_backward_cuda(img, flow, g, True, False)),
-            "library_ms": cuda_ms(library_fwd_bwd_img),  # grid_sample forward + backward to the input
-            "bound_ms": bounds["img_grad"][0], "bound_by": bounds["img_grad"][1],
-        },
     }
     emit({"phase": "single_kernels_vs_plain", "case": "train_shape", **res["train_shape"]})
 
@@ -387,74 +434,121 @@ def phase_single_kernels():
     res["dense_flow"] = {
         "shape": [B, C, H, W], "flow_strides": list(flow2.stride()), "max_abs_err": err2,
         **timings(lambda: warp_single_cuda(img, flow2)),
-        "library_ms": cuda_ms(lambda: F.grid_sample(img, grid, mode="bilinear", padding_mode="zeros",
-                                                    align_corners=True)),
+        "library_ms": cuda_ms(lambda: _grid_sample(img, grid)),
         "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
     }
     emit({"phase": "single_kernels_vs_plain", "case": "dense_flow", **res["dense_flow"]})
 
-    # the same image with the train step's kind of flows: smooth, up to 10 px,
-    # through the head's view (pixel stride 4); forward and flow gradient
+    # the train step's kind of flows: smooth, up to 10 px, through the head's
+    # view (pixel stride 4)
     smooth = torch.from_numpy(smooth_flows(rng, B, H, W, 10.0)).to(dev)
     flow_s = torch.cat([smooth, smooth], 1).permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2)[:, 0:2]
     got_s = warp_single_cuda(img, flow_s)
     want_s = ops.warp_single_reference(img, flow_s)
-    flow_req = flow_s.detach().clone().requires_grad_(True)
-    (want_gf_s,) = torch.autograd.grad(ops.warp_single_reference(img, flow_req), flow_req, g)
-    _, got_gf_s = warp_single_backward_cuda(img, flow_s, g, False, True)
-    grid_s = grid_for(flow_s)
+    grid_s = _grid_for(flow_s)
     torch.cuda.synchronize()
     err_s = (got_s - want_s).abs().max().item()
-    gf_err_s, gf_bar_s = (got_gf_s - want_gf_s).abs().max().item(), GRAD_KERNEL_REL * want_gf_s.abs().max().item()
-    if err_s > KERNEL_ATOL or gf_err_s > gf_bar_s:
-        raise AssertionError(f"single-flow kernels on smooth flows: forward err {err_s}, flow grad err {gf_err_s}")
+    if err_s > KERNEL_ATOL:
+        raise AssertionError(f"single-flow forward kernel on smooth flows differs by {err_s}")
     res["smooth_flow"] = {
         "shape": [B, C, H, W], "flow_strides": list(flow_s.stride()), "max_abs_err": err_s,
         "max_abs_flow": smooth.abs().max().item(),
         **timings(lambda: warp_single_cuda(img, flow_s)),
-        "library_ms": cuda_ms(lambda: F.grid_sample(img, grid_s, mode="bilinear", padding_mode="zeros",
-                                                    align_corners=True)),
+        "library_ms": cuda_ms(lambda: _grid_sample(img, grid_s)),
         "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
-        "flow_grad": {"max_abs_err": gf_err_s, "bar": gf_bar_s,
-                      **timings(lambda: warp_single_backward_cuda(img, flow_s, g, False, True)),
-                      "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1]},
     }
     emit({"phase": "single_kernels_vs_plain", "case": "smooth_flow", **res["smooth_flow"]})
 
+    # the gradient kernels in the layouts the train step's 8 backward launches
+    # receive (phase train_main_path records them, and main() checks that
+    # each is a case here): the image a frame of the pair (pixel stride 6);
+    # the flow a head's (stride 4: the stage-1 warp loss) or a dense
+    # channels_last sum (stride 2: the interpolated and refined flows); the
+    # output gradient NCHW (the warp losses), a slice of the NCHW gradient of
+    # the 16-channel stage-2 input, or dense channels_last (the final warps'
+    # blend)
+    g3 = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    g16 = torch.from_numpy(rng.standard_normal((B, 16, H, W), dtype=np.float32)).to(dev)[:, 3:6]
+    g3_cl = _channels_last(rng, B, C, H, W, dev)
+    grad_cases = {
+        "loss_head": (img, flow, g3), "loss_refined": (img, flow2, g3), "final": (img, flow2, g3_cl),
+        "stage2_input": (img, flow2, g16), "smooth_loss_head": (img, flow_s, g3),
+        "bf16_loss_head": (pairs.bfloat16()[:, 3:6], flow, g3.bfloat16()),
+    }
+    for case, (im, fl, g) in grad_cases.items():
+        r = check_grads(case, im, fl, g)
+        r.update({k: dict(r[k], **v) for k, v in time_grads(
+            im, fl, g, single_bounds(B, C, H, W, im.element_size()), library=im.dtype == torch.float32).items()})
+        res[f"grad_{case}"] = r
+        emit({"phase": "single_grad_kernels_vs_plain", "case": case, **r})
+    # the main case's grid gradient from grid_sample's backward, in pixels
+    lib_gg = _library_grads(img, grid, g3, [False, True])[1]
+    lib_gf = torch.stack([lib_gg[..., 0] * 2 / (W - 1), lib_gg[..., 1] * 2 / (H - 1)], dim=1)
+    _, got_gf = warp_single_backward_cuda(img, flow, g3, False, True)
+    res["grad_loss_head"]["flow_grad"]["library_max_abs_diff"] = (lib_gf - got_gf).abs().max().item()
+
+    # the plain version has no backward alone: its forward + backward to one input
+    for key, idx in (("img_grad", 0), ("flow_grad", 1)):
+        def plain_fwd_bwd():
+            x = [img.detach(), flow.detach()]
+            x[idx].requires_grad_(True)
+            torch.autograd.grad(ops.warp_single_reference(*x), x[idx], g3)
+
+        res["grad_loss_head"][key]["plain_ms"] = cuda_ms(plain_fwd_bwd, reps=10, warmup=1)
+    res["layouts"] = sorted({(tuple(im.stride()), tuple(fl.stride()), tuple(g.stride()))
+                             for im, fl, g in grad_cases.values() if im.dtype == torch.float32})
+
     # odd shapes (ragged tiles, no vector access): a pair slice with a head
-    # flow in f32, and NCHW bf16 against the f32 result cast
-    odd = torch.from_numpy(rng.standard_normal((3, 37, 53, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    # flow in f32, and NCHW bf16 against the f32 result cast; both gradients
+    odd = _channels_last(rng, 3, 6, 37, 53, dev)
     odd_flow = torch.from_numpy(_flow_field(rng, 3, 37, 53, 5.0, 20.0)).to(dev).permute(0, 3, 1, 2)
     odd_err = (warp_single_cuda(odd[:, 3:6], odd_flow) - ops.warp_single_reference(odd[:, 3:6], odd_flow)).abs().max().item()
     odd_bf16 = odd[:, 3:6].contiguous().bfloat16()
     odd_flow_nchw = odd_flow.contiguous()
     odd_same = torch.equal(warp_single_cuda(odd_bf16, odd_flow_nchw).view(torch.int16),
                            warp_single_cuda(odd_bf16.float(), odd_flow_nchw).bfloat16().view(torch.int16))
-    res["odd"] = {"shape": [3, 3, 37, 53], "max_abs_err": odd_err, "bf16_bit_identical_to_f32_cast": odd_same}
+    odd_g = torch.from_numpy(rng.standard_normal((3, 16, 37, 53), dtype=np.float32)).to(dev)
+    odd_grads = {
+        "f32_strided": check_grads("odd f32", odd[:, 3:6], odd_flow, odd_g[:, 10:13]),
+        "bf16_nchw": check_grads("odd bf16", odd_bf16, odd_flow_nchw, odd_g[:, 0:3].bfloat16()),
+    }
+    res["odd"] = {"shape": [3, 3, 37, 53], "max_abs_err": odd_err, "bf16_bit_identical_to_f32_cast": odd_same,
+                  "grads": odd_grads}
     emit({"phase": "single_kernels_vs_plain", "case": "odd", **res["odd"]})
     if odd_err > KERNEL_ATOL or not odd_same:
         raise AssertionError(f"single-flow forward kernel at an odd shape: {res['odd']}")
 
-    # 720p, flows beyond the band, f32 and bf16
+    # 720p, flows beyond the band, f32 and bf16: the forward and the flow
+    # gradient, each beside its bound and grid_sample
     B, C, H, W = 2, 3, 736, 1280
     img = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
     flow = torch.from_numpy(_flow_field(rng, B, H, W, 7.0, 150.0)).to(dev).permute(0, 3, 1, 2).contiguous()
     g = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    grid = _grid_for(flow)
     for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        im = img.to(dt)
+        im, gd = img.to(dt), g.to(dt)
+        im32, gd32 = im.float(), gd.float()  # grid_sample's inputs: f32 (a bf16 grid cannot address 1280 columns)
         got = warp_single_cuda(im, flow)
         want = ops.warp_single_reference(im, flow)
-        flow_req = flow.detach().clone().requires_grad_(True)
-        (want_gf,) = torch.autograd.grad(ops.warp_single_reference(im, flow_req), flow_req, g.to(dt))
-        _, got_gf = warp_single_backward_cuda(im, flow, g.to(dt), False, True)
+        _, want_gf = plain_grads(im, flow, gd)
+        _, got_gf = warp_single_backward_cuda(im, flow, gd, False, True)
         torch.cuda.synchronize()
+        bounds = single_bounds(B, C, H, W, im.element_size())
         case = {
             "shape": [B, C, H, W], "max_abs_err": (got.float() - want.float()).abs().max().item(),
-            "flow_grad_max_abs_err": (got_gf - want_gf).abs().max().item(),
-            "flow_grad_bar": GRAD_KERNEL_REL * want_gf.abs().max().item(),
             **timings(lambda: warp_single_cuda(im, flow)),
+            # for a bf16 image grid_sample samples the same values in f32, as the kernel does
+            "library_ms": cuda_ms(lambda: _grid_sample(im32, grid)),
+            "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
+            "flow_grad": {
+                "max_abs_err": (got_gf - want_gf).abs().max().item(),
+                "bar": GRAD_KERNEL_REL * want_gf.abs().max().item(),
+                **timings(lambda: warp_single_backward_cuda(im, flow, gd, False, True)),
+                "library_ms": cuda_ms(lambda: _library_grads(im32, grid, gd32, [False, True])),
+                "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1],
+            },
         }
-        if case["flow_grad_max_abs_err"] > case["flow_grad_bar"]:
+        if case["flow_grad"]["max_abs_err"] > case["flow_grad"]["bar"]:
             raise AssertionError(f"{tag} flow gradient at 720p differs from autograd of the plain warp: {case}")
         if tag == "f32":
             if case["max_abs_err"] > KERNEL_ATOL:
@@ -672,7 +766,7 @@ def phase_train_main(ckpt_dir, norm, timed=10):
     """The Trainer at the shipped training config over synthetic batches:
     2 warm-up and ``timed`` timed steps, then 2 steps of ``train``, which
     saves a checkpoint; the checkpoint reloaded and resumed."""
-    from superslomo_tpu_torch import Trainer
+    from superslomo_tpu_torch import Trainer, ops
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
 
@@ -682,12 +776,21 @@ def phase_train_main(ckpt_dir, norm, timed=10):
     batches = synthetic_train_batches(norm, n_batches=3, B=B, H=H, W=W, seed=5)
     tr = Trainer(cfg, expt_name="chip_smoke")
 
+    # the strides that each backward launch of the first step receives
+    layouts = []
+
+    def recording_bwd(img, flow, grad_out, need_img, need_flow):
+        layouts.append({"img": list(img.stride()), "flow": list(flow.stride()), "grad_out": list(grad_out.stride()),
+                        "grad_out_offset": grad_out.storage_offset(), "need_img": need_img, "need_flow": need_flow})
+        return bwd(img, flow, grad_out, need_img, need_flow)
+
     fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = 0
     losses, times = [], []
     for i in range(2 + timed):
         if i == 2:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
+        ops.warp_single_backward_cuda = recording_bwd if i == 0 else bwd  # the name _WarpSingle.backward calls
         t0 = time.perf_counter()
         losses.append(tr.train_step(*batches[i % len(batches)]))
         torch.cuda.synchronize()
@@ -718,12 +821,15 @@ def phase_train_main(ckpt_dir, norm, timed=10):
         "compute_dtype": "float32", "steps": steps, "step_ms_median": med, "step_ms": times,
         "samples_per_s": B / (med / 1e3), "peak_mem_gib": peak / 2**30,
         "loss_first": losses[0].tolist(), "loss_last": last.tolist(), "launches": launches,
+        "backward_layouts_first_step": layouts,
         "checkpoint_mib": os.path.getsize(path) / 2**20, "resumed_epoch_step": [resumed.epoch, resumed.step],
         "resumed_identical_weights": same_weights, "resumed_identical_moments": same_moments,
     }
     emit(res)
     if not (np.isfinite(losses).all() and np.isfinite(last).all()):
         raise AssertionError(f"non-finite training losses: {res}")
+    if len(layouts) != 8:
+        raise AssertionError(f"{len(layouts)} backward launches recorded in the first step, expected 8")
     want = {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0}
     if launches != want:
         raise AssertionError(f"single-flow kernel launches {launches} over {steps} steps, expected {want}")
@@ -734,21 +840,88 @@ def phase_train_main(ckpt_dir, norm, timed=10):
 
 def ptxas_usage(log):
     """{kernel instance: ptxas's register, stack and shared-memory line} from
-    an nvcc -Xptxas -v log; instances named by kernel, dtype and the
-    backward's template arguments (flow gradient, image gradient)."""
+    an nvcc -Xptxas -v log; instances named by kernel and dtype."""
     out, name = {}, None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            kernel = re.search(r"warp_(?:multiflow|single_forward|single_backward)_kernel", mangled)
-            args = re.findall(r"L[ib](\d+)E", mangled)
+            kernel = re.search(r"warp_(?:multiflow|single_forward|single_flow_grad|single_img_grad(?:_store)?)_kernel",
+                               mangled)
             dtype = "bf16" if "bfloat16" in mangled else "f32"
-            name = f"{kernel.group(0) if kernel else mangled} {dtype} {','.join(args)}"
+            name = f"{kernel.group(0) if kernel else mangled} {dtype}"
         elif name and "registers" in line:
             out[name] = line.split(":", 1)[1].strip()
             name = None
     return out
+
+
+def check_backward_layouts(cases, recorded):
+    """Raise unless the (img, flow, grad_out) strides of every backward
+    launch recorded in a train step are those of a gradient kernel case."""
+    seen = {(tuple(r["img"]), tuple(r["flow"]), tuple(r["grad_out"])) for r in recorded}
+    missing = seen - {tuple(map(tuple, c)) for c in cases}
+    emit({"phase": "train_backward_layouts_covered", "layouts": sorted(seen), "missing": sorted(missing)})
+    if missing:
+        raise AssertionError(f"backward layouts of the train step with no gradient kernel case: {sorted(missing)}")
+
+
+def kernels_line(kern, single, main_f32, main_bf16, train):
+    """Every kernel of the paths with its launches on the main paths, error,
+    times, bound, plain and library times."""
+    f32, bf16 = kern[("noise", "f32")], kern[("noise", "bf16")]
+    mf = {
+        "name": "warp_multiflow_planar", "route": "cuda",
+        "source": "superslomo_tpu_torch/csrc/warp_multiflow.cu",
+        "replaces": "superslomo_tpu/ops/warp_pallas.py:216",
+        "launches": main_f32["warp_launches"], "max_abs_err": f32["max_abs_err"],
+        "ms": f32["ms"], "device_ms": f32["device_ms"], "host_ms": f32["host_ms"], "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "shape": f32["shape"],
+        "bf16": {
+            "launches": main_bf16["warp_launches"], "max_abs_err": bf16["max_abs_err"],
+            "ms": bf16["ms"], "device_ms": bf16["device_ms"], "host_ms": bf16["host_ms"],
+            "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
+            "library_ms": bf16["library_ms"],
+            "bit_identical_to_f32_cast": bf16["bit_identical_to_f32_cast"],
+        },
+        "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
+        "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
+                                                      "bound_ms", "planes_strides")}
+                  for (case, tag), r in kern.items()},
+    }
+    ts = single["train_shape"]
+    fwd = {
+        "name": "warp_single", "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
+        "replaces": "superslomo_tpu/ops/warp_pallas.py:70", "launches": train["launches"]["forward"],
+        "max_abs_err": ts["max_abs_err"], "ms": ts["ms"], "device_ms": ts["device_ms"], "host_ms": ts["host_ms"],
+        "plain_ms": ts["plain_ms"], "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
+        "library_ms": ts["library_ms"], "shape": ts["shape"],
+        **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
+           for case in ("dense_flow", "smooth_flow", "720p_f32", "720p_bf16")},
+    }
+    grad_cases = {k[len("grad_"):]: v for k, v in single.items() if k.startswith("grad_")}
+    main_case = grad_cases["loss_head"]
+    grads = []
+    for key, name, launches in (("flow_grad", "warp_single_flow_grad", train["launches"]["flow_grad"]),
+                                ("img_grad", "warp_single_img_grad", train["launches"]["img_grad"])):
+        r = main_case[key]
+        entry = {
+            "name": name, "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
+            "replaces": "superslomo_tpu/ops/warp_pallas.py:663", "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "library_fwd_bwd_ms": r["library_fwd_bwd_ms"], "shape": main_case["shape"],
+            "library": "aten.grid_sampler_2d_backward computing this gradient alone",
+            "plain": "the plain warp's forward + backward to this input",
+            "cases": {case: {k: c[key].get(k) for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
+                                                        "bound_ms")}
+                      for case, c in grad_cases.items()},
+        }
+        if key == "flow_grad":
+            entry["cases"].update({f"720p_{tag}": {k: single[f"720p_{tag}"]["flow_grad"][k] for k in (
+                "max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")} for tag in ("f32", "bf16")})
+        grads.append(entry)
+    return [mf, fwd, *grads]
 
 
 def nvidia_smi(query):
@@ -800,48 +973,11 @@ def main() -> int:
         phase_train_vs_cpu(ckpt_dir, norm)
         phase_convergence(ckpt_dir)
         train = phase_train_main(ckpt_dir, norm)
+    check_backward_layouts(single["layouts"], train["backward_layouts_first_step"])
 
-    f32, bf16 = kern[("noise", "f32")], kern[("noise", "bf16")]
-    mf = {
-        "name": "warp_multiflow_planar", "route": "cuda",
-        "source": "superslomo_tpu_torch/csrc/warp_multiflow.cu",
-        "replaces": "superslomo_tpu/ops/warp_pallas.py:216",
-        "launches": main_f32["warp_launches"], "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"], "device_ms": f32["device_ms"], "host_ms": f32["host_ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"], "library_ms": f32["library_ms"], "shape": f32["shape"],
-        "bf16": {
-            "launches": main_bf16["warp_launches"], "max_abs_err": bf16["max_abs_err"],
-            "ms": bf16["ms"], "device_ms": bf16["device_ms"], "host_ms": bf16["host_ms"],
-            "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"], "bound_by": bf16["bound_by"],
-            "library_ms": bf16["library_ms"],
-            "bit_identical_to_f32_cast": bf16["bit_identical_to_f32_cast"],
-        },
-        "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
-        "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
-                                                      "bound_ms", "planes_strides")}
-                  for (case, tag), r in kern.items()},
-    }
-    ts = single["train_shape"]
-    fwd = {
-        "name": "warp_single", "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
-        "replaces": "superslomo_tpu/ops/warp_pallas.py:70", "launches": train["launches"]["forward"],
-        "max_abs_err": ts["max_abs_err"], "ms": ts["ms"], "device_ms": ts["device_ms"], "host_ms": ts["host_ms"],
-        "plain_ms": ts["plain_ms"], "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
-        "library_ms": ts["library_ms"], "shape": ts["shape"],
-        **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
-           for case in ("dense_flow", "smooth_flow")},
-    }
-    gf = ts["flow_grad"]
-    bwd = {
-        "name": "warp_single_backward", "route": "cuda", "source": "superslomo_tpu_torch/csrc/warp_single.cu",
-        "replaces": "superslomo_tpu/ops/warp_pallas.py:663", "launches": train["launches"]["backward"],
-        "max_abs_err": gf["max_abs_err"], "ms": gf["ms"], "device_ms": gf["device_ms"], "host_ms": gf["host_ms"],
-        "plain_ms": gf["plain_ms"], "bound_ms": gf["bound_ms"], "bound_by": gf["bound_by"], "library_ms": gf["library_ms"],
-        "shape": ts["shape"], "mode": "flow gradient; plain_ms and library_ms include their forward",
-        "img_grad": dict(ts["img_grad"], launches=train["launches"]["img_grad"]),
-    }
+    kernels = kernels_line(kern, single, main_f32, main_bf16, train)
     print(smi, flush=True)
-    emit({"kernels": [mf, fwd, bwd]})
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -8,9 +8,11 @@
 // float->int conversion (out of range is undefined on CUDA; every tap of a
 // clamped position lies outside and is masked).
 //
-// The tiled forward kernels share one design:
+// The tiled kernels share one design:
 // - A block owns a Tile::kW x Tile::kH output tile of one image; a thread owns
-//   Tile::kPX adjacent pixels of one tile row, x fastest.
+//   Tile::kPX pixels of one tile row, x fastest: adjacent ones in the forward
+//   kernels and the image gradient, Tile::kCols apart in the flow gradient
+//   (warp_single.cu).
 // - Flows are read with one 8-byte load per pixel where (u, v) are adjacent
 //   (the channels_last heads), or one kPX-wide load of u and of v where they
 //   are planar; the wrapper picks the mode from the strides and alignment
@@ -36,6 +38,16 @@ __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
   // bf16 -> f32 is exact: the bf16 bits are the top half of the f32 bits.
   const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
   return __uint_as_float(static_cast<unsigned int>(bits) << 16);
+}
+
+// Two adjacent elements, 2-element aligned, as f32.
+__device__ __forceinline__ float2 load_f32x2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+
+__device__ __forceinline__ float2 load_f32x2(const __nv_bfloat16* p) {
+  const unsigned int bits = __ldg(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(bits << 16), __uint_as_float(bits & 0xffff0000u));
 }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
@@ -76,7 +88,7 @@ __device__ __forceinline__ Taps sample_taps(int x, int y, float u, float v, int 
 }
 
 // ---------------------------------------------------------------------------
-// The tiled forward kernels.
+// The tiled kernels.
 
 // A block's output tile: kW x kH pixels, kPX adjacent ones of a row a thread
 // (ops/warp_plan.py holds the same numbers). 64 x 8 x 2 measured fastest of
@@ -88,15 +100,25 @@ struct Tile {
   static constexpr int kWarps = kThreads / 32;
 };
 
-// How a kernel reads its flows and writes its output, chosen by the wrapper
-// (ops/warp_plan.py).
+// How a kernel reads its flows and output gradient and writes its output,
+// chosen by the wrapper (ops/warp_plan.py).
 enum FlowMode { kFlowScalar = 0, kFlowPair = 1, kFlowPlanarVec = 2 };
-enum OutMode { kOutScalar = 0, kOutRows = 1, kOutPlanarVec = 2 };
+enum InMode { kInScalar = 0, kInPlanarVec = 1 };
+// kOutPair: (du, dv) adjacent, one 8-byte store a pixel.
+enum OutMode { kOutScalar = 0, kOutRows = 1, kOutPlanarVec = 2, kOutPair = 3 };
 
 struct Plan {
   int flow_mode;  // FlowMode
   int out_mode;   // OutMode
   int smem;       // dynamic shared memory bytes of the launch (at most 48 KB)
+};
+
+// The plan of the gradient kernels (warp_single.cu); they take no shared
+// memory.
+struct GradPlan {
+  int flow_mode;  // FlowMode
+  int grad_mode;  // InMode of the output gradient (kInScalar for the flow gradient)
+  int out_mode;   // OutMode of the flow gradient (kOutScalar for the image gradient)
 };
 
 // One pixel's sample: its top-left tap, masks, and the four weights (0 where

@@ -22,7 +22,8 @@ TILE_W, TILE_H, PX = 64, 8, 2
 SMEM_DEFAULT = 48 * 1024
 
 FLOW_SCALAR, FLOW_PAIR, FLOW_PLANAR_VEC = 0, 1, 2
-OUT_SCALAR, OUT_ROWS, OUT_PLANAR_VEC = 0, 1, 2
+IN_SCALAR, IN_PLANAR_VEC = 0, 1
+OUT_SCALAR, OUT_ROWS, OUT_PLANAR_VEC, OUT_PAIR = 0, 1, 2, 3
 
 
 class Layout(NamedTuple):
@@ -41,6 +42,14 @@ class Plan(NamedTuple):
     smem: int  # dynamic shared memory bytes of the launch
 
 
+class GradPlan(NamedTuple):
+    """The 3 ints of the gradient kernels' GradPlan struct (csrc/warp_tile.cuh)."""
+
+    flow_mode: int
+    grad_mode: int  # how the output gradient is read (IN_SCALAR for the flow gradient)
+    out_mode: int  # how the flow gradient is stored (OUT_SCALAR for the image gradient)
+
+
 def layout(t: torch.Tensor) -> Layout:
     return Layout(tuple(t.stride()), t.data_ptr() % 16, t.element_size())
 
@@ -53,10 +62,16 @@ def planar_vec_ok(t: Layout, W: int) -> bool:
             and all(s % PX == 0 for s in t.strides[:3]))
 
 
+def pair_ok(t: Layout) -> bool:
+    """Whether channels 0 and 1 of every pixel of an f32 (B, 2, H, W) t are
+    adjacent and 8-byte aligned: one 8-byte access a pixel."""
+    return t.strides[1] == 1 and t.ptr % 8 == 0 and all(s % 2 == 0 for s in (t.strides[0], *t.strides[2:]))
+
+
 def flow_mode(flow: Layout, W: int) -> int:
     """One 8-byte load a pixel where (u, v) are adjacent and 8-byte aligned;
     else PX-wide loads of u and of v where they are planar; else scalars."""
-    if flow.strides[1] == 1 and flow.ptr % 8 == 0 and all(s % 2 == 0 for s in (flow.strides[0], *flow.strides[2:])):
+    if pair_ok(flow):
         return FLOW_PAIR
     return FLOW_PLANAR_VEC if planar_vec_ok(flow, W) else FLOW_SCALAR
 
@@ -70,6 +85,38 @@ def plan_single(flow: Layout, out: Layout, C: int, W: int) -> Plan:
     if out.strides[1] == 1 and out.strides[3] == C and tile_bytes <= SMEM_DEFAULT:
         return Plan(flow_mode(flow, W), OUT_ROWS, tile_bytes)
     return Plan(flow_mode(flow, W), OUT_PLANAR_VEC if planar_vec_ok(out, W) else OUT_SCALAR, 0)
+
+
+def grad_mode(g: Layout, W: int) -> int:
+    """A thread's PX adjacent output-gradient values read PX-wide where
+    planar and aligned, else by element."""
+    return IN_PLANAR_VEC if planar_vec_ok(g, W) else IN_SCALAR
+
+
+def offsets_fit_int32(strides: tuple, C: int, H: int, W: int) -> bool:
+    """Whether every tap offset inside one (C, H, W) image with these element
+    strides fits a 32-bit int (the flow-gradient kernel's index math): taps
+    lie within [-2, W+2] x [-2, H+2] once positions are clamped."""
+    _, sc, sy, sx = (abs(s) for s in strides)
+    return (C - 1) * sc + (H + 2) * sy + (W + 2) * sx < 2**31
+
+
+@functools.lru_cache(maxsize=256)
+def plan_flow_grad(flow: Layout, grad_flow: Layout) -> GradPlan:
+    """The flow-gradient kernel's plan. Its threads own pixels that are not
+    adjacent, so every access is a pixel's: one 8-byte (u, v) load and one
+    8-byte (du, dv) store where the pair is adjacent and aligned, else by
+    element; the output gradient by element."""
+    return GradPlan(FLOW_PAIR if pair_ok(flow) else FLOW_SCALAR, IN_SCALAR,
+                    OUT_PAIR if pair_ok(grad_flow) else OUT_SCALAR)
+
+
+@functools.lru_cache(maxsize=256)
+def plan_img_grad(flow: Layout, grad_out: Layout, W: int) -> GradPlan:
+    """The image-gradient kernel's plan: how its threads, PX adjacent pixels
+    each, read the flow and the output gradient (it scatters into a scratch
+    of its own layout)."""
+    return GradPlan(flow_mode(flow, W), grad_mode(grad_out, W), OUT_SCALAR)
 
 
 @functools.lru_cache(maxsize=256)

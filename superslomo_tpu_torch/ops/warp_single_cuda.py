@@ -26,8 +26,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     strides = ctypes.POINTER(ctypes.c_int64)
     lib.warp_single_forward.argtypes = [p, p, p, i, i, i, i, i, strides, ctypes.POINTER(i), p]
     lib.warp_single_forward.restype = i
-    lib.warp_single_backward.argtypes = [p, p, p, p, p, i, i, i, i, i, strides, p]
-    lib.warp_single_backward.restype = i
+    lib.warp_single_flow_grad.argtypes = [p, p, p, p, i, i, i, i, i, strides, ctypes.POINTER(i), p]
+    lib.warp_single_flow_grad.restype = i
+    lib.warp_single_img_grad.argtypes = [p, p, p, p, i, i, i, i, i, strides, ctypes.POINTER(i), p]
+    lib.warp_single_img_grad.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -40,13 +42,12 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_int64 * len(flat))(*flat)
 
 
-def _like(t: torch.Tensor, channels: int, dtype: torch.dtype, zero: bool = False) -> torch.Tensor:
+def _like(t: torch.Tensor, channels: int, dtype: torch.dtype) -> torch.Tensor:
     """A dense (B, channels, H, W) tensor in ``t``'s memory format:
     channels_last when ``t``'s channel stride is its smallest."""
     B, _, H, W = t.shape
     fmt = torch.channels_last if t.stride(1) < t.stride(3) else torch.contiguous_format
-    out = torch.empty((B, channels, H, W), device=t.device, dtype=dtype, memory_format=fmt)
-    return out.zero_() if zero else out
+    return torch.empty((B, channels, H, W), device=t.device, dtype=dtype, memory_format=fmt)
 
 
 def _check(img: torch.Tensor, flow: torch.Tensor, grad_out: torch.Tensor | None = None) -> None:
@@ -91,40 +92,49 @@ def warp_single_cuda(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 
 def warp_single_backward_cuda(img, flow, grad_out, need_img: bool, need_flow: bool):
-    """Launch the backward kernel once: ``(grad_img, grad_flow)`` of the warp
-    for the output gradient ``grad_out`` (the image's shape and dtype), each
-    None unless asked for. The flow gradient is (B, 2, H, W) f32 in the flow's
-    memory format; the image gradient is summed in f32 with atomics and
-    returned in the image's dtype and memory format."""
+    """The warp's gradients for the output gradient ``grad_out`` (the image's
+    shape and dtype), on the current stream: ``(grad_img, grad_flow)``, each
+    None unless asked for. The flow gradient (B, 2, H, W) f32, in the flow's
+    memory format, comes from the flow-gradient kernel; the image gradient, in
+    the image's dtype and memory format, from the image-gradient kernel, which
+    sums in f32 with atomics. Each kernel is launched only when its gradient
+    is asked for."""
     _check(img, flow, grad_out)
-    if not (need_img or need_flow):
-        return None, None
     B, C, H, W = img.shape
     grad_flow = _like(flow, 2, torch.float32) if need_flow else None
-    grad_img = _like(img, C, torch.float32, zero=True) if need_img else None
-    if img.numel() == 0:
-        return (None if grad_img is None else grad_img.to(img.dtype)), grad_flow
+    grad_img = _like(img, C, img.dtype) if need_img else None
+    if img.numel() == 0 or not (need_img or need_flow):  # an empty image: nothing to launch
+        return grad_img, None if grad_flow is None else grad_flow.zero_()
     lib = load_library()
+    bf16 = int(img.dtype == torch.bfloat16)
     with torch.cuda.device(img.device):
-        err = lib.warp_single_backward(
-            img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(),
-            None if grad_flow is None else grad_flow.data_ptr(),
-            None if grad_img is None else grad_img.data_ptr(),
-            int(img.dtype == torch.bfloat16), B, C, H, W,
-            _strides(img, flow, grad_out, grad_flow, grad_img), torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"warp_single_backward launch failed: CUDA error {err}")
-    warp_single_backward_cuda.launches += 1
-    warp_single_backward_cuda.flow_grad_launches += int(need_flow)
-    warp_single_backward_cuda.img_grad_launches += int(need_img)
-    if grad_img is not None:
-        grad_img = grad_img.to(img.dtype)
+        stream = torch.cuda.current_stream().cuda_stream
+        if need_flow:
+            if not warp_plan.offsets_fit_int32(img.stride(), C, H, W):
+                raise ValueError(f"an image of strides {img.stride()} is too large for the flow-gradient kernel")
+            plan = warp_plan.plan_flow_grad(warp_plan.layout(flow), warp_plan.layout(grad_flow))
+            err = lib.warp_single_flow_grad(
+                img.data_ptr(), flow.data_ptr(), grad_out.data_ptr(), grad_flow.data_ptr(), bf16, B, C, H, W,
+                _strides(img, flow, grad_out, grad_flow), warp_plan.as_ints(plan), stream)
+            if err != 0:
+                raise RuntimeError(f"warp_single_flow_grad launch failed: CUDA error {err}")
+            warp_single_backward_cuda.flow_grad_launches += 1
+            warp_single_backward_cuda.launches += 1
+        if need_img:
+            scratch = torch.empty((B, (C + 3) // 4, H, W, 4), device=img.device, dtype=torch.float32)
+            plan = warp_plan.plan_img_grad(warp_plan.layout(flow), warp_plan.layout(grad_out), W)
+            err = lib.warp_single_img_grad(
+                flow.data_ptr(), grad_out.data_ptr(), scratch.data_ptr(), grad_img.data_ptr(), bf16, B, C, H, W,
+                _strides(flow, grad_out, grad_img), warp_plan.as_ints(plan), stream)
+            if err != 0:
+                raise RuntimeError(f"warp_single_img_grad launch failed: CUDA error {err}")
+            warp_single_backward_cuda.img_grad_launches += 1
+            warp_single_backward_cuda.launches += 1
     return grad_img, grad_flow
 
 
 # launch counts since the last reset
 warp_single_cuda.launches = 0
-warp_single_backward_cuda.launches = 0  # backward kernel launches, whatever they computed
-warp_single_backward_cuda.flow_grad_launches = 0  # of those, launches that computed the flow gradient
-warp_single_backward_cuda.img_grad_launches = 0  # and launches that computed the image gradient
+warp_single_backward_cuda.launches = 0  # kernel launches of both gradient kernels together
+warp_single_backward_cuda.flow_grad_launches = 0  # launches of the flow-gradient kernel
+warp_single_backward_cuda.img_grad_launches = 0  # launches of the image-gradient kernel

@@ -48,8 +48,10 @@ _CATEGORIES = (
 )
 
 
-# the warp kernels by name (csrc/), for their time per step each
-_WARP_KERNELS = ("warp_multiflow_kernel", "warp_single_forward_kernel", "warp_single_backward_kernel")
+# the warp kernels by name (csrc/), for their time per step each (the image
+# gradient's scratch fill shows as a memset, outside these)
+_WARP_KERNELS = ("warp_multiflow_kernel", "warp_single_forward_kernel", "warp_single_flow_grad_kernel",
+                 "warp_single_img_grad_kernel", "warp_single_img_grad_store_kernel")
 
 
 def _category(name: str) -> str:

@@ -4,6 +4,8 @@ PyTorch versions (with PyTorch's autograd for the single-flow warp's
 gradients), which are also what the CUDA kernels are held against on the
 card."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -151,6 +153,54 @@ def test_warp_auto_gradients_match_jax_vjp():
     assert outside.any() and (want_flow[outside] == 0).all()
 
 
+@functools.lru_cache(maxsize=1)
+def _jax_warp_vjp():
+    """The inputs, output gradient and JAX's VJP of its warp (NHWC) that the
+    gradient tests share."""
+    img, flow = _single_inputs(7)
+    g = np.random.default_rng(8).standard_normal(img.shape).astype(np.float32)
+    _, vjp = jax.vjp(jops.backward_warp, jnp.asarray(img), jnp.asarray(flow))
+    want_img, want_flow = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    return img, flow, g, want_img, want_flow
+
+
+def _channels_last_slice(a, channels, first):
+    """An NHWC array as channels ``first:first + C`` of a channels_last
+    (B, channels, H, W) tensor (zeros elsewhere): the strided views of the
+    train step."""
+    B, H, W, C = a.shape
+    parent = np.zeros((B, H, W, channels), np.float32)
+    parent[..., first:first + C] = a
+    return torch.from_numpy(parent).permute(0, 3, 1, 2)[:, first:first + C]
+
+
+@pytest.mark.parametrize(
+    "view", ["pair_slice", "head_slice", "grad_out_16_channel_slice", "grad_out_16_channel_nchw_slice"])
+def test_warp_auto_gradients_through_step_views_match_jax_vjp(view):
+    """Both gradients through the strided views the train step differentiates
+    (ops/warp_plan.py plans the kernels for these layouts): the image a
+    frame of a 6-channel pair, the flow one of a 4-channel head, the output
+    gradient a slice of a 16-channel channels_last or NCHW tensor (the
+    stage-2 input's gradient); against JAX's VJP of its warp on the same
+    values."""
+    img, flow, g, want_img, want_flow = _jax_warp_vjp()
+    ti = (_channels_last_slice(img, 6, 3) if view == "pair_slice" else _nchw(img).clone()).requires_grad_(True)
+    tf = (_channels_last_slice(flow, 4, 2) if view == "head_slice" else _nchw(flow).clone()).requires_grad_(True)
+    tg = _nchw(g)
+    if view == "grad_out_16_channel_slice":
+        tg = _channels_last_slice(g, 16, 10)
+    elif view == "grad_out_16_channel_nchw_slice":
+        tg = torch.cat([torch.zeros_like(tg)] * 3 + [tg] + [torch.zeros_like(tg)] * 2, 1).contiguous()[:, 9:12]
+    H, W = g.shape[1:3]
+    strides = {"pair_slice": (ti, (1, 6)), "head_slice": (tf, (1, 4)), "grad_out_16_channel_slice": (tg, (1, 16)),
+               "grad_out_16_channel_nchw_slice": (tg, (H * W, 1))}
+    t, (sc, sx) = strides[view]
+    assert (t.stride(1), t.stride(3)) == (sc, sx)
+    tops.warp_auto(ti, tf).backward(tg)
+    np.testing.assert_allclose(ti.grad.permute(0, 2, 3, 1).numpy(), want_img, rtol=0, atol=WARP_ATOL)
+    np.testing.assert_allclose(tf.grad.permute(0, 2, 3, 1).numpy(), want_flow, rtol=0, atol=WARP_ATOL)
+
+
 def test_warp_auto_bf16_store():
     """A bf16 image stores bf16: the f32 warp of the same image upcast, cast,
     bit for bit, and within one bf16 ulp of JAX's f32 warp cast to bf16."""
@@ -296,3 +346,90 @@ def test_plans_fall_back_to_scalar_access():
     assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_SCALAR, wp.OUT_SCALAR)
     plan = wp.plan_multiflow(flow, flow, planar, W)
     assert (plan.flow_mode, plan.out_mode) == (wp.FLOW_SCALAR, wp.OUT_SCALAR)
+
+
+def _grad_views(dtype=torch.float32, B=2, H=32, W=32):
+    """The (flow, output gradient) layouts of the train step's backward
+    launches, as CPU tensors: the flow a head's (pixel stride 4), a dense
+    channels_last sum (2) or NCHW; the output gradient NCHW (the warp
+    losses), a slice of the NCHW gradient of the 16-channel stage-2 input at
+    either of its warp channels, or dense channels_last (the final warps'
+    blend)."""
+    head = torch.zeros(B, H, W, 4).permute(0, 3, 1, 2)
+    stage2 = torch.zeros(B, 16, H, W, dtype=dtype)
+    flows = {"pixel_stride_4": head[:, 0:2], "pixel_stride_2": head[:, 0:2] + head[:, 2:4],
+             "nchw": head[:, 0:2].contiguous()}
+    grads = {"nchw": torch.zeros(B, 3, H, W, dtype=dtype), "stage2_slice_3": stage2[:, 3:6],
+             "stage2_slice_10": stage2[:, 10:13],
+             "pixel_stride_3": torch.zeros(B, H, W, 3, dtype=dtype).permute(0, 3, 1, 2)}
+    return flows, grads
+
+
+_GRAD_FLOWS, _GRAD_OUTS = _grad_views()
+
+
+@pytest.mark.parametrize("grad_name", list(_GRAD_OUTS))
+@pytest.mark.parametrize("flow_name", list(_GRAD_FLOWS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gradient_plans(flow_name, grad_name, dtype):
+    """The gradient kernels' plans for each layout the train step passes.
+    The flow gradient's threads own pixels 32 apart: (u, v) in one 8-byte
+    load and (du, dv) in one 8-byte store a pixel where the pair is adjacent
+    (channels_last), by element where NCHW; the output gradient by element.
+    The image gradient's threads own adjacent pixels: its output gradient
+    PX-wide where planar (NCHW and the stage-2 input's slices), by element
+    where channels_last."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+    from superslomo_tpu_torch.ops.warp_single_cuda import _like
+
+    flows, grads = _grad_views(dtype)
+    flow, g = flows[flow_name], grads[grad_name]
+    assert g.dtype == dtype
+    W = g.shape[3]
+    grad_flow = _like(flow, 2, torch.float32)
+    plan = wp.plan_flow_grad(wp.layout(flow), wp.layout(grad_flow))
+    pair = wp.FLOW_SCALAR if flow_name == "nchw" else wp.FLOW_PAIR
+    assert plan == wp.GradPlan(pair, wp.IN_SCALAR, wp.OUT_SCALAR if flow_name == "nchw" else wp.OUT_PAIR)
+    img_plan = wp.plan_img_grad(wp.layout(flow), wp.layout(g), W)
+    assert img_plan.flow_mode == (wp.FLOW_PLANAR_VEC if flow_name == "nchw" else wp.FLOW_PAIR)
+    assert img_plan.grad_mode == (wp.IN_SCALAR if grad_name == "pixel_stride_3" else wp.IN_PLANAR_VEC)
+    assert img_plan.out_mode == wp.OUT_SCALAR
+    assert list(wp.as_ints(plan)) == list(plan)
+
+
+def test_gradient_plans_fall_back_for_ragged_and_misaligned_layouts():
+    """Where a layout allows no vector access the gradient plans read and
+    write by element: an odd width (37x53, ragged tiles), a flow, flow
+    gradient or output gradient off its vector alignment."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+
+    H, W = 37, 53
+    flow_nchw = wp.Layout((2 * H * W, H * W, W, 1), 0, 4)
+    g_nchw = wp.Layout((3 * H * W, H * W, W, 1), 0, 4)
+    pair = wp.Layout((2 * H * W, 1, 2 * W, 2), 0, 4)  # (du, dv) of an odd width: 8-byte aligned pairs
+    assert wp.plan_img_grad(flow_nchw, g_nchw, W) == wp.GradPlan(wp.FLOW_SCALAR, wp.IN_SCALAR, wp.OUT_SCALAR)
+    assert wp.plan_flow_grad(flow_nchw, flow_nchw) == wp.GradPlan(wp.FLOW_SCALAR, wp.IN_SCALAR, wp.OUT_SCALAR)
+    assert wp.plan_flow_grad(pair, pair) == wp.GradPlan(wp.FLOW_PAIR, wp.IN_SCALAR, wp.OUT_PAIR)
+    assert wp.plan_flow_grad(pair._replace(ptr=4), pair._replace(ptr=12)) == wp.GradPlan(
+        wp.FLOW_SCALAR, wp.IN_SCALAR, wp.OUT_SCALAR)
+    head = wp.Layout((4 * H * W, 1, 4 * W, 4), 8, 4)  # a head's second flow: offset 2 values
+    assert wp.plan_flow_grad(head, pair) == wp.GradPlan(wp.FLOW_PAIR, wp.IN_SCALAR, wp.OUT_PAIR)
+    g_even = wp.Layout((16 * 32 * 32, 32 * 32, 32, 1), 4, 4)  # a stage-2 slice off PX-element alignment
+    assert wp.grad_mode(g_even, 32) == wp.IN_SCALAR
+    assert wp.grad_mode(g_even._replace(ptr=8), 32) == wp.IN_PLANAR_VEC
+    assert wp.grad_mode(g_even._replace(ptr=8, esize=2), 32) == wp.IN_PLANAR_VEC  # bf16: 4-byte pairs
+    assert wp.grad_mode(g_even._replace(ptr=2, esize=2), 32) == wp.IN_SCALAR
+
+
+@pytest.mark.parametrize("C,H,W,fits", [(3, 224, 224, True), (16, 736, 1280, True), (3, 4320, 7680, True),
+                                        (3, 30000, 30000, False)])
+def test_flow_grad_offsets_fit_int32(C, H, W, fits):
+    """The flow-gradient kernel indexes inside one image with 32-bit ints:
+    every shape the system runs fits, channels_last or NCHW, and an image
+    beyond 2^31 elements does not (the wrapper raises for it)."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+
+    nchw = (C * H * W, H * W, W, 1)
+    channels_last = (C * H * W, 1, C * W, C)
+    assert wp.offsets_fit_int32(nchw, C, H, W) == fits
+    assert wp.offsets_fit_int32(channels_last, C, H, W) == fits
