@@ -20,10 +20,13 @@ Phases, each of which raises on failure:
      shape (B=32, C=3, 224x224) through the strided channels_last views the
      step passes (the flow of a 4-channel head on noise flows and on the
      step's kind of smooth flows, and a dense 2-channel flow), at 736x1280
-     B=2 with flows beyond +-128 px in f32 and bf16, and at odd shapes; the
+     B=2 with flows beyond +-128 px in f32 and bf16, at odd shapes, and in
+     the layouts of a 720p SuperSloMo-R window (B=3: a frame of the f32
+     pair, and that frame cast to bf16; phase 7 records the stream's launches
+     and the run fails if one has no case here); the
      flow-gradient and image-gradient kernels against autograd of the plain
      version, each alone and launched together, at the training shape in
-     each layout the train step's backward launches receive (phase 8 records
+     each layout the train step's backward launches receive (phase 11 records
      them and the run fails if one has no case here), on smooth flows, with a
      bf16 image, at an odd shape (ragged tiles) and, for the flow gradient,
      at 720p; each kernel timed beside its memory bound and grid_sample
@@ -40,17 +43,36 @@ Phases, each of which raises on failure:
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
      three synthetic batches, in f32 and bf16, with the step's time, frames/s
      and peak memory, and the multi-flow kernel's launches counted per step;
-  6. train step on the card against the same step on the CPU (64x64, B=2,
+  6. the decoder's last upsample of the 720p SuperSloMo-R step (batch 21,
+     beyond the CUDA kernel's 32-bit indexing, so written in batch slices)
+     bit for bit F.interpolate on the same slices, f32 and bf16; then the
+     SuperSloMo-R slice on the card against the CPU
+     (configs/superslomo_recurrent.ini's model at 128x224, f32, TF32 off,
+     with the CLSTM / CONCAT and the CGRU / SUM bottleneck): two streamed
+     windows of a 7-frame clip, each from the last one's state, and the
+     fused 7-t step from the first window's state; the predictions and
+     every state leaf;
+  7. SuperSloMo-R stream: a 30-frame 720p clip as 9 windows at t=0.5 with
+     the state carried on the card, bf16 and f32, after 2 warm-up windows:
+     window ms, frames/s, peak memory, 4 single-flow launches a window, and
+     the layouts those of the first window receive;
+  8. SuperSloMo-R main path: the fused 8x step at 720p with a streamed-in
+     state, f32 at B=1 and bf16 at B=1 and B=2 (step ms, frames/s, peak
+     memory, 4 multi-flow launches a step), bf16 against f32, and the
+     Evaluator with the shipped recurrent config over two 4-frame batches;
+  9. train step on the card against the same step on the CPU (64x64, B=2,
      f32, panning-texture frames): the loss vector, and the gradient of all
      parameters together;
-  7. convergence: 30 steps on an exactly solvable translating scene at 32x32;
-  8. training main path: the Trainer at configs/superslomo_original.ini
-     (B=32, 224x224, f32, TF32 off) with seeded weights and random VGG
-     features, over synthetic panning-texture batches: 2 warm-up and 10 timed
-     steps, then 2 steps of the training loop, which saves a checkpoint; the
-     single-flow kernels' launches counted per step and the strides that
-     each backward launch of the first step receives recorded; the
-     checkpoint reloaded and resumed to identical weights and Adam moments.
+  10. convergence: 30 steps on an exactly solvable translating scene at
+      32x32;
+  11. training main path: the Trainer at configs/superslomo_original.ini
+      (B=32, 224x224, f32, TF32 off) with seeded weights and random VGG
+      features, over synthetic panning-texture batches: 2 warm-up and 10
+      timed steps, then 2 steps of the training loop, which saves a
+      checkpoint; the single-flow kernels' launches counted per step and the
+      strides that each backward launch of the first step receives recorded;
+      the checkpoint reloaded and resumed to identical weights and Adam
+      moments.
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result. Phases 2 and 3 use only wrapper calls that earlier versions
@@ -358,27 +380,29 @@ def check_grads(tag, img, flow, g):
     return res
 
 
-def time_grads(img, flow, g, bounds, library=True):
-    """Each gradient kernel's ms / device_ms / host_ms beside its bound and,
-    for an f32 image, grid_sample's backward computing the same gradient
-    alone (``library_ms``) and grid_sample forward + backward
-    (``library_fwd_bwd_ms``)."""
+def time_grads(img, flow, g, bounds):
+    """Each gradient kernel's ms / device_ms / host_ms beside its bound,
+    grid_sample's backward computing the same gradient alone
+    (``library_ms``) and grid_sample forward + backward
+    (``library_fwd_bwd_ms``). The library runs in the image's dtype: for a
+    bf16 image its grid is bf16 too (grid_sample takes one dtype), which
+    rounds the sample positions, so its time is that of a nearby function."""
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
 
     out = {}
+    grid = _grid_for(flow).to(img.dtype)
     for key, need_img, mask in (("flow_grad", False, [False, True]), ("img_grad", True, [True, False])):
         r = {**timings(lambda: bwd(img, flow, g, need_img, not need_img)),
-             "bound_ms": bounds[key][0], "bound_by": bounds[key][1]}
-        if library:
-            grid = _grid_for(flow)
-            r["library_ms"] = cuda_ms(lambda: _library_grads(img, grid, g, mask))
+             "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+             "library_ms": cuda_ms(lambda: _library_grads(img, grid, g, mask)),
+             "library_dtype": str(img.dtype).replace("torch.", "")}
 
-            def fwd_bwd():
-                x = (img if need_img else grid).detach().requires_grad_(True)
-                out_ = _grid_sample(x, grid) if need_img else _grid_sample(img, x)
-                torch.autograd.grad(out_, x, g)
+        def fwd_bwd():
+            x = (img if need_img else grid).detach().requires_grad_(True)
+            out_ = _grid_sample(x, grid) if need_img else _grid_sample(img, x)
+            torch.autograd.grad(out_, x, g)
 
-            r["library_fwd_bwd_ms"] = cuda_ms(fwd_bwd)
+        r["library_fwd_bwd_ms"] = cuda_ms(fwd_bwd)
         out[key] = r
     return out
 
@@ -478,7 +502,7 @@ def phase_single_kernels():
     for case, (im, fl, g) in grad_cases.items():
         r = check_grads(case, im, fl, g)
         r.update({k: dict(r[k], **v) for k, v in time_grads(
-            im, fl, g, single_bounds(B, C, H, W, im.element_size()), library=im.dtype == torch.float32).items()})
+            im, fl, g, single_bounds(B, C, H, W, im.element_size())).items()})
         res[f"grad_{case}"] = r
         emit({"phase": "single_grad_kernels_vs_plain", "case": case, **r})
     # the main case's grid gradient from grid_sample's backward, in pixels
@@ -565,6 +589,89 @@ def phase_single_kernels():
     return res
 
 
+def forward_layout(img, flow):
+    """What a single-flow forward launch's plan and reads depend on: the
+    image's dtype, shape, strides and address mod 16, the flow's strides and
+    address mod 16."""
+    return (str(img.dtype), tuple(img.shape), tuple(img.stride()), img.data_ptr() % 16,
+            tuple(flow.stride()), flow.data_ptr() % 16)
+
+
+def phase_ssmr_forward_cases():
+    """The single-flow forward in the layouts of a 720p SuperSloMo-R window
+    (B=1, 3 windows: a batch of 3): a frame of the f32 pair (pixel stride 6,
+    at channel 0 or 3), the same frame cast to bf16 (dense channels_last,
+    the stage-2 input's warps under bf16), with a dense 2-channel
+    channels_last flow. f32 against the plain warp; bf16 bit for bit the f32
+    result cast, and within one bf16 ulp of the plain warp. Returns the cases
+    and their layouts (``forward_layout``), which main() holds the stream's
+    launches to."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    B, C, H, W = 3, 3, 736, 1280
+    pairs = _channels_last(rng, B, 6, H, W, dev)
+    flow = torch.from_numpy(_flow_field(rng, B, H, W, 7.0, 150.0)).to(dev).permute(0, 3, 1, 2)
+    grid = _grid_for(flow)
+    cases, layouts = {}, set()
+    for frame, sl in (("img0", slice(0, 3)), ("img1", slice(3, 6))):
+        for tag, im in (("f32", pairs[:, sl]), ("bf16", pairs[:, sl].to(torch.bfloat16))):
+            got = warp_single_cuda(im, flow)
+            want = ops.warp_single_reference(im, flow)
+            torch.cuda.synchronize()
+            bounds = single_bounds(B, C, H, W, im.element_size())
+            case = {
+                "shape": [B, C, H, W], "img_strides": list(im.stride()), "img_offset": im.storage_offset(),
+                "flow_strides": list(flow.stride()), "max_abs_err": (got.float() - want.float()).abs().max().item(),
+                **timings(lambda: warp_single_cuda(im, flow)),
+                "library_ms": cuda_ms(lambda: _grid_sample(im.float(), grid)),
+                "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
+            }
+            if tag == "f32":
+                ok = case["max_abs_err"] <= KERNEL_ATOL
+            else:
+                case["bit_identical_to_f32_cast"] = torch.equal(
+                    got.view(torch.int16), warp_single_cuda(im.float(), flow).bfloat16().view(torch.int16))
+                ok = case["bit_identical_to_f32_cast"] and (
+                    case["max_abs_err"] <= 2.0**-7 * want.float().abs().max().item())  # one bf16 ulp
+            cases[f"{frame}_{tag}"] = case
+            layouts.add(forward_layout(im, flow))
+            emit({"phase": "ssmr_forward_kernel_vs_plain", "case": f"{frame}_{tag}", **case})
+            if not ok:
+                raise AssertionError(f"single-flow forward in an SSM-R window's layout ({frame} {tag}): {case}")
+    return {"cases": cases, "layouts": layouts}
+
+
+def phase_upsample_slices():
+    """The decoder's last upsample in SuperSloMo-R's fused 720p step at B=1
+    (stage-2 batch 21, 128 channels, channels_last), an output beyond the
+    CUDA kernel's 32-bit indexing that ops/resize.py writes a batch slice at
+    a time: f32 and bf16, bit for bit ``F.interpolate`` on the same slices."""
+    from superslomo_tpu_torch.ops import resize
+
+    N, C, H, W = 21, 128, 368, 640
+    step = resize._MAX_ELEMENTS // (C * 4 * H * W)
+    if step >= N:
+        raise AssertionError(f"a ({N}, {C}, {2 * H}, {2 * W}) output fits one call: no slices to check")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = {"phase": "upsample_batch_slices", "shape": [N, C, H, W], "slice_batch": step}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = torch.randn((N, H, W, C), generator=gen, device="cuda").to(dt).permute(0, 3, 1, 2)
+        with torch.inference_mode():
+            got = resize.upsample_2x_bilinear(x)
+            same = all(torch.equal(got[i : i + step], F.interpolate(
+                x[i : i + step], scale_factor=2, mode="bilinear", align_corners=False)) for i in range(0, N, step))
+        res[tag] = {"bit_identical": same, "channels_last": got.is_contiguous(memory_format=torch.channels_last)}
+        del x, got
+        torch.cuda.empty_cache()
+    emit(res)
+    if not all(res[tag]["bit_identical"] and res[tag]["channels_last"] for tag in ("f32", "bf16")):
+        raise AssertionError(f"the batch-sliced upsample differs from F.interpolate on its slices: {res}")
+    return res
+
+
 def phase_slice():
     """The full-width slice on the card against the same slice on the CPU."""
     from superslomo_tpu_torch import ModelSpec, SuperSloMo, weights
@@ -590,30 +697,32 @@ def phase_slice():
         raise AssertionError(f"card and CPU disagree: {res}")
 
 
-def panning_clips(rng, B, H, W):
-    """(B, 9, H, W, 3) uint8 clips: a smooth random texture panning 3 px a frame."""
-    yy, xx = np.mgrid[0:H, 0 : W + 32].astype(np.float32)
+def panning_clips(rng, B, H, W, n=9):
+    """(B, n, H, W, 3) uint8 clips: a smooth random texture panning 3 px a frame."""
+    yy, xx = np.mgrid[0:H, 0 : W + 3 * n + 5].astype(np.float32)
     clips = []
     for _ in range(B):
-        tex = np.zeros((H, W + 32, 3), np.float32)
+        tex = np.zeros(xx.shape + (3,), np.float32)
         for _ in range(6):
             fy, fx = rng.uniform(0.005, 0.05, 2)
             tex += np.sin(fy * yy + fx * xx + rng.uniform(0, 6.3))[..., None] * rng.uniform(10, 40, 3)
         tex = np.clip(tex + 128, 0, 255).astype(np.uint8)
-        clips.append(np.stack([tex[:, 3 * i : 3 * i + W] for i in range(9)]))
+        clips.append(np.stack([tex[:, 3 * i : 3 * i + W] for i in range(n)]))
     return np.stack(clips)
 
 
-def synthetic_batches(norm, padding, n_batches, B, H, W, seed):
-    """Reader-shaped evaluation batches of panning clips: the ends are the
-    inputs, the 7 inner frames the targets."""
+def synthetic_batches(norm, padding, n_batches, B, H, W, seed, n_frames=2):
+    """Reader-shaped evaluation batches of panning clips at 8x: every 8th
+    frame of a clip of 8 (n_frames - 1) + 1 is an input (the ends of each
+    window), the 7 inner frames of the mid window the targets."""
     rng = np.random.default_rng(seed)
     left, right, top, bottom = padding
     pad = ((0, 0), (0, 0), (top, bottom), (left, right), (0, 0))
+    mid = 8 * ((n_frames - 1) // 2)
     out = []
     for _ in range(n_batches):
-        x = np.pad(norm(panning_clips(rng, B, H, W)), pad)
-        out.append((x[:, [0, 8]], x[:, 1:8], np.full(B, 7)))
+        x = np.pad(norm(panning_clips(rng, B, H, W, 8 * (n_frames - 1) + 1)), pad)
+        out.append((x[:, ::8], x[:, mid + 1 : mid + 8], np.full(B, 7)))
     return out
 
 
@@ -673,6 +782,208 @@ def phase_main_path(dtype, batches, steps=8):
     if not all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"], results["max_flow_bound"]])):
         raise AssertionError(f"non-finite metrics: {results}")
     return res
+
+
+def ssmr_spec(cell="CLSTM", merge="CONCAT", dtype="float32"):
+    """configs/superslomo_recurrent.ini's model (both stages recurrent,
+    N_FRAMES=4, cross-stage skip), with ``cell`` in both stages, ``merge``
+    and ``dtype``."""
+    from superslomo_tpu_torch import load_config
+
+    cfg = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "superslomo_recurrent.ini"))
+    cfg.set("DATA", "DATASET", "ADOBE")
+    for stage in ("STAGE1", "STAGE2"):
+        cfg.set(stage, "BOTTLENECK", cell)
+    cfg.set("TPU", "CLSTM_MERGE", merge)
+    cfg.set("TPU", "COMPUTE_DTYPE", dtype)
+    cfg.validate()
+    return cfg
+
+
+def _carry_leaves(carry):
+    return [(f"{stage}/{name}/{i}", leaf) for stage in ("stage1", "stage2")
+            for name, state in sorted(carry[stage].items()) for i, leaf in enumerate(state)]
+
+
+def phase_ssmr_slice():
+    """SuperSloMo-R at full width on the card against the CPU, 128x224, f32
+    with TF32 off: two streamed windows of a 7-frame clip, each from the
+    state the last one left, then the fused 7-t step on the second window
+    from the first one's state; the CLSTM / CONCAT and the CGRU / SUM models."""
+    from superslomo_tpu_torch import SuperSloMo, weights
+
+    rng = np.random.default_rng(6)
+    clip = rng.standard_normal((1, 7, 128, 224, 3), dtype=np.float32)
+    windows = (clip[:, 0:4], clip[:, 3:7])
+    t = np.full((1, 3), 0.5, np.float32)
+    t_values = np.arange(1, 8, dtype=np.float32) / 8
+    for cell, merge in (("CLSTM", "CONCAT"), ("CGRU", "SUM")):
+        spec = ssmr_spec(cell, merge).model_spec()
+        state = weights.seeded_state(spec, seed=0)
+
+        def run(device):
+            model = SuperSloMo(spec, device=device).load_state(state)
+            mid0, _, carry0 = model.forward_inference(windows[0], t)
+            mid1, _, carry1 = model.forward_inference(windows[1], t, carry0)
+            pred, bound = model.interpolate_multi_t(windows[1], t_values, rnn_carry=carry0, with_bounds=True)
+            leaves = [[(k, v.cpu()) for k, v in _carry_leaves(c)] for c in (carry0, carry1)]
+            return [mid0.cpu(), mid1.cpu()], leaves, pred.cpu(), float(bound)
+
+        card, cpu = run(None), run("cpu")
+        errs = {f"window{i}_mid": (a - b).abs().max().item() for i, (a, b) in enumerate(zip(card[0], cpu[0]))}
+        errs["fused_step"] = (card[2] - cpu[2]).abs().max().item()
+        close = all(torch.allclose(a, b, atol=SLICE_ATOL, rtol=SLICE_RTOL) for a, b in zip(card[0], cpu[0]))
+        close &= torch.allclose(card[2], cpu[2], atol=SLICE_ATOL, rtol=SLICE_RTOL)
+        leaf_err = 0.0
+        for got, want in zip(card[1], cpu[1]):
+            for (name, a), (_, b) in zip(got, want):
+                leaf_err = max(leaf_err, (a.float() - b.float()).abs().max().item())
+                close &= torch.allclose(a, b, atol=SLICE_ATOL, rtol=SLICE_RTOL)
+        res = {
+            "phase": "ssmr_slice_card_vs_cpu", "cell": cell, "merge": merge, "shape": [1, 7, 128, 224, 3],
+            "max_abs_err": errs, "carry_leaves": len(card[1][0]), "carry_max_abs_err": leaf_err,
+            "bound": card[3], "bound_rel_err": abs(card[3] - cpu[3]) / cpu[3],
+            "finite": bool(all(torch.isfinite(x).all() for x in card[0] + [card[2]])),
+        }
+        emit(res)
+        if not (res["finite"] and close and res["bound_rel_err"] <= 1e-4):
+            raise AssertionError(f"SSM-R on the card and the CPU disagree: {res}")
+
+
+def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
+    """SuperSloMo-R streaming a 720p clip (736x1280, B=1, ``n_clip`` frames
+    made on the card from a seed) as 4-frame windows 3 frames apart at
+    t=0.5, each window's state carried on the card into the next
+    (``forward_inference``), after ``warmup`` windows: window ms, frames/s
+    as windows x 3 / s, peak memory, and the single-flow kernel's launches,
+    4 a window; the layouts each launch of the first window receives."""
+    from superslomo_tpu_torch import SuperSloMo, ops, weights
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as single
+
+    spec = ssmr_spec(dtype=dtype).model_spec()
+    model = SuperSloMo(spec).load_state(weights.seeded_state(spec, seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    clip = torch.randn((1, n_clip, 736, 1280, 3), generator=gen, device="cuda")
+    t = torch.full((1, 3), 0.5, device="cuda")
+    starts = range(0, n_clip - 3, 3)
+    carry = None
+    for start in starts[:warmup]:  # cuDNN autotuning happens here
+        _, _, carry = model.forward_inference(clip[:, start : start + 4], t, carry)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the layouts the forward launches of the first window receive
+    layouts = []
+
+    def recording(img, flow):
+        layouts.append(forward_layout(img, flow))
+        return single(img, flow)
+
+    single.launches = mf.launches = 0
+    carry, times, mids = None, [], []
+    for start in starts:
+        ops.warp_single_cuda = recording if start == 0 else single  # the name _WarpSingle.forward calls
+        t0 = time.perf_counter()
+        mid, _, carry = model.forward_inference(clip[:, start : start + 4], t, carry)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        mids.append(mid)
+    launches = {"warp_single": single.launches, "warp_multiflow": mf.launches}
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(bool(torch.isfinite(x).all()) for x in mids + [leaf for _, leaf in _carry_leaves(carry)])
+    n = len(starts)
+    res = {
+        "phase": "ssmr_stream", "config": "configs/superslomo_recurrent.ini", "compute_dtype": dtype,
+        "batch": 1, "clip_frames": n_clip, "frame_hw": [736, 1280], "windows": n, "t": 0.5,
+        "window_ms_median": statistics.median(times), "window_ms": times,
+        "frames_per_s": n * 3 / (sum(times) / 1e3), "peak_mem_gib": peak / 2**30,
+        "launches": launches, "finite": finite, "forward_layouts_first_window": layouts,
+    }
+    emit(res)
+    if not finite:
+        raise AssertionError(f"non-finite SSM-R stream output: {res}")
+    if len(layouts) != 4:
+        raise AssertionError(f"{len(layouts)} forward launches recorded in the first window, expected 4")
+    if launches != {"warp_single": 4 * n, "warp_multiflow": 0}:
+        raise AssertionError(f"kernel launches {launches} over {n} windows, expected 4 single-flow a window")
+    del model, clip
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ssmr_main_path(batches, steps=8):
+    """The fused 8x step of SuperSloMo-R at 720p with a streamed-in state
+    (from ``forward_inference`` of the window before): f32 at B=1, bf16 at
+    B=1 and B=2; each step's ms (median of ``steps`` after 2 warm-up
+    steps), frames/s, peak memory and the multi-flow kernel's launches, 4 a
+    step. Then the Evaluator with the f32 model over ``batches`` at B=1,
+    and bf16 against f32 on the same input."""
+    from superslomo_tpu_torch import Evaluator, SuperSloMo, weights
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as single
+
+    t_values = torch.arange(1, 8, dtype=torch.float32, device="cuda") / 8
+    preds, out = {}, []
+    for dtype, B in (("float32", 1), ("bfloat16", 1), ("bfloat16", 2)):
+        cfg = ssmr_spec(dtype=dtype)
+        spec = cfg.model_spec()
+        model = SuperSloMo(spec).load_state(weights.seeded_state(spec, seed=0))
+        frames = torch.from_numpy(batches[0][0][:B]).cuda()
+        before = torch.from_numpy(batches[1][0][:B]).cuda()
+        _, _, carry = model.forward_inference(before, torch.full((B, 3), 0.5, device="cuda"))
+
+        def step():
+            return model.interpolate_multi_t(frames, t_values, rnn_carry=carry, with_bounds=True)
+
+        for _ in range(2):  # cuDNN autotuning happens here
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mf.launches = single.launches = 0
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            pred, bound = step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = {"warp_multiflow": mf.launches, "warp_single": single.launches}
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(times)
+        res = {
+            "phase": "ssmr_main_path", "config": "configs/superslomo_recurrent.ini", "compute_dtype": dtype,
+            "batch": B, "n_t": 7, "frame_hw": list(frames.shape[2:4]), "streamed_state": True,
+            "step_ms_median": med, "step_ms": times, "frames_per_s": B * 7 / (med / 1e3),
+            "peak_mem_gib": peak / 2**30, "launches": launches, "bound": float(bound),
+            "finite": bool(torch.isfinite(pred).all()),
+        }
+        if not res["finite"]:
+            raise AssertionError(f"non-finite SSM-R step output: {res}")
+        if launches != {"warp_multiflow": 4 * steps, "warp_single": 0}:
+            raise AssertionError(f"kernel launches {launches} over {steps} steps, expected 4 multi-flow a step")
+        if B == 1:
+            preds[dtype] = pred
+        if dtype == "float32":  # the shipped config's model under the Evaluator
+            mf.launches = 0
+            t0 = time.perf_counter()
+            results = Evaluator(cfg, model).run([(f[:1], g[:1], n[:1]) for f, g, n in batches])
+            res.update(eval_batches=len(batches), eval_batch=1, eval_wall_s=time.perf_counter() - t0,
+                       eval_warp_multiflow_launches=mf.launches, **results)
+            if not all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"]])):
+                raise AssertionError(f"non-finite SSM-R metrics: {results}")
+            if mf.launches != 4 * len(batches):
+                raise AssertionError(f"{mf.launches} multi-flow launches over {len(batches)} evaluator batches")
+        emit(res)
+        out.append(res)
+        del model, frames, before, carry
+        torch.cuda.empty_cache()
+    diff = (preds["bfloat16"] - preds["float32"]).abs()
+    res = {"phase": "ssmr_bf16_vs_f32", "batch": 1, "max_abs_diff": diff.max().item(),
+           "mean_abs_diff": diff.mean().item(), "finite": bool(torch.isfinite(diff).all())}
+    emit(res)
+    if not (res["finite"] and res["mean_abs_diff"] <= 0.01):
+        raise AssertionError(f"SSM-R bf16 and f32 steps disagree: {res}")
+    return out
 
 
 def _train_config(ckpt_dir, path=None, **overrides):
@@ -866,9 +1177,20 @@ def check_backward_layouts(cases, recorded):
         raise AssertionError(f"backward layouts of the train step with no gradient kernel case: {sorted(missing)}")
 
 
-def kernels_line(kern, single, main_f32, main_bf16, train):
-    """Every kernel of the paths with its launches on the main paths, error,
-    times, bound, plain and library times."""
+def check_forward_layouts(cases, recorded):
+    """Raise unless every single-flow forward launch recorded in an SSM-R
+    window has the layout (``forward_layout``) of a forward kernel case."""
+    seen = {tuple(tuple(x) if isinstance(x, list) else x for x in r) for r in recorded}
+    missing = seen - cases
+    emit({"phase": "ssmr_forward_layouts_covered", "layouts": sorted(seen), "missing": sorted(missing)})
+    if missing:
+        raise AssertionError(f"forward layouts of the SSM-R stream with no forward kernel case: {sorted(missing)}")
+
+
+def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main):
+    """Every kernel of the paths with its launches on the main paths (the
+    SuperSloMo-R ones a step and a window as well), error, times, bound,
+    plain and library times."""
     f32, bf16 = kern[("noise", "f32")], kern[("noise", "bf16")]
     mf = {
         "name": "warp_multiflow_planar", "route": "cuda",
@@ -884,6 +1206,8 @@ def kernels_line(kern, single, main_f32, main_bf16, train):
             "library_ms": bf16["library_ms"],
             "bit_identical_to_f32_cast": bf16["bit_identical_to_f32_cast"],
         },
+        "ssmr_launches_per_step": {f"{r['compute_dtype']}_b{r['batch']}": r["launches"]["warp_multiflow"] / len(
+            r["step_ms"]) for r in ssmr_main},
         "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
         "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                       "bound_ms", "planes_strides")}
@@ -896,8 +1220,13 @@ def kernels_line(kern, single, main_f32, main_bf16, train):
         "max_abs_err": ts["max_abs_err"], "ms": ts["ms"], "device_ms": ts["device_ms"], "host_ms": ts["host_ms"],
         "plain_ms": ts["plain_ms"], "bound_ms": ts["bound_ms"], "bound_by": ts["bound_by"],
         "library_ms": ts["library_ms"], "shape": ts["shape"],
+        "ssmr_launches_per_window": {r["compute_dtype"]: r["launches"]["warp_single"] / r["windows"]
+                                     for r in ssmr_stream},
         **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
            for case in ("dense_flow", "smooth_flow", "720p_f32", "720p_bf16")},
+        **{f"ssmr_window_{case}": {k: c[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
+                                                     "bound_ms", "img_strides")}
+           for case, c in ssmr_fwd["cases"].items()},
     }
     grad_cases = {k[len("grad_"):]: v for k, v in single.items() if k.startswith("grad_")}
     main_case = grad_cases["loss_head"]
@@ -957,6 +1286,7 @@ def main() -> int:
     clock_before = nvidia_smi("clocks.sm,clocks.max.sm")
     kern = phase_kernel()
     single = phase_single_kernels()
+    ssmr_fwd = phase_ssmr_forward_cases()
     emit({"phase": "sm_clock", "before_kernel_phases": clock_before, "after_kernel_phases": nvidia_smi(
         "clocks.sm,clocks.max.sm"), "query": "clocks.sm,clocks.max.sm"})
     if args.kernels_only:
@@ -969,13 +1299,22 @@ def main() -> int:
     batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=3, B=2, H=720, W=1280, seed=2)
     main_f32 = phase_main_path("float32", batches)
     main_bf16 = phase_main_path("bfloat16", batches)
+    del batches
+    phase_upsample_slices()
+    phase_ssmr_slice()
+    ssmr_stream = [phase_ssmr_stream(dtype) for dtype in ("bfloat16", "float32")]
+    check_forward_layouts(ssmr_fwd["layouts"], [r for s in ssmr_stream for r in s["forward_layouts_first_window"]])
+    ssmr_batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=2, B=2, H=720, W=1280, seed=8,
+                                     n_frames=4)
+    ssmr_main = phase_ssmr_main_path(ssmr_batches)
+    del ssmr_batches
     with tempfile.TemporaryDirectory() as ckpt_dir:
         phase_train_vs_cpu(ckpt_dir, norm)
         phase_convergence(ckpt_dir)
         train = phase_train_main(ckpt_dir, norm)
     check_backward_layouts(single["layouts"], train["backward_layouts_first_step"])
 
-    kernels = kernels_line(kern, single, main_f32, main_bf16, train)
+    kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

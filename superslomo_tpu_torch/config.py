@@ -7,8 +7,9 @@ and validation. Of the ``[TPU]`` section the port honours ``COMPUTE_DTYPE``
 always runs the CUDA kernel on the card; the U-Net runs the plain topology):
 they are parsed, so a malformed value still fails, and otherwise ignored.
 ``DATA_AXIS``/``SPATIAL_AXIS`` name mesh axes and are ignored as well.
-``CLSTM_MERGE``/``CLSTM_GATE_ORDER`` belong to the recurrent bottleneck,
-which is not ported yet (a CLSTM/CGRU model raises NotImplementedError).
+``CLSTM_MERGE`` (CONCAT | SUM) and ``CLSTM_GATE_ORDER`` (a permutation of
+IFOG for a CLSTM stage, of ZR, or the default IFOG, for a CGRU stage) set the
+recurrent bottleneck's layout (models/bottleneck.py).
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ VALID_BOTTLENECKS = ("CONV", "CLSTM", "CGRU")
 VALID_T_SAMPLE = ("RANDOM", "MIDDLE", "NIL")
 VALID_DATASETS = ("ALL", "ADOBE", "NFS", "VIMEO", "SLOWFLOW", "SINTEL_HFR")
 VALID_COMPUTE_DTYPES = ("float32", "bfloat16")
+VALID_CLSTM_MERGES = ("CONCAT", "SUM")
 REQD_IMAGES = {2: 9, 4: 25, 6: 41, 8: 57}
 
 
@@ -136,6 +138,8 @@ class Config:
             stage1_freeze=self.getboolean("STAGE1", "FREEZE"),
             stage2_freeze=self.getboolean("STAGE2", "FREEZE"),
             compute_dtype=self.get("TPU", "COMPUTE_DTYPE").strip().lower(),
+            clstm_merge=self.get("TPU", "CLSTM_MERGE").upper(),
+            clstm_gate_order=self.get("TPU", "CLSTM_GATE_ORDER").upper(),
         )
 
     def validate(self) -> None:
@@ -149,6 +153,10 @@ class Config:
             raise ValueError(f"N_FRAMES must be one of {sorted(REQD_IMAGES)}")
         if spec.compute_dtype not in VALID_COMPUTE_DTYPES:
             raise ValueError(f"[TPU] COMPUTE_DTYPE must be one of {VALID_COMPUTE_DTYPES}")
+        if spec.clstm_merge not in VALID_CLSTM_MERGES:
+            raise ValueError(f"[TPU] CLSTM_MERGE must be one of {VALID_CLSTM_MERGES}")
+        for bottleneck in {spec.stage1_bottleneck, spec.stage2_bottleneck} - {"CONV"}:
+            cell_gate_order(bottleneck, spec.clstm_gate_order)
         if self.get("DATA", "DATASET").upper() not in VALID_DATASETS:
             raise ValueError(f"DATASET must be one of {VALID_DATASETS}")
         t_sample = self.get("DATALOADER", "T_SAMPLE").upper()
@@ -168,11 +176,27 @@ class Config:
                 self.getboolean("TPU", key)
 
 
+def cell_gate_order(bottleneck: str, gate_order: str) -> str:
+    """The gate blocks of a ``bottleneck`` cell's gate conv, in lower case,
+    from ``[TPU] CLSTM_GATE_ORDER`` in any case: a permutation of ifog for
+    CLSTM; for CGRU a permutation of zr, where ifog, the CLSTM default, means
+    zr. Raises ValueError, naming the key, for anything else."""
+    order = gate_order.lower()
+    if bottleneck == "CGRU" and order == "ifog":
+        order = "zr"
+    if sorted(order) != sorted("ifog" if bottleneck == "CLSTM" else "zr"):
+        raise ValueError(
+            f"[TPU] CLSTM_GATE_ORDER={gate_order} is no gate order of a {bottleneck} cell: "
+            "a permutation of IFOG (CLSTM), or of ZR or the default IFOG (CGRU)")
+    return order
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """Model hyperparameters. Only the CONV bottleneck is ported; the
-    recurrent CLSTM/CGRU bottlenecks raise NotImplementedError when a model
-    is built (models/unet.py)."""
+    """Model hyperparameters: each stage's bottleneck (CONV, or the recurrent
+    CLSTM / CGRU of SuperSloMo-R with its ``clstm_merge`` and
+    ``clstm_gate_order`` layout), the cross-stage skip, the window length,
+    the frozen stages and the compute dtype."""
 
     stage1_bottleneck: str = "CONV"
     stage2_bottleneck: str = "CONV"
@@ -181,6 +205,8 @@ class ModelSpec:
     stage1_freeze: bool = False
     stage2_freeze: bool = False
     compute_dtype: str = "float32"
+    clstm_merge: str = "CONCAT"  # CONCAT (hidden/2 a direction, concatenated) | SUM (hidden a direction, summed)
+    clstm_gate_order: str = "IFOG"  # gate blocks of the fused gate conv (models/bottleneck.py)
 
 
 def load_config(path: str) -> Config:

@@ -7,8 +7,10 @@ centre crop back to the input size, 8x interpolation (7 t-values; Sintel-HFR
 All t-values of a batch run in one fused multi-t step.
 
 The readers are not ported yet: ``run`` takes any iterable of ``(frames,
-targets, n_avail)`` batches, as a reader yields them (frames (B, 2, H_REF,
-W_REF, 3) and targets (B, n_t, H_REF, W_REF, 3), normalized and padded).
+targets, n_avail)`` batches, as a reader yields them (frames (B, N_FRAMES,
+H_REF, W_REF, 3) and targets (B, n_t, H_REF, W_REF, 3) of the mid window,
+normalized and padded). A SuperSloMo-R model scores its 4-frame windows the
+same way, each window from a zero recurrent state.
 """
 
 from __future__ import annotations

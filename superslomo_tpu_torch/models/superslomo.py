@@ -1,12 +1,16 @@
-"""The composite Super SloMo model: its forward over T-frame windows (the
-training step's model) and its fused multi-t interpolation step.
+"""The composite Super SloMo / SuperSloMo-R model: its forward over T-frame
+windows (the training step's model and the streamed forward) and its fused
+multi-t interpolation step.
 
 ``SuperSloMo.forward`` is the counterpart of the JAX model's ``__call__``: the
 windows of adjacent frame pairs are folded into the batch, the stage-1 U-Net
 gives the bidirectional flow, two single-flow warps build the stage-2 input,
 the stage-2 U-Net refines, and two more warps and the visibility blend give
 the interpolated frame. Autograd stays on; the outputs come back in the JAX
-layout, (B, T-1, H, W, c).
+layout, (B, T-1, H, W, c). With a recurrent bottleneck (CLSTM / CGRU) each
+stage's recurrence runs over the T-1 windows; ``rnn_carry`` starts it from
+the state a previous window returned, so a long clip streams window after
+window (``forward_inference`` is that path under ``torch.inference_mode``).
 
 ``SuperSloMo.interpolate_multi_t`` is the serving path (the "8x slow-mo"
 step): the stage-1 U-Net runs once per frame pair, the t-interpolated flows
@@ -14,7 +18,9 @@ are computed as (H, W) planes, two multi-flow warps build the stage-2 input,
 the stage-2 U-Net runs with the t-grid folded into the batch, and two f32
 multi-flow warps of the frames feed the visibility blend. The step also
 returns a bound on every flow it warped with, ``max(boundC, boundC +
-max|Δflow|)``.
+max|Δflow|)``. A streamed-in ``rnn_carry`` starts stage 1 as given and
+stage 2 with each sample's state repeated over its t-grid; the step returns
+no state.
 
 The U-Nets run NCHW in ``torch.channels_last`` memory format. In float32 the
 convolutions run with TF32 off (cuDNN and matmul); cuDNN's TF32 default keeps
@@ -28,7 +34,7 @@ warps, the blend and the output are f32.
 from __future__ import annotations
 
 import contextlib
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -40,6 +46,33 @@ from superslomo_tpu_torch.models.unet import UNet
 from superslomo_tpu_torch.ops import warp_multiflow_planar
 
 
+def stage_unets(spec: ModelSpec):
+    """The two U-Nets of ``spec``: (stage 1: 6 → 4, stage 2: 16 → 5)."""
+    layout = dict(clstm_merge=spec.clstm_merge, clstm_gate_order=spec.clstm_gate_order)
+    return (UNet(6, 4, spec.stage1_bottleneck, emit_encoding=spec.cross_skip, **layout),
+            UNet(16, 5, spec.stage2_bottleneck, accept_encoding=spec.cross_skip, **layout))
+
+
+def check_stage_shapes(state: dict, spec: ModelSpec, stage: str) -> None:
+    """Raise, naming the config keys to check, when a stage's state dict
+    holds other keys (KeyError) or shapes (ValueError) than ``spec``'s
+    U-Net."""
+    with torch.device("meta"):
+        want = {k: tuple(v.shape) for k, v in stage_unets(spec)[stage == "stage2"].state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in state.items()}
+    problems = [f"missing {k}" for k in want if k not in got] + [f"unexpected {k}" for k in got if k not in want]
+    keys_differ = bool(problems)
+    problems += [f"{k}: state {got[k]} vs model {s}" for k, s in want.items() if k in got and got[k] != s]
+    if not problems:
+        return
+    hint = ""
+    if any("conv6" in p for p in problems):
+        hint = (" — the bottleneck's layout disagrees: check [STAGE1/2] BOTTLENECK, [TPU] CLSTM_MERGE "
+                "(CONCAT = hidden/2 a direction, SUM = hidden a direction) and [TPU] CLSTM_GATE_ORDER")
+    error = KeyError if keys_differ else ValueError
+    raise error(f"{stage} weights do not match the model{hint}: " + "; ".join(problems[:12]))
+
+
 class ModelOutputs(NamedTuple):
     """Everything the losses and the image dump need, (B, T-1, H, W, c) f32."""
 
@@ -49,11 +82,46 @@ class ModelOutputs(NamedTuple):
     flowI_out: torch.Tensor  # (B, T-1, H, W, 5) stage-2 head
     pred_images: torch.Tensor  # (B, T-1, H, W, 3) interpolated frames
     t_interp: torch.Tensor  # (B, T-1, 1, 1, 1)
+    rnn_carry: Optional[dict] = None  # {"stage1": …, "stage2": …} of a recurrent model, else None
+
+
+class Intermediates(NamedTuple):
+    """The reference's inference intermediates of one window, (B, H, W, c)
+    f32: the stage-1 flows, the estimated and refined flows at t, and the
+    visibility of frame 0."""
+
+    flowC_01: torch.Tensor
+    flowC_10: torch.Tensor
+    est_flow_t1: torch.Tensor
+    est_flow_t0: torch.Tensor
+    refined_flow_t1: torch.Tensor
+    refined_flow_t0: torch.Tensor
+    v_0t: torch.Tensor
 
 
 def mid_window(outputs: ModelOutputs) -> int:
     """The reference's mid-window convention: T_windows // 2."""
     return outputs.pred_images.shape[1] // 2
+
+
+def intermediates_for_window(outputs: ModelOutputs, window: int) -> Intermediates:
+    """The stage-1 flows, estimated flows, refined flows and v_0t of one
+    window of ``outputs``."""
+    def nchw(x):  # (B, W_n, H, W, c) → the window's (B, c, H, W) view
+        return x[:, window].permute(0, 3, 1, 2)
+
+    def nhwc(x):
+        return x.permute(0, 2, 3, 1)
+
+    flowC, flowI_in, flowI_out = (outputs.flowC_out[:, window], outputs.flowI_in[:, window],
+                                  outputs.flowI_out[:, window])
+    ref_t1, ref_t0 = physics.refined_flows(nchw(outputs.flowI_in), nchw(outputs.flowI_out))
+    return Intermediates(
+        flowC_01=flowC[..., 0:2], flowC_10=flowC[..., 2:4],
+        est_flow_t1=flowI_in[..., 6:8], est_flow_t0=flowI_in[..., 8:10],
+        refined_flow_t1=nhwc(ref_t1), refined_flow_t0=nhwc(ref_t0),
+        v_0t=nhwc(physics.extract_stage2_outputs(nchw(outputs.flowI_out)).v_0t),
+    )
 
 
 def make_pairs(frames: torch.Tensor) -> torch.Tensor:
@@ -82,8 +150,25 @@ def _tile_t(x: torch.Tensor, B: int, n_t: int, W_n: int) -> torch.Tensor:
     return tiled.reshape((B * n_t * W_n,) + rest).permute(0, 3, 1, 2)
 
 
+def _tile_carry(carry, n_t: int):
+    """Each leaf (B, C, h, w) of a stage's state → (B·n_t, C, h, w): every
+    sample's state repeated over its t-grid, sample-major (the stage-2
+    fold's order)."""
+    def tile(x):
+        rest = tuple(x.shape[1:])
+        return x[:, None].expand((x.shape[0], n_t) + rest).reshape((-1,) + rest)
+
+    return None if carry is None else {k: tuple(tile(leaf) for leaf in v) for k, v in carry.items()}
+
+
+def _stage_carry(rnn_carry, stage: str):
+    """One stage's streamed-in state, or None."""
+    return rnn_carry.get(stage) if rnn_carry else None
+
+
 class SuperSloMo(nn.Module):
-    """Two-stage Super SloMo with the CONV bottleneck.
+    """Two-stage Super SloMo, with the CONV bottleneck or the recurrent
+    ConvLSTM / ConvGRU bottleneck of SuperSloMo-R in either stage.
 
     :param spec: model hyperparameters (``Config.model_spec()``).
     :param device: ``None`` for the CUDA card (raises without one), or
@@ -97,8 +182,7 @@ class SuperSloMo(nn.Module):
         self.spec = spec
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, spec.compute_dtype)
-        self.stage1 = UNet(6, 4, spec.stage1_bottleneck, emit_encoding=spec.cross_skip)
-        self.stage2 = UNet(16, 5, spec.stage2_bottleneck, accept_encoding=spec.cross_skip)
+        self.stage1, self.stage2 = stage_unets(spec)
         self.to(device=self.device, dtype=self.compute_dtype, memory_format=torch.channels_last)
         self.eval()
         if self.device.type == "cuda":
@@ -109,18 +193,23 @@ class SuperSloMo(nn.Module):
     def load_state(self, state: dict) -> "SuperSloMo":
         """Load ``{"stage1": state_dict, "stage2": state_dict}`` (reference
         names, OIHW; cast to the compute dtype on load)."""
-        self.stage1.load_state_dict(state["stage1"])
-        self.stage2.load_state_dict(state["stage2"])
+        for stage in ("stage1", "stage2"):
+            check_stage_shapes(state[stage], self.spec, stage)
+            getattr(self, stage).load_state_dict(state[stage])
         return self
 
-    def forward(self, frames, t_interp) -> ModelOutputs:
+    def forward(self, frames, t_interp, rnn_carry: Optional[dict] = None) -> ModelOutputs:
         """Forward over all windows, with autograd (training and single-t
-        inference).
+        inference, and the streamed forward of a recurrent model).
 
         :param frames: (B, T, H, W, 3) normalized frames, T = N_FRAMES; H, W
             /32-divisible.
         :param t_interp: per-window instants in (0, 1): (B, T-1) or
             (B, T-1, 1, 1, 1).
+        :param rnn_carry: a recurrent model's state from a previous window
+            (``ModelOutputs.rnn_carry``); None starts from zeros.
+        :returns: ``ModelOutputs``; its ``rnn_carry`` is the new state of a
+            recurrent model, else None.
         """
         f32, cdt = torch.float32, self.compute_dtype
         frames = torch.as_tensor(frames, dtype=f32, device=self.device)
@@ -131,24 +220,38 @@ class SuperSloMo(nn.Module):
         x1 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
         t_f = t.reshape(BW, 1, 1, 1)
         with tf32_off():
-            head1, encoding = self.stage1(x1.to(cdt))
+            head1, encoding, carry1 = self.stage1(
+                x1.to(cdt), n_windows=W_n, rnn_carry=_stage_carry(rnn_carry, "stage1"))
             flowC = head1.to(f32)
             flowI_in = physics.compute_stage2_inputs(
                 x1, flowC, t_f, warp_dtype=cdt if cdt != f32 else None)
-            head2, _ = self.stage2(flowI_in.to(cdt), encoding)
+            head2, _, carry2 = self.stage2(
+                flowI_in.to(cdt), encoding, n_windows=W_n, rnn_carry=_stage_carry(rnn_carry, "stage2"))
             flowI_out = head2.to(f32)
             pred = physics.compute_output_image(x1, flowI_in, flowI_out, t_f)
 
         def unfold(x):  # (BW, c, H, W) → (B, W_n, H, W, c)
             return x.permute(0, 2, 3, 1).reshape(B, W_n, H, W, x.shape[1])
 
-        return ModelOutputs(pairs, unfold(flowC), unfold(flowI_in), unfold(flowI_out), unfold(pred), t)
+        carry = None if carry1 is None and carry2 is None else {"stage1": carry1, "stage2": carry2}
+        return ModelOutputs(pairs, unfold(flowC), unfold(flowI_in), unfold(flowI_out), unfold(pred), t, carry)
 
-    def interpolate_multi_t(self, frames, t_values, with_bounds: bool = False):
+    def forward_inference(self, frames, t_interp, rnn_carry: Optional[dict] = None):
+        """The reference-shaped inference call, under ``torch.inference_mode``:
+        ``(mid-window image (B, H, W, 3), Intermediates, rnn_carry)``."""
+        with torch.inference_mode():
+            outputs = self(frames, t_interp, rnn_carry)
+        mid = mid_window(outputs)
+        return outputs.pred_images[:, mid], intermediates_for_window(outputs, mid), outputs.rnn_carry
+
+    def interpolate_multi_t(self, frames, t_values, rnn_carry: Optional[dict] = None, with_bounds: bool = False):
         """The fused multi-t interpolation step.
 
         :param frames: (B, T, H, W, 3) normalized frames; H, W /32-divisible.
         :param t_values: (n_t,) interpolation instants in (0, 1).
+        :param rnn_carry: a recurrent model's state from a previous window
+            (batch B, from ``forward``); stage 2's is repeated over the
+            t-grid. The step returns no new state.
         :param with_bounds: also return the flow bound (a 0-d f32 tensor on
             the model's device). The CUDA warp is exact for any flow, so the
             bound is informational: no rerun depends on it.
@@ -160,10 +263,10 @@ class SuperSloMo(nn.Module):
         if frames.dim() != 5 or frames.shape[-1] != 3 or frames.shape[1] < 2:
             raise ValueError(f"frames must be (B, T>=2, H, W, 3), got {tuple(frames.shape)}")
         with torch.inference_mode(), tf32_off():
-            pred, bound = self._multi_t_planar(frames, t_values.reshape(-1))
+            pred, bound = self._multi_t_planar(frames, t_values.reshape(-1), rnn_carry)
         return (pred, bound) if with_bounds else pred
 
-    def _multi_t_planar(self, frames, t_values):
+    def _multi_t_planar(self, frames, t_values, rnn_carry=None):
         f32, cdt = torch.float32, self.compute_dtype
         pairs = make_pairs(frames)  # (B, W_n, H, W, 6) f32
         B, W_n, H, W, _ = pairs.shape
@@ -171,7 +274,8 @@ class SuperSloMo(nn.Module):
         planes6 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
 
         x6 = planes6.to(cdt)  # the pairs in the compute dtype, channels-last
-        head1, encoding = self.stage1(x6)  # (BW, 4, H, W) cdt
+        head1, encoding, _ = self.stage1(
+            x6, n_windows=W_n, rnn_carry=_stage_carry(rnn_carry, "stage1"))  # (BW, 4, H, W) cdt
         bound_c = head1.abs().amax().to(f32)
         u01, v01, u10, v10 = head1.to(f32).permute(1, 0, 2, 3).contiguous()
 
@@ -195,7 +299,8 @@ class SuperSloMo(nn.Module):
             .reshape(B * n_t * W_n, H, W, 16).permute(0, 3, 1, 2)
         )
         enc_t = None if encoding is None else _tile_t(encoding, B, n_t, W_n)
-        head2, _ = self.stage2(x2, enc_t)  # (B·n_t·W_n, 5, H, W) cdt
+        carry2 = _tile_carry(_stage_carry(rnn_carry, "stage2"), n_t)
+        head2, _, _ = self.stage2(x2, enc_t, n_windows=W_n, rnn_carry=carry2)  # (B·n_t·W_n, 5, H, W) cdt
         # refined flows = est + Δ, so boundC + max|Δ| bounds the final warps
         bound = torch.maximum(bound_c, bound_c + head2[:, 1:5].abs().amax().to(f32))
 

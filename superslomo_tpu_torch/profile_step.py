@@ -2,22 +2,29 @@
 
     python3 -m superslomo_tpu_torch.profile_step [--dtype bfloat16]
     python3 -m superslomo_tpu_torch.profile_step --train
+    python3 -m superslomo_tpu_torch.profile_step --recurrent [--dtype bfloat16]
 
 By default runs the fused 8x step ``SuperSloMo.interpolate_multi_t`` at 720p
 (736x1280 after the /32 pad), n_t=7, B=2, with seeded weights. With
 ``--train`` it runs ``Trainer.train_step`` at configs/superslomo_original.ini
 (B=32, 224x224 crops, f32, TF32 off) on seeded weights, random VGG features
-and seeded frames. Either way it traces three steps after two warm-up steps
-with ``torch.profiler`` and prints one JSON object: the step's wall time, the
-device's busy share of the traced window, the device time per step by kernel
-category (convolution, warp kernels, layout conversion, concat, resize/pool,
-optimizer, other elementwise), the share of convolution time in kernels whose
-names say NHWC, the convolutions' FLOPs per step (counted from their shapes,
-the backward's from which of each conv's input and weight take a gradient)
-and the rate they reach against the card's peak for the compute dtype, the
-peak device memory, the heaviest kernels by name, the warp kernels' time and
-launches per step by kernel, and the kernel that ran just before each warp
-launch of one step.
+and seeded frames. With ``--recurrent`` it runs configs/superslomo_recurrent.ini's
+SuperSloMo-R model at 720p, B=1: the fused 8x step from a streamed-in state,
+then one streamed window (``forward_inference`` at t=0.5 from the state of
+the window before), one JSON line each. Every run traces three steps after
+two warm-up steps with ``torch.profiler`` and prints one JSON object: the
+step's wall time, the device's busy share of the traced window, the device
+time per step by kernel category (convolution, warp kernels, layout
+conversion, concat, resize/pool, optimizer, other elementwise), the share of
+convolution time in kernels whose names say NHWC, the convolutions' FLOPs per
+step (counted from their shapes, the backward's from which of each conv's
+input and weight take a gradient) and the rate they reach against the card's
+peak for the compute dtype, the peak device memory, the heaviest kernels by
+name, the warp kernels' time and launches per step by kernel, and the kernel
+that ran just before each warp launch of one step. A recurrent model's
+bottleneck recurrence (the gate convolutions and the cells' pointwise
+kernels, everything its ``conv6`` launches) is also given alone: its device
+ms and share of the busy time, and its convolution FLOPs.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from superslomo_tpu_torch import SuperSloMo, Trainer, default_config, load_config, weights
+from superslomo_tpu_torch.models.bottleneck import BiConvRNN
 
 # H100 SXM dense peaks, bf16 tensor cores and float32 outside them (TF32 is off)
 PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}
@@ -52,6 +60,11 @@ _CATEGORIES = (
 # gradient's scratch fill shows as a memset, outside these)
 _WARP_KERNELS = ("warp_multiflow_kernel", "warp_single_forward_kernel", "warp_single_flow_grad_kernel",
                  "warp_single_img_grad_kernel", "warp_single_img_grad_store_kernel")
+
+
+# the profiler range around each recurrent bottleneck's forward
+RECURRENCE = "conv6_recurrence"
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _category(name: str) -> str:
@@ -96,11 +109,32 @@ def _serving_step(dtype):
         "step": "interpolate_multi_t", "compute_dtype": dtype, "batch": 2, "n_t": 7, "frame_hw": [736, 1280]}
 
 
+def _recurrent_steps(dtype):
+    """[(step, modules, shape facts)] of SuperSloMo-R at 720p, B=1: the
+    fused 8x step from a streamed-in state, and one streamed window."""
+    cfg = load_config(os.path.join(ROOT, "configs", "superslomo_recurrent.ini"))
+    cfg.set("TPU", "COMPUTE_DTYPE", dtype)
+    spec = cfg.model_spec()
+    model = SuperSloMo(spec).load_state(weights.seeded_state(spec, seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before, frames = torch.randn((2, 1, 4, 736, 1280, 3), generator=gen, device="cuda")
+    t = torch.full((1, 3), 0.5, device="cuda")
+    _, _, carry = model.forward_inference(before, t)
+    t_values = torch.arange(1, 8, dtype=torch.float32, device="cuda") / 8
+    facts = {"config": "configs/superslomo_recurrent.ini", "compute_dtype": dtype, "batch": 1,
+             "frame_hw": [736, 1280], "n_frames": 4}
+    return [
+        (lambda: model.interpolate_multi_t(frames, t_values, rnn_carry=carry, with_bounds=True), [model],
+         {"step": "interpolate_multi_t, streamed-in state", **facts, "n_t": 7}),
+        (lambda: model.forward_inference(frames, t, carry), [model],
+         {"step": "forward_inference (one streamed window)", **facts, "t": 0.5}),
+    ]
+
+
 def _train_step():
     """(step, modules, shape facts) of Trainer.train_step at the shipped
     training config."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cfg = load_config(os.path.join(root, "configs", "superslomo_original.ini"))
+    cfg = load_config(os.path.join(ROOT, "configs", "superslomo_original.ini"))
     cfg.set("TRAIN", "ALLOW_RANDOM_VGG", "TRUE")
     B, H, W = cfg.getint("TRAIN", "BATCH_SIZE"), cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")
     tr = Trainer(cfg)
@@ -112,29 +146,53 @@ def _train_step():
         "step": "train_step", "compute_dtype": "float32", "batch": B, "crop_hw": [H, W]}
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dtype", default="bfloat16", choices=("float32", "bfloat16"))
-    ap.add_argument("--train", action="store_true", help="profile Trainer.train_step (float32) instead")
-    args = ap.parse_args()
-    steps, top_n = 3, 12
+class _RecurrenceRanges:
+    """A profiler range named RECURRENCE around every BiConvRNN forward in
+    ``modules``, by forward hooks, while the context is open."""
 
-    step, modules, facts = _train_step() if args.train else _serving_step(args.dtype)
+    def __init__(self, modules):
+        self.rnns = [m for mod in modules for m in mod.modules() if isinstance(m, BiConvRNN)]
+        self.open, self.hooks = [], []
+
+    def _enter(self, module, args):
+        rng = torch.profiler.record_function(RECURRENCE)
+        rng.__enter__()
+        self.open.append(rng)
+
+    def _exit(self, module, args, out):
+        self.open.pop().__exit__(None, None, None)
+
+    def __enter__(self):
+        for m in self.rnns:
+            self.hooks += [m.register_forward_pre_hook(self._enter), m.register_forward_hook(self._exit)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+
+def profile(step, modules, facts, steps=3, top_n=12) -> dict:
+    """Trace ``steps`` calls of ``step`` after two warm-up calls, which
+    count the convolutions' FLOPs: all of them, and the recurrence's."""
     dtype = facts["compute_dtype"]
-    flops = conv_flops(modules, step)  # also the first warm-up step
-    step()
+    ranges = _RecurrenceRanges(modules)
+    flops = conv_flops(modules, step)  # the two warm-up steps
+    rnn_flops = conv_flops(ranges.rnns, step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with ranges, torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation and e.name != RECURRENCE]
     if not kernels:
         raise RuntimeError("the profiler recorded no device events")
     by_cat, by_name = defaultdict(float), defaultdict(float)
@@ -161,7 +219,7 @@ def main() -> None:
     per_step = lambda us: us / steps / 1e3  # noqa: E731
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     conv_s = per_step(by_cat["convolution"]) / 1e3
-    print(json.dumps({
+    out = {
         "device": torch.cuda.get_device_name(0), **facts, "steps": steps,
         "step_wall_ms": wall_ms / steps,
         "device_busy_ms_per_step": per_step(busy),
@@ -176,7 +234,36 @@ def main() -> None:
         "top_kernels_ms_per_step": [[name[:120], per_step(us)] for name, us in top],
         "warp_ms_and_launches_per_step": {k: [per_step(us), n / steps] for k, (us, n) in sorted(warps.items())},
         "kernel_before_each_warp": before_warp[: len(before_warp) // steps],
-    }))
+    }
+    if ranges.rnns:
+        # device time of every kernel launched inside a recurrence range
+        ranges_cpu = [e for e in events if e.name == RECURRENCE and e.device_type == torch.autograd.DeviceType.CPU]
+        rnn_us = sum(e.device_time_total for e in ranges_cpu)
+        out.update({
+            "recurrence_ranges_per_step": len(ranges_cpu) / steps,
+            "recurrence_ms_per_step": per_step(rnn_us),
+            "recurrence_share_of_busy": rnn_us / busy,
+            "recurrence_conv_tflop_per_step": rnn_flops / 1e12,
+        })
+    return out
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dtype", default="bfloat16", choices=("float32", "bfloat16"))
+    group = ap.add_mutually_exclusive_group()
+    group.add_argument("--train", action="store_true", help="profile Trainer.train_step (float32) instead")
+    group.add_argument("--recurrent", action="store_true",
+                       help="profile SuperSloMo-R's fused step and one streamed window instead")
+    args = ap.parse_args()
+    if args.train:
+        runs = [_train_step()]
+    elif args.recurrent:
+        runs = _recurrent_steps(args.dtype)
+    else:
+        runs = [_serving_step(args.dtype)]
+    for step, modules, facts in runs:
+        print(json.dumps(profile(step, modules, facts)), flush=True)
 
 
 if __name__ == "__main__":

@@ -48,7 +48,8 @@ def step_lr(base_lr: float, decay: float, period: float):
 
 
 class Trainer:
-    """Config-driven trainer of the CONV Super SloMo model.
+    """Config-driven trainer of the CONV Super SloMo model (a recurrent
+    CLSTM / CGRU bottleneck raises NotImplementedError).
 
     :param cfg: the INI config (``[TRAIN]``, ``[STAGE1]``, ``[STAGE2]``,
         ``[SEED]``, ``[TPU] COMPUTE_DTYPE``).
@@ -66,6 +67,12 @@ class Trainer:
         self.cfg = cfg
         self.expt_name = expt_name
         self.spec = cfg.model_spec()
+        recurrent = {self.spec.stage1_bottleneck, self.spec.stage2_bottleneck} - {"CONV"}
+        if recurrent:
+            raise NotImplementedError(
+                f"a {'/'.join(sorted(recurrent))} bottleneck: training the recurrent SuperSloMo-R model comes "
+                "with the SSM-R training slice of the port, which holds its gradients against the JAX package; "
+                "this slice serves it (SuperSloMo.forward / interpolate_multi_t)")
         if self.spec.compute_dtype != "float32":
             raise NotImplementedError(
                 f"[TPU] COMPUTE_DTYPE={self.spec.compute_dtype}: bf16 training needs float32 master "

@@ -2,12 +2,19 @@
 random weights, and the reference ``.pt`` checkpoint layout.
 
 The JAX tree is ``{"params": {"stage1": {...}, "stage2": {...}}}`` with each
-conv at ``<layer>/conv/{kernel (HWIO), bias}``. The port's state dicts use the
-reference names, OIHW:
+conv at ``<layer>/conv/{kernel (HWIO), bias}`` and a recurrent bottleneck's
+at ``conv6/{fwd,rev}_l{L}/{gates,candidate}/{kernel, bias}``. The port's
+state dicts use the reference names, OIHW:
 
     conv1a/conv/kernel    → conv1a.0.weight
     conv6_0/conv/kernel   → conv6.0.0.weight
+    conv6/fwd_l1/gates/kernel     → conv6.forward_net.cell_list.1.conv.weight
+    conv6/rev_l0/candidate/kernel → conv6.reverse_net.cell_list.0.conv_can.weight
     final_conv/conv/kernel → final_conv.weight
+
+A recurrent model's state (``rnn_carry``) crosses between the frameworks with
+``torch_carry_from_jax`` / ``jax_carry_from_torch``: the same dict and tuple
+structure, each leaf NHWC on the JAX side and NCHW on the port's.
 
 The reference checkpoint is a ``torch.save``d dict with ``stage1_state_dict``,
 ``stage2_state_dict``, ``self.optimizer`` (a ``torch.optim.Adam`` state dict
@@ -28,7 +35,10 @@ import numpy as np
 import torch
 
 from superslomo_tpu_torch.config import ModelSpec
-from superslomo_tpu_torch.models.unet import UNet
+from superslomo_tpu_torch.models.superslomo import check_stage_shapes, stage_unets
+
+_DIRECTIONS = {"fwd": "forward_net", "rev": "reverse_net"}
+_RECURRENT_CONVS = {"gates": "conv", "candidate": "conv_can"}
 
 
 def _torch_prefix(layer: str) -> str:
@@ -42,34 +52,79 @@ def _torch_prefix(layer: str) -> str:
     raise KeyError(f"unknown layer in the JAX parameter tree: {layer!r}")
 
 
-def _stage_keys() -> set:
-    with torch.device("meta"):
-        return set(UNet(6, 4).state_dict())
+def _put_conv(sd: dict, prefix: str, node: dict, where: str) -> None:
+    if set(node) != {"kernel", "bias"}:
+        raise KeyError(f"{where}: expected {{kernel, bias}}, got {node!r:.200}")
+    kernel = np.asarray(node["kernel"], dtype=np.float32)
+    sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
+    sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(node["bias"], dtype=np.float32).copy())
 
 
-def _convert_stage(tree: dict, stage: str) -> "OrderedDict[str, torch.Tensor]":
+def _convert_recurrent(sd: dict, tree: dict, where: str) -> None:
+    """``conv6/{fwd,rev}_l{L}/{gates,candidate}`` → the BiConvRNN's convs."""
+    for name, cell in tree.items():
+        m = re.fullmatch(r"(fwd|rev)_l(\d+)", name)
+        if m is None or not cell or not set(cell) <= set(_RECURRENT_CONVS):
+            raise KeyError(f"{where}/{name}: not a recurrent cell's convs, got {cell!r:.200}")
+        for conv, node in cell.items():
+            prefix = f"conv6.{_DIRECTIONS[m.group(1)]}.cell_list.{m.group(2)}.{_RECURRENT_CONVS[conv]}"
+            _put_conv(sd, prefix, node, f"{where}/{name}/{conv}")
+
+
+def _convert_stage(tree: dict, stage: str, spec: ModelSpec) -> "OrderedDict[str, torch.Tensor]":
     sd = OrderedDict()
     for layer, node in tree.items():
+        if layer == "conv6":
+            _convert_recurrent(sd, node, f"{stage}/conv6")
+            continue
         prefix = _torch_prefix(layer)
-        if set(node) != {"conv"} or set(node["conv"]) != {"kernel", "bias"}:
+        if set(node) != {"conv"}:
             raise KeyError(f"{stage}/{layer}: expected conv/{{kernel, bias}}, got {node!r:.200}")
-        kernel = np.asarray(node["conv"]["kernel"], dtype=np.float32)
-        sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
-        sd[f"{prefix}.bias"] = torch.from_numpy(np.asarray(node["conv"]["bias"], dtype=np.float32).copy())
-    missing = _stage_keys() - set(sd)
-    if missing:
-        raise KeyError(f"{stage}: missing parameters {sorted(missing)[:6]}")
+        _put_conv(sd, prefix, node["conv"], f"{stage}/{layer}/conv")
+    check_stage_shapes(sd, spec, stage)
     return sd
 
 
-def torch_state_from_jax(params: dict) -> dict:
+def torch_state_from_jax(params: dict, spec: ModelSpec = ModelSpec()) -> dict:
     """JAX param tree (numpy or JAX arrays) → ``{"stage1": state_dict,
-    "stage2": state_dict}`` for ``SuperSloMo.load_state``. Unknown or
-    missing keys raise KeyError."""
+    "stage2": state_dict}`` for ``SuperSloMo.load_state`` of a ``spec``
+    model. Unknown or missing keys raise KeyError, other shapes than the
+    model's ValueError; for the bottleneck both name ``[TPU] CLSTM_MERGE``
+    and ``CLSTM_GATE_ORDER``."""
     tree = params["params"]
     if set(tree) != {"stage1", "stage2"}:
         raise KeyError(f"expected stages stage1 and stage2, got {sorted(tree)}")
-    return {stage: _convert_stage(tree[stage], stage) for stage in ("stage1", "stage2")}
+    return {stage: _convert_stage(tree[stage], stage, spec) for stage in ("stage1", "stage2")}
+
+
+def _map_carry(carry, leaf_fn):
+    if carry is None:
+        return None
+    if isinstance(carry, dict):
+        return {k: _map_carry(v, leaf_fn) for k, v in carry.items()}
+    if isinstance(carry, (tuple, list)):
+        return tuple(_map_carry(v, leaf_fn) for v in carry)
+    return leaf_fn(carry)
+
+
+def _torch_leaf(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # numpy's bfloat16 extension type: through f32, exactly
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).permute(0, 3, 1, 2)
+    return torch.from_numpy(a.copy()).permute(0, 3, 1, 2)
+
+
+def torch_carry_from_jax(carry):
+    """A JAX model's ``rnn_carry`` (NHWC leaves) → the port's (NCHW leaves,
+    channels_last views on the CPU), the same dict and tuple structure."""
+    return _map_carry(carry, _torch_leaf)
+
+
+def jax_carry_from_torch(carry):
+    """The port's ``rnn_carry`` (NCHW leaves) → numpy NHWC leaves for a JAX
+    model, the same structure. bf16 leaves come back as their exact f32
+    values (numpy has no bfloat16): cast them to the model's dtype."""
+    return _map_carry(carry, lambda x: x.detach().float().permute(0, 2, 3, 1).cpu().numpy())
 
 
 def seeded_state(spec: ModelSpec, seed: int) -> dict:
@@ -78,10 +133,7 @@ def seeded_state(spec: ModelSpec, seed: int) -> dict:
     drawn stage by stage in sorted key order."""
     rng = np.random.default_rng(seed)
     with torch.device("meta"):
-        shapes = {
-            "stage1": UNet(6, 4, spec.stage1_bottleneck, emit_encoding=spec.cross_skip),
-            "stage2": UNet(16, 5, spec.stage2_bottleneck, accept_encoding=spec.cross_skip),
-        }
+        shapes = dict(zip(("stage1", "stage2"), stage_unets(spec)))
     state = {}
     for stage, module in shapes.items():
         sd = OrderedDict()

@@ -111,6 +111,37 @@ def test_avg_pool_and_upsample_match_jax():
     np.testing.assert_allclose(up, np.asarray(jops.upsample_2x_bilinear(jnp.asarray(x))), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_upsample_in_batch_slices_equals_one_call(monkeypatch, channels_last):
+    """An output beyond the CUDA kernels' 32-bit indexing is computed a batch
+    slice at a time (here with the limit lowered to 2.5 samples): bit for
+    bit the one-call result, in the input's memory format."""
+    from superslomo_tpu_torch.ops import resize
+
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((5, 6, 7, 9)).astype(np.float32))
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    want = torch.nn.functional.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    monkeypatch.setattr(resize, "_MAX_ELEMENTS", 5 * 6 * 14 * 18 // 2)
+    got = tops.upsample_2x_bilinear(x)
+    assert torch.equal(got, want)
+    assert got.is_contiguous(memory_format=torch.channels_last) == channels_last
+
+
+def test_upsample_under_autograd_matches_one_call():
+    """Under autograd (training) the upsample is differentiable: the output
+    and the input gradient are those of ``F.interpolate``."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3, 4, 5, 7)).astype(np.float32))
+    x = x.contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((3, 4, 10, 14)).astype(np.float32))
+    got = tops.upsample_2x_bilinear(x)
+    (got_grad,) = torch.autograd.grad(got, x, g)
+    want = torch.nn.functional.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    (want_grad,) = torch.autograd.grad(want, x, g)
+    assert torch.equal(got, want) and torch.equal(got_grad, want_grad)
+
+
 def _single_inputs(seed, B=2, C=3, H=23, W=37):
     """NHWC image and flow at a small odd shape; the flow leaves the frame
     (std 6 px, and a patch shifted 40 px)."""

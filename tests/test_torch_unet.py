@@ -54,7 +54,8 @@ def test_stage1_matches_jax(stages):
     net = UNet(6, 4, emit_encoding=True).eval()
     net.load_state_dict(state["stage1"])
     with torch.no_grad():
-        out, enc = net(torch.from_numpy(x[:, 0]).permute(0, 3, 1, 2))
+        out, enc, carry = net(torch.from_numpy(x[:, 0]).permute(0, 3, 1, 2))
+    assert carry is None
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(want)[:, 0], atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(enc.permute(0, 2, 3, 1).numpy(), np.asarray(want_enc)[:, 0], atol=ATOL, rtol=RTOL)
 
@@ -69,11 +70,11 @@ def test_stage2_cross_encoding_matches_jax(stages):
     net = UNet(16, 5, accept_encoding=True).to(memory_format=torch.channels_last).eval()
     net.load_state_dict(state["stage2"])
     with torch.no_grad():
-        out, none = net(
+        out, none, carry = net(
             torch.from_numpy(x[:, 0]).permute(0, 3, 1, 2),
             torch.from_numpy(enc[:, 0]).permute(0, 3, 1, 2),
         )
-    assert none is None and net.conv7a[0].in_channels == 1024
+    assert none is None and carry is None and net.conv7a[0].in_channels == 1024
     np.testing.assert_allclose(out.permute(0, 2, 3, 1).numpy(), np.asarray(want)[:, 0], atol=ATOL, rtol=RTOL)
 
 
