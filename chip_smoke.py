@@ -37,7 +37,11 @@ Phases, each of which raises on failure:
      longer to launch a call than the device takes to run it, this holds the
      host's time too); ``device_ms``, the same calls queued behind a
      device-side sleep, so each interval holds only device work; and
-     ``host_ms``, the host's time to launch one call;
+     ``host_ms``, the host's time to launch one call; then the multi-flow
+     warp's gradients (its autograd.Function, one flow-gradient and one
+     image-gradient launch a flow) against autograd of its plain version at
+     the serving path's shapes, f32 and bf16 planes, 2n launches a backward,
+     timed beside its bound and grid_sample's forward + backward;
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
@@ -72,12 +76,26 @@ Phases, each of which raises on failure:
       checkpoint; the single-flow kernels' launches counted per step and the
       strides that each backward launch of the first step receives recorded;
       the checkpoint reloaded and resumed to identical weights and Adam
-      moments.
+      moments;
+  12. SuperSloMo-R's train step on the card against the CPU
+      (configs/superslomo_recurrent.ini's model, CLSTM / CONCAT and CGRU /
+      SUM, 64x64, B=2, N_FRAMES=4), with the bars of phase 9;
+  13. SuperSloMo-R's training main path: the Trainer at
+      configs/superslomo_recurrent.ini as shipped (B=32, 224x224, N_FRAMES=4,
+      f32) as in phase 11 but on cuDNN's heuristics (its autotuning at this
+      shape takes minutes), then with [TPU] REMAT (a lower peak, the same
+      first loss);
+  14. bf16 training: the Trainer at configs/superslomo_original.ini with
+      [TPU] COMPUTE_DTYPE = bfloat16 as in phase 11: every parameter,
+      gradient and Adam moment f32, the first loss beside the f32 one. The
+      backward launches' layouts of phases 11, 13 and 14 must each be a
+      gradient case of phase 3.
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
-prints no result. Phases 2 and 3 use only wrapper calls that earlier versions
-of the package have too, so a copy of this script placed in an older
-checkout runs them there (``--kernels-only``) for a same-card comparison.
+prints no result. Phases 2 and 3, up to the multi-flow warp's gradients,
+use only wrapper calls that earlier versions of the package have too, so a
+copy of this script placed in an older checkout runs them there
+(``--kernels-only``) for a same-card comparison.
 """
 
 import argparse
@@ -106,6 +124,9 @@ SLICE_ATOL, SLICE_RTOL = 5e-4, 1e-3  # the full-model bar of the JAX package
 # a train step on the card against the CPU: the loss bar of
 # tests/test_torch_train.py, and its gradient bar over all parameters together
 LOSS_RTOL, GRAD_REL = 1e-4, 1e-3
+# the bf16 train step's total loss against the f32 step's on the same weights
+# and batch: a sanity bar (bf16 keeps 8 bits; the losses average 150k pixels)
+BF16_LOSS_REL = 1e-2
 
 
 def emit(obj):
@@ -277,6 +298,108 @@ def phase_kernel():
         res["bound_ms"], res["bound_by"] = warp_bound(B, C, n, H, W, p.element_size(), got.element_size())
         out[(case, tag)] = res
         emit({"phase": "kernel_vs_plain", "case": case, "dtype": tag, **res})
+    return out
+
+
+def multiflow_grad_bound(B, C, n, H, W, esize):
+    """Least time of the multi-flow warp's backward, as (ms, bound_by): the
+    planes, u, v and the output gradient read once, the three gradients
+    written once, against the f32 operations per (pixel, flow): 12 for the
+    position and weights, per channel 12 for the flow gradient's taps and 8
+    for the image gradient's scatter."""
+    nbytes = 2 * B * C * H * W * esize + 4 * B * n * H * W * 4 + B * C * n * H * W * esize
+    ops = B * n * H * W * (12 + 20 * C)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_multiflow_grad():
+    """The multi-flow warp's gradients on the card (its autograd.Function: a
+    single-flow flow-gradient and image-gradient launch a flow) against
+    autograd of its plain version, at the serving path's shapes (736x1280,
+    B=2, C=3, n=7) on the step's kind of flows, with f32 and with bf16 planes:
+    the planes', u's and v's gradients each within GRAD_KERNEL_REL of the
+    reference's max |g| (bf16 planes: the plain f32 gradient of the planes
+    upcast, plus its one rounding to bf16), and 2n launches for a backward
+    that needs all three. Timed as the backward alone and as forward +
+    backward, each beside the plain version's and the library's:
+    grid_sample with the n flows folded into the batch, whose backward
+    (``aten.grid_sampler_2d_backward``, both gradients) computes the same
+    gradients but the planes' sum over the flows."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+
+    B, C, n, H, W = 2, 3, 7, 736, 1280
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(21)
+    u, v = step_flows(np.random.default_rng(22), B, n, H, W, dev)
+    planes32 = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    g32 = torch.from_numpy(rng.standard_normal((B, C, n, H, W), dtype=np.float32)).to(dev)
+    out = {}
+    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        p, g = planes32.to(dt), g32.to(dt)
+        leaves = [x.detach().requires_grad_(True) for x in (p, u, v)]
+        result = ops.warp_multiflow_planar(*leaves)
+        bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+        got = torch.autograd.grad(result, leaves, g, retain_graph=True)
+        torch.cuda.synchronize()
+        launches = {"flow_grad": bwd.flow_grad_launches, "img_grad": bwd.img_grad_launches,
+                    "multiflow_backward": ops._WarpMultiflow.launches}
+        # the plain version's autograd, in f32 for bf16 planes (their exact values)
+        plain = [x.detach().float().requires_grad_(True) for x in (p, u, v)]
+        want = torch.autograd.grad(ops.warp_multiflow_planar_reference(*plain, torch.float32), plain, g.float())
+        errs = {}
+        ok = result.grad_fn is not None and launches == {"flow_grad": n, "img_grad": n, "multiflow_backward": 2 * n}
+        for name, a, w, leaf in zip(("planes", "u", "v"), got, want, leaves):
+            bar = GRAD_KERNEL_REL * w.abs().max().item()
+            tol = bar + (2.0**-8 * w.abs() if name == "planes" and dt == torch.bfloat16 else 0.0)
+            errs[name] = {"max_abs_err": (a.float() - w).abs().max().item(), "bar": bar}
+            if a.dtype == torch.bfloat16:  # beside the plain f32 gradient rounded once to bf16
+                errs[name]["max_abs_err_vs_plain_cast"] = (a.float() - w.to(a.dtype).float()).abs().max().item()
+            ok &= a.dtype == leaf.dtype and bool(((a.float() - w).abs() <= tol).all())
+
+        def fwd_bwd():
+            xs = [x.detach().requires_grad_(True) for x in (p, u, v)]
+            torch.autograd.grad(ops.warp_multiflow_planar(*xs), xs, g)
+
+        def plain_fwd_bwd():
+            xs = [x.detach().float().requires_grad_(True) for x in (p, u, v)]
+            torch.autograd.grad(ops.warp_multiflow_planar_reference(*xs, torch.float32), xs, g.float())
+
+        plain_out = ops.warp_multiflow_planar_reference(*plain, torch.float32)
+
+        gx = 2 * (torch.arange(W, device=dev) + u) / (W - 1) - 1
+        gy = 2 * (torch.arange(H, device=dev)[:, None] + v) / (H - 1) - 1
+        grid = torch.stack([gx, gy], dim=-1).reshape(B * n, H, W, 2)
+        tiled = p.float()[:, None].expand(B, n, C, H, W).reshape(B * n, C, H, W)
+        g_lib = g.float().transpose(1, 2).reshape(B * n, C, H, W)
+
+        def library():  # f32: a bf16 grid could not address 1280 columns
+            xs = [tiled.detach().requires_grad_(True), grid.detach().requires_grad_(True)]
+            torch.autograd.grad(_grid_sample(*xs), xs, g_lib)
+
+        def library_bwd():
+            torch.ops.aten.grid_sampler_2d_backward(g_lib, tiled, grid, 0, 0, True, [True, True])
+
+        bound = multiflow_grad_bound(B, C, n, H, W, p.element_size())
+        res = {
+            "shape": [B, C, n, H, W], "flows": "the step's (smooth, <= 30 px)", "launches": launches,
+            "grad_fn": type(result.grad_fn).__name__, "grads": errs,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "backward": timings(lambda: torch.autograd.grad(result, leaves, g, retain_graph=True)),
+            "fwd_bwd": timings(fwd_bwd), "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, reps=5, warmup=1),
+            "plain_backward_ms": cuda_ms(lambda: torch.autograd.grad(plain_out, plain, g.float(), retain_graph=True),
+                                         reps=5, warmup=1),
+            "library_fwd_bwd_ms": cuda_ms(library), "library_backward_ms": cuda_ms(library_bwd),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "library": "grid_sample on the planes tiled n times, f32: its backward to the tiles and the grid",
+        }
+        out[tag] = res
+        emit({"phase": "multiflow_grad_vs_plain", "dtype": tag, **res})
+        if not ok:
+            raise AssertionError(f"multi-flow warp gradients on the card, {tag}: {res}")
+        del result, got, want, leaves, plain, plain_out, tiled, grid, g_lib
+        torch.cuda.empty_cache()
     return out
 
 
@@ -483,21 +606,28 @@ def phase_single_kernels():
     }
     emit({"phase": "single_kernels_vs_plain", "case": "smooth_flow", **res["smooth_flow"]})
 
-    # the gradient kernels in the layouts the train step's 8 backward launches
-    # receive (phase train_main_path records them, and main() checks that
+    # the gradient kernels in the layouts the train steps' 8 backward
+    # launches receive (the train phases record them, and main() checks that
     # each is a case here): the image a frame of the pair (pixel stride 6);
     # the flow a head's (stride 4: the stage-1 warp loss) or a dense
     # channels_last sum (stride 2: the interpolated and refined flows); the
     # output gradient NCHW (the warp losses), a slice of the NCHW gradient of
     # the 16-channel stage-2 input, or dense channels_last (the final warps'
-    # blend)
+    # blend). Under bf16 compute the stage-2 input's warps take the frame
+    # cast to bf16 (dense channels_last) and their output gradient cast to
+    # bf16 (dense, NCHW or channels_last)
     g3 = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
     g16 = torch.from_numpy(rng.standard_normal((B, 16, H, W), dtype=np.float32)).to(dev)[:, 3:6]
     g3_cl = _channels_last(rng, B, C, H, W, dev)
+    img_bf16 = img.to(torch.bfloat16)
+    if img_bf16.stride() != (3 * H * W, 1, 3 * W, 3):
+        raise AssertionError(f"the pair's frame cast to bf16 is not dense channels_last: {img_bf16.stride()}")
     grad_cases = {
         "loss_head": (img, flow, g3), "loss_refined": (img, flow2, g3), "final": (img, flow2, g3_cl),
         "stage2_input": (img, flow2, g16), "smooth_loss_head": (img, flow_s, g3),
         "bf16_loss_head": (pairs.bfloat16()[:, 3:6], flow, g3.bfloat16()),
+        "bf16_stage2_input_nchw": (img_bf16, flow2, g16.bfloat16()),
+        "bf16_stage2_input_channels_last": (img_bf16, flow2, g3_cl.bfloat16()),
     }
     for case, (im, fl, g) in grad_cases.items():
         r = check_grads(case, im, fl, g)
@@ -519,8 +649,7 @@ def phase_single_kernels():
             torch.autograd.grad(ops.warp_single_reference(*x), x[idx], g3)
 
         res["grad_loss_head"][key]["plain_ms"] = cuda_ms(plain_fwd_bwd, reps=10, warmup=1)
-    res["layouts"] = sorted({(tuple(im.stride()), tuple(fl.stride()), tuple(g.stride()))
-                             for im, fl, g in grad_cases.values() if im.dtype == torch.float32})
+    res["layouts"] = sorted({backward_layout(im, fl, g) for im, fl, g in grad_cases.values()})
 
     # odd shapes (ragged tiles, no vector access): a pair slice with a head
     # flow in f32, and NCHW bf16 against the f32 result cast; both gradients
@@ -726,22 +855,24 @@ def synthetic_batches(norm, padding, n_batches, B, H, W, seed, n_frames=2):
     return out
 
 
-def synthetic_train_batches(norm, n_batches, B, H, W, seed):
-    """Training batches of panning clips: frames (B, 2, H, W, 3) = the ends,
-    one inner frame per sample as the target (B, 1, H, W, 3), and its
-    instant t = i/8 (B, 1)."""
+def synthetic_train_batches(norm, n_batches, B, H, W, seed, n_frames=2):
+    """Training batches of panning clips of 8 (n_frames - 1) + 1 frames:
+    frames (B, n_frames, H, W, 3), every 8th frame of the clip; per window
+    one inner frame as the target (B, n_frames - 1, H, W, 3), and its instant
+    t = i/8 (B, n_frames - 1)."""
     rng = np.random.default_rng(seed)
+    W_n = n_frames - 1
     out = []
     for _ in range(n_batches):
-        x = norm(panning_clips(rng, B, H, W))
-        i = rng.integers(1, 8, B)
-        out.append((x[:, [0, 8]], x[np.arange(B), i][:, None], (i / 8).astype(np.float32)[:, None]))
+        x = norm(panning_clips(rng, B, H, W, 8 * W_n + 1))
+        i = rng.integers(1, 8, (B, W_n))
+        out.append((x[:, ::8], x[np.arange(B)[:, None], 8 * np.arange(W_n) + i], (i / 8).astype(np.float32)))
     return out
 
 
 def phase_main_path(dtype, batches, steps=8):
     """The Evaluator at 720p 8x over ``batches``, after timing the step."""
-    from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config, weights
+    from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config, ops, weights
     from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
 
     cfg = default_config(DATA_DATASET="ADOBE", TPU_COMPUTE_DTYPE=dtype)
@@ -764,21 +895,22 @@ def phase_main_path(dtype, batches, steps=8):
     peak = torch.cuda.max_memory_allocated()
     B, n_t = frames.shape[0], t_values.shape[0]
 
-    counter.launches = 0
+    counter.launches = ops._WarpMultiflow.launches = 0
     t0 = time.perf_counter()
     results = Evaluator(cfg, model).run(batches)
     wall = time.perf_counter() - t0
-    launches = counter.launches
+    launches, bwd_launches = counter.launches, ops._WarpMultiflow.launches
     res = {
         "phase": "main_path", "compute_dtype": dtype, "batch": B, "n_t": n_t,
         "frame_hw": list(frames.shape[2:4]), "step_ms_median": statistics.median(times),
         "step_ms": times, "frames_per_s": B * n_t / (statistics.median(times) / 1e3),
         "peak_mem_gib": peak / 2**30, "eval_batches": len(batches), "eval_wall_s": wall,
-        "warp_launches": launches, **results,
+        "warp_launches": launches, "warp_multiflow_backward_launches": bwd_launches, **results,
     }
     emit(res)
-    if launches != 4 * len(batches):
-        raise AssertionError(f"{launches} warp launches over {len(batches)} steps, expected 4 per step")
+    if launches != 4 * len(batches) or bwd_launches != 0:
+        raise AssertionError(f"{launches} warp launches ({bwd_launches} of its backward) over {len(batches)} "
+                             "steps, expected 4 per step (none)")
     if not all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"], results["max_flow_bound"]])):
         raise AssertionError(f"non-finite metrics: {results}")
     return res
@@ -880,7 +1012,7 @@ def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
         layouts.append(forward_layout(img, flow))
         return single(img, flow)
 
-    single.launches = mf.launches = 0
+    single.launches = mf.launches = ops._WarpMultiflow.launches = 0
     carry, times, mids = None, [], []
     for start in starts:
         ops.warp_single_cuda = recording if start == 0 else single  # the name _WarpSingle.forward calls
@@ -889,7 +1021,8 @@ def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         mids.append(mid)
-    launches = {"warp_single": single.launches, "warp_multiflow": mf.launches}
+    launches = {"warp_single": single.launches, "warp_multiflow": mf.launches,
+                "warp_multiflow_backward": ops._WarpMultiflow.launches}
     peak = torch.cuda.max_memory_allocated()
     finite = all(bool(torch.isfinite(x).all()) for x in mids + [leaf for _, leaf in _carry_leaves(carry)])
     n = len(starts)
@@ -905,7 +1038,7 @@ def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
         raise AssertionError(f"non-finite SSM-R stream output: {res}")
     if len(layouts) != 4:
         raise AssertionError(f"{len(layouts)} forward launches recorded in the first window, expected 4")
-    if launches != {"warp_single": 4 * n, "warp_multiflow": 0}:
+    if launches != {"warp_single": 4 * n, "warp_multiflow": 0, "warp_multiflow_backward": 0}:
         raise AssertionError(f"kernel launches {launches} over {n} windows, expected 4 single-flow a window")
     del model, clip
     torch.cuda.empty_cache()
@@ -919,7 +1052,7 @@ def phase_ssmr_main_path(batches, steps=8):
     steps), frames/s, peak memory and the multi-flow kernel's launches, 4 a
     step. Then the Evaluator with the f32 model over ``batches`` at B=1,
     and bf16 against f32 on the same input."""
-    from superslomo_tpu_torch import Evaluator, SuperSloMo, weights
+    from superslomo_tpu_torch import Evaluator, SuperSloMo, ops, weights
     from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as single
 
@@ -940,14 +1073,15 @@ def phase_ssmr_main_path(batches, steps=8):
             step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        mf.launches = single.launches = 0
+        mf.launches = single.launches = ops._WarpMultiflow.launches = 0
         times = []
         for _ in range(steps):
             t0 = time.perf_counter()
             pred, bound = step()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        launches = {"warp_multiflow": mf.launches, "warp_single": single.launches}
+        launches = {"warp_multiflow": mf.launches, "warp_single": single.launches,
+                    "warp_multiflow_backward": ops._WarpMultiflow.launches}
         peak = torch.cuda.max_memory_allocated()
         med = statistics.median(times)
         res = {
@@ -959,19 +1093,20 @@ def phase_ssmr_main_path(batches, steps=8):
         }
         if not res["finite"]:
             raise AssertionError(f"non-finite SSM-R step output: {res}")
-        if launches != {"warp_multiflow": 4 * steps, "warp_single": 0}:
+        if launches != {"warp_multiflow": 4 * steps, "warp_single": 0, "warp_multiflow_backward": 0}:
             raise AssertionError(f"kernel launches {launches} over {steps} steps, expected 4 multi-flow a step")
         if B == 1:
             preds[dtype] = pred
         if dtype == "float32":  # the shipped config's model under the Evaluator
-            mf.launches = 0
+            mf.launches = ops._WarpMultiflow.launches = 0
             t0 = time.perf_counter()
             results = Evaluator(cfg, model).run([(f[:1], g[:1], n[:1]) for f, g, n in batches])
             res.update(eval_batches=len(batches), eval_batch=1, eval_wall_s=time.perf_counter() - t0,
-                       eval_warp_multiflow_launches=mf.launches, **results)
+                       eval_warp_multiflow_launches=mf.launches,
+                       eval_warp_multiflow_backward_launches=ops._WarpMultiflow.launches, **results)
             if not all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"]])):
                 raise AssertionError(f"non-finite SSM-R metrics: {results}")
-            if mf.launches != 4 * len(batches):
+            if mf.launches != 4 * len(batches) or ops._WarpMultiflow.launches != 0:
                 raise AssertionError(f"{mf.launches} multi-flow launches over {len(batches)} evaluator batches")
         emit(res)
         out.append(res)
@@ -998,20 +1133,19 @@ def _train_config(ckpt_dir, path=None, **overrides):
     return cfg
 
 
-def phase_train_vs_cpu(ckpt_dir, norm):
-    """One train step on the card against the same step on the CPU (64x64,
-    B=2, f32, panning-texture frames): the loss vector within the CPU test's
-    1e-4, and the gradient of all parameters together within its 1e-3, as a
-    relative L2 error. Per tensor the max-relative error is reported beside
-    the same quantity between two CPU steps whose frames differ by 1e-5: the
-    step's gradient is discontinuous (the warp's floor, the leaky ReLU's and
-    max pool's switches, the L1 kinks), and in the deep layers, which see few
+def train_step_card_vs_cpu(phase, cfg, batch, **facts):
+    """One train step of the Trainer at ``cfg`` on the card against the same
+    step on the CPU: the loss vector within the CPU test's 1e-4, and the
+    gradient of all parameters together within its 1e-3, as a relative L2
+    error. Per tensor the max-relative error is reported beside the same
+    quantity between two CPU steps whose frames differ by 1e-5: the step's
+    gradient is discontinuous (the warp's floor, the leaky ReLU's and max
+    pool's switches, the L1 kinks), and in the deep layers, which see few
     positions at 64x64, one switch moves a tensor's gradient by a visible
     share of its max, on the CPU alone as much as between two devices."""
     from superslomo_tpu_torch import Trainer
 
-    frames, targets, t = synthetic_train_batches(norm, n_batches=1, B=2, H=64, W=64, seed=4)[0]
-    cfg = _train_config(ckpt_dir, TRAIN_BATCH_SIZE=2, TRAIN_CROP_IMH=64, TRAIN_CROP_IMW=64)
+    frames, targets, t = batch
 
     def step(device, f):
         tr = Trainer(cfg, device=device)
@@ -1033,7 +1167,7 @@ def phase_train_vs_cpu(ckpt_dir, norm):
     rel, worst, worst_rel = compare(grads_card, grads_cpu)
     cpu_rel, cpu_worst, cpu_worst_rel = compare(grads_nudged, grads_cpu)
     res = {
-        "phase": "train_step_card_vs_cpu", "shape": [2, 2, 64, 64, 3],
+        "phase": phase, **facts, "shape": list(frames.shape),
         "loss_card": loss_card.tolist(), "loss_cpu": loss_cpu.tolist(),
         "loss_max_rel_err": float(np.max(np.abs(loss_card - loss_cpu) / np.abs(loss_cpu))),
         "grad_rel_l2_err": rel, "grad_worst_tensor": worst, "grad_worst_tensor_max_rel_err": worst_rel,
@@ -1044,6 +1178,30 @@ def phase_train_vs_cpu(ckpt_dir, norm):
     emit(res)
     if not (np.isfinite(loss_card).all() and res["loss_max_rel_err"] <= LOSS_RTOL and rel <= GRAD_REL):
         raise AssertionError(f"train step on the card and the CPU disagree: {res}")
+    return res
+
+
+def phase_train_vs_cpu(ckpt_dir, norm):
+    """The CONV train step on the card against the CPU (64x64, B=2, f32,
+    panning-texture frames)."""
+    batch = synthetic_train_batches(norm, n_batches=1, B=2, H=64, W=64, seed=4)[0]
+    cfg = _train_config(ckpt_dir, TRAIN_BATCH_SIZE=2, TRAIN_CROP_IMH=64, TRAIN_CROP_IMW=64)
+    return train_step_card_vs_cpu("train_step_card_vs_cpu", cfg, batch)
+
+
+def phase_ssmr_train_vs_cpu(ckpt_dir, norm):
+    """The SuperSloMo-R train step on the card against the CPU:
+    configs/superslomo_recurrent.ini's model with the CLSTM / CONCAT and the
+    CGRU / SUM bottleneck in both stages, 64x64, B=2, N_FRAMES=4 (3 windows,
+    the recurrence from a zero state), f32, panning-texture frames."""
+    batch = synthetic_train_batches(norm, n_batches=1, B=2, H=64, W=64, seed=14, n_frames=4)[0]
+    out = []
+    for cell, merge in (("CLSTM", "CONCAT"), ("CGRU", "SUM")):
+        cfg = _train_config(ckpt_dir, _config_path("superslomo_recurrent.ini"), TRAIN_BATCH_SIZE=2,
+                            TRAIN_CROP_IMH=64, TRAIN_CROP_IMW=64, STAGE1_BOTTLENECK=cell, STAGE2_BOTTLENECK=cell,
+                            TPU_CLSTM_MERGE=merge)
+        out.append(train_step_card_vs_cpu("ssmr_train_step_card_vs_cpu", cfg, batch, cell=cell, merge=merge))
+    return out
 
 
 def translating_pattern(shift, H=32, W=32):
@@ -1073,79 +1231,219 @@ def phase_convergence(ckpt_dir):
         raise AssertionError(f"training did not converge on the translating scene: {res}")
 
 
-def phase_train_main(ckpt_dir, norm, timed=10):
-    """The Trainer at the shipped training config over synthetic batches:
-    2 warm-up and ``timed`` timed steps, then 2 steps of ``train``, which
-    saves a checkpoint; the checkpoint reloaded and resumed."""
+def _config_path(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", name)
+
+
+def backward_layout(img, flow, grad_out):
+    """What a gradient launch's plans and reads depend on: the image's dtype
+    and the strides of the image, the flow and the output gradient."""
+    return (str(img.dtype).replace("torch.", ""), tuple(img.stride()), tuple(flow.stride()), tuple(grad_out.stride()))
+
+
+def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudnn_benchmark=True, **overrides):
+    """The Trainer at ``configs/<config>`` (with ``overrides``) over
+    synthetic batches at its batch, crop and N_FRAMES: 2 warm-up and
+    ``timed`` timed steps; with ``resume`` then 2 steps of ``train``, which
+    saves a checkpoint, reloaded and resumed. Counts the single-flow
+    kernels' launches over every step, records the layout that each backward
+    launch of the first step receives and the (input, weight) dtypes each
+    conv computes in, keeps the first step's gradients (on the host), and
+    checks that the U-Net convs compute in the compute dtype on f32 weights,
+    the VGG's in f32, and that the parameters, their gradients and Adam's
+    moments are f32. ``cudnn_benchmark=False`` runs the steps on cuDNN's
+    heuristics in place of the autotuning that building a model on the card
+    switches on (restored at the end). Returns the result,
+    the trainer and the first step's gradients (the optimizer's order)."""
     from superslomo_tpu_torch import Trainer, ops
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    cfg = _train_config(ckpt_dir, os.path.join(root, "configs", "superslomo_original.ini"))
+    t_setup = time.perf_counter()
+    cfg = _train_config(ckpt_dir, _config_path(config), **overrides)
     B, H, W = cfg.getint("TRAIN", "BATCH_SIZE"), cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")
-    batches = synthetic_train_batches(norm, n_batches=3, B=B, H=H, W=W, seed=5)
-    tr = Trainer(cfg, expt_name="chip_smoke")
+    n_frames = cfg.n_frames()
+    batches = synthetic_train_batches(norm, n_batches=3, B=B, H=H, W=W, seed=5, n_frames=n_frames)
+    tr = Trainer(cfg, expt_name=phase)
+    torch.backends.cudnn.benchmark = cudnn_benchmark
+    setup_s = time.perf_counter() - t_setup
 
-    # the strides that each backward launch of the first step receives
+    # the layout each backward launch of the first step receives
     layouts = []
 
     def recording_bwd(img, flow, grad_out, need_img, need_flow):
-        layouts.append({"img": list(img.stride()), "flow": list(flow.stride()), "grad_out": list(grad_out.stride()),
-                        "grad_out_offset": grad_out.storage_offset(), "need_img": need_img, "need_flow": need_flow})
+        layouts.append({"layout": backward_layout(img, flow, grad_out), "grad_out_offset": grad_out.storage_offset(),
+                        "need_img": need_img, "need_flow": need_flow})
         return bwd(img, flow, grad_out, need_img, need_flow)
 
-    fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = 0
-    losses, times = [], []
-    for i in range(2 + timed):
-        if i == 2:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        ops.warp_single_backward_cuda = recording_bwd if i == 0 else bwd  # the name _WarpSingle.backward calls
-        t0 = time.perf_counter()
-        losses.append(tr.train_step(*batches[i % len(batches)]))
-        torch.cuda.synchronize()
-        if i >= 2:
-            times.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
-    last = tr.train(batches[:1], max_steps=tr.step + 2)  # two epochs of one batch; saves at the end
-    steps = 2 + timed + 2
-    launches = {"forward": fwd.launches, "backward": bwd.launches,
-                "flow_grad": bwd.flow_grad_launches, "img_grad": bwd.img_grad_launches}
-    losses = torch.stack(losses).cpu().numpy()
+    # the (input, weight) dtypes each conv computes in, in the first step
+    conv_dtypes = {}
 
-    path = tr.checkpoint_path(tr.epoch)
-    resumed = Trainer(_train_config(
-        ckpt_dir, os.path.join(root, "configs", "superslomo_original.ini"), STAGE1_LOADPREV="TRUE",
-        STAGE1_WEIGHTS=path, STAGE2_LOADPREV="TRUE", STAGE2_WEIGHTS=path), expt_name="chip_smoke_resumed")
-    same_weights = all(
-        torch.equal(a, b) for stage in ("stage1", "stage2")
-        for a, b in zip(getattr(tr.model, stage).state_dict().values(),
-                        getattr(resumed.model, stage).state_dict().values()))
-    same_moments = all(
-        torch.equal(tr.optimizer.state[p][key], resumed.optimizer.state[q][key])
-        for p, q in zip(tr.optimizer.param_groups[0]["params"], resumed.optimizer.param_groups[0]["params"])
-        for key in ("exp_avg", "exp_avg_sq"))
+    def recording_conv(name):
+        def hook(module, args):
+            conv_dtypes.setdefault(name, set()).add(tuple(str(x.dtype)[6:] for x in (args[0], module.weight)))
+        return hook
+
+    convs = {f"{stage}.{k}": m for stage in ("stage1", "stage2")
+             for k, m in getattr(tr.model, stage).named_modules() if isinstance(m, torch.nn.Conv2d)}
+    convs.update({f"vgg.{k}": m for k, m in tr.vgg.named_modules() if isinstance(m, torch.nn.Conv2d)})
+    hooks = [m.register_forward_pre_hook(recording_conv(k)) for k, m in convs.items()]
+
+    params = [p for g in tr.optimizer.param_groups for p in g["params"]]
+    fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+    losses, times = [], []
+    try:
+        for i in range(2 + timed):
+            if i == 2:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            ops.warp_single_backward_cuda = recording_bwd if i == 0 else bwd  # the name _WarpSingle.backward calls
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(*batches[i % len(batches)]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                for h in hooks:
+                    h.remove()
+                first_grads = [p.grad.to("cpu", copy=True) for p in params]  # off the card: not in its peak
+    finally:
+        ops.warp_single_backward_cuda = bwd
+    warmup_ms, times = times[:2], times[2:]
+    peak = torch.cuda.max_memory_allocated()
+    steps = 2 + timed
+    cdt = tr.spec.compute_dtype
+    want_dtypes = {k: {("float32" if k.startswith("vgg.") else cdt, "float32")} for k in convs}
+    conv_dtypes_ok = conv_dtypes == want_dtypes
+    all_f32 = (all(p.dtype == p.grad.dtype == torch.float32 for p in params)
+               and all(tr.optimizer.state[p][k].dtype == torch.float32 for p in params
+                       for k in ("exp_avg", "exp_avg_sq")))
+    res = {"phase": phase, "config": f"configs/{config}", "overrides": overrides, "batch": B, "crop_hw": [H, W],
+           "n_frames": n_frames, "compute_dtype": tr.spec.compute_dtype, "remat": tr.spec.remat,
+           "cudnn_benchmark": cudnn_benchmark}
+    t_resume = time.perf_counter()
+    if resume:
+        last = tr.train(batches[:1], max_steps=tr.step + 2)  # two epochs of one batch; saves at the end
+        steps += 2
+        path = tr.checkpoint_path(tr.epoch)
+        resumed = Trainer(_train_config(ckpt_dir, _config_path(config), STAGE1_LOADPREV="TRUE", STAGE1_WEIGHTS=path,
+                                        STAGE2_LOADPREV="TRUE", STAGE2_WEIGHTS=path, **overrides),
+                          expt_name=f"{phase}_resumed")
+        torch.backends.cudnn.benchmark = cudnn_benchmark
+        same_weights = all(
+            torch.equal(a, b) for stage in ("stage1", "stage2")
+            for a, b in zip(getattr(tr.model, stage).state_dict().values(),
+                            getattr(resumed.model, stage).state_dict().values()))
+        same_moments = all(
+            torch.equal(tr.optimizer.state[p][key], resumed.optimizer.state[q][key])
+            for p, q in zip(tr.optimizer.param_groups[0]["params"], resumed.optimizer.param_groups[0]["params"])
+            for key in ("exp_avg", "exp_avg_sq"))
+        res.update(loss_last=last.tolist(), checkpoint_mib=os.path.getsize(path) / 2**20,
+                   resumed_epoch_step=[resumed.epoch, resumed.step], resumed_identical_weights=same_weights,
+                   resumed_identical_moments=same_moments)
+        os.remove(path)
+        del resumed
+        res["train_save_resume_s"] = time.perf_counter() - t_resume
+    torch.backends.cudnn.benchmark = True
+    launches = {"forward": fwd.launches, "backward": bwd.launches, "flow_grad": bwd.flow_grad_launches,
+                "img_grad": bwd.img_grad_launches, "multiflow_backward": ops._WarpMultiflow.launches}
+    losses = torch.stack(losses).cpu().numpy()
     med = statistics.median(times)
-    res = {
-        "phase": "train_main_path", "config": "configs/superslomo_original.ini", "batch": B, "crop_hw": [H, W],
-        "compute_dtype": "float32", "steps": steps, "step_ms_median": med, "step_ms": times,
-        "samples_per_s": B / (med / 1e3), "peak_mem_gib": peak / 2**30,
-        "loss_first": losses[0].tolist(), "loss_last": last.tolist(), "launches": launches,
-        "backward_layouts_first_step": layouts,
-        "checkpoint_mib": os.path.getsize(path) / 2**20, "resumed_epoch_step": [resumed.epoch, resumed.step],
-        "resumed_identical_weights": same_weights, "resumed_identical_moments": same_moments,
-    }
+    res.update({
+        "steps": steps, "step_ms_median": med, "step_ms": times, "samples_per_s": B / (med / 1e3),
+        "setup_s": setup_s, "warmup_step_ms": warmup_ms,
+        "peak_mem_gib": peak / 2**30, "loss_first": losses[0].tolist(), "loss_second": losses[1].tolist(),
+        "launches": launches,
+        "launches_per_step": {k: v / steps for k, v in launches.items()},
+        "params_grads_moments_f32": all_f32, "backward_layouts_first_step": layouts,
+        "conv_input_weight_dtypes_first_step": sorted({f"{'vgg' if k.startswith('vgg.') else 'unet'}: {a}/{w}"
+                                                       for k, v in conv_dtypes.items() for a, w in v}),
+        "conv_dtypes_as_expected": conv_dtypes_ok, "convs_recorded": len(conv_dtypes),
+    })
     emit(res)
-    if not (np.isfinite(losses).all() and np.isfinite(last).all()):
+    if not (np.isfinite(losses).all() and np.isfinite(res.get("loss_last", 0.0)).all()):
         raise AssertionError(f"non-finite training losses: {res}")
     if len(layouts) != 8:
         raise AssertionError(f"{len(layouts)} backward launches recorded in the first step, expected 8")
-    want = {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0}
+    want = {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0,
+            "multiflow_backward": 0}
     if launches != want:
         raise AssertionError(f"single-flow kernel launches {launches} over {steps} steps, expected {want}")
-    if not (same_weights and same_moments and (resumed.epoch, resumed.step) == (tr.epoch, tr.step)):
+    if not all_f32:
+        raise AssertionError(f"a parameter, gradient or Adam moment is not float32: {res}")
+    if not conv_dtypes_ok:
+        wrong = {k: sorted(v) for k, v in conv_dtypes.items() if v != want_dtypes.get(k)}
+        raise AssertionError(f"convs computing in other dtypes than {cdt} (U-Net) and float32 (VGG) on float32 "
+                             f"weights, or not run: {wrong}, {sorted(set(convs) - set(conv_dtypes))}")
+    if resume and not (res["resumed_identical_weights"] and res["resumed_identical_moments"]
+                       and res["resumed_epoch_step"] == [tr.epoch, tr.step]):
         raise AssertionError(f"the resumed trainer differs from the one that saved: {res}")
+    return res, tr, first_grads
+
+
+def phase_train_main(ckpt_dir, norm):
+    """The Trainer at the shipped training config (configs/superslomo_original.ini,
+    B=32, 224x224, f32)."""
+    res, tr, _ = trainer_main_path("train_main_path", ckpt_dir, "superslomo_original.ini", norm)
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_ssmr_train_main(ckpt_dir, norm):
+    """SuperSloMo-R's Trainer at configs/superslomo_recurrent.ini as shipped
+    (B=32, 224x224, N_FRAMES=4: 96 windows a step, f32, CLSTM in both
+    stages), then the same with ``[TPU] REMAT``: its peak memory below the
+    run without it; its first step's gradients (the same weights and batch),
+    which REMAT computes from the recomputed activations, each within
+    GRAD_REL of that tensor's max |g| in the run without it; and its second
+    step's loss, after an Adam update from those gradients, within
+    LOSS_RTOL. On cuDNN's heuristics, which keep the
+    run inside its time limit: at this shape cuDNN's autotuning took 354 s
+    before the first step on an NVIDIA H100 80GB HBM3 at 700 W (the steps
+    after it 18% faster; PERF.md)."""
+    res, tr, grads = trainer_main_path("ssmr_train_main_path", ckpt_dir, "superslomo_recurrent.ini", norm,
+                                       cudnn_benchmark=False)
+    del tr
+    torch.cuda.empty_cache()
+    remat, tr, grads_remat = trainer_main_path("ssmr_train_main_path_remat", ckpt_dir, "superslomo_recurrent.ini",
+                                               norm, timed=5, resume=False, cudnn_benchmark=False, TPU_REMAT="TRUE")
+    del tr
+    torch.cuda.empty_cache()
+    # each tensor's max |difference| as a share of its max |g| in the run without REMAT
+    grad_rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(grads_remat, grads)]
+    del grads, grads_remat
+    rel = lambda key: float(np.max(np.abs(np.asarray(remat[key]) - res[key]) / np.abs(res[key])))  # noqa: E731
+    cmp = {"phase": "ssmr_train_remat_vs_plain", "peak_mem_gib": [res["peak_mem_gib"], remat["peak_mem_gib"]],
+           "step_ms_median": [res["step_ms_median"], remat["step_ms_median"]],
+           "first_loss_max_rel_diff": rel("loss_first"), "second_loss_max_rel_diff": rel("loss_second"),
+           "first_grads_max_rel_diff": max(grad_rel), "first_grads_tensors": len(grad_rel),
+           "first_grads_bit_identical": sum(r == 0.0 for r in grad_rel)}
+    emit(cmp)
+    if not (cmp["first_loss_max_rel_diff"] <= LOSS_RTOL and cmp["second_loss_max_rel_diff"] <= LOSS_RTOL
+            and cmp["first_grads_max_rel_diff"] <= GRAD_REL and remat["peak_mem_gib"] < res["peak_mem_gib"]):
+        raise AssertionError(f"REMAT changes the loss or the gradients or does not lower the peak: {cmp}")
+    return res, remat
+
+
+def phase_bf16_train_main(ckpt_dir, norm, f32_first_loss):
+    """The Trainer at configs/superslomo_original.ini with ``[TPU]
+    COMPUTE_DTYPE = bfloat16`` (B=32, 224x224): bf16 convs on float32 master
+    weights: every U-Net conv gets a bf16 input and the VGG's f32 (``trainer_main_path`` records and checks it). Its
+    first step's loss against the f32 one of the same weights and batch
+    (``f32_first_loss``), within BF16_LOSS_REL of the total."""
+    res, tr, _ = trainer_main_path("bf16_train_main_path", ckpt_dir, "superslomo_original.ini", norm,
+                                   TPU_COMPUTE_DTYPE="bfloat16")
+    params = list(tr.model.parameters())
+    res["param_dtypes"] = sorted({str(p.dtype) for p in params})
+    del tr
+    torch.cuda.empty_cache()
+    f32 = np.asarray(f32_first_loss)
+    res["first_loss_f32"] = f32.tolist()
+    res["first_loss_rel_diff_to_f32"] = (np.abs(np.asarray(res["loss_first"]) - f32) / np.abs(f32)).tolist()
+    emit({"phase": "bf16_train_first_loss_vs_f32", "bf16": res["loss_first"], "f32": f32.tolist(),
+          "rel_diff": res["first_loss_rel_diff_to_f32"]})
+    if res["param_dtypes"] != ["torch.float32"] or res["first_loss_rel_diff_to_f32"][0] > BF16_LOSS_REL:
+        raise AssertionError(f"bf16 training: {res}")
     return res
 
 
@@ -1168,10 +1466,11 @@ def ptxas_usage(log):
 
 
 def check_backward_layouts(cases, recorded):
-    """Raise unless the (img, flow, grad_out) strides of every backward
-    launch recorded in a train step are those of a gradient kernel case."""
-    seen = {(tuple(r["img"]), tuple(r["flow"]), tuple(r["grad_out"])) for r in recorded}
-    missing = seen - {tuple(map(tuple, c)) for c in cases}
+    """Raise unless the layout (``backward_layout``: the image's dtype, the
+    strides of image, flow and output gradient) of every backward launch
+    recorded in a train step is that of a gradient kernel case."""
+    seen = {r["layout"] for r in recorded}
+    missing = seen - set(cases)
     emit({"phase": "train_backward_layouts_covered", "layouts": sorted(seen), "missing": sorted(missing)})
     if missing:
         raise AssertionError(f"backward layouts of the train step with no gradient kernel case: {sorted(missing)}")
@@ -1187,10 +1486,14 @@ def check_forward_layouts(cases, recorded):
         raise AssertionError(f"forward layouts of the SSM-R stream with no forward kernel case: {sorted(missing)}")
 
 
-def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main):
+def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains):
     """Every kernel of the paths with its launches on the main paths (the
-    SuperSloMo-R ones a step and a window as well), error, times, bound,
-    plain and library times."""
+    SuperSloMo-R ones a step and a window as well, and the single-flow
+    kernels' a step of each train path in ``trains``), error, times, bound,
+    plain and library times; and the multi-flow warp's backward, its
+    launches counted on every main path (none expected: serving runs without
+    autograd, training uses the single-flow warp) and a backward in its own
+    phase."""
     f32, bf16 = kern[("noise", "f32")], kern[("noise", "bf16")]
     mf = {
         "name": "warp_multiflow_planar", "route": "cuda",
@@ -1222,6 +1525,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "library_ms": ts["library_ms"], "shape": ts["shape"],
         "ssmr_launches_per_window": {r["compute_dtype"]: r["launches"]["warp_single"] / r["windows"]
                                      for r in ssmr_stream},
+        "launches_per_train_step": {r["phase"]: r["launches_per_step"]["forward"] for r in trains},
         **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
            for case in ("dense_flow", "smooth_flow", "720p_f32", "720p_bf16")},
         **{f"ssmr_window_{case}": {k: c[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
@@ -1242,6 +1546,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             "library_ms": r["library_ms"], "library_fwd_bwd_ms": r["library_fwd_bwd_ms"], "shape": main_case["shape"],
             "library": "aten.grid_sampler_2d_backward computing this gradient alone",
             "plain": "the plain warp's forward + backward to this input",
+            "launches_per_train_step": {r["phase"]: r["launches_per_step"][key] for r in trains},
             "cases": {case: {k: c[key].get(k) for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                         "bound_ms")}
                       for case, c in grad_cases.items()},
@@ -1250,7 +1555,32 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             entry["cases"].update({f"720p_{tag}": {k: single[f"720p_{tag}"]["flow_grad"][k] for k in (
                 "max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")} for tag in ("f32", "bf16")})
         grads.append(entry)
-    return [mf, fwd, *grads]
+    f32 = mf_grad["f32"]
+    bwd_by_path = {
+        "main_path_float32": main_f32["warp_multiflow_backward_launches"],
+        "main_path_bfloat16": main_bf16["warp_multiflow_backward_launches"],
+        **{f"ssmr_stream_{r['compute_dtype']}": r["launches"]["warp_multiflow_backward"] for r in ssmr_stream},
+        **{f"ssmr_main_path_{r['compute_dtype']}_b{r['batch']}": r["launches"]["warp_multiflow_backward"]
+           + r.get("eval_warp_multiflow_backward_launches", 0) for r in ssmr_main},
+        **{r["phase"]: r["launches"]["multiflow_backward"] for r in trains},
+    }
+    mf_bwd = {
+        "name": "warp_multiflow_planar_backward", "route": "cuda",
+        "source": "superslomo_tpu_torch/csrc/warp_single.cu",
+        "replaces": "superslomo_tpu/ops/warp_pallas.py:428",
+        "composition": "ops._WarpMultiflow.backward: a warp_single_flow_grad and a warp_single_img_grad launch a flow",
+        "launches": sum(bwd_by_path.values()), "launches_by_main_path": bwd_by_path,
+        "launches_per_backward": f32["launches"], "max_abs_err": f32["max_abs_err"],
+        "ms": f32["backward"]["ms"], "device_ms": f32["backward"]["device_ms"], "host_ms": f32["backward"]["host_ms"],
+        "plain_ms": f32["plain_backward_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
+        "library_ms": f32["library_backward_ms"], "fwd_bwd_ms": f32["fwd_bwd"]["ms"],
+        "fwd_bwd_device_ms": f32["fwd_bwd"]["device_ms"], "plain_fwd_bwd_ms": f32["plain_fwd_bwd_ms"],
+        "library_fwd_bwd_ms": f32["library_fwd_bwd_ms"], "shape": f32["shape"],
+        "plain": "the plain warp's autograd backward", "library": f32["library"],
+        "bf16": {k: mf_grad["bf16"][k] for k in ("launches", "max_abs_err", "backward", "fwd_bwd", "plain_backward_ms",
+                                                   "library_backward_ms", "bound_ms")},
+    }
+    return [mf, fwd, *grads, mf_bwd]
 
 
 def nvidia_smi(query):
@@ -1287,6 +1617,7 @@ def main() -> int:
     kern = phase_kernel()
     single = phase_single_kernels()
     ssmr_fwd = phase_ssmr_forward_cases()
+    mf_grad = phase_multiflow_grad()
     emit({"phase": "sm_clock", "before_kernel_phases": clock_before, "after_kernel_phases": nvidia_smi(
         "clocks.sm,clocks.max.sm"), "query": "clocks.sm,clocks.max.sm"})
     if args.kernels_only:
@@ -1312,9 +1643,14 @@ def main() -> int:
         phase_train_vs_cpu(ckpt_dir, norm)
         phase_convergence(ckpt_dir)
         train = phase_train_main(ckpt_dir, norm)
-    check_backward_layouts(single["layouts"], train["backward_layouts_first_step"])
+        phase_ssmr_train_vs_cpu(ckpt_dir, norm)
+        ssmr_train, ssmr_remat = phase_ssmr_train_main(ckpt_dir, norm)
+        bf16_train = phase_bf16_train_main(ckpt_dir, norm, train["loss_first"])
+    trains = [train, ssmr_train, ssmr_remat, bf16_train]
+    check_backward_layouts(single["layouts"], [r for t in trains for r in t["backward_layouts_first_step"]])
 
-    kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main)
+    kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,
+                           trains)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

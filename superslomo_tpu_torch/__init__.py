@@ -4,8 +4,9 @@ reference it is tested against.
 
 Entry points: ``SuperSloMo`` (the fused multi-t interpolation step, and the
 forward over T-frame windows), ``Evaluator`` (the step's PSNR / SSIM / IE
-scoring loop) and ``Trainer`` (the float32 training step with the composite
-loss, Adam and StepLR, and ``.pt`` checkpoints). They run on the CUDA card
+scoring loop) and ``Trainer`` (the training step of either model, in float32
+or in bfloat16 on float32 master weights, with the composite loss, Adam and
+StepLR, and ``.pt`` checkpoints). They run on the CUDA card
 unless the caller passes ``device="cpu"``; with no card and no such request
 they raise. The warps are hand-written CUDA kernels (csrc/warp_multiflow.cu,
 and csrc/warp_single.cu with its backward), built with nvcc at first use.

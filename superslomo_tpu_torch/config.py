@@ -2,7 +2,8 @@
 
 The existing ``configs/*.ini`` load unchanged: same sections, keys, defaults
 and validation. Of the ``[TPU]`` section the port honours ``COMPUTE_DTYPE``
-(float32 | bfloat16). ``USE_PALLAS_WARP``, ``REMAT``, ``LAYOUT_V2`` and
+(float32 | bfloat16) and ``REMAT`` (recompute each U-Net stage's activations
+in the training step's backward). ``USE_PALLAS_WARP``, ``LAYOUT_V2`` and
 ``LV2_*`` select TPU layout devices that the port does not have (the warp
 always runs the CUDA kernel on the card; the U-Net runs the plain topology):
 they are parsed, so a malformed value still fails, and otherwise ignored.
@@ -63,7 +64,7 @@ _DEFAULTS = {
     ("TPU", "USE_PALLAS_WARP"): "AUTO",  # parsed, ignored
     ("TPU", "CLSTM_MERGE"): "CONCAT",
     ("TPU", "CLSTM_GATE_ORDER"): "IFOG",
-    ("TPU", "REMAT"): "FALSE",  # parsed, ignored
+    ("TPU", "REMAT"): "FALSE",
     ("TPU", "LAYOUT_V2"): "FALSE",  # parsed, ignored
     ("TPU", "LV2_ASSEMBLY"): "AUTO",  # parsed, ignored
     ("TPU", "LV2_SPLIT_DECODER"): "AUTO",  # parsed, ignored
@@ -140,6 +141,7 @@ class Config:
             compute_dtype=self.get("TPU", "COMPUTE_DTYPE").strip().lower(),
             clstm_merge=self.get("TPU", "CLSTM_MERGE").upper(),
             clstm_gate_order=self.get("TPU", "CLSTM_GATE_ORDER").upper(),
+            remat=self.getboolean("TPU", "REMAT"),
         )
 
     def validate(self) -> None:
@@ -169,7 +171,6 @@ class Config:
         # TPU layout keys: parsed so a malformed value fails, then ignored
         if self.get("TPU", "USE_PALLAS_WARP").strip().upper() not in ("AUTO", "TRUE", "FALSE"):
             raise ValueError("[TPU] USE_PALLAS_WARP must be AUTO/TRUE/FALSE")
-        self.getboolean("TPU", "REMAT")
         self.getboolean("TPU", "LAYOUT_V2")
         for key in ("LV2_ASSEMBLY", "LV2_SPLIT_DECODER", "LV2_FENCE"):
             if self.get("TPU", key).strip().upper() != "AUTO":
@@ -196,7 +197,8 @@ class ModelSpec:
     """Model hyperparameters: each stage's bottleneck (CONV, or the recurrent
     CLSTM / CGRU of SuperSloMo-R with its ``clstm_merge`` and
     ``clstm_gate_order`` layout), the cross-stage skip, the window length,
-    the frozen stages and the compute dtype."""
+    the frozen stages, the compute dtype and whether the training step
+    recomputes each U-Net stage's activations in its backward (``remat``)."""
 
     stage1_bottleneck: str = "CONV"
     stage2_bottleneck: str = "CONV"
@@ -207,6 +209,7 @@ class ModelSpec:
     compute_dtype: str = "float32"
     clstm_merge: str = "CONCAT"  # CONCAT (hidden/2 a direction, concatenated) | SUM (hidden a direction, summed)
     clstm_gate_order: str = "IFOG"  # gate blocks of the fused gate conv (models/bottleneck.py)
+    remat: bool = False  # torch.utils.checkpoint on each U-Net stage under autograd ([TPU] REMAT)
 
 
 def load_config(path: str) -> Config:

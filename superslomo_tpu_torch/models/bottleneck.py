@@ -16,8 +16,11 @@ state given it starts at zeros in the input's dtype (the compute dtype); a
 given state starts both stacks, the reverse one too, as in the JAX package.
 
 The time loop is a Python loop over the windows. The gate convolutions are
-``nn.Conv2d`` (cuDNN on the card) and the cells' pointwise math is plain
+``layers.Conv2d`` (cuDNN on the card) and the cells' pointwise math is plain
 PyTorch: the JAX package computes both with XLA, outside any Pallas kernel.
+A cell's convs compute in its input's dtype (the compute dtype), whatever
+the dtype of its parameters (float32 master weights in bf16 training): a
+flax ``Conv(dtype=...)`` casts its input and kernel so.
 Submodule names are those the JAX package's checkpoint converter reads:
 ``{forward,reverse}_net.cell_list.{L}.conv`` (the gates) and, for the GRU,
 ``.conv_can`` (the candidate).
@@ -31,24 +34,21 @@ import torch
 import torch.nn as nn
 
 from superslomo_tpu_torch.config import cell_gate_order
+from superslomo_tpu_torch.models.layers import Conv2d
 
 Carry = Tuple[torch.Tensor, ...]
 
 
-def _conv(in_channels: int, out_channels: int, kernel: int) -> nn.Conv2d:
-    return nn.Conv2d(in_channels, out_channels, kernel, padding=kernel // 2, bias=True)
-
-
-def _in_dtype(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``x`` in the conv's dtype, as a flax ``Conv(dtype=...)`` casts it."""
-    return x.to(conv.weight.dtype)
+def _conv(in_channels: int, out_channels: int, kernel: int) -> Conv2d:
+    return Conv2d(in_channels, out_channels, kernel, padding=kernel // 2, bias=True)
 
 
 class ConvLSTMCell(nn.Module):
     """Peephole-free ConvLSTM cell. One ``kernel``x``kernel`` conv on
     ``cat([x, h])`` gives 4 blocks of ``hidden`` channels, in the order
     ``gate_order`` names (a permutation of "ifog": input, forget, output,
-    candidate); ``c = f*c + i*g``, ``h = o*tanh(c)``."""
+    candidate); ``c = f*c + i*g``, ``h = o*tanh(c)``. The conv computes in
+    ``x``'s dtype."""
 
     def __init__(self, in_channels: int, hidden: int, kernel: int = 3, gate_order: str = "ifog"):
         super().__init__()
@@ -62,7 +62,7 @@ class ConvLSTMCell(nn.Module):
 
     def forward(self, x: torch.Tensor, carry: Carry) -> Tuple[Carry, torch.Tensor]:
         h, c = carry
-        z = self.conv(_in_dtype(self.conv, torch.cat([x, h], dim=1)))
+        z = self.conv(torch.cat([x, h.to(x.dtype)], dim=1))
         gates = dict(zip(self.gate_order, z.chunk(4, dim=1)))
         i, f, o = (torch.sigmoid(gates[k]) for k in "ifo")
         g = torch.tanh(gates["g"])
@@ -75,7 +75,8 @@ class ConvGRUCell(nn.Module):
     """ConvGRU cell. A ``gates`` conv on ``cat([x, h])`` gives the update z
     and reset r blocks in ``gate_order`` ("zr" or "rz"; "ifog" means "zr",
     ``config.cell_gate_order``); a ``candidate`` conv
-    on ``cat([x, r*h])`` gives n = tanh(...); ``h = (1-z)*h + z*n``."""
+    on ``cat([x, r*h])`` gives n = tanh(...); ``h = (1-z)*h + z*n``. Both
+    convs compute in ``x``'s dtype."""
 
     def __init__(self, in_channels: int, hidden: int, kernel: int = 3, gate_order: str = "zr"):
         super().__init__()
@@ -89,9 +90,9 @@ class ConvGRUCell(nn.Module):
 
     def forward(self, x: torch.Tensor, carry: Carry) -> Tuple[Carry, torch.Tensor]:
         (h,) = carry
-        blocks = dict(zip(self.gate_order, self.conv(_in_dtype(self.conv, torch.cat([x, h], dim=1))).chunk(2, dim=1)))
+        blocks = dict(zip(self.gate_order, self.conv(torch.cat([x, h.to(x.dtype)], dim=1)).chunk(2, dim=1)))
         z, r = torch.sigmoid(blocks["z"]), torch.sigmoid(blocks["r"])
-        n = torch.tanh(self.conv_can(_in_dtype(self.conv_can, torch.cat([x, r * h], dim=1))))
+        n = torch.tanh(self.conv_can(torch.cat([x, (r * h).to(x.dtype)], dim=1)))
         h = (1.0 - z) * h + z * n
         return (h,), h
 

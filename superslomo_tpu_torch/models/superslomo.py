@@ -29,6 +29,13 @@ bfloat16 the step quantizes where the JAX package does: the U-Nets compute in
 bf16, the stage-1 head is upcast to f32 before the flow algebra, the stage-2
 input warps store bf16, the stage-2 head is upcast to f32, and the final
 warps, the blend and the output are f32.
+
+The parameters are kept in ``param_dtype``: by default the compute dtype
+(serving), or float32 master weights under a bf16 compute dtype (training,
+as flax keeps them): every conv casts its weights to its input's dtype at
+each call (``layers.Conv2d``). ``[TPU] REMAT`` recomputes each U-Net stage's
+activations in the backward (``torch.utils.checkpoint``) instead of keeping
+them, when autograd records.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from superslomo_tpu_torch.config import VALID_COMPUTE_DTYPES, ModelSpec
 from superslomo_tpu_torch.device import resolve_device
@@ -173,17 +181,21 @@ class SuperSloMo(nn.Module):
     :param spec: model hyperparameters (``Config.model_spec()``).
     :param device: ``None`` for the CUDA card (raises without one), or
         ``"cpu"`` for the plain PyTorch path.
+    :param param_dtype: the parameters' dtype; None for the compute dtype.
+        The trainer passes ``torch.float32``: master weights that each conv
+        casts to the compute dtype.
     """
 
-    def __init__(self, spec: ModelSpec = ModelSpec(), device=None):
+    def __init__(self, spec: ModelSpec = ModelSpec(), device=None, param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if spec.compute_dtype not in VALID_COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {VALID_COMPUTE_DTYPES}")
         self.spec = spec
         self.device = resolve_device(device)
         self.compute_dtype = getattr(torch, spec.compute_dtype)
+        self.param_dtype = self.compute_dtype if param_dtype is None else param_dtype
         self.stage1, self.stage2 = stage_unets(spec)
-        self.to(device=self.device, dtype=self.compute_dtype, memory_format=torch.channels_last)
+        self.to(device=self.device, dtype=self.param_dtype, memory_format=torch.channels_last)
         self.eval()
         if self.device.type == "cuda":
             # the step runs the same conv shapes batch after batch: let cuDNN
@@ -192,7 +204,7 @@ class SuperSloMo(nn.Module):
 
     def load_state(self, state: dict) -> "SuperSloMo":
         """Load ``{"stage1": state_dict, "stage2": state_dict}`` (reference
-        names, OIHW; cast to the compute dtype on load)."""
+        names, OIHW; cast to the parameters' dtype on load)."""
         for stage in ("stage1", "stage2"):
             check_stage_shapes(state[stage], self.spec, stage)
             getattr(self, stage).load_state_dict(state[stage])
@@ -220,13 +232,13 @@ class SuperSloMo(nn.Module):
         x1 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
         t_f = t.reshape(BW, 1, 1, 1)
         with tf32_off():
-            head1, encoding, carry1 = self.stage1(
-                x1.to(cdt), n_windows=W_n, rnn_carry=_stage_carry(rnn_carry, "stage1"))
+            head1, encoding, carry1 = self._run_stage(
+                self.stage1, x1.to(cdt), None, W_n, _stage_carry(rnn_carry, "stage1"))
             flowC = head1.to(f32)
             flowI_in = physics.compute_stage2_inputs(
                 x1, flowC, t_f, warp_dtype=cdt if cdt != f32 else None)
-            head2, _, carry2 = self.stage2(
-                flowI_in.to(cdt), encoding, n_windows=W_n, rnn_carry=_stage_carry(rnn_carry, "stage2"))
+            head2, _, carry2 = self._run_stage(
+                self.stage2, flowI_in.to(cdt), encoding, W_n, _stage_carry(rnn_carry, "stage2"))
             flowI_out = head2.to(f32)
             pred = physics.compute_output_image(x1, flowI_in, flowI_out, t_f)
 
@@ -235,6 +247,13 @@ class SuperSloMo(nn.Module):
 
         carry = None if carry1 is None and carry2 is None else {"stage1": carry1, "stage2": carry2}
         return ModelOutputs(pairs, unfold(flowC), unfold(flowI_in), unfold(flowI_out), unfold(pred), t, carry)
+
+    def _run_stage(self, unet, x, cross_encoding, n_windows, carry):
+        """One U-Net stage of ``forward``: under ``[TPU] REMAT``, while
+        autograd records, its activations are recomputed in the backward."""
+        if self.spec.remat and torch.is_grad_enabled():
+            return torch.utils.checkpoint.checkpoint(unet, x, cross_encoding, n_windows, carry, use_reentrant=False)
+        return unet(x, cross_encoding, n_windows=n_windows, rnn_carry=carry)
 
     def forward_inference(self, frames, t_interp, rnn_carry: Optional[dict] = None):
         """The reference-shaped inference call, under ``torch.inference_mode``:

@@ -1,25 +1,30 @@
 """Where a step's device time goes, on the CUDA card.
 
     python3 -m superslomo_tpu_torch.profile_step [--dtype bfloat16]
-    python3 -m superslomo_tpu_torch.profile_step --train
+    python3 -m superslomo_tpu_torch.profile_step --train [--recurrent] [--dtype float32]
     python3 -m superslomo_tpu_torch.profile_step --recurrent [--dtype bfloat16]
 
 By default runs the fused 8x step ``SuperSloMo.interpolate_multi_t`` at 720p
-(736x1280 after the /32 pad), n_t=7, B=2, with seeded weights. With
-``--train`` it runs ``Trainer.train_step`` at configs/superslomo_original.ini
-(B=32, 224x224 crops, f32, TF32 off) on seeded weights, random VGG features
-and seeded frames. With ``--recurrent`` it runs configs/superslomo_recurrent.ini's
+(736x1280 after the /32 pad), n_t=7, B=2, with seeded weights (bf16 unless
+``--dtype`` says otherwise). With ``--train`` it runs ``Trainer.train_step``
+at configs/superslomo_original.ini (B=32, 224x224 crops, TF32 off; f32
+unless ``--dtype bfloat16``: bf16 convs on float32 master weights), or with
+``--recurrent`` at configs/superslomo_recurrent.ini (SuperSloMo-R, B=32,
+224x224, N_FRAMES=4), on seeded weights, random VGG features and seeded
+frames. With ``--recurrent`` alone it runs configs/superslomo_recurrent.ini's
 SuperSloMo-R model at 720p, B=1: the fused 8x step from a streamed-in state,
 then one streamed window (``forward_inference`` at t=0.5 from the state of
 the window before), one JSON line each. Every run traces three steps after
-two warm-up steps with ``torch.profiler`` and prints one JSON object: the
+the warm-up steps (two or three, which count the convolutions' FLOPs) with
+``torch.profiler`` and prints one JSON object: the
 step's wall time, the device's busy share of the traced window, the device
 time per step by kernel category (convolution, warp kernels, layout
 conversion, concat, resize/pool, optimizer, other elementwise), the share of
 convolution time in kernels whose names say NHWC, the convolutions' FLOPs per
 step (counted from their shapes, the backward's from which of each conv's
-input and weight take a gradient) and the rate they reach against the card's
-peak for the compute dtype, the peak device memory, the heaviest kernels by
+input and weight take a gradient; by dtype: the VGG's run in f32 under any
+compute dtype) and the rate they reach against the card's peak for their
+dtypes, the peak device memory, the heaviest kernels by
 name, the warp kernels' time and launches per step by kernel, and the kernel
 that ran just before each warp launch of one step. A recurrent model's
 bottleneck recurrence (the gate convolutions and the cells' pointwise
@@ -40,6 +45,7 @@ import torch
 
 from superslomo_tpu_torch import SuperSloMo, Trainer, default_config, load_config, weights
 from superslomo_tpu_torch.models.bottleneck import BiConvRNN
+from superslomo_tpu_torch.models.vgg import VGG16Features
 
 # H100 SXM dense peaks, bf16 tensor cores and float32 outside them (TF32 is off)
 PEAK_FLOP_S = {"bfloat16": 989e12, "float32": 67e12}
@@ -131,19 +137,23 @@ def _recurrent_steps(dtype):
     ]
 
 
-def _train_step():
+def _train_step(dtype, recurrent=False):
     """(step, modules, shape facts) of Trainer.train_step at the shipped
-    training config."""
-    cfg = load_config(os.path.join(ROOT, "configs", "superslomo_original.ini"))
+    training config, or SuperSloMo-R's, in ``dtype``."""
+    config = "superslomo_recurrent.ini" if recurrent else "superslomo_original.ini"
+    cfg = load_config(os.path.join(ROOT, "configs", config))
     cfg.set("TRAIN", "ALLOW_RANDOM_VGG", "TRUE")
+    cfg.set("TPU", "COMPUTE_DTYPE", dtype)
     B, H, W = cfg.getint("TRAIN", "BATCH_SIZE"), cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")
+    T = cfg.n_frames()
     tr = Trainer(cfg)
     rng = np.random.default_rng(0)
-    frames = rng.standard_normal((B, 2, H, W, 3), dtype=np.float32)
-    targets = rng.standard_normal((B, 1, H, W, 3), dtype=np.float32)
-    t = rng.uniform(0.125, 0.875, (B, 1)).astype(np.float32)
+    frames = rng.standard_normal((B, T, H, W, 3), dtype=np.float32)
+    targets = rng.standard_normal((B, T - 1, H, W, 3), dtype=np.float32)
+    t = rng.uniform(0.125, 0.875, (B, T - 1)).astype(np.float32)
     return (lambda: tr.train_step(frames, targets, t)), [tr.model, tr.vgg], {
-        "step": "train_step", "compute_dtype": "float32", "batch": B, "crop_hw": [H, W]}
+        "step": "train_step", "config": f"configs/{config}", "compute_dtype": dtype, "batch": B,
+        "crop_hw": [H, W], "n_frames": T}
 
 
 class _RecurrenceRanges:
@@ -173,11 +183,15 @@ class _RecurrenceRanges:
 
 
 def profile(step, modules, facts, steps=3, top_n=12) -> dict:
-    """Trace ``steps`` calls of ``step`` after two warm-up calls, which
-    count the convolutions' FLOPs: all of them, and the recurrence's."""
+    """Trace ``steps`` calls of ``step`` after the warm-up calls (one a
+    module, and one more) that count the convolutions' FLOPs: all of them by dtype (the VGG's f32, the
+    rest the compute dtype's), and the recurrence's."""
     dtype = facts["compute_dtype"]
     ranges = _RecurrenceRanges(modules)
-    flops = conv_flops(modules, step)  # the two warm-up steps
+    flops_by_dtype = defaultdict(int)
+    for m in modules:
+        flops_by_dtype["float32" if isinstance(m, VGG16Features) else dtype] += conv_flops([m], step)
+    flops = sum(flops_by_dtype.values())
     rnn_flops = conv_flops(ranges.rnns, step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -219,6 +233,7 @@ def profile(step, modules, facts, steps=3, top_n=12) -> dict:
     per_step = lambda us: us / steps / 1e3  # noqa: E731
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:top_n]
     conv_s = per_step(by_cat["convolution"]) / 1e3
+    least_s = sum(f / PEAK_FLOP_S[d] for d, f in flops_by_dtype.items())  # every conv at its dtype's peak
     out = {
         "device": torch.cuda.get_device_name(0), **facts, "steps": steps,
         "step_wall_ms": wall_ms / steps,
@@ -228,8 +243,9 @@ def profile(step, modules, facts, steps=3, top_n=12) -> dict:
         "ms_per_step_by_category": {k: per_step(v) for k, v in sorted(by_cat.items(), key=lambda kv: -kv[1])},
         "nhwc_share_of_convolution": nhwc_conv / by_cat["convolution"] if by_cat["convolution"] else None,
         "conv_tflop_per_step": flops / 1e12,
-        "conv_share_of_peak": flops / conv_s / PEAK_FLOP_S[dtype] if conv_s else None,
-        "step_share_of_peak": flops / (per_step(busy) / 1e3) / PEAK_FLOP_S[dtype],
+        "conv_tflop_per_step_by_dtype": {d: f / 1e12 for d, f in sorted(flops_by_dtype.items())},
+        "conv_share_of_peak": least_s / conv_s if conv_s else None,
+        "step_share_of_peak": least_s / (per_step(busy) / 1e3),
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels_ms_per_step": [[name[:120], per_step(us)] for name, us in top],
         "warp_ms_and_launches_per_step": {k: [per_step(us), n / steps] for k, (us, n) in sorted(warps.items())},
@@ -250,18 +266,18 @@ def profile(step, modules, facts, steps=3, top_n=12) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--dtype", default="bfloat16", choices=("float32", "bfloat16"))
-    group = ap.add_mutually_exclusive_group()
-    group.add_argument("--train", action="store_true", help="profile Trainer.train_step (float32) instead")
-    group.add_argument("--recurrent", action="store_true",
-                       help="profile SuperSloMo-R's fused step and one streamed window instead")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    help="compute dtype (default: bfloat16 serving, float32 training)")
+    ap.add_argument("--train", action="store_true", help="profile Trainer.train_step instead")
+    ap.add_argument("--recurrent", action="store_true",
+                    help="SuperSloMo-R: its fused step and one streamed window, or with --train its train step")
     args = ap.parse_args()
     if args.train:
-        runs = [_train_step()]
+        runs = [_train_step(args.dtype or "float32", args.recurrent)]
     elif args.recurrent:
-        runs = _recurrent_steps(args.dtype)
+        runs = _recurrent_steps(args.dtype or "bfloat16")
     else:
-        runs = [_serving_step(args.dtype)]
+        runs = [_serving_step(args.dtype or "bfloat16")]
     for step, modules, facts in runs:
         print(json.dumps(profile(step, modules, facts)), flush=True)
 

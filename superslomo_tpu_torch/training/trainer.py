@@ -3,11 +3,23 @@ per-step loss logging and periodic image dumps to a duck-typed writer,
 checkpoints in the reference ``.pt`` layout every SAVE_EVERY epochs and on
 SIGTERM, and resume.
 
-One step is ``SuperSloMo.forward`` → ``compute_losses`` → backward → Adam, in
-float32 with TF32 off (cuDNN and matmul) for the forward and the backward
-alike. Its eight single-flow warps (two for the stage-2 input, two for the
-final image, four loss terms) run the CUDA kernels forward and backward; every
-warped image is data, so the backward computes flow gradients only.
+One step is ``SuperSloMo.forward`` → ``compute_losses`` → backward → Adam,
+with TF32 off (cuDNN and matmul) for the forward and the backward alike. Its
+eight single-flow warps (two for the stage-2 input, two for the final image,
+four loss terms) run the CUDA kernels forward and backward; every warped
+image is data, so the backward computes flow gradients only.
+
+The model is the CONV Super SloMo or the recurrent SuperSloMo-R (a CLSTM /
+CGRU bottleneck in either stage), whose recurrence runs over the N_FRAMES-1
+windows of a sample from a zero state each step, as the JAX trainer's
+``model.apply(p, frames, t)`` does; autograd runs back through it. The
+parameters and Adam's moments are float32 under either ``[TPU]
+COMPUTE_DTYPE``: under bfloat16 every U-Net conv casts the float32 master
+weights to bf16 at each call and computes in bf16 (flax's
+``Conv(dtype=...)``), the heads are upcast to f32, the stage-2 input warps
+store bf16, and the final warps, the losses and the VGG run in f32, where the
+JAX package puts them. ``[TPU] REMAT`` recomputes each U-Net stage in the
+backward.
 
 A frozen stage takes ``requires_grad=False`` and stays out of the optimizer,
 which equals the JAX package's zero-gradient update from zero moments. The
@@ -48,8 +60,8 @@ def step_lr(base_lr: float, decay: float, period: float):
 
 
 class Trainer:
-    """Config-driven trainer of the CONV Super SloMo model (a recurrent
-    CLSTM / CGRU bottleneck raises NotImplementedError).
+    """Config-driven trainer of the Super SloMo / SuperSloMo-R model, in
+    float32 or bfloat16 compute on float32 parameters.
 
     :param cfg: the INI config (``[TRAIN]``, ``[STAGE1]``, ``[STAGE2]``,
         ``[SEED]``, ``[TPU] COMPUTE_DTYPE``).
@@ -67,16 +79,6 @@ class Trainer:
         self.cfg = cfg
         self.expt_name = expt_name
         self.spec = cfg.model_spec()
-        recurrent = {self.spec.stage1_bottleneck, self.spec.stage2_bottleneck} - {"CONV"}
-        if recurrent:
-            raise NotImplementedError(
-                f"a {'/'.join(sorted(recurrent))} bottleneck: training the recurrent SuperSloMo-R model comes "
-                "with the SSM-R training slice of the port, which holds its gradients against the JAX package; "
-                "this slice serves it (SuperSloMo.forward / interpolate_multi_t)")
-        if self.spec.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"[TPU] COMPUTE_DTYPE={self.spec.compute_dtype}: bf16 training needs float32 master "
-                "weights and comes with the mixed-precision training slice of the port; train in float32")
         self.weights = LossWeights(
             lambda_r=cfg.getfloat("TRAIN", "LAMBDA_R"),
             lambda_w=cfg.getfloat("TRAIN", "LAMBDA_W"),
@@ -107,7 +109,7 @@ class Trainer:
             log.warning("TRAIN.ALLOW_RANDOM_VGG=TRUE — perceptual loss uses deterministic random "
                         "features. Published-quality training requires the pretrained file.")
 
-        self.model = SuperSloMo(self.spec, device=device)
+        self.model = SuperSloMo(self.spec, device=device, param_dtype=torch.float32)
         self.device = self.model.device
         self.model.load_state(wio.seeded_state(self.spec, seed=cfg.getint("SEED", "VALUE")))
         self.load_pretrained_stages()

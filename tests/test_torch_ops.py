@@ -464,3 +464,101 @@ def test_flow_grad_offsets_fit_int32(C, H, W, fits):
     channels_last = (C * H * W, 1, C * W, C)
     assert wp.offsets_fit_int32(nchw, C, H, W) == fits
     assert wp.offsets_fit_int32(channels_last, C, H, W) == fits
+
+
+# the multi-flow warp's gradients: f32 sums of a few products per tap over n
+# flows, in another order than XLA's; 1e-5 of each gradient's largest value
+MF_GRAD_REL = 1e-5
+
+
+@functools.lru_cache(maxsize=1)
+def _jax_multiflow_vjp():
+    """Inputs (B=2, C=3, n=3, 19x24; flows beyond the frame), an output
+    gradient, and JAX's VJP of ``ops.warp_multiflow_planar`` on the CPU (the
+    XLA warp that the Pallas kernel's custom VJP differentiates) in f32."""
+    rng = np.random.default_rng(21)
+    B, C, n, H, W = 2, 3, 3, 19, 24
+    planes = rng.standard_normal((B, C, H, W)).astype(np.float32)
+    u, v = _flows(rng, B, n, H, W, big=False)
+    u[:, :, : H // 2, : W // 3] += 30.0  # taps outside the frame
+    g = rng.standard_normal((B, C, n, H, W)).astype(np.float32)
+    _, vjp = jax.vjp(jops.warp_multiflow_planar, *(jnp.asarray(a) for a in (planes, u, v)))
+    return (planes, u, v, g), tuple(np.asarray(x) for x in vjp(jnp.asarray(g)))
+
+
+def _assert_mf_grads(got, want, names=("planes", "u", "v"), extra=None):
+    for name, a, w in zip(names, got, want):
+        bar = MF_GRAD_REL * np.abs(w).max() + (0.0 if extra is None or name != "planes" else extra(w))
+        err = np.abs(a.detach().float().numpy() - w)
+        assert (err <= bar).all(), (name, err.max(), np.abs(w).max())
+
+
+def test_warp_multiflow_planar_gradients_match_jax_vjp():
+    """The plain multi-flow warp's gradients (planes, u, v) by PyTorch's
+    autograd against JAX's VJP, f32."""
+    (planes, u, v, g), want = _jax_multiflow_vjp()
+    args = [torch.from_numpy(a).requires_grad_(True) for a in (planes, u, v)]
+    tops.warp_multiflow_planar(*args).backward(torch.from_numpy(g))
+    _assert_mf_grads([a.grad for a in args], want)
+    assert (want[1] == 0).any()  # the outside taps carry no flow gradient
+
+
+def _plain_single_backward(calls):
+    """A stand-in for ``warp_single_backward_cuda`` that takes CPU tensors:
+    the plain warp's autograd, asked for the same gradients; ``calls``
+    records each call's layout and the gradients asked for."""
+    def bwd(img, flow, grad_out, need_img, need_flow):
+        calls.append((tuple(grad_out.stride()), img.dtype, grad_out.dtype, need_img, need_flow))
+        im, fl = img.detach().requires_grad_(need_img), flow.detach().requires_grad_(need_flow)
+        wanted = [x for x, need in ((im, need_img), (fl, need_flow)) if need]
+        with torch.enable_grad():  # a Function's backward runs without it
+            grads = iter(torch.autograd.grad(tops.warp_single_reference(im, fl), wanted, grad_out))
+        return (next(grads) if need_img else None), (next(grads) if need_flow else None)
+    return bwd
+
+
+@pytest.mark.parametrize("needs", [(True, True, True), (False, True, True), (True, False, False)],
+                         ids=["all", "flows", "planes"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_multiflow_function_backward_matches_jax_vjp(monkeypatch, needs, dtype):
+    """The card's autograd.Function for the multi-flow warp, on CPU tensors
+    with its kernel wrappers replaced by their plain versions: its backward,
+    n single-flow gradients through ``grad_out[:, :, k]`` views, summed over
+    the flows, against JAX's VJP. bf16 planes are differentiated as the f32
+    warp of the planes upcast for the output gradient upcast (JAX's
+    ``_mfu_p_bwd``), so their gradient is JAX's f32 one rounded once to bf16
+    (half a bf16 ulp, at most 2^-8 of the value, beyond the f32 bar). One
+    launch of each gradient kernel a flow, and only those asked for."""
+    (planes, u, v, g), want = _jax_multiflow_vjp()
+    n = u.shape[1]
+    # the planes as the step passes them: a channels_last pair slice
+    pair = torch.from_numpy(np.concatenate([np.zeros_like(planes), planes], 1)).to(dtype)
+    pair = pair.contiguous(memory_format=torch.channels_last)
+    calls = []
+    monkeypatch.setattr(tops, "warp_multiflow_planar_cuda",
+                        lambda p, uu, vv: tops.warp_multiflow_planar_reference(p, uu, vv, p.dtype))
+    monkeypatch.setattr(tops, "warp_single_backward_cuda", _plain_single_backward(calls))
+    if dtype == torch.bfloat16:  # JAX's f32 VJP of the bf16 planes' values
+        _, vjp = jax.vjp(jops.warp_multiflow_planar, jnp.asarray(pair[:, 3:6].float().numpy()),
+                         jnp.asarray(u), jnp.asarray(v))
+        want = tuple(np.asarray(x) for x in vjp(jnp.asarray(torch.from_numpy(g).bfloat16().float().numpy())))
+    leaves = [pair.requires_grad_(needs[0]), torch.from_numpy(u).requires_grad_(needs[1]),
+              torch.from_numpy(v).requires_grad_(needs[2])]
+    out = tops._WarpMultiflow.apply(leaves[0][:, 3:6], leaves[1], leaves[2])
+    assert out.dtype == dtype and out.shape == (2, 3, n, 19, 24)
+    monkeypatch.setattr(tops._WarpMultiflow, "launches", 0)
+    out.backward(torch.from_numpy(g).to(dtype))
+
+    got = [leaves[0].grad[:, 3:6] if needs[0] else None, leaves[1].grad, leaves[2].grad]
+    asked = [(name, x, w) for name, x, w, need in zip(("planes", "u", "v"), got, want, needs) if need]
+    assert all(x is None for x, need in zip(got, needs) if not need)
+    _assert_mf_grads([x for _, x, _ in asked], [w for _, _, w in asked], [name for name, _, _ in asked],
+                     extra=(lambda w: 2.0**-8 * np.abs(w)) if dtype == torch.bfloat16 else None)
+    if needs[0]:
+        assert leaves[0].grad.dtype == dtype and not leaves[0].grad[:, 0:3].any()
+    # one flow-gradient launch and one image-gradient launch a flow, as asked;
+    # the output gradient's flow k read in place, with its (B, C, n, H, W) strides
+    assert sum(c[3] for c in calls) == n * needs[0] and sum(c[4] for c in calls) == n * (needs[1] or needs[2])
+    assert tops._WarpMultiflow.launches == sum(c[3] + c[4] for c in calls)
+    assert len(calls) == n and all(c[0] == (3 * n * 19 * 24, n * 19 * 24, 24, 1) for c in calls)
+    assert all(c[1] == c[2] == torch.float32 for c in calls)

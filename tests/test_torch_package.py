@@ -151,9 +151,13 @@ def test_configs_load_as_in_jax(path):
     model = SuperSloMo(spec, device="cpu")
     assert next(model.parameters()).dtype == getattr(torch, spec.compute_dtype)
     assert model.stage1.recurrent == (spec.stage1_bottleneck != "CONV")
-    if spec.stage1_bottleneck != "CONV":  # the recurrent model serves; its training is a later slice
-        with pytest.raises(NotImplementedError, match="recurrent"):
-            Trainer(ours, device="cpu")
+    if spec.stage1_bottleneck != "CONV":  # the recurrent model trains too, conv6 in the optimizer
+        ours.set("TRAIN", "ALLOW_RANDOM_VGG", "TRUE")
+        tr = Trainer(ours, device="cpu")
+        in_optimizer = {id(p) for g in tr.optimizer.param_groups for p in g["params"]}
+        gates = list(tr.model.stage1.conv6.parameters())
+        assert gates and all(id(p) in in_optimizer for p in gates)
+        assert all(p.dtype == torch.float32 for p in tr.model.parameters())
 
 
 def test_bfloat16_compute_dtype_is_honoured():

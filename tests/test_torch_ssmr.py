@@ -150,7 +150,15 @@ def test_forward_inference_matches_jax(jax_run, port):
 
 
 def test_trainer_refuses_a_recurrent_model():
+    """The recurrent model is no longer refused: the Trainer builds it, and
+    every parameter, the ``conv6`` gate convs of both stages included, is in
+    its optimizer (tests/test_torch_ssmr_train.py holds its step against
+    JAX)."""
     cfg = default_config(TRAIN_N_FRAMES=4, STAGE1_BOTTLENECK="CLSTM", STAGE2_BOTTLENECK="CLSTM",
                          TRAIN_ALLOW_RANDOM_VGG="TRUE")
-    with pytest.raises(NotImplementedError, match="SSM-R training slice"):
-        Trainer(cfg, device="cpu")
+    tr = Trainer(cfg, device="cpu")
+    assert tr.model.stage1.recurrent and tr.model.stage2.recurrent
+    in_optimizer = {id(p) for g in tr.optimizer.param_groups for p in g["params"]}
+    gates = [p for stage in (tr.model.stage1, tr.model.stage2) for p in stage.conv6.parameters()]
+    assert len(gates) == 16 and all(id(p) in in_optimizer for p in gates)
+    assert len(in_optimizer) == len(list(tr.model.parameters()))

@@ -3,7 +3,8 @@ the Trainer's Adam, freezing and .pt checkpoints) against the JAX package's, on
 the CPU, with the same weights and inputs made by numpy. The full-model
 reference is ONE ``jax.jit(jax.value_and_grad(..., has_aux=True))``: its aux
 carries the forward outputs, so one compile serves the outputs, the loss
-vector and every parameter's gradient."""
+vector and every parameter's gradient. bf16 training (float32 master
+weights, bf16 convs) is held against one more, of the JAX model in bf16."""
 
 import jax
 import jax.numpy as jnp
@@ -19,8 +20,10 @@ from superslomo_tpu.models.vgg import VGG16Features as JaxVGG
 from superslomo_tpu.training import checkpoint as jckpt
 from superslomo_tpu.training.trainer import make_optimizer
 from superslomo_tpu_torch import Trainer, default_config, weights
+from superslomo_tpu_torch import ops as tops
 from superslomo_tpu_torch.config import ModelSpec
-from superslomo_tpu_torch.models import losses
+from superslomo_tpu_torch.models import losses, physics
+from superslomo_tpu_torch.models.layers import Conv2d
 from superslomo_tpu_torch.models.superslomo import SuperSloMo
 from superslomo_tpu_torch.models.vgg import VGG16Features
 
@@ -31,6 +34,10 @@ GRAD_REL = 1e-3  # per tensor, of that tensor's max |g|
 # the U-Net bar of the JAX package (f32 conv reassociation, XLA vs oneDNN),
 # for the 10-conv VGG stack
 VGG_ATOL, VGG_RTOL = 2e-4, 1e-3
+# bf16 against JAX's bf16, as a multiple of JAX's bf16 distance from its f32:
+# two bf16 computations whose roundings are independent lie sqrt(2) times as
+# far from each other as each lies from the f32 result
+BF16_MARGIN = np.sqrt(2.0)
 
 rng0 = np.random.default_rng(0)
 FRAMES = rng0.standard_normal((1, 2, 32, 32, 3)).astype(np.float32)
@@ -70,10 +77,10 @@ def _port_vgg(vgg_params):
     return vgg
 
 
-@pytest.fixture(scope="module")
-def jax_step(params, vgg_params):
+def _jax_value_and_grad(params, vgg_params, compute_dtype="float32"):
     """Loss vector, gradients and forward outputs of the JAX model."""
-    spec, model, vgg = JaxModelSpec(), JaxSuperSloMo(spec=JaxModelSpec()), JaxVGG()
+    spec = JaxModelSpec(compute_dtype=compute_dtype)
+    model, vgg = JaxSuperSloMo(spec=spec), JaxVGG()
     weights_j = jlosses.LossWeights(*LW)
 
     def loss_fn(p, vp, frames, targets, t):
@@ -86,6 +93,11 @@ def jax_step(params, vgg_params):
     (_, (loss_vec, outs)), grads = step(
         params, vgg_params, jnp.asarray(FRAMES), jnp.asarray(TARGETS), jnp.asarray(T_INTERP))
     return np.asarray(loss_vec), [np.asarray(o) for o in outs], grads
+
+
+@pytest.fixture(scope="module")
+def jax_step(params, vgg_params):
+    return _jax_value_and_grad(params, vgg_params)
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +138,84 @@ def test_every_parameter_gradient_matches_jax(jax_step, port_step):
             assert err <= GRAD_REL * np.abs(w).max(), (stage, name, err, np.abs(w).max())
             checked += 1
     assert checked == len(want["stage1"]) + len(want["stage2"])
+
+
+def test_bf16_step_matches_jax_bf16(params, vgg_params, jax_step):
+    """bf16 compute on float32 master weights against the JAX model's bf16
+    step (flax keeps f32 parameters and computes each conv in bf16): the
+    loss vector, and each stage's gradient flattened, lie no further from
+    JAX's bf16 result than BF16_MARGIN times JAX's bf16 result lies from
+    its f32 one (on these inputs the port's lies 0.80 of that distance for
+    the loss and 0.95 for the gradients). The gradients are f32."""
+    want_loss, _, want_grads = _jax_value_and_grad(params, vgg_params, "bfloat16")
+    f32_loss, _, f32_grads = jax_step
+    spec = ModelSpec(compute_dtype="bfloat16")
+    model = SuperSloMo(spec, device="cpu", param_dtype=torch.float32).load_state(weights.torch_state_from_jax(params))
+    assert model.compute_dtype == torch.bfloat16
+    out = model(FRAMES, T_INTERP)
+    per_sample = losses.compute_losses(out, torch.from_numpy(TARGETS), spec, LW, _port_vgg(vgg_params))
+    per_sample[:, 0].mean().backward()
+    got = per_sample.detach().mean(dim=0).numpy()
+    assert got.dtype == np.float32 and np.isfinite(got).all()
+    assert np.linalg.norm(got - want_loss) <= BF16_MARGIN * np.linalg.norm(want_loss - f32_loss)
+    want, ref = weights.torch_state_from_jax(want_grads), weights.torch_state_from_jax(f32_grads)
+    for stage in ("stage1", "stage2"):
+        named = list(getattr(model, stage).named_parameters())
+        assert all(p.dtype == p.grad.dtype == torch.float32 for _, p in named)
+        flat = lambda tensors: np.concatenate([t.numpy().ravel() for t in tensors])  # noqa: E731
+        g = flat([p.grad for _, p in named])
+        w, f = flat([want[stage][n] for n, _ in named]), flat([ref[stage][n] for n, _ in named])
+        assert np.linalg.norm(g - w) <= BF16_MARGIN * np.linalg.norm(w - f), stage
+
+
+def test_bf16_training_quantizes_where_jax_does(tmp_path, monkeypatch):
+    """A bf16 Trainer step of the recurrent model (CLSTM in stage 1, CGRU in
+    stage 2, so both cells' convs): every U-Net conv, the recurrence's gate
+    and candidate convs included, gets a bf16 input and runs on float32
+    master weights; the VGG's convs get f32; the stage-2 input warps take
+    bf16 images, the final and loss warps f32; the outputs are f32; and the
+    parameters, their gradients and Adam's moments stay f32."""
+    cfg = _train_cfg(tmp_path, TPU_COMPUTE_DTYPE="bfloat16", TRAIN_N_FRAMES=4, STAGE1_BOTTLENECK="CLSTM",
+                     STAGE2_BOTTLENECK="CGRU")
+    tr = Trainer(cfg, device="cpu")
+    convs = {f"{stage}.{name}": m for stage in ("stage1", "stage2")
+             for name, m in getattr(tr.model, stage).named_modules() if isinstance(m, torch.nn.Conv2d)}
+    assert all(isinstance(m, Conv2d) for m in convs.values())
+    assert sum(".conv6." in k for k in convs) == 12  # 4 CLSTM gate convs, 4 CGRU gate and 4 candidate convs
+    seen = {}
+
+    def record(name):
+        def hook(module, args):
+            seen.setdefault(name, (args[0].dtype, module.weight.dtype))
+        return hook
+
+    hooks = [m.register_forward_pre_hook(record(k)) for k, m in convs.items()]
+    hooks += [m.register_forward_pre_hook(record(f"vgg.{k}")) for k, m in tr.vgg.features.items()]
+    outputs = []
+    hooks.append(tr.model.register_forward_hook(lambda module, args, out: outputs.append(out)))
+    warps = []
+
+    def recording(img, flow):
+        warps.append(img.dtype)
+        return tops.warp_auto(img, flow)
+
+    monkeypatch.setattr(physics, "warp_auto", recording)
+    monkeypatch.setattr(losses, "warp_auto", recording)
+    frames = np.random.default_rng(6).standard_normal((1, 4, 32, 32, 3)).astype(np.float32)
+    loss = tr.train_step(frames, frames[:, 1:], np.full((1, 3), 0.5, np.float32))
+    for h in hooks:
+        h.remove()
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert torch.isfinite(loss).all() and loss.dtype == f32
+    assert {k: v for k, v in seen.items() if not k.startswith("vgg.")} == {k: (bf16, f32) for k in convs}
+    assert {k: v for k, v in seen.items() if k.startswith("vgg.")} == {f"vgg.{k}": (f32, f32) for k in tr.vgg.features}
+    assert warps == [bf16] * 2 + [f32] * 6  # stage-2 input, final image, four loss terms
+    assert all(x.dtype == f32 for x in outputs[0][:6])
+    params = [p for g in tr.optimizer.param_groups for p in g["params"]]
+    assert len(params) == len(list(tr.model.parameters()))
+    assert all(p.dtype == p.grad.dtype == f32 for p in params)
+    assert all(tr.optimizer.state[p][k].dtype == f32 for p in params for k in ("exp_avg", "exp_avg_sq"))
 
 
 def test_vgg_features_match_jax(vgg_params):
@@ -254,8 +344,13 @@ def test_checkpoint_reads_in_jax_and_resumes(tmp_path):
 
 
 def test_trainer_refuses_bf16_native_checkpoints_and_random_vgg(tmp_path):
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        Trainer(_train_cfg(tmp_path, TPU_COMPUTE_DTYPE="bfloat16"), device="cpu")
+    """bf16 is no longer refused: the Trainer builds the bf16 model on
+    float32 master weights, all of them in its optimizer. The native
+    checkpoint and random VGG features without the opt-in still raise."""
+    tr = Trainer(_train_cfg(tmp_path, TPU_COMPUTE_DTYPE="bfloat16"), device="cpu")
+    assert tr.model.compute_dtype == torch.bfloat16 and tr.model.param_dtype == torch.float32
+    assert all(p.dtype == torch.float32 for p in tr.model.parameters())
+    assert sum(len(g["params"]) for g in tr.optimizer.param_groups) == len(list(tr.model.parameters()))
     with pytest.raises(NotImplementedError, match="msgpack"):
         Trainer(_train_cfg(tmp_path, STAGE1_LOADPREV="TRUE", STAGE1_WEIGHTS=str(tmp_path)), device="cpu")
     with pytest.raises(ValueError, match="ALLOW_RANDOM_VGG"):
