@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels against plain
+    python3 chip_smoke.py --data-only      # phases 1 and 15-17: build, the data path and the CLIs
 
 Phases, each of which raises on failure:
   1. device: the card's name and power limit, the CUDA version, and the nvcc
@@ -89,7 +90,29 @@ Phases, each of which raises on failure:
       [TPU] COMPUTE_DTYPE = bfloat16 as in phase 11: every parameter,
       gradient and Adam moment f32, the first loss beside the f32 one. The
       backward launches' layouts of phases 11, 13 and 14 must each be a
-      gradient case of phase 3.
+      gradient case of phase 3;
+  15. the PNG unfilter (csrc/png_unfilter.cpp, host C++) against its plain
+      version on 720p frames that the script encodes itself (zlib and numpy),
+      one file per filter type: both equal the written pixels bit for bit;
+      the unfilter's and a whole decode's ms, compiled and plain, and a
+      decode's on 12 threads;
+  16. the eval CLI's main path: ``cli.evaluate_interpolation`` at
+      configs/superslomo_eval.ini as shipped (720p padded to 736, B=8, 12
+      loader threads, f32) over a made-up dataset of 720p PNGs in a
+      temporary directory (one 57-frame clip listed twice: 14 sliding
+      windows, 2 batches, 7 fused steps of 2): its metrics equal
+      Evaluator.run on the same batches given explicitly, 4 multi-flow
+      launches a fused step, the wall time a batch
+      beside the prepared run's and the Loader's; the CLI on the card
+      against the CLI on the CPU over a 48x96 clip within the serving bar;
+  17. the train CLI's main path: ``cli.train`` at
+      configs/superslomo_original.ini as shipped (ALL: ADOBE and NFS clip
+      lists naming the 57 frames 280 times each, 80 Vimeo septuplets: 20
+      batches, so the Loader keeps decoding through every step; B=32,
+      224x224 crops, 12 loader threads), in f32 and bf16, 10 steps through
+      the pinned side-stream feed: step ms, the wait for the feed before each
+      step, the same Trainer's step on in-memory batches, the Loader's ms a
+      batch, 8 single-flow forward and 8 flow-gradient launches a step.
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result. Phases 2 and 3, up to the multi-flow warp's gradients,
@@ -99,14 +122,18 @@ copy of this script placed in an older checkout runs them there
 """
 
 import argparse
+import configparser
 import json
 import os
+import pickle
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -1447,6 +1474,384 @@ def phase_bf16_train_main(ckpt_dir, norm, f32_first_loss):
     return res
 
 
+# --------------------------------------------------------------------------- #
+# the data path and the command lines (phases 15-17)
+
+FILTERS = ("none", "sub", "up", "average", "paeth")
+
+
+def png_bytes(rgb, ft, level=1):
+    """A (H, W, 3) uint8 image as an 8-bit RGB PNG, every row with filter type
+    ``ft`` (0-4), deflated at ``level``: the stdlib's zlib and numpy only (at
+    ``ft=1``, level 1, what cv2.imwrite writes)."""
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, w * 3).astype(np.int32)
+    up = np.vstack([np.zeros((1, w * 3), np.int32), x[:-1]])
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    c = np.zeros_like(x)
+    c[:, 3:] = up[:, :-3]
+    if ft == 4:
+        p = a + up - c
+        pa, pb, pc = np.abs(p - a), np.abs(p - up), np.abs(p - c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, up, c))
+    else:
+        pred = (0, a, up, (a + up) >> 1)[ft]
+    rows = np.hstack([np.full((h, 1), ft, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)])
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
+
+
+def write_png(path, rgb, ft=1):
+    with open(path, "wb") as f:
+        f.write(png_bytes(rgb, ft))
+
+
+def phase_png_unfilter(H=720, W=1280, reps=5):
+    """The compiled PNG unfilter (csrc/png_unfilter.cpp) against its plain
+    version on a 720p panning-texture frame written with each filter type on
+    every row: both equal the written pixels bit for bit. Times: the
+    unfilter alone, compiled (median of ``reps``) and plain (one call); a whole
+    decode (``png.imread``, median of ``reps``) and a plain one (inflate +
+    plain unfilter); and 24 decodes of the Sub frame on 12 threads (the
+    unfilter and zlib release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from superslomo_tpu_torch.data import png
+
+    frame = panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
+    want = frame.reshape(H, W * 3)
+    out = {"phase": "png_unfilter_vs_plain", "frame_hw": [H, W], "cpu_count": os.cpu_count(), "filters": {}}
+    with tempfile.TemporaryDirectory() as d:
+        for ft, name in enumerate(FILTERS):
+            path = os.path.join(d, f"{name}.png")
+            write_png(path, frame, ft)
+            _, stream, _ = png.read_chunks(path)
+            raw = np.frombuffer(zlib.decompress(stream), np.uint8)
+            times, got = [], None
+            for _ in range(reps):
+                buf = raw.copy()
+                t0 = time.perf_counter()
+                got = png.unfilter(buf, H, W * 3, 3)
+                times.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            _, stream, _ = png.read_chunks(path)
+            inflated = np.frombuffer(zlib.decompress(stream), np.uint8)
+            t1 = time.perf_counter()
+            plain = png.unfilter_plain(inflated, H, W * 3, 3)
+            t2 = time.perf_counter()
+            decode = []
+            for _ in range(reps):
+                t3 = time.perf_counter()
+                img = png.imread(path)
+                decode.append((time.perf_counter() - t3) * 1e3)
+            out["filters"][name] = {
+                "file_mib": os.path.getsize(path) / 2**20,
+                "unfilter_ms": statistics.median(times), "unfilter_plain_ms": (t2 - t1) * 1e3,
+                "decode_ms": statistics.median(decode), "decode_plain_ms": (t2 - t0) * 1e3,
+                "compiled_equals_plain": bool(np.array_equal(got, plain)),
+                "equals_written": bool(np.array_equal(got, want) and np.array_equal(img, frame)),
+            }
+        sub = os.path.join(d, "sub.png")
+        with ThreadPoolExecutor(12) as pool:
+            list(pool.map(png.imread, [sub] * 12))
+            t0 = time.perf_counter()
+            list(pool.map(png.imread, [sub] * 24))
+            out["sub_decode_12_threads_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / 24
+    emit(out)
+    bad = [k for k, v in out["filters"].items() if not (v["compiled_equals_plain"] and v["equals_written"])]
+    if bad:
+        raise AssertionError(f"the PNG unfilter differs from its plain version or the written pixels: {bad}")
+    return out
+
+
+def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, nfs_entries=280, vimeo_seqs=8,
+                  vimeo_repeats=10, val_repeats=2):
+    """A made-up dataset in the layouts the readers read: one 57-frame clip
+    of panning-texture PNGs at H x W (Sub rows, zlib level 1, as cv2.imwrite
+    writes them); the ADOBE and NFS train lists naming that clip's frames
+    ``adobe_entries`` / ``nfs_entries`` times; ``vimeo_seqs`` Vimeo
+    septuplets at ``vimeo_hw``, listed ``vimeo_repeats`` times; and a
+    VAL_CLIPS pickle naming the clip ``val_repeats`` times (7 sliding windows
+    each). Returns the config sections that point at it."""
+    rng = np.random.default_rng(31)
+    clip_dir = os.path.join(root, "adobe", "clip_000")
+    os.makedirs(clip_dir)
+    paths = []
+    for i, img in enumerate(panning_clips(rng, 1, H, W, n=57)[0]):
+        paths.append(os.path.join(clip_dir, f"frame_{i:05d}.png"))
+        write_png(paths[-1], img)
+    listing = f"{len(paths)}\n" + "".join(p + "\n" for p in paths)
+    for name, entries in (("adobe_train.txt", adobe_entries), ("nfs_train.txt", nfs_entries)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(listing * entries)
+    seqs = [f"{i:05d}/0001" for i in range(vimeo_seqs)]
+    for seq in seqs:
+        d = os.path.join(root, "vimeo", "sequences", seq)
+        os.makedirs(d)
+        for i, img in enumerate(panning_clips(rng, 1, *vimeo_hw, n=7)[0], start=1):
+            write_png(os.path.join(d, f"im{i}.png"), img)
+    with open(os.path.join(root, "vimeo", "list.txt"), "w") as f:
+        f.write("\n".join(seqs * vimeo_repeats) + "\n")
+    with open(os.path.join(root, "val_clips.pkl"), "wb") as f:
+        pickle.dump(["clip_000"] * val_repeats, f)
+    return {
+        "ADOBE_DATA": {"ROOTDIR": os.path.join(root, "adobe"), "VAL_CLIPS": os.path.join(root, "val_clips.pkl"),
+                       "TRAINPATHS": os.path.join(root, "adobe_train.txt"), "H_IN": H, "W_IN": W},
+        "NFS_DATA": {"TRAINPATHS": os.path.join(root, "nfs_train.txt")},
+        "VIMEO_DATA": {"ROOTDIR": os.path.join(root, "vimeo"), "TRAINPATHS": os.path.join(root, "vimeo", "list.txt")},
+    }
+
+
+def write_small_eval_dataset(root, H=48, W=96, n=17):
+    """One ``n``-frame clip at H x W (padded to 64x96 by the ADOBE eval
+    transform: 2 sliding windows) and its VAL_CLIPS pickle; returns the
+    config sections."""
+    clip_dir = os.path.join(root, "small", "clip_000")
+    os.makedirs(clip_dir)
+    for i, img in enumerate(panning_clips(np.random.default_rng(32), 1, H, W, n=n)[0]):
+        write_png(os.path.join(clip_dir, f"frame_{i:05d}.png"), img)
+    with open(os.path.join(root, "small", "val_clips.pkl"), "wb") as f:
+        pickle.dump(["clip_000"], f)
+    return {"ADOBE_DATA": {"ROOTDIR": os.path.join(root, "small"), "H_IN": H, "W_IN": W,
+                           "VAL_CLIPS": os.path.join(root, "small", "val_clips.pkl")}}
+
+
+def data_phases(norm):
+    """Phases 15-17 over a made-up dataset in a temporary directory: the PNG
+    unfilter, the eval CLI, and the train CLI in f32 and bf16."""
+    png = phase_png_unfilter()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        sections = write_dataset(root)
+        small = write_small_eval_dataset(root)
+        emit({"phase": "dataset_written", "seconds": time.perf_counter() - t0})
+        eval_cli = phase_eval_cli(root, sections, small, n_windows=14)  # the clip's 7 windows, listed twice
+        train_clis = [phase_train_cli(root, sections, norm, dtype) for dtype in ("float32", "bfloat16")]
+    return png, eval_cli, train_clis
+
+
+def write_config(path, base, *section_dicts):
+    """``configs/<base>`` with every (SECTION: {KEY: value}) of
+    ``section_dicts`` set, written to ``path``."""
+    parser = configparser.RawConfigParser()
+    parser.optionxform = str
+    parser.read(_config_path(base))
+    for sections in section_dicts:
+        for section, values in sections.items():
+            for k, v in values.items():
+                parser.set(section, k, str(v))
+    with open(path, "w") as f:
+        parser.write(f)
+    return path
+
+
+def loader_ms(cfg, split, n_batches):
+    """The Loader alone over ``get_dataset(cfg, split)``: ms to the first
+    batch and the median ms per batch after it, over ``n_batches`` (or the
+    epoch); returns them and the batches."""
+    from superslomo_tpu_torch.data import get_dataset
+
+    batches, times = [], []
+    t0 = time.perf_counter()
+    for batch in get_dataset(cfg, split):
+        t1 = time.perf_counter()
+        times.append((t1 - t0) * 1e3)
+        batches.append(batch)
+        if len(batches) == n_batches:
+            break
+        t0 = time.perf_counter()
+    return {"first_batch_ms": times[0], "ms_per_batch": statistics.median(times[1:]) if len(times) > 1 else None,
+            "batch_ms": times, "batches": len(times)}, batches
+
+
+class _Recorder:
+    """Wraps ``owner.name`` (a method) for the ``with`` block: each call's
+    result goes through ``after(result)`` and is kept with its arguments and
+    the host times of its start and end."""
+
+    def __init__(self, owner, name, after=lambda r: r):
+        self.owner, self.name, self.after, self.calls = owner, name, after, []
+
+    def __enter__(self):
+        inner = self.orig = getattr(self.owner, self.name)
+
+        def wrapper(obj, *args, **kwargs):
+            t0 = time.perf_counter()
+            result = self.after(inner(obj, *args, **kwargs))
+            self.calls.append((t0, time.perf_counter(), args, result))
+            return result
+
+        setattr(self.owner, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def phase_eval_cli(root, sections, small_sections, n_windows):
+    """The eval CLI (``python -m superslomo_tpu_torch.cli.evaluate_interpolation``,
+    on the card by default) at configs/superslomo_eval.ini as shipped (ADOBE,
+    720p padded to 736, B=8, 12 loader threads, f32, seeded weights) over the
+    made-up dataset (``n_windows`` sliding windows: 14, 2 batches; the
+    host's scoring takes ~0.6 s an image, so more batches cost minutes). The
+    Evaluator runs each batch as fused steps of ``step_samples`` samples (2
+    at 720p: the shapes of phase 5). Its metrics equal Evaluator.run on the same
+    batches given explicitly (read by the Loader alone, timed); 4 multi-flow
+    launches a fused step, counted; the wall time of the CLI's Evaluator.run
+    per batch against the prepared run's, and the prepared run's time in
+    the host's scoring (waiting for a batch's copy included). Then the CLI on the card against
+    the CLI on the CPU (``--device cpu``) over a 17-frame 48x96 clip (padded
+    to 64x96): the predictions within the serving bar."""
+    from superslomo_tpu_torch import Evaluator, SuperSloMo, load_config, ops
+    from superslomo_tpu_torch.cli import evaluate_interpolation as eval_cli
+    from superslomo_tpu_torch.cli.common import load_model_params
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
+
+    ini = write_config(os.path.join(root, "eval.ini"), "superslomo_eval.ini", sections)
+    args = ["-c", ini, "--expt", "chip_smoke", "--log", os.path.join(root, "eval.log")]
+    counter.launches = ops._WarpMultiflow.launches = 0
+    t0 = time.perf_counter()
+    with _Recorder(Evaluator, "run") as run, _Recorder(SuperSloMo, "interpolate_multi_t") as steps:
+        cli = eval_cli.main(args)  # default --device cuda
+    cli_wall = time.perf_counter() - t0
+    launches, bwd_launches, n_steps = counter.launches, ops._WarpMultiflow.launches, len(steps.calls)
+    cli_run_s = run.calls[0][1] - run.calls[0][0]
+
+    cfg = load_config(ini)
+    loader, batches = loader_ms(cfg, "VAL", n_batches=None)
+    evaluator = Evaluator(cfg, load_model_params(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Recorder(Evaluator, "_score") as score:
+        prepared = evaluator.run(batches)
+    prepared_s = time.perf_counter() - t0
+    score_s = sum(t1 - t0 for t0, t1, *_ in score.calls)
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    res = {
+        "phase": "eval_cli_main_path", "config": "configs/superslomo_eval.ini", "batch": cfg.getint("VAL", "BATCH_SIZE"),
+        "loader_threads": cfg.getint("DATALOADER", "N_WORKERS"), "batches": n, "windows": n_windows,
+        "frame_hw": list(batches[0][0].shape[2:4]), "step_samples": evaluator.step_samples, "fused_steps": n_steps,
+        "cli_wall_s": cli_wall, "cli_run_ms_per_batch": cli_run_s * 1e3 / n,
+        "prepared_run_ms_per_batch": prepared_s * 1e3 / n, "prepared_peak_mem_gib": peak / 2**30,
+        "prepared_host_scoring_ms_per_batch": score_s * 1e3 / n, "images_per_batch": cli["n_images"] / n,
+        "eval_loader": loader, "warp_launches": launches, "warp_launches_per_step": launches / n_steps,
+        "warp_multiflow_backward_launches": bwd_launches, "cli": cli, "prepared": prepared,
+        "cli_equals_prepared": cli == prepared,
+    }
+    del batches, evaluator
+    torch.cuda.empty_cache()
+
+    # card against CPU over a small clip
+    small_ini = write_config(os.path.join(root, "eval_small.ini"), "superslomo_eval.ini", small_sections)
+    preds = {}
+    for device in ("cuda", "cpu"):
+        with _Recorder(SuperSloMo, "interpolate_multi_t") as rec:
+            metrics = eval_cli.main(["-c", small_ini, "--expt", "chip_smoke", "--log", os.path.join(root, "small.log"),
+                                     "--device", device])
+        preds[device] = (torch.cat([c[3][0].cpu() for c in rec.calls]), metrics)
+    (p_card, m_card), (p_cpu, m_cpu) = preds["cuda"], preds["cpu"]
+    res["small_card_vs_cpu"] = {
+        "shape": list(p_cpu.shape), "max_abs_err": (p_card - p_cpu).abs().max().item(),
+        "within_serving_bar": bool(torch.allclose(p_card, p_cpu, atol=SLICE_ATOL, rtol=SLICE_RTOL)),
+        "metrics_card": m_card, "metrics_cpu": m_cpu,
+    }
+    emit(res)
+    if launches != 4 * n_steps or n_steps < n or bwd_launches != 0:
+        raise AssertionError(f"{launches} multi-flow launches ({bwd_launches} of its backward) over {n_steps} fused "
+                             f"steps of {n} eval CLI batches, expected 4 a step (none)")
+    if not res["cli_equals_prepared"]:
+        raise AssertionError(f"the eval CLI's metrics differ from Evaluator.run on the same batches: {res}")
+    if not (all(np.isfinite([cli["PSNR"], cli["SSIM"], cli["IE"]])) and cli["n_images"] == 7 * n_windows):
+        raise AssertionError(f"eval CLI results: {cli}")
+    if not res["small_card_vs_cpu"]["within_serving_bar"]:
+        raise AssertionError(f"the eval CLI on the card and on the CPU disagree: {res['small_card_vs_cpu']}")
+    return res
+
+
+def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_steps=5, **overrides):
+    """The train CLI (``python -m superslomo_tpu_torch.cli.train``, on the
+    card by default) at configs/superslomo_original.ini as shipped (ALL:
+    ADOBE + NFS + Vimeo, B=32, 224x224 crops, 12 loader threads, random VGG
+    features) in ``dtype`` for ``steps`` steps over the made-up dataset (an
+    epoch of 20 batches: the Loader decodes through every step), each step
+    synchronised: its step ms and the wait for the feed before each step;
+    then ``synthetic_steps`` steps of the same Trainer on synthetic
+    in-memory batches (the step with its pageable H2D copy, no Loader
+    running), and the Loader alone. The single-flow kernels' launches a step
+    counted."""
+    from superslomo_tpu_torch import Trainer, load_config, ops
+    from superslomo_tpu_torch.cli import train as train_cli
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
+
+    ini = write_config(os.path.join(root, f"train_{dtype}.ini"), "superslomo_original.ini", sections, {
+        "TRAIN": {"ALLOW_RANDOM_VGG": "TRUE", "CKPT_DIR": os.path.join(root, "ckpt")},
+        "PROJECT": {"LOGDIR": os.path.join(root, "logs")}, "TPU": {"COMPUTE_DTYPE": dtype}}, overrides)
+    cfg = load_config(ini)
+    B = cfg.getint("TRAIN", "BATCH_SIZE")
+    loader, _ = loader_ms(cfg, "TRAIN", n_batches=6)
+
+    def synced(loss):
+        torch.cuda.synchronize()
+        return loss
+
+    fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+    t_start = time.perf_counter()
+    with _Recorder(Trainer, "train_step", after=synced) as rec:
+        trainer = train_cli.main(["-c", ini, "--expt", f"chip_smoke_{dtype}", "--log", os.path.join(root, "train.log"),
+                                  "--max-steps", str(steps)])
+    cli_wall = time.perf_counter() - t_start
+    launches = {"forward": fwd.launches, "backward": bwd.launches, "flow_grad": bwd.flow_grad_launches,
+                "img_grad": bwd.img_grad_launches, "multiflow_backward": ops._WarpMultiflow.launches}
+    calls = rec.calls
+    step_ms = [(t1 - t0) * 1e3 for t0, t1, _, _ in calls]
+    wait_ms = [(calls[0][0] - t_start) * 1e3] + [(calls[k][0] - calls[k - 1][1]) * 1e3 for k in range(1, len(calls))]
+    on_card = all(isinstance(x, torch.Tensor) and x.is_cuda for _, _, args, _ in calls for x in args)
+    losses = np.stack([r.cpu().numpy() for *_, r in calls])
+    checkpoint = trainer.checkpoint_path(trainer.epoch)
+
+    batch = synthetic_train_batches(norm, n_batches=1, B=B, H=cfg.getint("TRAIN", "CROP_IMH"),
+                                    W=cfg.getint("TRAIN", "CROP_IMW"), seed=41)[0]
+    synthetic = []
+    for _ in range(synthetic_steps):
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        synthetic.append((time.perf_counter() - t0) * 1e3)
+    del trainer
+    torch.cuda.empty_cache()
+    steady = slice(warmup, None)
+    per_step = (calls[-1][1] - calls[warmup - 1][1]) * 1e3 / (len(calls) - warmup)
+    res = {
+        "phase": "train_cli_main_path", "config": "configs/superslomo_original.ini", "compute_dtype": dtype,
+        "batch": B, "crop_hw": [cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")],
+        "loader_threads": cfg.getint("DATALOADER", "N_WORKERS"), "steps": len(calls), "cli_wall_s": cli_wall,
+        "cli_ms_per_step": per_step, "step_ms_median": statistics.median(step_ms[steady]),
+        "feed_wait_ms_median": statistics.median(wait_ms[steady]), "step_ms": step_ms, "feed_wait_ms": wait_ms,
+        "synthetic_step_ms_median": statistics.median(synthetic), "synthetic_step_ms": synthetic,
+        "train_loader": loader, "batches_on_card": on_card, "loss_first": losses[0].tolist(),
+        "loss_last": losses[-1].tolist(), "checkpoint_saved": os.path.exists(checkpoint),
+        "launches": launches, "launches_per_step": {k: v / len(calls) for k, v in launches.items()},
+    }
+    if os.path.exists(checkpoint):
+        os.remove(checkpoint)
+    emit(res)
+    want = {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0,
+            "multiflow_backward": 0}
+    if len(calls) != steps or launches != want:
+        raise AssertionError(f"train CLI: {len(calls)} steps, single-flow launches {launches}, expected {want}")
+    if not (on_card and res["checkpoint_saved"] and np.isfinite(losses).all()):
+        raise AssertionError(f"train CLI: {res}")
+    return res
+
+
 def ptxas_usage(log):
     """{kernel instance: ptxas's register, stack and shared-memory line} from
     an nvcc -Xptxas -v log; instances named by kernel and dtype."""
@@ -1486,10 +1891,12 @@ def check_forward_layouts(cases, recorded):
         raise AssertionError(f"forward layouts of the SSM-R stream with no forward kernel case: {sorted(missing)}")
 
 
-def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains):
+def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains,
+                 eval_cli, train_clis):
     """Every kernel of the paths with its launches on the main paths (the
-    SuperSloMo-R ones a step and a window as well, and the single-flow
-    kernels' a step of each train path in ``trains``), error, times, bound,
+    SuperSloMo-R ones a step and a window as well, the single-flow kernels'
+    a step of each train path in ``trains`` and of each train CLI run in
+    ``train_clis``, the multi-flow kernel's a step of the eval CLI), error, times, bound,
     plain and library times; and the multi-flow warp's backward, its
     launches counted on every main path (none expected: serving runs without
     autograd, training uses the single-flow warp) and a backward in its own
@@ -1511,6 +1918,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         },
         "ssmr_launches_per_step": {f"{r['compute_dtype']}_b{r['batch']}": r["launches"]["warp_multiflow"] / len(
             r["step_ms"]) for r in ssmr_main},
+        "eval_cli_launches": eval_cli["warp_launches"], "eval_cli_launches_per_step": eval_cli["warp_launches_per_step"],
         "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
         "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                       "bound_ms", "planes_strides")}
@@ -1526,6 +1934,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "ssmr_launches_per_window": {r["compute_dtype"]: r["launches"]["warp_single"] / r["windows"]
                                      for r in ssmr_stream},
         "launches_per_train_step": {r["phase"]: r["launches_per_step"]["forward"] for r in trains},
+        "launches_per_train_cli_step": {r["compute_dtype"]: r["launches_per_step"]["forward"] for r in train_clis},
         **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
            for case in ("dense_flow", "smooth_flow", "720p_f32", "720p_bf16")},
         **{f"ssmr_window_{case}": {k: c[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
@@ -1547,6 +1956,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             "library": "aten.grid_sampler_2d_backward computing this gradient alone",
             "plain": "the plain warp's forward + backward to this input",
             "launches_per_train_step": {r["phase"]: r["launches_per_step"][key] for r in trains},
+            "launches_per_train_cli_step": {r["compute_dtype"]: r["launches_per_step"][key] for r in train_clis},
             "cases": {case: {k: c[key].get(k) for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                         "bound_ms")}
                       for case, c in grad_cases.items()},
@@ -1563,6 +1973,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         **{f"ssmr_main_path_{r['compute_dtype']}_b{r['batch']}": r["launches"]["warp_multiflow_backward"]
            + r.get("eval_warp_multiflow_backward_launches", 0) for r in ssmr_main},
         **{r["phase"]: r["launches"]["multiflow_backward"] for r in trains},
+        "eval_cli_main_path": eval_cli["warp_multiflow_backward_launches"],
+        **{f"train_cli_main_path_{r['compute_dtype']}": r["launches"]["multiflow_backward"] for r in train_clis},
     }
     mf_bwd = {
         "name": "warp_multiflow_planar_backward", "route": "cuda",
@@ -1591,6 +2003,8 @@ def nvidia_smi(query):
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     ap.add_argument("--kernels-only", action="store_true", help="build, then only the kernel phases")
+    ap.add_argument("--data-only", action="store_true",
+                    help="build, then only the data path and command-line phases (15-17)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1609,9 +2023,17 @@ def main() -> int:
     cuda_build.build()  # one nvcc per source in csrc/, all at once
     emit({
         "phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-        "cuda": torch.version.cuda, "kernel_build_s": time.perf_counter() - t0,
+        "cuda": torch.version.cuda, "cpu_count": os.cpu_count(), "kernel_build_s": time.perf_counter() - t0,
         "nvcc_ptxas": {name: ptxas_usage(log) for name, log in cuda_build.build_logs.items()},
     })
+
+    cfg = default_config()
+    norm = Normalize(cfg.pixel_mean(), cfg.pixel_std())
+    if args.data_only:
+        data_phases(norm)
+        print(smi, flush=True)
+        emit({"data_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
+        return 0
 
     clock_before = nvidia_smi("clocks.sm,clocks.max.sm")
     kern = phase_kernel()
@@ -1625,8 +2047,6 @@ def main() -> int:
         emit({"kernels_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
     phase_slice()
-    cfg = default_config()
-    norm = Normalize(cfg.pixel_mean(), cfg.pixel_std())
     batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=3, B=2, H=720, W=1280, seed=2)
     main_f32 = phase_main_path("float32", batches)
     main_bf16 = phase_main_path("bfloat16", batches)
@@ -1648,9 +2068,10 @@ def main() -> int:
         bf16_train = phase_bf16_train_main(ckpt_dir, norm, train["loss_first"])
     trains = [train, ssmr_train, ssmr_remat, bf16_train]
     check_backward_layouts(single["layouts"], [r for t in trains for r in t["backward_layouts_first_step"]])
+    _, eval_cli, train_clis = data_phases(norm)
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,
-                           trains)
+                           trains, eval_cli, train_clis)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

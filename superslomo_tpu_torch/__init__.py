@@ -10,6 +10,12 @@ StepLR, and ``.pt`` checkpoints). They run on the CUDA card
 unless the caller passes ``device="cpu"``; with no card and no such request
 they raise. The warps are hand-written CUDA kernels (csrc/warp_multiflow.cu,
 and csrc/warp_single.cu with its backward), built with nvcc at first use.
+
+The command lines ``python -m superslomo_tpu_torch.cli.train`` and
+``python -m superslomo_tpu_torch.cli.evaluate_interpolation`` read the
+configured datasets from disk (``data/``: readers, a threaded loader, a
+pinned device feed, and a PNG decoder whose row unfilter is host C++ in
+csrc/png_unfilter.cpp).
 """
 
 from superslomo_tpu_torch.config import Config, ModelSpec, default_config, load_config  # noqa: F401

@@ -1,10 +1,53 @@
-"""Sample transforms the evaluator needs, NHWC numpy (a copy of the JAX
-package's ``Normalize`` and ``eval_padding_for``; the readers and the other
-transforms are not ported yet)."""
+"""Sample transforms, NHWC numpy: a copy of the JAX package's ``Compose``,
+``RandomCrop``, ``Normalize``, ``EvalPad``, ``ToFloatArray`` and
+``eval_padding_for``. Samples stay (N, H, W, C); ``ToFloatArray`` makes them
+contiguous float32. ``RandomMirrorRotate``, ``ResizeCrop`` and ``Binarize``
+(cv2 warps, resizes and colour conversions, used by no shipped pipeline) are
+not ported yet.
+"""
 
 from __future__ import annotations
 
+import numbers
+from typing import Sequence
+
 import numpy as np
+
+
+class Compose:
+    """Transform pipeline. Stochastic transforms (``stochastic = True``)
+    receive the per-item ``rng``, so concurrent loader threads never share a
+    generator (NumPy Generators are not thread-safe)."""
+
+    def __init__(self, transforms: Sequence):
+        self.transforms = list(transforms)
+
+    def __call__(self, x, rng: np.random.Generator | None = None):
+        for t in self.transforms:
+            x = t(x, rng=rng) if getattr(t, "stochastic", False) else t(x)
+        return x
+
+
+class RandomCrop:
+    """The same random crop across all frames of the sample."""
+
+    stochastic = True
+
+    def __init__(self, size, rng: np.random.Generator | None = None):
+        if isinstance(size, numbers.Number):
+            size = (int(size), int(size))
+        self.size = size
+        self.rng = rng or np.random.default_rng()
+
+    def __call__(self, frames: np.ndarray, rng: np.random.Generator | None = None) -> np.ndarray:
+        rng = rng if rng is not None else self.rng
+        n, h, w, c = frames.shape
+        th, tw = self.size
+        if (h, w) == (th, tw):
+            return frames
+        y = int(rng.integers(0, h - th))
+        x = int(rng.integers(0, w - tw))
+        return frames[:, y : y + th, x : x + tw, :]
 
 
 class Normalize:
@@ -35,6 +78,36 @@ class Normalize:
         return (
             frames.astype(np.float32) * self.std_f32 + self.mean_f32
         ) * self.divisor
+
+
+class EvalPad:
+    """Zero-pad (N, H, W, C) frames: a fixed (left, right, top, bottom)
+    padding (torch.nn.ZeroPad2d's argument order), or to target (H, W) dims
+    split centre-aligned."""
+
+    def __init__(self, padding=None, target_dims=None):
+        self.padding = padding
+        self.target_dims = target_dims
+
+    def __call__(self, frames: np.ndarray) -> np.ndarray:
+        n, h, w, c = frames.shape
+        if self.target_dims is not None:
+            ho, wo = self.target_dims
+            hp, wp = ho - h, wo - w
+            top, left = hp // 2, wp // 2
+            bottom, right = hp - top, wp - left
+        elif self.padding is not None:
+            left, right, top, bottom = self.padding
+        else:
+            return frames
+        return np.pad(frames, ((0, 0), (top, bottom), (left, right), (0, 0)), mode="constant")
+
+
+class ToFloatArray:
+    """Frames → contiguous float32, staying NHWC."""
+
+    def __call__(self, frames: np.ndarray) -> np.ndarray:
+        return np.ascontiguousarray(frames, dtype=np.float32)
 
 
 def eval_padding_for(h_in: int, w_in: int) -> tuple[int, int, int, int]:

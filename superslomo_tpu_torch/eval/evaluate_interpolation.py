@@ -4,31 +4,43 @@ Protocol of the JAX package's evaluator: /32-aligned padded dims with a
 centre crop back to the input size, 8x interpolation (7 t-values; Sintel-HFR
 32x; a single t=0.5 for Vimeo), edge-window trimming by per-sample
 ``n_avail``, and denormalize → unclipped uint8 → skimage-compatible metrics.
-All t-values of a batch run in one fused multi-t step.
+All t-values of a sample run in one fused multi-t step, which takes up to
+``step_samples`` samples of a batch.
 
-The readers are not ported yet: ``run`` takes any iterable of ``(frames,
-targets, n_avail)`` batches, as a reader yields them (frames (B, N_FRAMES,
-H_REF, W_REF, 3) and targets (B, n_t, H_REF, W_REF, 3) of the mid window,
-normalized and padded). A SuperSloMo-R model scores its 4-frame windows the
-same way, each window from a zero recurrent state.
+``run`` reads the ``[DATA] DATASET``'s VAL split through ``get_dataset``,
+or takes any iterable of ``(frames, targets, n_avail)`` batches as a reader
+yields them (frames (B, N_FRAMES, H_REF, W_REF, 3) and targets (B, n_t,
+H_REF, W_REF, 3) of the mid window, normalized and padded). A SuperSloMo-R
+model scores its 4-frame windows the same way, each window from a zero
+recurrent state.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
-from typing import Iterable
+from typing import Iterable, Optional
 
 import numpy as np
 import torch
 
 from superslomo_tpu_torch.config import Config
 from superslomo_tpu_torch.data.augmentations import Normalize
+from superslomo_tpu_torch.data.readers import get_dataset
 from superslomo_tpu_torch.device import resolve_device
 from superslomo_tpu_torch.models.superslomo import SuperSloMo
 from superslomo_tpu_torch.utils.metrics import score_image
 from superslomo_tpu_torch.utils.validators import check_eval_result_count, check_t_interp
 
 log = logging.getLogger(__name__)
+
+# The most stage-2 pixels (B·n_t·W_n images of H_REF x W_REF) one fused step
+# takes: 14 images of 736x1280, the serving step at B=2, which keeps the H100
+# busy 0.998 of the step and peaks at 22.92 GiB in f32 (PERF.md §5). A larger
+# batch runs as several steps: the shipped B=8 at 720p in one step needs more
+# than the card's 80 GB in f32, and every other step shape costs minutes of
+# cuDNN's autotuning there.
+STEP_PIXELS = 14 * 736 * 1280
 
 
 class Evaluator:
@@ -64,6 +76,11 @@ class Evaluator:
             t_values = np.arange(1, self.interp_factor, dtype=np.float32) / self.interp_factor
         check_t_interp(t_values)
         self.t_values = torch.from_numpy(t_values).to(self.device)
+        # the most samples one fused step takes: its stage-2 batch within
+        # STEP_PIXELS (at 720p, B=8 runs as four steps of 2; the flow bound of
+        # a batch is the max of its steps')
+        n_windows = self.model.spec.n_frames - 1
+        self.step_samples = max(1, STEP_PIXELS // (len(t_values) * n_windows * self.H_REF * self.W_REF))
 
     def get_dims(self):
         """/32-aligned dims, input dims and crop offsets."""
@@ -89,14 +106,18 @@ class Evaluator:
         return self.normalize.inverse(batch).astype(np.uint8)
 
     def _submit(self, frames, targets, n_avail):
-        """Launch one batch's fused step and its copy back to the host without
-        waiting: the card computes while the host scores the previous batch."""
+        """Launch one batch's fused steps (``step_samples`` samples each) and
+        their copy back to the host without waiting: the card computes while
+        the host scores the previous batch."""
         cuda = self.device.type == "cuda"
         frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32))
         if cuda:
             frames = frames.pin_memory()
         frames = frames.to(self.device, non_blocking=True)
-        out, bound = self.model.interpolate_multi_t(frames, self.t_values, with_bounds=True)
+        steps = [self.model.interpolate_multi_t(f, self.t_values, with_bounds=True)
+                 for f in frames.split(self.step_samples)]
+        out = steps[0][0] if len(steps) == 1 else torch.cat([o for o, _ in steps])
+        bound = torch.stack([b for _, b in steps]).amax()
         if not cuda:
             return out, bound, None, targets, n_avail
         host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in (out, bound)]
@@ -141,11 +162,14 @@ class Evaluator:
             "max_flow_bound": max(self.bounds),
         }
 
-    def run(self, batches: Iterable) -> dict:
-        """Pipelined loop over ``(frames, targets, n_avail)`` batches: batch
-        k+1 is launched before batch k is copied back and scored."""
+    def run(self, batches: Optional[Iterable] = None, max_batches: Optional[int] = None) -> dict:
+        """Pipelined loop over ``(frames, targets, n_avail)`` batches (by
+        default ``get_dataset(cfg, "VAL")``), stopping after ``max_batches``:
+        batch k+1 is launched before batch k is copied back and scored."""
+        if batches is None:
+            batches = get_dataset(self.cfg, "VAL")
         pending = None
-        for i, (frames, targets, n_avail) in enumerate(batches):
+        for i, (frames, targets, n_avail) in enumerate(itertools.islice(batches, max_batches)):
             submitted = self._submit(frames, targets, n_avail)
             if pending is not None:
                 self._score(pending)

@@ -39,7 +39,9 @@ import numpy as np
 import torch
 
 from superslomo_tpu_torch import weights as wio
+from superslomo_tpu_torch.cli.common import load_model_params
 from superslomo_tpu_torch.config import Config
+from superslomo_tpu_torch.data import get_dataset, prefetch_to_device
 from superslomo_tpu_torch.models.losses import LossWeights, compute_losses
 from superslomo_tpu_torch.models.superslomo import SuperSloMo, mid_window, tf32_off
 from superslomo_tpu_torch.models.vgg import VGG16Features, vgg_state
@@ -57,6 +59,11 @@ def step_lr(base_lr: float, decay: float, period: float):
         return base_lr * (decay ** (int(epoch) // int(period)))
 
     return schedule
+
+
+def _host(x) -> np.ndarray:
+    """A numpy array, or a tensor's values copied to a numpy array."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class Trainer:
@@ -111,8 +118,7 @@ class Trainer:
 
         self.model = SuperSloMo(self.spec, device=device, param_dtype=torch.float32)
         self.device = self.model.device
-        self.model.load_state(wio.seeded_state(self.spec, seed=cfg.getint("SEED", "VALUE")))
-        self.load_pretrained_stages()
+        self.model.load_state(load_model_params(cfg))
 
         self.vgg = VGG16Features()
         self.vgg.load_state_dict(vgg_state(vgg_path))
@@ -133,18 +139,6 @@ class Trainer:
         self.resume_if_configured()
 
     # ------------------------------------------------------------------ #
-    def load_pretrained_stages(self) -> None:
-        """``[STAGE{n}] LOADPREV`` pulls that stage's weights from the
-        ``.pt`` named by ``WEIGHTS`` before training."""
-        for n, stage in ((1, "stage1"), (2, "stage2")):
-            path = self.cfg.get(f"STAGE{n}", "WEIGHTS")
-            if not (self.cfg.getboolean(f"STAGE{n}", "LOADPREV") and path):
-                continue
-            sd = wio.stage_state_from_checkpoint(wio.load_checkpoint(path), stage)
-            if sd is not None:
-                getattr(self.model, stage).load_state_dict(sd)
-                log.info("Loaded %s weights from %s", stage, path)
-
     def resume_if_configured(self) -> None:
         """Resume Adam's state and the epoch from the ``.pt`` of the first
         stage that is loaded and not frozen; a weights-only file warm-starts
@@ -173,9 +167,10 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def train_step(self, frames, targets, t) -> torch.Tensor:
         """One optimization step on (B, T, H, W, 3) frames, (B, T-1, H, W, 3)
-        targets and (B, T-1) instants; returns the (4,) loss vector (total,
-        reconstruction, warp, perceptual), averaged over the batch, on the
-        model's device."""
+        targets and (B, T-1) instants (numpy arrays, or tensors, which are
+        used in place when they already lie on the model's device); returns
+        the (4,) loss vector (total, reconstruction, warp, perceptual),
+        averaged over the batch, on the model's device."""
         frames, targets, t = (torch.as_tensor(x, dtype=torch.float32).to(self.device) for x in (frames, targets, t))
         with tf32_off():
             outputs = self.model(frames, t)
@@ -185,12 +180,15 @@ class Trainer:
             self.optimizer.step()
         return losses.detach().mean(dim=0)
 
-    def train(self, batches: Iterable, max_steps: Optional[int] = None) -> np.ndarray:
+    def train(self, batches: Optional[Iterable] = None, max_steps: Optional[int] = None) -> np.ndarray:
         """Train from ``self.epoch`` to ``N_EPOCHS``, iterating ``batches``
-        (numpy ``(frames, targets, t)``) once per epoch; stop after
-        ``max_steps`` steps in all. Saves every SAVE_EVERY epochs, at the end,
-        at ``max_steps``, and on SIGTERM (then exits with 143). Returns the
-        last step's loss vector."""
+        (``(frames, targets, t)``, numpy or tensors) once per epoch; by
+        default ``get_dataset(cfg, "TRAIN")``, built once and fed through
+        ``prefetch_to_device`` each epoch. Stop after ``max_steps`` steps in
+        all. Saves every SAVE_EVERY epochs, at the end, at ``max_steps``, and
+        on SIGTERM (then exits with 143). Returns the last step's loss
+        vector."""
+        loader = get_dataset(self.cfg, "TRAIN") if batches is None else None
         loss_vec = None
 
         def on_sigterm(signum, frame):
@@ -210,9 +208,10 @@ class Trainer:
                 if self.writer:
                     self.writer.add_scalars("Learning_Rate", {"TRAIN": lr}, self.step)
                 t0 = time.time()
-                for frames, targets, t in batches:
+                feed = batches if loader is None else prefetch_to_device(iter(loader), self.device)
+                for frames, targets, t in feed:
                     if self.step == first_step:
-                        check_forward_inputs(frames, targets, np.asarray(t), self.spec.n_frames)
+                        check_forward_inputs(frames, targets, _host(t), self.spec.n_frames)
                     loss_vec = self.train_step(frames, targets, t)
                     self.step += 1
                     if self.writer and self.step % 10 == 0:
@@ -237,7 +236,7 @@ class Trainer:
         """The mid window's interpolation of the first sample, denormalized
         and clipped to [0, 1], as a (3, H, W) image."""
         with torch.no_grad():
-            out = self.model(frames[:1], np.asarray(t)[:1])
+            out = self.model(frames[:1], _host(t)[:1])
         img = out.pred_images[0, mid_window(out)].cpu().numpy()
         mean = np.asarray(self.cfg.pixel_mean(), np.float32)
         std = np.asarray(self.cfg.pixel_std(), np.float32)

@@ -4,6 +4,7 @@ pipelined run() equals sequential eval_batch calls."""
 
 import numpy as np
 import pytest
+import torch
 
 from superslomo_tpu.data.augmentations import Normalize as JaxNormalize
 from superslomo_tpu.utils.metrics import score_image as jax_score_image
@@ -11,6 +12,15 @@ from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config, weights
 from superslomo_tpu_torch.data.augmentations import Normalize, eval_padding_for
 
 H_IN, W_IN = 30, 60  # padded to 32x64: exercises the /32 pad and crop
+
+
+@pytest.fixture(scope="module", autouse=True)
+def first_parallel_exp():
+    """PyTorch's first parallel ``torch.exp`` in a process sometimes computes
+    one intra-op thread's share with a coarser rounding (about 1 process in
+    10 on an 8-thread x86 host, up to 6e-5 relative): make that call here,
+    so that the model calls compared exactly below all come after it."""
+    torch.exp(torch.zeros(1 << 16))
 
 
 def _cfg():
@@ -75,3 +85,26 @@ def test_run_equals_sequential_eval_batch(state):
     assert (piped.psnr, piped.ssim, piped.ie, piped.bounds) == (seq.psnr, seq.ssim, seq.ie, seq.bounds)
     assert results == seq.results() and results["n_images"] == 3 * 12
     assert all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"]]))
+
+
+def test_batch_run_as_several_fused_steps_equals_one_step(state):
+    """A batch larger than ``step_samples`` (2 at 720p, 920 at 32x64) runs as
+    several fused steps: the predictions within the model's f32 bar of one
+    step's, the bound the max of the steps' bounds (each bounds its own
+    samples' flows, so it is at most the whole batch's)."""
+    cfg = _cfg()
+    frames, targets, n_avail = _batches(cfg, n_batches=1, B=3, seed=2)[0]
+    whole = Evaluator(cfg, state, device="cpu")
+    assert whole.step_samples == 14 * 736 * 1280 // (7 * 32 * 64) == 920
+    big = _cfg()
+    big.set("ADOBE_DATA", "H_IN", 720)
+    big.set("ADOBE_DATA", "W_IN", 1280)
+    assert Evaluator(big, whole.model, device="cpu").step_samples == 2
+    split = Evaluator(cfg, whole.model, device="cpu")
+    split.step_samples = 2
+    out, bound, *_ = whole._submit(frames, targets, n_avail)
+    out_split, bound_split, *_ = split._submit(frames, targets, n_avail)
+    assert out_split.shape == out.shape == (3, 7, 32, 64, 3)
+    np.testing.assert_allclose(out_split.numpy(), out.numpy(), atol=5e-4, rtol=1e-3)
+    steps = [whole.model.interpolate_multi_t(f, whole.t_values, with_bounds=True)[1] for f in (frames[:2], frames[2:])]
+    assert float(bound_split) == max(float(b) for b in steps) <= float(bound)

@@ -1,8 +1,8 @@
 """Package rules of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points refuse to run on the CPU unless asked to, its CUDA
-wrappers take only CUDA tensors, its nvcc build names libraries by source hash
-and raises without a working nvcc, and it reads the repo's configs as the JAX
-package does."""
+package, nor cv2 or PIL, its entry points refuse to run on the CPU unless
+asked to, its CUDA wrappers take only CUDA tensors, its nvcc build names
+libraries by source hash and raises without a working nvcc, and it reads the
+repo's configs as the JAX package does."""
 
 import ast
 import dataclasses
@@ -34,8 +34,11 @@ def _port_modules():
     )
 
 
+FORBIDDEN = ("jax", "flax", "superslomo_tpu", "cv2", "PIL")
+
+
 def _forbidden(name: str) -> bool:
-    return any(name == top or name.startswith(top + ".") for top in ("jax", "flax", "superslomo_tpu"))
+    return any(name == top or name.startswith(top + ".") for top in FORBIDDEN)
 
 
 def test_importing_every_port_module_leaves_jax_out():
@@ -44,12 +47,15 @@ def test_importing_every_port_module_leaves_jax_out():
         "superslomo_tpu_torch.ops.warp_cuda", "superslomo_tpu_torch.ops.warp_single_cuda",
         "superslomo_tpu_torch.ops.cuda_build", "superslomo_tpu_torch.models.vgg",
         "superslomo_tpu_torch.models.losses", "superslomo_tpu_torch.training.trainer",
-        "superslomo_tpu_torch.models.bottleneck",
-    } <= set(modules) and len(modules) >= 27
+        "superslomo_tpu_torch.models.bottleneck", "superslomo_tpu_torch.data.png",
+        "superslomo_tpu_torch.data.readers", "superslomo_tpu_torch.data.pipeline",
+        "superslomo_tpu_torch.cli.common", "superslomo_tpu_torch.cli.train",
+        "superslomo_tpu_torch.cli.evaluate_interpolation",
+    } <= set(modules) and len(modules) >= 33
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'superslomo_tpu'))\n"
+        f"bad = sorted(k for k in sys.modules if k.split('.')[0] in {FORBIDDEN!r})\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
@@ -73,7 +79,7 @@ def test_no_jax_imports_in_port_sources_or_chip_smoke():
                 continue
             offenders += [(path, n) for n in names if _forbidden(n)]
     assert not offenders
-    assert not _forbidden("superslomo_tpu_torch") and _forbidden("superslomo_tpu.ops")
+    assert not _forbidden("superslomo_tpu_torch") and _forbidden("superslomo_tpu.ops") and _forbidden("PIL.Image")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
