@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels against plain
     python3 chip_smoke.py --data-only      # phases 1 and 15-17: build, the data path and the CLIs
+    python3 chip_smoke.py --render-only    # phases 1 and 18-21: build, the renderer and flow-EPE CLIs
 
 Phases, each of which raises on failure:
   1. device: the card's name and power limit, the CUDA version, and the nvcc
@@ -46,7 +47,7 @@ Phases, each of which raises on failure:
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
-     three synthetic batches, in f32 and bf16, with the step's time, frames/s
+     two synthetic batches, in f32 and bf16, with the step's time, frames/s
      and peak memory, and the multi-flow kernel's launches counted per step;
   6. the decoder's last upsample of the 720p SuperSloMo-R step (batch 21,
      beyond the CUDA kernel's 32-bit indexing, so written in batch slices)
@@ -99,8 +100,8 @@ Phases, each of which raises on failure:
   16. the eval CLI's main path: ``cli.evaluate_interpolation`` at
       configs/superslomo_eval.ini as shipped (720p padded to 736, B=8, 12
       loader threads, f32) over a made-up dataset of 720p PNGs in a
-      temporary directory (one 57-frame clip listed twice: 14 sliding
-      windows, 2 batches, 7 fused steps of 2): its metrics equal
+      temporary directory (one 57-frame clip: 7 sliding windows, one
+      batch, fused steps of 2, 2, 2 and 1 samples): its metrics equal
       Evaluator.run on the same batches given explicitly, 4 multi-flow
       launches a fused step, the wall time a batch
       beside the prepared run's and the Loader's; the CLI on the card
@@ -113,6 +114,30 @@ Phases, each of which raises on failure:
       the pinned side-stream feed: step ms, the wait for the feed before each
       step, the same Trainer's step on in-memory batches, the Loader's ms a
       batch, 8 single-flow forward and 8 flow-gradient launches a step.
+  18. the render CLI's main path: ``cli.visualize`` at
+      configs/superslomo_eval.ini's model (CONV, f32, TF32 off) over a
+      9-frame 720p panning clip at 8x (8 windows, 65 frames written), and in
+      bf16 over 4 windows; the file names and count, every file decoded to
+      720x1280, the originals equal to the input frames bit for bit, 4
+      multi-flow and no single-flow launch a window; wall s, frames written
+      a second, and the ms a window split into decode, fused step (CUDA
+      events) and encode;
+  19. the same at configs/superslomo_recurrent.ini's model (CLSTM,
+      N_FRAMES=4, each window from a zero state) over 3 windows; then
+      ``--dump-intermediates`` over 2 windows: the visibility (grey) and
+      flow PNGs at the padded 736x1280, 4 single-flow launches a window (the
+      forward at t=0.5), their layouts each a case of phase 3's
+      ``render_forward_kernel_vs_plain`` (B=1 at 736x1280);
+  20. the flow-EPE CLI's main path: ``cli.evaluate_flow`` at
+      configs/superslomo_eval.ini over a made-up Sintel clip (8 frames of
+      1024x436, padded to 448; 7 .flo ground truths of the panning motion):
+      the JSON, 4 single-flow launches a sample, their layouts each a case
+      of ``flow_eval_forward_kernel_vs_plain`` (B=1 at 448x1024), the ms a
+      sample split into the read and the forward (CUDA events);
+  21. both CLIs on the card against ``--device cpu``: the renderer over a
+      3-frame 64x96 clip (renders within one level, originals equal), the
+      flow evaluator over 2 samples at 52x96 (EPE within 1e-3 px, the >3 px
+      share within one pixel's share).
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result. Phases 2 and 3, up to the multi-flow warp's gradients,
@@ -123,6 +148,7 @@ copy of this script placed in an older checkout runs them there
 
 import argparse
 import configparser
+import contextlib
 import json
 import os
 import pickle
@@ -753,27 +779,49 @@ def forward_layout(img, flow):
             tuple(flow.stride()), flow.data_ptr() % 16)
 
 
-def phase_ssmr_forward_cases():
-    """The single-flow forward in the layouts of a 720p SuperSloMo-R window
-    (B=1, 3 windows: a batch of 3): a frame of the f32 pair (pixel stride 6,
-    at channel 0 or 3), the same frame cast to bf16 (dense channels_last,
-    the stage-2 input's warps under bf16), with a dense 2-channel
-    channels_last flow. f32 against the plain warp; bf16 bit for bit the f32
-    result cast, and within one bf16 ulp of the plain warp. Returns the cases
-    and their layouts (``forward_layout``), which main() holds the stream's
-    launches to."""
+class _RecordForwardLayouts:
+    """For the ``with`` block, the single-flow forward's launches through
+    ``ops._WarpSingle`` record their layouts (``forward_layout``) in
+    ``layouts``."""
+
+    def __enter__(self):
+        from superslomo_tpu_torch import ops
+
+        self.ops, self.inner, self.layouts = ops, ops.warp_single_cuda, []
+
+        def recording(img, flow):
+            self.layouts.append(forward_layout(img, flow))
+            return self.inner(img, flow)
+
+        ops.warp_single_cuda = recording  # the name _WarpSingle.forward calls
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.warp_single_cuda = self.inner
+
+
+def single_forward_cases(phase, B, H, W, tags=("f32", "bf16")):
+    """The single-flow forward in the layouts of a window's forward at
+    (B, 3, H, W): a frame of the f32 pair (pixel stride 6, at channel 0 or
+    3) and, with the tag ``bf16``, the same frame cast to bf16 (dense
+    channels_last, the stage-2 input's warps under bf16), with a dense
+    2-channel channels_last flow. f32 against the plain warp; bf16 bit for
+    bit the f32 result cast, and within one bf16 ulp of the plain warp.
+    Returns the cases and their layouts (``forward_layout``), which main()
+    holds a path's launches to."""
     from superslomo_tpu_torch import ops
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(12)
-    B, C, H, W = 3, 3, 736, 1280
+    C = 3
     pairs = _channels_last(rng, B, 6, H, W, dev)
     flow = torch.from_numpy(_flow_field(rng, B, H, W, 7.0, 150.0)).to(dev).permute(0, 3, 1, 2)
     grid = _grid_for(flow)
     cases, layouts = {}, set()
     for frame, sl in (("img0", slice(0, 3)), ("img1", slice(3, 6))):
-        for tag, im in (("f32", pairs[:, sl]), ("bf16", pairs[:, sl].to(torch.bfloat16))):
+        for tag in tags:
+            im = pairs[:, sl] if tag == "f32" else pairs[:, sl].to(torch.bfloat16)
             got = warp_single_cuda(im, flow)
             want = ops.warp_single_reference(im, flow)
             torch.cuda.synchronize()
@@ -794,10 +842,29 @@ def phase_ssmr_forward_cases():
                     case["max_abs_err"] <= 2.0**-7 * want.float().abs().max().item())  # one bf16 ulp
             cases[f"{frame}_{tag}"] = case
             layouts.add(forward_layout(im, flow))
-            emit({"phase": "ssmr_forward_kernel_vs_plain", "case": f"{frame}_{tag}", **case})
+            emit({"phase": phase, "case": f"{frame}_{tag}", **case})
             if not ok:
-                raise AssertionError(f"single-flow forward in an SSM-R window's layout ({frame} {tag}): {case}")
+                raise AssertionError(f"single-flow forward in a {B}x{H}x{W} window's layout ({frame} {tag}): {case}")
     return {"cases": cases, "layouts": layouts}
+
+
+def phase_ssmr_forward_cases():
+    """The single-flow forward in the layouts of a 720p SuperSloMo-R window
+    (B=1, 3 windows: a batch of 3), f32 and bf16 (``single_forward_cases``);
+    main() holds the stream's launches to them."""
+    return single_forward_cases("ssmr_forward_kernel_vs_plain", 3, 736, 1280)
+
+
+def phase_render_forward_cases():
+    """The single-flow forward in the f32 layouts of the two paths that
+    launch it at B=1 (``single_forward_cases``): the renderer's
+    intermediates dump at 736x1280 and the flow evaluator at 448x1024 (a
+    Sintel frame padded); main() holds those paths' launches to them."""
+    render = single_forward_cases("render_forward_kernel_vs_plain", 1, 736, 1280, tags=("f32",))
+    flow = single_forward_cases("flow_eval_forward_kernel_vs_plain", 1, 448, 1024, tags=("f32",))
+    return {"cases": {**{f"render_dump_{k}": v for k, v in render["cases"].items()},
+                      **{f"flow_eval_{k}": v for k, v in flow["cases"].items()}},
+            "layouts": render["layouts"] | flow["layouts"]}
 
 
 def phase_upsample_slices():
@@ -1032,22 +1099,17 @@ def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    # the layouts the forward launches of the first window receive
-    layouts = []
-
-    def recording(img, flow):
-        layouts.append(forward_layout(img, flow))
-        return single(img, flow)
-
+    first = _RecordForwardLayouts()  # the layouts the forward launches of the first window receive
     single.launches = mf.launches = ops._WarpMultiflow.launches = 0
     carry, times, mids = None, [], []
     for start in starts:
-        ops.warp_single_cuda = recording if start == 0 else single  # the name _WarpSingle.forward calls
-        t0 = time.perf_counter()
-        mid, _, carry = model.forward_inference(clip[:, start : start + 4], t, carry)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
+        with first if start == 0 else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            mid, _, carry = model.forward_inference(clip[:, start : start + 4], t, carry)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
         mids.append(mid)
+    layouts = first.layouts
     launches = {"warp_single": single.launches, "warp_multiflow": mf.launches,
                 "warp_multiflow_backward": ops._WarpMultiflow.launches}
     peak = torch.cuda.max_memory_allocated()
@@ -1511,6 +1573,14 @@ def write_png(path, rgb, ft=1):
         f.write(png_bytes(rgb, ft))
 
 
+def write_clip(folder, frames, name="frame_{:05d}.png", start=0):
+    """``frames`` as PNG files (Sub rows, zlib level 1) in ``folder``, named
+    ``name`` with their index from ``start``."""
+    os.makedirs(folder)
+    for i, img in enumerate(frames, start=start):
+        write_png(os.path.join(folder, name.format(i)), img)
+
+
 def phase_png_unfilter(H=720, W=1280, reps=5):
     """The compiled PNG unfilter (csrc/png_unfilter.cpp) against its plain
     version on a 720p panning-texture frame written with each filter type on
@@ -1611,10 +1681,7 @@ def write_small_eval_dataset(root, H=48, W=96, n=17):
     """One ``n``-frame clip at H x W (padded to 64x96 by the ADOBE eval
     transform: 2 sliding windows) and its VAL_CLIPS pickle; returns the
     config sections."""
-    clip_dir = os.path.join(root, "small", "clip_000")
-    os.makedirs(clip_dir)
-    for i, img in enumerate(panning_clips(np.random.default_rng(32), 1, H, W, n=n)[0]):
-        write_png(os.path.join(clip_dir, f"frame_{i:05d}.png"), img)
+    write_clip(os.path.join(root, "small", "clip_000"), panning_clips(np.random.default_rng(32), 1, H, W, n=n)[0])
     with open(os.path.join(root, "small", "val_clips.pkl"), "wb") as f:
         pickle.dump(["clip_000"], f)
     return {"ADOBE_DATA": {"ROOTDIR": os.path.join(root, "small"), "H_IN": H, "W_IN": W,
@@ -1627,10 +1694,10 @@ def data_phases(norm):
     png = phase_png_unfilter()
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        sections = write_dataset(root)
+        sections = write_dataset(root, val_repeats=1)
         small = write_small_eval_dataset(root)
         emit({"phase": "dataset_written", "seconds": time.perf_counter() - t0})
-        eval_cli = phase_eval_cli(root, sections, small, n_windows=14)  # the clip's 7 windows, listed twice
+        eval_cli = phase_eval_cli(root, sections, small, n_windows=7)  # the clip's 7 windows: one batch
         train_clis = [phase_train_cli(root, sections, norm, dtype) for dtype in ("float32", "bfloat16")]
     return png, eval_cli, train_clis
 
@@ -1670,20 +1737,30 @@ def loader_ms(cfg, split, n_batches):
 
 
 class _Recorder:
-    """Wraps ``owner.name`` (a method) for the ``with`` block: each call's
-    result goes through ``after(result)`` and is kept with its arguments and
-    the host times of its start and end."""
+    """Wraps ``owner.name`` (a function, or a method: its first argument is
+    then the object) for the ``with`` block: each call's result goes
+    through ``after(result)`` and is kept with its arguments and the host
+    times of its start and end; with ``cuda_events``, CUDA events are
+    recorded before and after each call (the device work it queued), read
+    by ``device_ms()`` after a synchronise."""
 
-    def __init__(self, owner, name, after=lambda r: r):
-        self.owner, self.name, self.after, self.calls = owner, name, after, []
+    def __init__(self, owner, name, after=lambda r: r, cuda_events=False):
+        self.owner, self.name, self.after, self.cuda_events = owner, name, after, cuda_events
+        self.calls, self.events = [], []
 
     def __enter__(self):
         inner = self.orig = getattr(self.owner, self.name)
 
-        def wrapper(obj, *args, **kwargs):
+        def wrapper(*args, **kwargs):
+            if self.cuda_events:
+                pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                pair[0].record()
             t0 = time.perf_counter()
-            result = self.after(inner(obj, *args, **kwargs))
+            result = self.after(inner(*args, **kwargs))
             self.calls.append((t0, time.perf_counter(), args, result))
+            if self.cuda_events:
+                pair[1].record()
+                self.events.append(pair)
             return result
 
         setattr(self.owner, self.name, wrapper)
@@ -1692,15 +1769,19 @@ class _Recorder:
     def __exit__(self, *exc):
         setattr(self.owner, self.name, self.orig)
 
+    def device_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
 
 def phase_eval_cli(root, sections, small_sections, n_windows):
     """The eval CLI (``python -m superslomo_tpu_torch.cli.evaluate_interpolation``,
     on the card by default) at configs/superslomo_eval.ini as shipped (ADOBE,
     720p padded to 736, B=8, 12 loader threads, f32, seeded weights) over the
-    made-up dataset (``n_windows`` sliding windows: 14, 2 batches; the
+    made-up dataset (``n_windows`` sliding windows: 7, one batch; the
     host's scoring takes ~0.6 s an image, so more batches cost minutes). The
     Evaluator runs each batch as fused steps of ``step_samples`` samples (2
-    at 720p: the shapes of phase 5). Its metrics equal Evaluator.run on the same
+    at 720p: the shapes of phase 5; the batch's last step has 1). Its metrics equal Evaluator.run on the same
     batches given explicitly (read by the Loader alone, timed); 4 multi-flow
     launches a fused step, counted; the wall time of the CLI's Evaluator.run
     per batch against the prepared run's, and the prepared run's time in
@@ -1813,7 +1894,7 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     calls = rec.calls
     step_ms = [(t1 - t0) * 1e3 for t0, t1, _, _ in calls]
     wait_ms = [(calls[0][0] - t_start) * 1e3] + [(calls[k][0] - calls[k - 1][1]) * 1e3 for k in range(1, len(calls))]
-    on_card = all(isinstance(x, torch.Tensor) and x.is_cuda for _, _, args, _ in calls for x in args)
+    on_card = all(isinstance(x, torch.Tensor) and x.is_cuda for _, _, args, _ in calls for x in args[1:])
     losses = np.stack([r.cpu().numpy() for *_, r in calls])
     checkpoint = trainer.checkpoint_path(trainer.epoch)
 
@@ -1852,6 +1933,261 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     return res
 
 
+# --------------------------------------------------------------------------- #
+# the renderer and the flow evaluator through their command lines (phases 18-21)
+
+
+def _launch_counts():
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as single
+
+    return {"warp_multiflow": mf.launches, "warp_single": single.launches,
+            "warp_multiflow_backward": ops._WarpMultiflow.launches}
+
+
+def _reset_launch_counts():
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as single
+
+    mf.launches = single.launches = ops._WarpMultiflow.launches = 0
+
+
+SEEDED = {"STAGE1": {"LOADPREV": "FALSE"}, "STAGE2": {"LOADPREV": "FALSE"}}  # the CLIs' seeded weights
+
+
+def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False):
+    """The render CLI (``python -m superslomo_tpu_torch.cli.visualize``, on
+    the card by default, seeded weights, ``--upsample-rate 8``) at
+    ``configs/<base>``'s model (``dtype``: its ``[TPU] COMPUTE_DTYPE``)
+    over the first ``n_windows + 1`` frames of the 720p clip in
+    ``root/clip``: ``n_windows`` windows, 8 frames written a window and the
+    clip's last. Checks the file names and count, that every file decodes
+    through ``png.imread`` to (720, 1280, 3), that the originals equal the
+    input frames bit for bit, and the launches: 4 multi-flow a window, and
+    single-flow ones only with ``dump`` (the intermediates' forward at t=0.5,
+    4 a window for N_FRAMES=2), whose layouts it records. Reports the wall
+    time, frames written a second, and the ms a window (median over the
+    windows after the first, which holds cuDNN's autotuning) split into
+    decode (``load_frames``), the fused step (CUDA events), the dump's
+    forward (CUDA events), encode (``png.imwrite``), and the rest (the
+    predictions' copy to the host, the crop and cast)."""
+    from superslomo_tpu_torch import SuperSloMo
+    from superslomo_tpu_torch.cli import visualize as render_cli
+    from superslomo_tpu_torch.data import png
+    from superslomo_tpu_torch.eval import visualize
+
+    clip_dir, out_dir = os.path.join(root, f"in_{tag}"), os.path.join(root, f"out_{tag}")
+    os.makedirs(clip_dir)
+    for i in range(n_windows + 1):
+        name = f"frame_{i:05d}.png"
+        os.symlink(os.path.join(root, "clip", name), os.path.join(clip_dir, name))
+    ini = write_config(os.path.join(root, f"render_{tag}.ini"), base, SEEDED,
+                       {"TPU": {"COMPUTE_DTYPE": dtype}} if dtype else {})
+    args = ["-c", ini, "--input-dir", clip_dir, "--output-dir", out_dir, "--log", os.path.join(root, "render.log")]
+    if dump:
+        args.append("--dump-intermediates")
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with (_Recorder(visualize.Interpolator, "interpolate_directory") as run,
+          _Recorder(visualize.Interpolator, "load_frames") as dec, _Recorder(visualize, "imwrite") as enc,
+          _Recorder(SuperSloMo, "interpolate_multi_t", cuda_events=True) as steps,
+          _Recorder(SuperSloMo, "forward_inference", cuda_events=True) as dumps, _RecordForwardLayouts() as rec):
+        message = render_cli.main(args)  # default --device cuda
+    cli_wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    step_ms, dump_ms = steps.device_ms(), dumps.device_ms()
+
+    # the split of each window: from one load_frames to the next
+    starts = [t0 for t0, *_ in dec.calls]
+    windows = []
+    for k in range(n_windows):
+        lo, hi = starts[k], starts[k + 1]
+        w = {"window_ms": (hi - lo) * 1e3, "decode_ms": (dec.calls[k][1] - lo) * 1e3, "step_ms": step_ms[k],
+             "encode_ms": sum(t1 - t0 for t0, t1, *_ in enc.calls if lo <= t0 < hi) * 1e3,
+             "dump_forward_ms": dump_ms[k] if dump else 0.0}
+        w["other_ms"] = w["window_ms"] - w["decode_ms"] - w["step_ms"] - w["encode_ms"] - w["dump_forward_ms"]
+        windows.append(w)
+    steady = windows[1:]
+    n_out = 8 * n_windows + 1
+    run_s = run.calls[0][1] - run.calls[0][0]
+    res = {
+        "phase": f"render_{tag}", "config": f"configs/{base}", "compute_dtype": dtype or "float32",
+        "dump_intermediates": dump, "frame_hw": list(frames.shape[1:3]), "upsample_rate": 8, "windows": n_windows,
+        "frames_written": n_out, "cli_wall_s": cli_wall, "render_wall_s": run_s,
+        "frames_per_s": n_out / run_s, "first_window_ms": windows[0]["window_ms"],
+        "steady_frames_per_s": 8 * len(steady) / (sum(w["window_ms"] for w in steady) / 1e3),
+        "median_ms_per_window": {k: statistics.median(w[k] for w in steady) for k in windows[0]},
+        "ms_per_window": windows, "launches": launches,
+        "launches_per_window": {k: v / n_windows for k, v in launches.items()}, "message": message,
+    }
+    names = sorted(n for n in os.listdir(out_dir) if n.endswith(".png"))
+    expect_names = [f"{i:06d}.png" for i in range(n_out)]
+    originals = {8 * k: frames[k] for k in range(n_windows)}
+    originals[n_out - 1] = frames[n_windows]
+    shapes, originals_equal = set(), True
+    for i, name in enumerate(names):
+        img = png.imread(os.path.join(out_dir, name))
+        shapes.add(img.shape)
+        if i in originals:
+            originals_equal &= bool(np.array_equal(img, originals[i]))
+    res.update(file_shapes=sorted(shapes), originals_bit_identical=originals_equal)
+    if dump:
+        hw = tuple(int(np.ceil(x / 32) * 32) for x in frames.shape[1:3])
+        res["dump"] = {}
+        for d, ctype in (("visibility", 0), ("flow_est", 2), ("flow_refined", 2)):
+            files = sorted(os.listdir(os.path.join(out_dir, d)))
+            heads = [png.read_chunks(os.path.join(out_dir, d, f))[0] for f in files]
+            res["dump"][d] = {"files": files, "hw": sorted({(h, w) for w, h, *_ in heads}),
+                              "colour_types": sorted({c for _, _, _, c, _ in heads})}
+            if files != [f"{k:06d}.png" for k in range(n_windows)] or res["dump"][d]["hw"] != [hw] or \
+                    res["dump"][d]["colour_types"] != [ctype]:
+                raise AssertionError(f"render dump {d}: {res['dump'][d]}, expected {n_windows} files of {hw}")
+    res["forward_layouts"] = sorted(set(rec.layouts))
+    emit(res)
+    want = {"warp_multiflow": 4 * n_windows, "warp_single": 4 * n_windows if dump else 0, "warp_multiflow_backward": 0}
+    if launches != want:
+        raise AssertionError(f"render {tag}: launches {launches} over {n_windows} windows, expected {want}")
+    if message != f"wrote {n_out} frames to {out_dir}" or names != expect_names:
+        raise AssertionError(f"render {tag}: {message!r}, files {names[:3]}...{names[-3:]} ({len(names)})")
+    if shapes != {tuple(frames.shape[1:])} or not originals_equal:
+        raise AssertionError(f"render {tag}: file shapes {shapes}, originals bit-identical {originals_equal}")
+    return res
+
+
+def write_sintel(root, H, W, n, seed, clip="alley_1"):
+    """The Sintel EPE layout: ``final/<clip>/frame_%04d.png``, ``n`` frames
+    of a texture panning 3 px a frame to the left, and
+    ``flow/<clip>/frame_%04d.flo``, ``n - 1`` ground truths: that motion
+    (u = -3 px, v = 0) plus a smooth field of up to 4 px (so that some
+    pixels of the seeded model's flow lie within 3 px of it and some do
+    not), every 97th pixel unknown (1e10). Returns the config section."""
+    from superslomo_tpu_torch.utils.flo import write_flo
+
+    os.makedirs(os.path.join(root, "flow", clip))
+    write_clip(os.path.join(root, "final", clip), panning_clips(np.random.default_rng(seed), 1, H, W, n=n)[0],
+               name="frame_{:04d}.png", start=1)  # Sintel numbers its frames from 1
+    rng = np.random.default_rng(seed + 1)
+    for i in range(n - 1):
+        gt = smooth_flows(rng, 1, H, W, 4.0)[0].transpose(1, 2, 0) + np.float32([-3.0, 0.0])
+        gt.reshape(-1, 2)[::97] = 1e10
+        write_flo(gt, os.path.join(root, "flow", clip, f"frame_{i + 1:04d}.flo"))
+    return {"SINTEL_EPE_DATA": {"ROOTDIR": root, "SETTING": "FINAL", "H_IN": H, "W_IN": W}}
+
+
+def phase_flow_eval_cli(root):
+    """The flow-EPE CLI (``python -m superslomo_tpu_torch.cli.evaluate_flow``,
+    on the card by default, seeded weights) at configs/superslomo_eval.ini
+    (N_FRAMES=2, f32, TF32 off) over a made-up Sintel clip of 8 frames at
+    1024x436 (padded to 448): all 7 samples. Checks the JSON; 4 single-flow
+    launches a sample (the forward's), none of the multi-flow kernel or its
+    backward; records their layouts. Reports the ms a sample (median after
+    the first): wall, the read (decode + pad), the forward (CUDA events)."""
+    from superslomo_tpu_torch import SuperSloMo
+    from superslomo_tpu_torch.cli import evaluate_flow as flow_cli
+    from superslomo_tpu_torch.data.readers import SintelFlowReader
+
+    sintel = os.path.join(root, "sintel")
+    ini = write_config(os.path.join(root, "flow.ini"), "superslomo_eval.ini", SEEDED,
+                       write_sintel(sintel, 436, 1024, n=8, seed=53))
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with (_Recorder(SintelFlowReader, "__getitem__") as reads,
+          _Recorder(SuperSloMo, "forward", cuda_events=True) as fwd, _RecordForwardLayouts() as rec):
+        results = flow_cli.main(["-c", ini, "--log", os.path.join(root, "flow.log")])  # default --device cuda
+    cli_wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    fwd_ms = fwd.device_ms()
+    starts = [t0 for t0, *_ in reads.calls]
+    n = len(starts)
+    per_sample = [(starts[k + 1] - starts[k]) * 1e3 for k in range(n - 1)]
+    res = {
+        "phase": "flow_eval_cli_main_path", "config": "configs/superslomo_eval.ini", "frame_hw": [436, 1024],
+        "padded_hw": [448, 1024], "samples": n, "cli_wall_s": cli_wall, "results": results,
+        "first_sample_ms": per_sample[0] if per_sample else None,
+        "median_ms_per_sample": {"wall": statistics.median(per_sample[1:]),
+                                 "read": statistics.median((t1 - t0) * 1e3 for t0, t1, *_ in reads.calls[1:]),
+                                 "forward": statistics.median(fwd_ms[1:])},
+        "forward_ms": fwd_ms, "launches": launches, "launches_per_sample": {k: v / n for k, v in launches.items()},
+        "forward_layouts": sorted(set(rec.layouts)),
+    }
+    emit(res)
+    if set(results) != {"EPE", "gt3px_percent", "n_samples"} or results["n_samples"] != 7 or n != 7 or not (
+            np.isfinite(results["EPE"]) and 0 <= results["gt3px_percent"] <= 100):
+        raise AssertionError(f"flow eval CLI results: {results} over {n} samples read")
+    if launches != {"warp_multiflow": 0, "warp_single": 4 * n, "warp_multiflow_backward": 0}:
+        raise AssertionError(f"flow eval CLI: launches {launches} over {n} samples, expected 4 single-flow a sample")
+    return res
+
+
+def phase_render_flow_card_vs_cpu(root):
+    """Both command lines on the card and with ``--device cpu`` at a small
+    size (configs/superslomo_eval.ini, seeded weights): the renderer over a
+    3-frame 64x96 clip (2 windows, 17 frames): the originals equal, the
+    renders within one level; the flow evaluator over 2 samples of 52x96
+    Sintel frames (padded to 64x96): EPE within 1e-3 px, the >3 px share
+    within one pixel's share."""
+    from superslomo_tpu_torch.cli import evaluate_flow as flow_cli
+    from superslomo_tpu_torch.cli import visualize as render_cli
+    from superslomo_tpu_torch.data import png
+
+    small = os.path.join(root, "small")
+    write_clip(os.path.join(small, "clip"), panning_clips(np.random.default_rng(54), 1, 64, 96, n=3)[0])
+    ini = write_config(os.path.join(small, "render.ini"), "superslomo_eval.ini", SEEDED)
+    flow_ini = write_config(os.path.join(small, "flow.ini"), "superslomo_eval.ini", SEEDED,
+                            write_sintel(os.path.join(small, "sintel"), 52, 96, n=3, seed=55))
+    outs, flows = {}, {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(small, f"out_{device}")
+        render_cli.main(["-c", ini, "--input-dir", os.path.join(small, "clip"), "--output-dir", out,
+                         "--log", os.path.join(small, "render.log"), "--device", device])
+        outs[device] = {n: png.imread(os.path.join(out, n)) for n in sorted(os.listdir(out))}
+        flows[device] = flow_cli.main(["-c", flow_ini, "--log", os.path.join(small, "flow.log"), "--device", device])
+    card, cpu = outs["cuda"], outs["cpu"]
+    diffs = [int(np.abs(card[n].astype(np.int16) - cpu[n].astype(np.int16)).max()) for n in cpu]
+    flipped = sum(int((card[n] != cpu[n]).sum()) for n in cpu)
+    one_pixel = 100.0 / (52 * 96)
+    res = {
+        "phase": "render_flow_cli_card_vs_cpu", "render_files": len(cpu), "render_max_level_diff": max(diffs),
+        "render_values_differing": flipped, "originals_equal": all(np.array_equal(card[n], cpu[n]) for n in (
+            "000000.png", "000008.png", "000016.png")),
+        "flow_card": flows["cuda"], "flow_cpu": flows["cpu"],
+        "epe_diff": abs(flows["cuda"]["EPE"] - flows["cpu"]["EPE"]),
+        "gt3px_diff": abs(flows["cuda"]["gt3px_percent"] - flows["cpu"]["gt3px_percent"]), "gt3px_bar": one_pixel,
+    }
+    emit(res)
+    if sorted(card) != sorted(cpu) or len(cpu) != 17 or max(diffs) > 1 or not res["originals_equal"]:
+        raise AssertionError(f"the render CLI on the card and on the CPU disagree: {res}")
+    if (flows["cuda"]["n_samples"] != flows["cpu"]["n_samples"] or res["epe_diff"] > 1e-3
+            or res["gt3px_diff"] > one_pixel):
+        raise AssertionError(f"the flow eval CLI on the card and on the CPU disagree: {res}")
+    return res
+
+
+def render_phases(render_fwd):
+    """Phases 18-21 in a temporary directory: the render CLI (CONV f32 over
+    8 windows, CONV bf16 over 4, SSM-R over 3, the intermediates dump over
+    2) over a 9-frame 720p panning clip, the flow-EPE CLI, and both CLIs on
+    the card against the CPU; every single-flow launch of the dump and the
+    flow evaluator held to a layout of ``render_fwd``'s cases."""
+    with tempfile.TemporaryDirectory() as root:
+        frames = panning_clips(np.random.default_rng(51), 1, 720, 1280, n=9)[0]
+        write_clip(os.path.join(root, "clip"), frames)
+        renders = [
+            phase_render_cli(root, frames, "cli_main_path", "superslomo_eval.ini", n_windows=8),
+            phase_render_cli(root, frames, "cli_main_path_bf16", "superslomo_eval.ini", n_windows=4,
+                             dtype="bfloat16"),
+            phase_render_cli(root, frames, "ssmr_main_path", "superslomo_recurrent.ini", n_windows=3),
+            phase_render_cli(root, frames, "dump_intermediates", "superslomo_eval.ini", n_windows=2, dump=True),
+        ]
+        flow_eval = phase_flow_eval_cli(root)
+        card_vs_cpu = phase_render_flow_card_vs_cpu(root)
+    check_forward_layouts(render_fwd["layouts"], renders[-1]["forward_layouts"], path="render_dump")
+    check_forward_layouts(render_fwd["layouts"], flow_eval["forward_layouts"], path="flow_eval")
+    return renders, flow_eval, card_vs_cpu
+
+
 def ptxas_usage(log):
     """{kernel instance: ptxas's register, stack and shared-memory line} from
     an nvcc -Xptxas -v log; instances named by kernel and dtype."""
@@ -1881,22 +2217,26 @@ def check_backward_layouts(cases, recorded):
         raise AssertionError(f"backward layouts of the train step with no gradient kernel case: {sorted(missing)}")
 
 
-def check_forward_layouts(cases, recorded):
-    """Raise unless every single-flow forward launch recorded in an SSM-R
-    window has the layout (``forward_layout``) of a forward kernel case."""
+def check_forward_layouts(cases, recorded, path="ssmr"):
+    """Raise unless every single-flow forward launch recorded on ``path``
+    (the SSM-R stream's windows; the renderer's dump and the flow
+    evaluator's samples) has the layout (``forward_layout``) of a forward
+    kernel case."""
     seen = {tuple(tuple(x) if isinstance(x, list) else x for x in r) for r in recorded}
     missing = seen - cases
-    emit({"phase": "ssmr_forward_layouts_covered", "layouts": sorted(seen), "missing": sorted(missing)})
+    emit({"phase": f"{path}_forward_layouts_covered", "layouts": sorted(seen), "missing": sorted(missing)})
     if missing:
-        raise AssertionError(f"forward layouts of the SSM-R stream with no forward kernel case: {sorted(missing)}")
+        raise AssertionError(f"forward layouts of the {path} path with no forward kernel case: {sorted(missing)}")
 
 
 def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains,
-                 eval_cli, train_clis):
+                 eval_cli, train_clis, render_fwd, renders, flow_eval):
     """Every kernel of the paths with its launches on the main paths (the
     SuperSloMo-R ones a step and a window as well, the single-flow kernels'
     a step of each train path in ``trains`` and of each train CLI run in
-    ``train_clis``, the multi-flow kernel's a step of the eval CLI), error, times, bound,
+    ``train_clis``, the multi-flow kernel's a step of the eval CLI, both
+    forward kernels' a window of each render CLI run in ``renders`` and the
+    single-flow kernel's a sample of the flow-EPE CLI), error, times, bound,
     plain and library times; and the multi-flow warp's backward, its
     launches counted on every main path (none expected: serving runs without
     autograd, training uses the single-flow warp) and a backward in its own
@@ -1919,6 +2259,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "ssmr_launches_per_step": {f"{r['compute_dtype']}_b{r['batch']}": r["launches"]["warp_multiflow"] / len(
             r["step_ms"]) for r in ssmr_main},
         "eval_cli_launches": eval_cli["warp_launches"], "eval_cli_launches_per_step": eval_cli["warp_launches_per_step"],
+        "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_multiflow"] for r in renders},
         "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
         "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                       "bound_ms", "planes_strides")}
@@ -1935,11 +2276,16 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
                                      for r in ssmr_stream},
         "launches_per_train_step": {r["phase"]: r["launches_per_step"]["forward"] for r in trains},
         "launches_per_train_cli_step": {r["compute_dtype"]: r["launches_per_step"]["forward"] for r in train_clis},
+        "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_single"] for r in renders},
+        "flow_eval_cli_launches_per_sample": flow_eval["launches_per_sample"]["warp_single"],
         **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
            for case in ("dense_flow", "smooth_flow", "720p_f32", "720p_bf16")},
         **{f"ssmr_window_{case}": {k: c[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                      "bound_ms", "img_strides")}
            for case, c in ssmr_fwd["cases"].items()},
+        **{case: {k: c[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms",
+                                    "img_strides", "shape")}
+           for case, c in render_fwd["cases"].items()},
     }
     grad_cases = {k[len("grad_"):]: v for k, v in single.items() if k.startswith("grad_")}
     main_case = grad_cases["loss_head"]
@@ -1975,6 +2321,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         **{r["phase"]: r["launches"]["multiflow_backward"] for r in trains},
         "eval_cli_main_path": eval_cli["warp_multiflow_backward_launches"],
         **{f"train_cli_main_path_{r['compute_dtype']}": r["launches"]["multiflow_backward"] for r in train_clis},
+        **{r["phase"]: r["launches"]["warp_multiflow_backward"] for r in renders},
+        "flow_eval_cli_main_path": flow_eval["launches"]["warp_multiflow_backward"],
     }
     mf_bwd = {
         "name": "warp_multiflow_planar_backward", "route": "cuda",
@@ -2005,6 +2353,8 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true", help="build, then only the kernel phases")
     ap.add_argument("--data-only", action="store_true",
                     help="build, then only the data path and command-line phases (15-17)")
+    ap.add_argument("--render-only", action="store_true",
+                    help="build, then only the renderer and flow-EPE command-line phases (18-21)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2034,11 +2384,17 @@ def main() -> int:
         print(smi, flush=True)
         emit({"data_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
+    if args.render_only:
+        render_phases(phase_render_forward_cases())
+        print(smi, flush=True)
+        emit({"render_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
+        return 0
 
     clock_before = nvidia_smi("clocks.sm,clocks.max.sm")
     kern = phase_kernel()
     single = phase_single_kernels()
     ssmr_fwd = phase_ssmr_forward_cases()
+    render_fwd = phase_render_forward_cases()
     mf_grad = phase_multiflow_grad()
     emit({"phase": "sm_clock", "before_kernel_phases": clock_before, "after_kernel_phases": nvidia_smi(
         "clocks.sm,clocks.max.sm"), "query": "clocks.sm,clocks.max.sm"})
@@ -2047,7 +2403,7 @@ def main() -> int:
         emit({"kernels_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
     phase_slice()
-    batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=3, B=2, H=720, W=1280, seed=2)
+    batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=2, B=2, H=720, W=1280, seed=2)
     main_f32 = phase_main_path("float32", batches)
     main_bf16 = phase_main_path("bfloat16", batches)
     del batches
@@ -2069,9 +2425,10 @@ def main() -> int:
     trains = [train, ssmr_train, ssmr_remat, bf16_train]
     check_backward_layouts(single["layouts"], [r for t in trains for r in t["backward_layouts_first_step"]])
     _, eval_cli, train_clis = data_phases(norm)
+    renders, flow_eval, _ = render_phases(render_fwd)
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,
-                           trains, eval_cli, train_clis)
+                           trains, eval_cli, train_clis, render_fwd, renders, flow_eval)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

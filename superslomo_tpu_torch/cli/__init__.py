@@ -1,3 +1,4 @@
-"""Command lines: ``python -m superslomo_tpu_torch.cli.train`` and
-``python -m superslomo_tpu_torch.cli.evaluate_interpolation``, with the JAX
-package's arguments and ``--device {cuda,cpu}``."""
+"""Command lines: ``python -m superslomo_tpu_torch.cli.train``,
+``…cli.evaluate_interpolation``, ``…cli.evaluate_flow`` and
+``…cli.visualize``, with the JAX package's arguments and
+``--device {cuda,cpu}``."""

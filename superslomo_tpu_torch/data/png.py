@@ -14,6 +14,11 @@ composited), grey is replicated to three channels, a palette is expanded
 through ``PLTE``, and a 16-bit sample keeps its high byte. It reads bit depths
 8 and 16 (8 for a palette); interlaced files and other depths raise
 NotImplementedError. EXIF orientation is not applied.
+
+``imwrite`` is the counterpart of ``cv2.imwrite`` for the renderer's frames:
+an 8-bit RGB file from a (H, W, 3) RGB array, or an 8-bit grey file from a
+(H, W) array, written as cv2 writes them: every row Sub-filtered (filter
+type 1, one vectorised numpy pass) and deflated at zlib level 1.
 """
 
 from __future__ import annotations
@@ -29,6 +34,32 @@ from superslomo_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "png_unfilter.cpp"
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples a pixel
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+
+def imwrite(path: str, img: np.ndarray) -> None:
+    """Write ``img``, (H, W, 3) uint8 RGB or (H, W) uint8 grey, as an 8-bit
+    PNG with Sub-filtered rows deflated at zlib level 1 (what
+    ``cv2.imwrite(path, img[..., ::-1])`` writes for RGB, and
+    ``cv2.imwrite(path, img)`` for grey)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"imwrite takes (H, W, 3) or (H, W) uint8, got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else 3
+    x = img.reshape(h, w * bpp)
+    rows = np.empty((h, w * bpp + 1), np.uint8)
+    rows[:, 0] = 1  # Sub: each byte less the byte one pixel to its left, mod 256
+    rows[:, 1 : 1 + bpp] = x[:, :bpp]
+    np.subtract(x[:, bpp:], x[:, :-bpp], out=rows[:, 1 + bpp :])
+    header = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
+    data = (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(rows.data, 1))
+            + _chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(data)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

@@ -12,8 +12,9 @@ septuplets, Slowflow, Sintel-HFR and the combined train set, with
 * Vimeo's septuplet index tables for train and eval.
 
 Samples are NHWC float32 arrays; every random draw comes from the
-``np.random.Generator`` passed in (the Loader gives each item its own). The
-Sintel optical-flow (EPE) reader is not ported yet.
+``np.random.Generator`` passed in (the Loader gives each item its own).
+``SintelFlowReader`` reads the Sintel optical-flow (EPE) layout: frame
+windows and their ground-truth ``.flo``.
 """
 
 from __future__ import annotations
@@ -22,13 +23,14 @@ import glob
 import logging
 import os
 import pickle
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from superslomo_tpu_torch.data.augmentations import Compose, EvalPad, Normalize, RandomCrop, ToFloatArray
 from superslomo_tpu_torch.data.pipeline import Loader
 from superslomo_tpu_torch.data.png import imread
+from superslomo_tpu_torch.utils.flo import read_flo
 from superslomo_tpu_torch.utils.validators import check_clip_window
 
 log = logging.getLogger(__name__)
@@ -377,6 +379,44 @@ class CombinedReader(Reader):
     def __getitem__(self, idx, rng: np.random.Generator | None = None):
         name, sub = self.clips[idx]
         return self.readers[name].__getitem__(sub, rng=rng)
+
+
+class SintelFlowReader:
+    """Sintel optical-flow (EPE) reader (sintel_opticalflow.py): windows of
+    N_FRAMES adjacent frames a step apart, with the ground-truth .flo of the
+    mid pair; N_FRAMES=4 pads the clip's edges with its first and last
+    frame. The frames are padded 436 → 448 rows (6 above, 6 below)."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self.n_frames = cfg.getint("TRAIN", "N_FRAMES")
+        if self.n_frames not in (2, 4):
+            raise ValueError("Sintel EPE supports N_FRAMES in {2, 4}")
+        src = cfg.get("SINTEL_EPE_DATA", "ROOTDIR")
+        setting = cfg.get("SINTEL_EPE_DATA", "SETTING").lower()
+        mean, std = cfg.pixel_mean(), cfg.pixel_std()
+        self.transform = Compose([Normalize(mean, std), ToFloatArray(), EvalPad(padding=(0, 0, 6, 6))])
+        self.samples: List[Tuple[List[str], str]] = []
+        for clip in sorted(glob.glob(os.path.join(src, setting, "*"))):
+            imgs = sorted(glob.glob(os.path.join(clip, "*.png")))
+            flows = sorted(glob.glob(os.path.join(src, "flow", os.path.basename(clip), "*.flo")))
+            idxs = list(range(len(imgs)))
+            if self.n_frames == 4:
+                idxs = [0] + idxs + [idxs[-1]]
+            for s in range(len(idxs) - self.n_frames + 1):
+                window = idxs[s : s + self.n_frames]
+                flow_idx = window[0] if self.n_frames == 2 else window[1]
+                if flow_idx < len(flows):
+                    self.samples.append(([imgs[i] for i in window], flows[flow_idx]))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, idx):
+        """(frames (N_FRAMES, H + 12, W, 3) normalized float32, flow (H, W, 2))."""
+        paths, flow_path = self.samples[idx]
+        frames = np.stack([imread(p).astype(np.float32) for p in paths])
+        return self.transform(frames), read_flo(flow_path)
 
 
 def build_reader(cfg, split: str, rng: np.random.Generator | None = None) -> Reader:

@@ -28,7 +28,7 @@ from superslomo_tpu_torch.config import Config
 from superslomo_tpu_torch.data.augmentations import Normalize
 from superslomo_tpu_torch.data.readers import get_dataset
 from superslomo_tpu_torch.device import resolve_device
-from superslomo_tpu_torch.models.superslomo import SuperSloMo
+from superslomo_tpu_torch.models.superslomo import model_on
 from superslomo_tpu_torch.utils.metrics import score_image
 from superslomo_tpu_torch.utils.validators import check_eval_result_count, check_t_interp
 
@@ -57,12 +57,7 @@ class Evaluator:
         self.dataset = cfg.get("DATA", "DATASET").upper()
         if self.dataset not in ("SINTEL_HFR", "ADOBE", "SLOWFLOW", "VIMEO"):
             raise ValueError(f"Invalid dataset {self.dataset!r}")
-        if isinstance(model_or_state, SuperSloMo):
-            if model_or_state.device != self.device:
-                raise ValueError(f"model lies on {model_or_state.device}, evaluator on {self.device}")
-            self.model = model_or_state
-        else:
-            self.model = SuperSloMo(cfg.model_spec(), device=self.device).load_state(model_or_state)
+        self.model = model_on(cfg.model_spec(), model_or_state, self.device)
         self.interp_factor = 32 if self.dataset == "SINTEL_HFR" else 8
         (self.H_REF, self.W_REF), (self.H_IN, self.W_IN), (self.H_START, self.W_START) = (
             self.get_dims()

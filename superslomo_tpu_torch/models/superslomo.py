@@ -343,3 +343,14 @@ class SuperSloMo(nn.Module):
         t_g = t_values.reshape(1, 1, n_t, 1, 1)
         pred = physics.blend(w0, w1, s2.v_0t[:, None], s2.v_1t[:, None], t_g)
         return pred.permute(0, 2, 3, 4, 1).contiguous(), bound  # (B, n_t, H, W, 3)
+
+
+def model_on(spec: ModelSpec, model_or_state, device: torch.device) -> SuperSloMo:
+    """``model_or_state`` if it is a ``SuperSloMo`` on ``device``, else a
+    model of ``spec`` on ``device`` loaded with those weights
+    (``{"stage1": state_dict, "stage2": state_dict}``)."""
+    if isinstance(model_or_state, SuperSloMo):
+        if model_or_state.device != device:
+            raise ValueError(f"model lies on {model_or_state.device}, not on {device}")
+        return model_or_state
+    return SuperSloMo(spec, device=device).load_state(model_or_state)

@@ -21,6 +21,7 @@ from superslomo_tpu_torch import weights
 from superslomo_tpu_torch.config import ModelSpec, default_config
 from superslomo_tpu_torch.models import bottleneck
 from superslomo_tpu_torch.models.superslomo import SuperSloMo, stage_unets
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 ATOL, RTOL = 1e-5, 1e-4  # f32: a 3x3 conv over 16 channels and the cell's pointwise math
 B, T, H, W, C, HIDDEN = 2, 3, 5, 7, 8, 8

@@ -3,7 +3,8 @@ datasets: the eval CLI's JSON equals the port's Evaluator on the batches of
 the JAX package's ``get_dataset``, the train CLI's first loss equals the
 port's train step on the first batch of the JAX package's Loader and it
 saves its ``.pt``, ``load_model_params`` applies the LOADPREV / WEIGHTS rules,
-and the CLIs ask for the card unless told otherwise."""
+and the CLIs (these two, and the flow-EPE and render CLIs) ask for the card
+unless told otherwise."""
 
 import configparser
 import json
@@ -18,10 +19,13 @@ import torch
 from superslomo_tpu.config import load_config as jax_load_config
 from superslomo_tpu.data import get_dataset as jax_get_dataset
 from superslomo_tpu_torch import Evaluator, Trainer, weights
+from superslomo_tpu_torch.cli import evaluate_flow as flow_cli
 from superslomo_tpu_torch.cli import evaluate_interpolation as eval_cli
 from superslomo_tpu_torch.cli import train as train_cli
+from superslomo_tpu_torch.cli import visualize as render_cli
 from superslomo_tpu_torch.cli.common import load_model_params
 from superslomo_tpu_torch.config import load_config
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -154,13 +158,19 @@ def test_load_model_params_applies_loadprev_and_weights(tmp_path):
         load_model_params(cfg)
 
 
-@pytest.mark.parametrize("cli", [eval_cli, train_cli], ids=["evaluate_interpolation", "train"])
+@pytest.mark.parametrize("cli", [eval_cli, train_cli, flow_cli, render_cli],
+                         ids=["evaluate_interpolation", "train", "evaluate_flow", "visualize"])
 def test_clis_run_on_the_card_unless_told_otherwise(cli, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    if cli is eval_cli:
-        ini = os.path.join(ROOT, "configs", "superslomo_eval.ini")
-    else:
-        ini = _config(tmp_path, "superslomo_original.ini", TRAIN={"ALLOW_RANDOM_VGG": "TRUE"},
-                      PROJECT={"LOGDIR": tmp_path / "logs"})
+    ini = os.path.join(ROOT, "configs", "superslomo_eval.ini")
+    args = ["-c", ini, "--log", str(tmp_path / "log")]
+    if cli is train_cli:
+        args[1] = _config(tmp_path, "superslomo_original.ini", TRAIN={"ALLOW_RANDOM_VGG": "TRUE"},
+                          PROJECT={"LOGDIR": tmp_path / "logs"})
+    if cli in (eval_cli, train_cli):
+        args += ["--expt", "t"]
+    if cli is render_cli:
+        args += ["--input-dir", str(tmp_path), "--output-dir", str(tmp_path / "out")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(["-c", ini, "--expt", "t", "--log", str(tmp_path / "log")])
+        cli.main(args)
+    assert not os.path.exists(tmp_path / "out")

@@ -25,6 +25,7 @@ from superslomo_tpu_torch.config import load_config
 from superslomo_tpu_torch.data import Loader, get_dataset, png, prefetch_to_device, readers
 from superslomo_tpu_torch.ops import cuda_build
 from superslomo_tpu_torch.utils import validators
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 # --------------------------------------------------------------------------- #
 # a stdlib PNG encoder: every row with one filter type

@@ -10,6 +10,7 @@ from superslomo_tpu.data.augmentations import Normalize as JaxNormalize
 from superslomo_tpu.utils.metrics import score_image as jax_score_image
 from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config, weights
 from superslomo_tpu_torch.data.augmentations import Normalize, eval_padding_for
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 H_IN, W_IN = 30, 60  # padded to 32x64: exercises the /32 pad and crop
 

@@ -14,6 +14,7 @@ import torch
 
 from superslomo_tpu import ops as jops
 from superslomo_tpu_torch import ops as tops
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 # f32 gathers and four products summed in the same order; the two frameworks
 # may round the position x + u differently only through op fusion, so the

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from superslomo_tpu.config import load_config as jax_load_config
-from superslomo_tpu_torch import Evaluator, SuperSloMo, Trainer, default_config
+from superslomo_tpu_torch import Evaluator, Interpolator, SuperSloMo, Trainer, default_config, evaluate_flow
 from superslomo_tpu_torch.config import load_config
 from superslomo_tpu_torch.ops import cuda_build
 from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda
@@ -26,6 +26,22 @@ from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda,
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "superslomo_tpu_torch")
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.ini")))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Every port test module runs PyTorch on one intra-op thread (each
+    imports this fixture). The suite runs as 6 xdist workers on the host's
+    cores beside XLA's compiles; at PyTorch's default of a thread a core the
+    host is oversubscribed and the OpenMP threads spin at each barrier while
+    a sibling waits for a core, so a port module burned several cores and
+    slowed the JAX package's single-threaded compiles beside it. The port's
+    CPU results do not depend on the thread count beyond float rounding,
+    and every exact comparison in these tests is made within one module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _port_modules():
@@ -50,8 +66,10 @@ def test_importing_every_port_module_leaves_jax_out():
         "superslomo_tpu_torch.models.bottleneck", "superslomo_tpu_torch.data.png",
         "superslomo_tpu_torch.data.readers", "superslomo_tpu_torch.data.pipeline",
         "superslomo_tpu_torch.cli.common", "superslomo_tpu_torch.cli.train",
-        "superslomo_tpu_torch.cli.evaluate_interpolation",
-    } <= set(modules) and len(modules) >= 33
+        "superslomo_tpu_torch.cli.evaluate_interpolation", "superslomo_tpu_torch.utils.flo",
+        "superslomo_tpu_torch.eval.evaluate_flow", "superslomo_tpu_torch.eval.visualize",
+        "superslomo_tpu_torch.cli.evaluate_flow", "superslomo_tpu_torch.cli.visualize",
+    } <= set(modules) and len(modules) >= 38
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -95,6 +113,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         SuperSloMo(device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(default_config(TRAIN_ALLOW_RANDOM_VGG="TRUE"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Interpolator(default_config(), {"stage1": {}, "stage2": {}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        evaluate_flow(default_config(), {"stage1": {}, "stage2": {}})
 
 
 def test_cuda_wrapper_raises_on_cpu_tensors():

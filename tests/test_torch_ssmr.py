@@ -23,6 +23,7 @@ from superslomo_tpu.training import checkpoint as jckpt
 from superslomo_tpu_torch import Trainer, default_config, weights
 from superslomo_tpu_torch.config import ModelSpec
 from superslomo_tpu_torch.models.superslomo import SuperSloMo
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 SPEC = dict(n_frames=4, stage1_bottleneck="CLSTM", stage2_bottleneck="CLSTM", cross_skip=True)
 B, H, W = 2, 64, 64

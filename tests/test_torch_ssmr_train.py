@@ -41,6 +41,7 @@ from superslomo_tpu_torch.config import ModelSpec
 from superslomo_tpu_torch.models.losses import LossWeights
 from superslomo_tpu_torch.models.vgg import vgg_state
 from superslomo_tpu_torch.utils.validators import check_forward_inputs
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 SPEC = dict(n_frames=4, stage1_bottleneck="CLSTM", stage2_bottleneck="CLSTM", cross_skip=True)
 B, H, W = 1, 64, 64

@@ -26,6 +26,7 @@ from superslomo_tpu_torch.models import losses, physics
 from superslomo_tpu_torch.models.layers import Conv2d
 from superslomo_tpu_torch.models.superslomo import SuperSloMo
 from superslomo_tpu_torch.models.vgg import VGG16Features
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 # the full-model bar of the JAX package against the executed reference
 OUT_ATOL, OUT_RTOL = 5e-4, 1e-3

@@ -13,6 +13,7 @@ import torch
 from superslomo_tpu.models.unet import UNet as JaxUNet
 from superslomo_tpu_torch import weights
 from superslomo_tpu_torch.models.unet import UNet
+from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 # the U-Net bar of the JAX package against the executed reference: f32 conv
 # reassociation (XLA vs oneDNN) over the 24-conv stack
