@@ -5,6 +5,8 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels against plain
     python3 chip_smoke.py --data-only      # phases 1 and 15-17: build, the data path and the CLIs
     python3 chip_smoke.py --render-only    # phases 1 and 18-21: build, the renderer and flow-EPE CLIs
+    python3 chip_smoke.py --scale-only     # phases 1 and 22-23: build, native checkpoints, data parallel
+    python3 chip_smoke.py --ddp-ranks 4    # phases 1 and 23b-c at 4 ranks (a card a rank on 4 cards)
 
 Phases, each of which raises on failure:
   1. device: the card's name and power limit, the CUDA version, and the nvcc
@@ -137,7 +139,26 @@ Phases, each of which raises on failure:
   21. both CLIs on the card against ``--device cpu``: the renderer over a
       3-frame 64x96 clip (renders within one level, originals equal), the
       flow evaluator over 2 samples at 52x96 (EPE within 1e-3 px, the >3 px
-      share within one pixel's share).
+      share within one pixel's share);
+  22. (run after phase 14, on phase 11's Trainer and .pt) the JAX package's
+      native checkpoint directory: the Trainer writes one with its Adam state
+      and a fresh Trainer resumes from it to the writer's weights, Adam
+      moments and steps, epoch and step, bit for bit, and to its next
+      step's loss (8 + 8 single-flow launches); ``cli.convert_checkpoint``
+      turns the .pt into a directory that loads to the .pt's tensors, bit for
+      bit; the write and read seconds of the stage and optimizer files;
+  23. (run after phase 17, over its datasets) data parallel across ranks:
+      (a) ``python -m torch.distributed.run --nproc-per-node 1 -m
+      superslomo_tpu_torch.cli.train`` over NCCL, world 1, 3 steps at B=4,
+      its losses against the single-process CLI's; (b) 2 ranks at B=8 (4 a
+      rank), 224x224, 2 steps on cuDNN's heuristics, one card a rank over
+      NCCL where there are two, else both on the one card over gloo: the
+      first step's all-reduced gradients and the losses against the
+      single-process Trainer, the ranks' weights bit-identical, 8 + 8
+      single-flow launches a step a rank, the step and backward ms; (c)
+      ``cli.evaluate_interpolation`` at 2 ranks over phase 16's 48x96 clip
+      against the single-process CLI, 4 multi-flow launches a fused step a
+      rank.
 One JSON object per line; the last line is the run's verdict. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result. Phases 2 and 3, up to the multi-flow warp's gradients,
@@ -153,6 +174,7 @@ import json
 import os
 import pickle
 import re
+import socket
 import statistics
 import struct
 import subprocess
@@ -1330,7 +1352,34 @@ def backward_layout(img, flow, grad_out):
     return (str(img.dtype).replace("torch.", ""), tuple(img.stride()), tuple(flow.stride()), tuple(grad_out.stride()))
 
 
-def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudnn_benchmark=True, **overrides):
+def single_counts():
+    """The single-flow kernels' launch counts, and the multi-flow backward's."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
+
+    return {"forward": fwd.launches, "backward": bwd.launches, "flow_grad": bwd.flow_grad_launches,
+            "img_grad": bwd.img_grad_launches, "multiflow_backward": ops._WarpMultiflow.launches}
+
+
+def reset_single_counts():
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
+
+    fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+
+
+def train_step_launches(steps):
+    """What ``steps`` train steps launch: 8 single-flow forward and 8
+    flow-gradient launches a step, no image gradient, no multi-flow
+    backward."""
+    return {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0,
+            "multiflow_backward": 0}
+
+
+def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudnn_benchmark=True,
+                      keep_checkpoint=False, **overrides):
     """The Trainer at ``configs/<config>`` (with ``overrides``) over
     synthetic batches at its batch, crop and N_FRAMES: 2 warm-up and
     ``timed`` timed steps; with ``resume`` then 2 steps of ``train``, which
@@ -1342,11 +1391,11 @@ def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudn
     the VGG's in f32, and that the parameters, their gradients and Adam's
     moments are f32. ``cudnn_benchmark=False`` runs the steps on cuDNN's
     heuristics in place of the autotuning that building a model on the card
-    switches on (restored at the end). Returns the result,
+    switches on (restored at the end). ``keep_checkpoint`` leaves the saved
+    ``.pt`` (``checkpoint`` in the result) on disk. Returns the result,
     the trainer and the first step's gradients (the optimizer's order)."""
     from superslomo_tpu_torch import Trainer, ops
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
-    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
 
     t_setup = time.perf_counter()
     cfg = _train_config(ckpt_dir, _config_path(config), **overrides)
@@ -1379,7 +1428,7 @@ def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudn
     hooks = [m.register_forward_pre_hook(recording_conv(k)) for k, m in convs.items()]
 
     params = [p for g in tr.optimizer.param_groups for p in g["params"]]
-    fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+    reset_single_counts()
     losses, times = [], []
     try:
         for i in range(2 + timed):
@@ -1428,13 +1477,13 @@ def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudn
             for key in ("exp_avg", "exp_avg_sq"))
         res.update(loss_last=last.tolist(), checkpoint_mib=os.path.getsize(path) / 2**20,
                    resumed_epoch_step=[resumed.epoch, resumed.step], resumed_identical_weights=same_weights,
-                   resumed_identical_moments=same_moments)
-        os.remove(path)
+                   resumed_identical_moments=same_moments, checkpoint=path)
+        if not keep_checkpoint:
+            os.remove(path)
         del resumed
         res["train_save_resume_s"] = time.perf_counter() - t_resume
     torch.backends.cudnn.benchmark = True
-    launches = {"forward": fwd.launches, "backward": bwd.launches, "flow_grad": bwd.flow_grad_launches,
-                "img_grad": bwd.img_grad_launches, "multiflow_backward": ops._WarpMultiflow.launches}
+    launches = single_counts()
     losses = torch.stack(losses).cpu().numpy()
     med = statistics.median(times)
     res.update({
@@ -1453,10 +1502,9 @@ def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudn
         raise AssertionError(f"non-finite training losses: {res}")
     if len(layouts) != 8:
         raise AssertionError(f"{len(layouts)} backward launches recorded in the first step, expected 8")
-    want = {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0,
-            "multiflow_backward": 0}
-    if launches != want:
-        raise AssertionError(f"single-flow kernel launches {launches} over {steps} steps, expected {want}")
+    if launches != train_step_launches(steps):
+        raise AssertionError(f"single-flow kernel launches {launches} over {steps} steps, expected "
+                             f"{train_step_launches(steps)}")
     if not all_f32:
         raise AssertionError(f"a parameter, gradient or Adam moment is not float32: {res}")
     if not conv_dtypes_ok:
@@ -1471,11 +1519,11 @@ def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudn
 
 def phase_train_main(ckpt_dir, norm):
     """The Trainer at the shipped training config (configs/superslomo_original.ini,
-    B=32, 224x224, f32)."""
-    res, tr, _ = trainer_main_path("train_main_path", ckpt_dir, "superslomo_original.ini", norm)
-    del tr
-    torch.cuda.empty_cache()
-    return res
+    B=32, 224x224, f32); returns the result and the Trainer, whose ``.pt``
+    stays for phase 22."""
+    res, tr, _ = trainer_main_path("train_main_path", ckpt_dir, "superslomo_original.ini", norm,
+                                   keep_checkpoint=True)
+    return res, tr
 
 
 def phase_ssmr_train_main(ckpt_dir, norm):
@@ -1688,9 +1736,10 @@ def write_small_eval_dataset(root, H=48, W=96, n=17):
                            "VAL_CLIPS": os.path.join(root, "small", "val_clips.pkl")}}
 
 
-def data_phases(norm):
+def data_phases(norm, scale=False):
     """Phases 15-17 over a made-up dataset in a temporary directory: the PNG
-    unfilter, the eval CLI, and the train CLI in f32 and bf16."""
+    unfilter, the eval CLI, and the train CLI in f32 and bf16; with
+    ``scale``, then phase 23 over the same datasets (else None)."""
     png = phase_png_unfilter()
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
@@ -1699,7 +1748,8 @@ def data_phases(norm):
         emit({"phase": "dataset_written", "seconds": time.perf_counter() - t0})
         eval_cli = phase_eval_cli(root, sections, small, n_windows=7)  # the clip's 7 windows: one batch
         train_clis = [phase_train_cli(root, sections, norm, dtype) for dtype in ("float32", "bfloat16")]
-    return png, eval_cli, train_clis
+        scaled = scale_phase(root, sections, norm) if scale else None
+    return png, eval_cli, train_clis, scaled
 
 
 def write_config(path, base, *section_dicts):
@@ -1867,10 +1917,8 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     in-memory batches (the step with its pageable H2D copy, no Loader
     running), and the Loader alone. The single-flow kernels' launches a step
     counted."""
-    from superslomo_tpu_torch import Trainer, load_config, ops
+    from superslomo_tpu_torch import Trainer, load_config
     from superslomo_tpu_torch.cli import train as train_cli
-    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
-    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
 
     ini = write_config(os.path.join(root, f"train_{dtype}.ini"), "superslomo_original.ini", sections, {
         "TRAIN": {"ALLOW_RANDOM_VGG": "TRUE", "CKPT_DIR": os.path.join(root, "ckpt")},
@@ -1883,14 +1931,13 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
         torch.cuda.synchronize()
         return loss
 
-    fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+    reset_single_counts()
     t_start = time.perf_counter()
     with _Recorder(Trainer, "train_step", after=synced) as rec:
         trainer = train_cli.main(["-c", ini, "--expt", f"chip_smoke_{dtype}", "--log", os.path.join(root, "train.log"),
                                   "--max-steps", str(steps)])
     cli_wall = time.perf_counter() - t_start
-    launches = {"forward": fwd.launches, "backward": bwd.launches, "flow_grad": bwd.flow_grad_launches,
-                "img_grad": bwd.img_grad_launches, "multiflow_backward": ops._WarpMultiflow.launches}
+    launches = single_counts()
     calls = rec.calls
     step_ms = [(t1 - t0) * 1e3 for t0, t1, _, _ in calls]
     wait_ms = [(calls[0][0] - t_start) * 1e3] + [(calls[k][0] - calls[k - 1][1]) * 1e3 for k in range(1, len(calls))]
@@ -1924,10 +1971,9 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     if os.path.exists(checkpoint):
         os.remove(checkpoint)
     emit(res)
-    want = {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0,
-            "multiflow_backward": 0}
-    if len(calls) != steps or launches != want:
-        raise AssertionError(f"train CLI: {len(calls)} steps, single-flow launches {launches}, expected {want}")
+    if len(calls) != steps or launches != train_step_launches(steps):
+        raise AssertionError(f"train CLI: {len(calls)} steps, single-flow launches {launches}, expected "
+                             f"{train_step_launches(steps)}")
     if not (on_card and res["checkpoint_saved"] and np.isfinite(losses).all()):
         raise AssertionError(f"train CLI: {res}")
     return res
@@ -2188,6 +2234,401 @@ def render_phases(render_fwd):
     return renders, flow_eval, card_vs_cpu
 
 
+# --------------------------------------------------------------------------- #
+# native checkpoints and data parallel across ranks (phases 22-23)
+
+
+def _seconds(fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def phase_native_checkpoint(ckpt_dir, norm, tr=None, pt=None):
+    """Phase 22: the JAX package's native checkpoint directory on the card.
+    ``tr`` is phase 11's Trainer at configs/superslomo_original.ini as
+    shipped (B=32, 224x224, f32) after its steps and ``pt`` the ``.pt`` it
+    saved; without them (``--scale-only``) a Trainer of its own takes two
+    steps of ``train`` on cuDNN's heuristics. The Trainer writes a native
+    directory with its Adam state (``Trainer.save_native``); a fresh Trainer
+    resumes from it: every weight, ``exp_avg``, ``exp_avg_sq`` and ``step``,
+    the epoch and the step equal the writer's bit for bit, and its next
+    step's loss is within LOSS_RTOL of the writer's next step on the same
+    batch (8 single-flow forward and 8 flow-gradient launches, counted).
+    ``cli.convert_checkpoint`` turns the ``.pt`` into a directory that
+    ``load_model_params`` reads to the ``.pt``'s tensors, bit for bit. The
+    write and read seconds of the whole directory, and a decode and encode
+    of each file (the ~73 MB stage files, the ~300 MB optimizer file)."""
+    from superslomo_tpu_torch import Trainer
+    from superslomo_tpu_torch import weights as wio
+    from superslomo_tpu_torch.cli import convert_checkpoint
+    from superslomo_tpu_torch.cli.common import load_model_params
+    from superslomo_tpu_torch.training.checkpoint import load_native_checkpoint
+    from superslomo_tpu_torch.utils import msgpack
+
+    config = _config_path("superslomo_original.ini")
+    cfg = _train_config(ckpt_dir, config)
+    B, H, W = cfg.getint("TRAIN", "BATCH_SIZE"), cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")
+    benchmark = torch.backends.cudnn.benchmark
+    if tr is None:
+        tr = Trainer(cfg, expt_name="native_writer")
+        torch.backends.cudnn.benchmark = benchmark = False
+        tr.train(synthetic_train_batches(norm, 1, B, H, W, seed=5), max_steps=2)
+        pt = tr.checkpoint_path(tr.epoch)
+    native = os.path.join(ckpt_dir, "native")
+    torch.cuda.synchronize()
+    _, write_s = _seconds(tr.save_native, native)
+    files = {}
+    for name in sorted(os.listdir(native)):
+        path = os.path.join(native, name)
+        files[name] = {"bytes": os.path.getsize(path)}
+        if name.endswith(".msgpack"):
+            t0 = time.perf_counter()
+            with open(path, "rb") as f:
+                tree = msgpack.unpackb(f.read())
+            files[name]["read_decode_s"] = time.perf_counter() - t0
+            files[name]["encode_s"] = _seconds(msgpack.packb, tree)[1]
+            del tree
+    (_, adam, meta), read_s = _seconds(load_native_checkpoint, native, tr.spec)
+    from_native = {f"STAGE{n}_{k}": v for n in (1, 2) for k, v in (("LOADPREV", "TRUE"), ("WEIGHTS", native))}
+    resumed = Trainer(_train_config(ckpt_dir, config, **from_native), expt_name="native_resumed")
+    torch.backends.cudnn.benchmark = benchmark
+    same_weights = all(torch.equal(a, b) for stage in ("stage1", "stage2") for a, b in zip(
+        getattr(tr.model, stage).state_dict().values(), getattr(resumed.model, stage).state_dict().values()))
+    same_adam = all(torch.equal(tr.optimizer.state[p][k].cpu(), resumed.optimizer.state[q][k].cpu())
+                    for (_, _, p), (_, _, q) in zip(tr.trainable, resumed.trainable)
+                    for k in ("step", "exp_avg", "exp_avg_sq"))
+    batch = synthetic_train_batches(norm, 1, B, H, W, seed=61)[0]
+    writer_loss = tr.train_step(*batch).cpu().numpy()
+    reset_single_counts()
+    resumed_loss = resumed.train_step(*batch).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = single_counts()
+
+    converted = os.path.join(ckpt_dir, "converted")
+    _, convert_s = _seconds(convert_checkpoint.main, [pt, converted])
+    from_converted = {f"STAGE{n}_{k}": v for n in (1, 2) for k, v in (("LOADPREV", "TRUE"), ("WEIGHTS", converted))}
+    loaded = load_model_params(_train_config(ckpt_dir, config, **from_converted))
+    blob = wio.load_checkpoint(pt)
+    convert_equal = all(torch.equal(loaded[s][k], v) for s in ("stage1", "stage2")
+                        for k, v in blob[f"{s}_state_dict"].items())
+    res = {
+        "phase": "native_checkpoint", "config": "configs/superslomo_original.ini", "batch": B, "crop_hw": [H, W],
+        "files": files, "write_s": write_s, "read_s": read_s, "convert_s": convert_s,
+        "meta": {k: meta[k] for k in ("epoch", "step")}, "adam_step": adam["step"],
+        "writer_epoch_step": [tr.epoch, tr.step], "resumed_epoch_step": [resumed.epoch, resumed.step],
+        "resumed_identical_weights": same_weights, "resumed_identical_adam": same_adam,
+        "next_loss_writer": writer_loss.tolist(), "next_loss_resumed": resumed_loss.tolist(),
+        "next_loss_max_rel_diff": float(np.max(np.abs(resumed_loss - writer_loss) / np.abs(writer_loss))),
+        "resumed_step_launches": launches, "converted_equals_pt": convert_equal,
+    }
+    del resumed, loaded, blob
+    torch.cuda.empty_cache()
+    emit(res)
+    if not (same_weights and same_adam and res["writer_epoch_step"] == res["resumed_epoch_step"] == [
+            meta["epoch"], meta["step"]] and res["next_loss_max_rel_diff"] <= LOSS_RTOL):
+        raise AssertionError(f"the Trainer resumed from the native checkpoint differs from the writer: {res}")
+    if launches != train_step_launches(1):
+        raise AssertionError(f"single-flow launches {launches} in the resumed train step, expected 8 + 8")
+    if not convert_equal:
+        raise AssertionError(f"the converted .pt does not load to the .pt's weights: {res}")
+    return res
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _ranks_layout(world):
+    """The backend and each rank's card: one card a rank over NCCL where
+    there are enough cards, else every rank on card 0 over gloo (NCCL takes
+    one rank a card)."""
+    if torch.cuda.device_count() >= world:
+        return "nccl", list(range(world))
+    return "gloo", [0] * world
+
+
+def _rank_entry(fn, rank, out_dir, args):
+    result = fn(rank, *args)
+    torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def spawn_ranks(fn, world, args, timeout=600):
+    """``fn(rank, *args)`` in ``world`` spawned processes, as torchrun would
+    start them (``torchrun_env``); returns their results in rank order. A
+    rank that fails or outlives ``timeout`` fails the phase; every process
+    is ended before this returns."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        procs = [ctx.Process(target=_rank_entry, args=(fn, r, out, args)) for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"{fn.__name__}: ranks ended with {[p.exitcode for p in procs]}")
+        return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+
+
+def torchrun_env(rank, world, local_rank, port):
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(local_rank), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+
+
+def timed_train_steps(tr, batches):
+    """Each step on the host clock, synchronised, and its backward's device
+    time (CUDA events around ``Tensor.backward``: DDP's gradient all-reduce
+    runs inside it); returns step ms, backward ms, losses and the first
+    step's gradients (on the host, the optimizer's order)."""
+    step_ms, losses = [], []
+    with _Recorder(torch.Tensor, "backward", cuda_events=True) as rec:
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(tr.train_step(*batch).cpu().numpy())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(losses) == 1:
+                first_grads = [p.grad.to("cpu", copy=True) for *_, p in tr.trainable]
+    return step_ms, rec.device_ms(), losses, first_grads
+
+
+def ddp_train_rank(rank, world, port, backend, local_ranks, ckpt_dir, B, steps):
+    """One rank of phase 23b: the Trainer at configs/superslomo_original.ini
+    with global batch ``B`` under DDP, ``steps`` steps of its share of the
+    synthetic batches, on cuDNN's heuristics."""
+    from superslomo_tpu_torch import Trainer, parallel
+    from superslomo_tpu_torch.data.augmentations import Normalize
+
+    torchrun_env(rank, world, local_ranks[rank], port)
+    device = parallel.init_data_parallel(backend=backend)
+    cfg = _train_config(ckpt_dir, _config_path("superslomo_original.ini"), TRAIN_BATCH_SIZE=str(B))
+    tr = Trainer(cfg, expt_name=f"ddp_rank{rank}")
+    torch.backends.cudnn.benchmark = False
+    H, W = cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")
+    batches = synthetic_train_batches(Normalize(cfg.pixel_mean(), cfg.pixel_std()), steps, B, H, W, seed=71)
+    share = B // world
+    reset_single_counts()
+    step_ms, backward_ms, losses, grads = timed_train_steps(
+        tr, [tuple(x[rank * share:(rank + 1) * share] for x in b) for b in batches])
+    res = {"rank": parallel.rank(), "world": parallel.world(), "backend": torch.distributed.get_backend(),
+           "device": str(device), "ddp": type(tr.step_model).__name__, "step_ms": step_ms, "backward_ms": backward_ms,
+           "loss": losses, "launches": single_counts(), "first_grads": grads,
+           "weights": [p.detach().cpu() for *_, p in tr.trainable]}
+    torch.distributed.destroy_process_group()
+    return res
+
+
+def ddp_eval_rank(rank, world, port, backend, local_ranks, args):
+    """One rank of phase 23c: ``cli.evaluate_interpolation`` (its ``main``,
+    as torchrun starts it) with the fused steps' predictions and the
+    multi-flow launches recorded."""
+    from superslomo_tpu_torch import SuperSloMo, ops
+    from superslomo_tpu_torch.cli import evaluate_interpolation as eval_cli
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
+
+    torchrun_env(rank, world, local_ranks[rank], port)
+    counter.launches = ops._WarpMultiflow.launches = 0
+    with _Recorder(SuperSloMo, "interpolate_multi_t") as rec:
+        metrics = eval_cli.main([*args, "--dist-backend", backend])
+    return {"rank": rank, "metrics": metrics, "preds": torch.cat([c[3][0].cpu() for c in rec.calls]),
+            "fused_steps": len(rec.calls), "launches": counter.launches,
+            "multiflow_backward": ops._WarpMultiflow.launches}
+
+
+def phase_torchrun_train_cli(root, sections, steps=3, batch=4):
+    """Phase 23a: ``python -m torch.distributed.run --nproc-per-node 1 -m
+    superslomo_tpu_torch.cli.train`` at configs/superslomo_original.ini over
+    phase 17's made-up dataset with ``batch`` samples (a cut of the batch, for
+    the cuDNN autotuning a new process pays), ``steps`` steps: NCCL, world
+    1 (the backend read back from its log); its last step's losses within
+    LOSS_RTOL of the single-process CLI's (in this process) on the same seed
+    and batches."""
+    from superslomo_tpu_torch import Trainer
+    from superslomo_tpu_torch.cli import train as train_cli
+
+    ini = write_config(os.path.join(root, "train_torchrun.ini"), "superslomo_original.ini", sections, {
+        "TRAIN": {"ALLOW_RANDOM_VGG": "TRUE", "CKPT_DIR": os.path.join(root, "ckpt"), "BATCH_SIZE": batch},
+        "PROJECT": {"LOGDIR": os.path.join(root, "logs")}})
+
+    def args(expt):
+        return ["-c", ini, "--expt", expt, "--log", os.path.join(root, f"{expt}.log"), "--max-steps", str(steps)]
+
+    t0 = time.perf_counter()
+    with _Recorder(Trainer, "train_step") as rec:
+        train_cli.main(args("single"))
+    single_s = time.perf_counter() - t0
+    single = [r.cpu().numpy() for *_, r in rec.calls]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+           "-m", "superslomo_tpu_torch.cli.train", "--", *args("torchrun")]
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root_dir}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=root_dir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+            proc.communicate()
+    torchrun_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun train CLI exited {proc.returncode}: {err[-3000:]}")
+    printed = json.loads(out.strip().splitlines()[-1])
+    with open(os.path.join(root, "torchrun.log")) as f:
+        backend = re.findall(r"backend (\w+)", f.read())
+    res = {
+        "phase": "torchrun_train_cli", "config": "configs/superslomo_original.ini", "batch": batch, "steps": steps,
+        "backend_logged": backend, "torchrun": printed, "single_losses": [x.tolist() for x in single],
+        "last_loss_max_rel_diff": float(np.max(np.abs(np.asarray(printed["loss"]) - single[-1]) / np.abs(single[-1]))),
+        "single_cli_s": single_s, "torchrun_cli_s": torchrun_s,
+    }
+    emit(res)
+    if backend != ["nccl"] or printed["step"] != steps or len(single) != steps:
+        raise AssertionError(f"torchrun train CLI: {res}")
+    if res["last_loss_max_rel_diff"] > LOSS_RTOL:
+        raise AssertionError(f"the torchrun train CLI's losses differ from the single-process CLI's: {res}")
+    return res
+
+
+def phase_ddp_train(ckpt_dir, norm, world=2, B=8, steps=2):
+    """Phase 23b: ``world`` ranks at global batch ``B`` (B / world a rank),
+    224x224, f32, ``steps`` steps on cuDNN's heuristics, one card a rank
+    over NCCL where there are enough cards, else all ranks on the one card
+    over gloo (the backend printed), against the single-process Trainer at
+    B on the same batches: the first step's all-reduced gradients within
+    GRAD_REL of each tensor's max |g|, every step's loss within LOSS_RTOL,
+    the ranks' weights after the steps bit-identical; 8 single-flow forward
+    and 8 flow-gradient launches a step a rank; the step ms on each rank
+    and the backward's share against the single process's. The weights'
+    distance to the single process is reported, not held to a bar, as in
+    phase 13's REMAT check: Adam passes a rounding of a gradient within a
+    few eps of zero on to its weight as lr * rounding / eps, up to 2 lr a
+    step (9.7e-4 of a tensor's max in this phase run on the CPU at 32x32)."""
+    from superslomo_tpu_torch import Trainer
+
+    backend, local_ranks = _ranks_layout(world)
+    print(f"chip_smoke: phase 23b runs {world} ranks over {backend} on cards {local_ranks}", flush=True)
+    ranks = spawn_ranks(ddp_train_rank, world, (world, _free_port(), backend, local_ranks, ckpt_dir, B, steps))
+    cfg = _train_config(ckpt_dir, _config_path("superslomo_original.ini"), TRAIN_BATCH_SIZE=str(B))
+    tr = Trainer(cfg, expt_name="ddp_reference")
+    torch.backends.cudnn.benchmark = False
+    batches = synthetic_train_batches(norm, steps, B, cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW"),
+                                      seed=71)
+    reset_single_counts()
+    step_ms, backward_ms, losses, want_grads = timed_train_steps(tr, batches)
+    torch.backends.cudnn.benchmark = True
+    want = [p.detach().cpu() for *_, p in tr.trainable]
+    del tr
+    torch.cuda.empty_cache()
+
+    def max_rel(got, ref):
+        return max(((x - w).abs().max() / w.abs().max()).item() for x, w in zip(got, ref))
+
+    grad_rel = max(max_rel(r["first_grads"], want_grads) for r in ranks)
+    rel = max_rel(ranks[0]["weights"], want)
+    identical = all(torch.equal(x, y) for r in ranks[1:] for x, y in zip(ranks[0]["weights"], r["weights"]))
+    loss_rel = max(float(np.max(np.abs(a - b) / np.abs(b))) for r in ranks for a, b in zip(r["loss"], losses))
+    res = {
+        "phase": "ddp_train", "config": "configs/superslomo_original.ini", "world": world, "global_batch": B,
+        "backend": [r["backend"] for r in ranks], "devices": [r["device"] for r in ranks],
+        "wrapped_in": [r["ddp"] for r in ranks], "steps": steps,
+        "step_ms_by_rank": [r["step_ms"] for r in ranks], "backward_ms_by_rank": [r["backward_ms"] for r in ranks],
+        "backward_share_by_rank": [float(np.sum(r["backward_ms"]) / np.sum(r["step_ms"])) for r in ranks],
+        "single_process_step_ms": step_ms, "single_process_backward_ms": backward_ms,
+        "single_process_backward_share": float(np.sum(backward_ms) / np.sum(step_ms)),
+        "launches_by_rank": [r["launches"] for r in ranks],
+        "launches_per_step_by_rank": [{k: v / steps for k, v in r["launches"].items()} for r in ranks],
+        "first_grads_max_rel_diff": grad_rel, "weights_max_rel_diff": rel, "ranks_bit_identical": identical,
+        "loss_max_rel_diff": loss_rel,
+        "cudnn_benchmark": False,
+    }
+    emit(res)
+    if not (identical and grad_rel <= GRAD_REL and loss_rel <= LOSS_RTOL):
+        raise AssertionError(f"DDP training differs from the single-process Trainer or across ranks: {res}")
+    if any(r["launches"] != train_step_launches(steps) for r in ranks) or set(res["backend"]) != {backend}:
+        raise AssertionError(f"DDP training: launches or backend: {res}")
+    return res
+
+
+def phase_ddp_eval_cli(root, world=2):
+    """Phase 23c: ``cli.evaluate_interpolation`` at ``world`` ranks (as in
+    phase 23b: NCCL on a card each, else gloo on the one card) over phase
+    16's 17-frame 48x96 clip (2 windows, one batch, a sample a rank): the
+    ranks' predictions, put together, and its metrics within phase 16's
+    card-against-CPU bar (SLICE_ATOL, SLICE_RTOL) of the single-process CLI
+    on the card; the metrics equal on every rank; 4 multi-flow launches a
+    fused step a rank."""
+    from superslomo_tpu_torch import SuperSloMo
+    from superslomo_tpu_torch.cli import evaluate_interpolation as eval_cli
+
+    ini = os.path.join(root, "eval_small.ini")
+    args = ["-c", ini, "--expt", "chip_smoke_ddp", "--log", os.path.join(root, "small_ddp.log")]
+    backend, local_ranks = _ranks_layout(world)
+    print(f"chip_smoke: phase 23c runs {world} ranks over {backend} on cards {local_ranks}", flush=True)
+    ranks = spawn_ranks(ddp_eval_rank, world, (world, _free_port(), backend, local_ranks, args))
+    with _Recorder(SuperSloMo, "interpolate_multi_t") as rec:
+        single = eval_cli.main(args)
+    want = torch.cat([c[3][0].cpu() for c in rec.calls])
+    got = torch.cat([r["preds"] for r in ranks])[:len(want)]
+    metric_ok = all(abs(ranks[0]["metrics"][k] - single[k]) <= SLICE_ATOL + SLICE_RTOL * abs(single[k])
+                    for k in ("PSNR", "SSIM", "IE"))
+    res = {
+        "phase": "ddp_eval_cli", "config": "configs/superslomo_eval.ini", "world": world, "backend": backend,
+        "metrics_by_rank": [r["metrics"] for r in ranks], "single_process": single,
+        "preds_shape": list(want.shape), "preds_max_abs_err": (got - want).abs().max().item(),
+        "preds_within_serving_bar": bool(torch.allclose(got, want, atol=SLICE_ATOL, rtol=SLICE_RTOL)),
+        "metrics_within_serving_bar": metric_ok,
+        "fused_steps_by_rank": [r["fused_steps"] for r in ranks], "launches_by_rank": [r["launches"] for r in ranks],
+        "launches_per_step_by_rank": [r["launches"] / r["fused_steps"] for r in ranks],
+        "multiflow_backward_by_rank": [r["multiflow_backward"] for r in ranks],
+    }
+    emit(res)
+    if not (res["preds_within_serving_bar"] and metric_ok and all(
+            r["metrics"] == ranks[0]["metrics"] for r in ranks) and ranks[0]["metrics"]["n_images"] == single["n_images"]):
+        raise AssertionError(f"the eval CLI at {world} ranks differs from the single process: {res}")
+    if any(r["launches"] != 4 * r["fused_steps"] or r["multiflow_backward"] for r in ranks):
+        raise AssertionError(f"multi-flow launches at {world} ranks: {res}")
+    return res
+
+
+def scale_phase(root, sections, norm):
+    """Phase 23 in the directory of phases 16-17's made-up datasets."""
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        return {"torchrun_train": phase_torchrun_train_cli(root, sections), "ddp_train": phase_ddp_train(ckpt_dir, norm),
+                "ddp_eval": phase_ddp_eval_cli(root)}
+
+
+def scale_only(norm):
+    """``--scale-only``: phase 22 with a Trainer of its own, then the
+    datasets of phases 16-17 and phase 23."""
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        native = phase_native_checkpoint(ckpt_dir, norm)
+    with tempfile.TemporaryDirectory() as root:
+        sections = write_dataset(root, val_repeats=1)
+        write_config(os.path.join(root, "eval_small.ini"), "superslomo_eval.ini", write_small_eval_dataset(root))
+        return {"native": native, **scale_phase(root, sections, norm)}
+
+
+def ddp_only(norm, world):
+    """``--ddp-ranks N``: phases 23b and 23c at ``N`` ranks, one card a rank
+    over NCCL where there are ``N`` cards (the global batch of 23b is 2 a
+    rank; 23c's two samples padded to ``N``, so ranks past the second run
+    the padding alone)."""
+    with tempfile.TemporaryDirectory() as root:
+        write_config(os.path.join(root, "eval_small.ini"), "superslomo_eval.ini", write_small_eval_dataset(root))
+        return {"ddp_train": phase_ddp_train(root, norm, world=world, B=2 * world),
+                "ddp_eval": phase_ddp_eval_cli(root, world=world)}
+
+
 def ptxas_usage(log):
     """{kernel instance: ptxas's register, stack and shared-memory line} from
     an nvcc -Xptxas -v log; instances named by kernel and dtype."""
@@ -2230,14 +2671,17 @@ def check_forward_layouts(cases, recorded, path="ssmr"):
 
 
 def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains,
-                 eval_cli, train_clis, render_fwd, renders, flow_eval):
+                 eval_cli, train_clis, render_fwd, renders, flow_eval, scaled):
     """Every kernel of the paths with its launches on the main paths (the
     SuperSloMo-R ones a step and a window as well, the single-flow kernels'
     a step of each train path in ``trains`` and of each train CLI run in
     ``train_clis``, the multi-flow kernel's a step of the eval CLI, both
     forward kernels' a window of each render CLI run in ``renders`` and the
-    single-flow kernel's a sample of the flow-EPE CLI), error, times, bound,
-    plain and library times; and the multi-flow warp's backward, its
+    single-flow kernel's a sample of the flow-EPE CLI, the single-flow
+    kernels' a step of each rank of the DDP Trainer and of the Trainer
+    resumed from a native checkpoint, the multi-flow kernel's a fused step
+    of each rank of the DDP eval CLI: ``scaled``, phases 22-23), error,
+    times, bound, plain and library times; and the multi-flow warp's backward, its
     launches counted on every main path (none expected: serving runs without
     autograd, training uses the single-flow warp) and a backward in its own
     phase."""
@@ -2260,6 +2704,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             r["step_ms"]) for r in ssmr_main},
         "eval_cli_launches": eval_cli["warp_launches"], "eval_cli_launches_per_step": eval_cli["warp_launches_per_step"],
         "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_multiflow"] for r in renders},
+        "ddp_eval_cli_launches_per_step_by_rank": scaled["ddp_eval"]["launches_per_step_by_rank"],
         "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
         "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                       "bound_ms", "planes_strides")}
@@ -2278,6 +2723,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "launches_per_train_cli_step": {r["compute_dtype"]: r["launches_per_step"]["forward"] for r in train_clis},
         "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_single"] for r in renders},
         "flow_eval_cli_launches_per_sample": flow_eval["launches_per_sample"]["warp_single"],
+        "launches_per_ddp_train_step_by_rank": [r["forward"] for r in scaled["ddp_train"]["launches_per_step_by_rank"]],
+        "launches_per_resumed_train_step": scaled["native"]["resumed_step_launches"]["forward"],
         **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
            for case in ("dense_flow", "smooth_flow", "720p_f32", "720p_bf16")},
         **{f"ssmr_window_{case}": {k: c[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
@@ -2303,6 +2750,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             "plain": "the plain warp's forward + backward to this input",
             "launches_per_train_step": {r["phase"]: r["launches_per_step"][key] for r in trains},
             "launches_per_train_cli_step": {r["compute_dtype"]: r["launches_per_step"][key] for r in train_clis},
+            "launches_per_ddp_train_step_by_rank": [r[key] for r in scaled["ddp_train"]["launches_per_step_by_rank"]],
+            "launches_per_resumed_train_step": scaled["native"]["resumed_step_launches"][key],
             "cases": {case: {k: c[key].get(k) for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                         "bound_ms")}
                       for case, c in grad_cases.items()},
@@ -2323,6 +2772,9 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         **{f"train_cli_main_path_{r['compute_dtype']}": r["launches"]["multiflow_backward"] for r in train_clis},
         **{r["phase"]: r["launches"]["warp_multiflow_backward"] for r in renders},
         "flow_eval_cli_main_path": flow_eval["launches"]["warp_multiflow_backward"],
+        "native_resumed_train_step": scaled["native"]["resumed_step_launches"]["multiflow_backward"],
+        **{f"ddp_train_rank{i}": r["multiflow_backward"] for i, r in enumerate(scaled["ddp_train"]["launches_by_rank"])},
+        **{f"ddp_eval_cli_rank{i}": n for i, n in enumerate(scaled["ddp_eval"]["multiflow_backward_by_rank"])},
     }
     mf_bwd = {
         "name": "warp_multiflow_planar_backward", "route": "cuda",
@@ -2355,6 +2807,11 @@ def main() -> int:
                     help="build, then only the data path and command-line phases (15-17)")
     ap.add_argument("--render-only", action="store_true",
                     help="build, then only the renderer and flow-EPE command-line phases (18-21)")
+    ap.add_argument("--scale-only", action="store_true",
+                    help="build, then only the native checkpoint and data-parallel phases (22-23)")
+    ap.add_argument("--ddp-ranks", type=int, default=None,
+                    help="build, then only phases 23b-23c at this many ranks (one card a rank where there are "
+                         "enough)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2389,6 +2846,17 @@ def main() -> int:
         print(smi, flush=True)
         emit({"render_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
+    if args.ddp_ranks:
+        ddp_only(norm, args.ddp_ranks)
+        print(smi, flush=True)
+        emit({"ddp_ranks": args.ddp_ranks, "device": {"kind": torch.cuda.get_device_name(0),
+                                                      "count": torch.cuda.device_count()}})
+        return 0
+    if args.scale_only:
+        scale_only(norm)
+        print(smi, flush=True)
+        emit({"scale_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
+        return 0
 
     clock_before = nvidia_smi("clocks.sm,clocks.max.sm")
     kern = phase_kernel()
@@ -2418,17 +2886,20 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as ckpt_dir:
         phase_train_vs_cpu(ckpt_dir, norm)
         phase_convergence(ckpt_dir)
-        train = phase_train_main(ckpt_dir, norm)
+        train, train_tr = phase_train_main(ckpt_dir, norm)
+        native = phase_native_checkpoint(ckpt_dir, norm, train_tr, train["checkpoint"])
+        del train_tr
+        torch.cuda.empty_cache()
         phase_ssmr_train_vs_cpu(ckpt_dir, norm)
         ssmr_train, ssmr_remat = phase_ssmr_train_main(ckpt_dir, norm)
         bf16_train = phase_bf16_train_main(ckpt_dir, norm, train["loss_first"])
     trains = [train, ssmr_train, ssmr_remat, bf16_train]
     check_backward_layouts(single["layouts"], [r for t in trains for r in t["backward_layouts_first_step"]])
-    _, eval_cli, train_clis = data_phases(norm)
+    _, eval_cli, train_clis, scaled = data_phases(norm, scale=True)
     renders, flow_eval, _ = render_phases(render_fwd)
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,
-                           trains, eval_cli, train_clis, render_fwd, renders, flow_eval)
+                           trains, eval_cli, train_clis, render_fwd, renders, flow_eval, {"native": native, **scaled})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

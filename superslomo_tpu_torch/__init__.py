@@ -18,6 +18,21 @@ read the configured datasets from disk (``data/``: readers, a threaded
 loader, a pinned device feed, and a PNG decoder whose row unfilter is host
 C++ in csrc/png_unfilter.cpp; the renderer writes PNG frames with
 ``data/png.py::imwrite``).
+
+Checkpoints: the Trainer writes the reference ``.pt`` layout, and every
+entry point also reads the JAX package's native checkpoint directory
+(``training/checkpoint.py``, over the msgpack codec of ``utils/msgpack.py``;
+``Trainer.save_native`` writes one). ``python -m
+superslomo_tpu_torch.cli.convert_checkpoint ref.pt out_dir`` converts a
+reference ``.pt`` into one (``--vgg16 vgg16.pth vgg16.npz`` the VGG-16
+features), and ``python -m superslomo_tpu_torch.utils.make_clips root
+out.txt`` writes the readers' clip lists.
+
+Data parallel (``parallel/``): ``python -m torch.distributed.run
+--nproc-per-node N -m superslomo_tpu_torch.cli.train -- ...`` (or
+``…cli.evaluate_interpolation``) runs one rank a card over NCCL, or with
+``--device cpu`` the ranks on the CPU over gloo; the configured batch is the
+global batch.
 """
 
 from superslomo_tpu_torch.config import Config, ModelSpec, default_config, load_config  # noqa: F401

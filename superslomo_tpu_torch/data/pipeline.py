@@ -38,16 +38,30 @@ class Loader:
     Each epoch shuffles with ``default_rng([seed, epoch])``, and each item
     draws from its own generator ``default_rng([seed, epoch, index])``, so the
     batches are the same bit for bit for any ``num_threads`` (NumPy Generators
-    are not thread-safe). Each ``iter`` is the next epoch."""
+    are not thread-safe). Each ``iter`` is the next epoch.
+
+    Across ``world`` data-parallel ranks ``batch_size`` is the global batch:
+    every rank shuffles the same global order and decodes only its
+    contiguous slice, ``batch_size / world`` samples, of each global batch;
+    put together in rank order the slices are the single-process batch, bit
+    for bit. ``batch_size`` must be a multiple of ``world`` (the JAX trainer
+    instead narrows its data axis to gcd(batch, devices), leaving devices
+    idle; a launched rank has no idle use), and a sharded loader drops the
+    last partial batch."""
 
     def __init__(self, reader, batch_size: int, shuffle: bool = True, drop_last: bool = True,
-                 num_threads: int = 4, seed: int = 0):
+                 num_threads: int = 4, seed: int = 0, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch size {batch_size} is not a multiple of the {world} data-parallel ranks")
+        if world > 1 and not drop_last:
+            raise ValueError("a loader sharded across ranks drops the last partial batch (drop_last=True)")
         self.reader = reader
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_threads = max(1, num_threads)
         self.seed = seed
+        self.rank, self.world = rank, world
         self._epoch = 0
 
     def __len__(self):
@@ -70,6 +84,8 @@ class Loader:
         batches = [order[i : i + self.batch_size] for i in range(0, n, self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        share = self.batch_size // self.world
+        batches = [b[self.rank * share:(self.rank + 1) * share] for b in batches]
 
         if self.num_threads == 1:
             for b in batches:

@@ -441,9 +441,10 @@ def build_reader(cfg, split: str, rng: np.random.Generator | None = None) -> Rea
     raise ValueError(f"Unsupported dataset {name}")
 
 
-def get_dataset(cfg, split: str, rng: np.random.Generator | None = None):
+def get_dataset(cfg, split: str, rng: np.random.Generator | None = None, rank: int = 0, world: int = 1):
     """Reader + batching loader (reference: dataset.py + get_dataloader,
-    default_reader.py:289-311)."""
+    default_reader.py:289-311); across ``world`` data-parallel ranks, this
+    ``rank``'s slice of each global batch of ``[split] BATCH_SIZE``."""
     reader = build_reader(cfg, split, rng)
     return Loader(
         reader,
@@ -452,4 +453,6 @@ def get_dataset(cfg, split: str, rng: np.random.Generator | None = None):
         drop_last=not reader.eval_mode,
         num_threads=cfg.getint("DATALOADER", "N_WORKERS"),
         seed=cfg.getint("SEED", "VALUE"),
+        rank=rank,
+        world=world,
     )

@@ -13,6 +13,12 @@ yields them (frames (B, N_FRAMES, H_REF, W_REF, 3) and targets (B, n_t,
 H_REF, W_REF, 3) of the mid window, normalized and padded). A SuperSloMo-R
 model scores its 4-frame windows the same way, each window from a zero
 recurrent state.
+
+Across ``world`` data-parallel ranks (``parallel.init_data_parallel``) each
+batch is padded to a multiple of ``world`` with its last sample (as the JAX
+Evaluator pads to its data axis), each rank runs and scores its contiguous
+share, and the per-image scores are gathered in sample order with the
+padding left out, so ``results()`` is the single-process one on every rank.
 """
 
 from __future__ import annotations
@@ -23,7 +29,9 @@ from typing import Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from superslomo_tpu_torch import parallel
 from superslomo_tpu_torch.config import Config
 from superslomo_tpu_torch.data.augmentations import Normalize
 from superslomo_tpu_torch.data.readers import get_dataset
@@ -64,6 +72,7 @@ class Evaluator:
         )
         self.normalize = Normalize(cfg.pixel_mean(), cfg.pixel_std())
         self.psnr, self.ssim, self.ie, self.bounds = [], [], [], []
+        self.rank, self.world = parallel.rank(), parallel.world()
 
         if self.dataset == "VIMEO":
             t_values = np.asarray([0.5], dtype=np.float32)
@@ -100,10 +109,24 @@ class Evaluator:
         ]
         return self.normalize.inverse(batch).astype(np.uint8)
 
+    def _share(self, frames, targets, n_avail):
+        """This rank's contiguous share of a batch padded to a multiple of
+        ``world`` with its last sample: the frames it runs, and the targets
+        and ``n_avail`` of the real samples among them."""
+        B = len(frames)
+        pad = -B % self.world
+        if pad:
+            frames = np.concatenate([frames, np.repeat(frames[-1:], pad, axis=0)])
+        per = (B + pad) // self.world
+        lo = self.rank * per
+        return frames[lo:lo + per], targets[lo:lo + per], np.asarray(n_avail)[lo:lo + per]
+
     def _submit(self, frames, targets, n_avail):
-        """Launch one batch's fused steps (``step_samples`` samples each) and
-        their copy back to the host without waiting: the card computes while
-        the host scores the previous batch."""
+        """Launch one batch's fused steps (``step_samples`` samples each; this
+        rank's share across ranks) and their copy back to the host without
+        waiting: the card computes while the host scores the previous batch."""
+        if self.world > 1:
+            frames, targets, n_avail = self._share(frames, targets, n_avail)
         cuda = self.device.type == "cuda"
         frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32))
         if cuda:
@@ -128,18 +151,23 @@ class Evaluator:
         if done is not None:
             done.synchronize()
         out = out.numpy()  # (B, n_t, H, W, 3)
-        self.bounds.append(float(bound))
-        log.debug("flow bound %.2f px", self.bounds[-1])
         check_eval_result_count(out.shape[1], self.interp_factor, self.dataset)
 
-        preds, gts = [], []
-        for i, n in enumerate(np.asarray(n_avail).tolist()):
-            preds.append(out[i, :n])
-            gts.append(targets[i, :n])
-        preds = self.to_uint8(np.concatenate(preds, axis=0))
-        gts = self.to_uint8(np.concatenate(gts, axis=0))
-        for p, g in zip(preds, gts):
-            ps, ss, ie = score_image(g, p)
+        scores = []  # (PSNR, SSIM, IE) an image, in sample order
+        n_avail = np.asarray(n_avail).tolist()
+        if n_avail:
+            preds = self.to_uint8(np.concatenate([out[i, :n] for i, n in enumerate(n_avail)], axis=0))
+            gts = self.to_uint8(np.concatenate([targets[i, :n] for i, n in enumerate(n_avail)], axis=0))
+            scores = [score_image(g, p) for p, g in zip(preds, gts)]
+        bound = float(bound)
+        if self.world > 1:  # every rank's share, in rank order
+            shares = [None] * self.world
+            dist.all_gather_object(shares, (scores, bound))
+            scores = [s for share, _ in shares for s in share]
+            bound = max(b for _, b in shares)
+        self.bounds.append(bound)
+        log.debug("flow bound %.2f px", bound)
+        for ps, ss, ie in scores:
             self.psnr.append(ps)
             self.ssim.append(ss)
             self.ie.append(ie)

@@ -24,11 +24,23 @@ backward.
 A frozen stage takes ``requires_grad=False`` and stays out of the optimizer,
 which equals the JAX package's zero-gradient update from zero moments. The
 optimizer's parameters are stage 1's in state-dict order, then stage 2's: the
-order the reference's ``.pt`` files index Adam's moments by.
+order the reference's ``.pt`` files index Adam's moments by. The Trainer
+resumes from a ``.pt`` or from the JAX package's native checkpoint directory
+(``training/checkpoint.py``), and writes either (``save``, ``save_native``).
+
+Data parallel (``parallel.init_data_parallel`` before the Trainer is built,
+one process a card, as ``torch.distributed.run`` launches them): the
+configured BATCH_SIZE is the global batch, as on the JAX trainer's data
+axis, and each rank steps on its BATCH_SIZE / world samples (the Loader's
+slice of each global batch) under ``DistributedDataParallel``, which
+averages the gradients; the loss vector is averaged over the ranks, so
+every rank returns the single-process loss. Rank 0 alone writes
+checkpoints; every rank loads and resumes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import signal
@@ -38,6 +50,7 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from superslomo_tpu_torch import parallel
 from superslomo_tpu_torch import weights as wio
 from superslomo_tpu_torch.cli.common import load_model_params
 from superslomo_tpu_torch.config import Config
@@ -45,11 +58,10 @@ from superslomo_tpu_torch.data import get_dataset, prefetch_to_device
 from superslomo_tpu_torch.models.losses import LossWeights, compute_losses
 from superslomo_tpu_torch.models.superslomo import SuperSloMo, mid_window, tf32_off
 from superslomo_tpu_torch.models.vgg import VGG16Features, vgg_state
+from superslomo_tpu_torch.training.checkpoint import ADAM_BETAS, ADAM_EPS, save_native_checkpoint, trainable_stages
 from superslomo_tpu_torch.utils.validators import check_forward_inputs
 
 log = logging.getLogger(__name__)
-
-ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8  # optax.adam's defaults
 
 
 def step_lr(base_lr: float, decay: float, period: float):
@@ -100,6 +112,10 @@ class Trainer:
         )
         self.ckpt_dir = os.path.join(cfg.get("TRAIN", "CKPT_DIR"), expt_name)
         self.writer = writer
+        self.rank, self.world = parallel.rank(), parallel.world()
+        batch = cfg.getint("TRAIN", "BATCH_SIZE")
+        if batch % self.world:
+            raise ValueError(f"[TRAIN] BATCH_SIZE {batch} is not a multiple of the {self.world} data-parallel ranks")
 
         vgg_path = vgg_weights
         if vgg_path is None and cfg.has("TRAIN", "VGG_WEIGHTS"):
@@ -124,39 +140,74 @@ class Trainer:
         self.vgg.load_state_dict(vgg_state(vgg_path))
         self.vgg.to(device=self.device, memory_format=torch.channels_last)
 
-        frozen = {"stage1": self.spec.stage1_freeze, "stage2": self.spec.stage2_freeze}
-        trainable = []
-        for stage, is_frozen in frozen.items():
+        # (stage, state-dict key, parameter) in the optimizer's order
+        self.trainable = []
+        stages = trainable_stages(self.spec)
+        for stage in ("stage1", "stage2"):
             module = getattr(self.model, stage)
-            module.requires_grad_(not is_frozen)
-            if not is_frozen:
+            module.requires_grad_(stage in stages)
+            if stage in stages:
                 named = dict(module.named_parameters())
-                trainable += [named[k] for k in module.state_dict() if k in named]
-        if not trainable:
+                self.trainable += [(stage, k, named[k]) for k in module.state_dict() if k in named]
+        if not self.trainable:
             raise ValueError("both stages are frozen: there is nothing to train")
-        self.optimizer = torch.optim.Adam(trainable, lr=self.lr_schedule(1), betas=ADAM_BETAS, eps=ADAM_EPS)
+        self.optimizer = torch.optim.Adam([p for *_, p in self.trainable], lr=self.lr_schedule(1),
+                                          betas=ADAM_BETAS, eps=ADAM_EPS)
         self.epoch, self.step = 1, 0
         self.resume_if_configured()
+        # the model the step runs: under DDP across ranks, which all-reduces
+        # the gradients of the parameters that require them
+        self.step_model = self.model
+        if self.world > 1:
+            cuda = self.device.type == "cuda"
+            self.step_model = torch.nn.parallel.DistributedDataParallel(
+                self.model, device_ids=[self.device.index] if cuda else None)
 
     # ------------------------------------------------------------------ #
     def resume_if_configured(self) -> None:
-        """Resume Adam's state and the epoch from the ``.pt`` of the first
-        stage that is loaded and not frozen; a weights-only file warm-starts
-        with a fresh optimizer."""
+        """Resume Adam's state, the epoch and the step from the checkpoint of
+        the first stage that is loaded and not frozen: a ``.pt``, or a native
+        directory (its ``opt.msgpack``, and ``meta.json``; the learning rate
+        is the schedule's for that epoch). A checkpoint without optimizer
+        state warm-starts with a fresh optimizer."""
         for n in (1, 2):
             path = self.cfg.get(f"STAGE{n}", "WEIGHTS")
             if not (self.cfg.getboolean(f"STAGE{n}", "LOADPREV")
                     and not self.cfg.getboolean(f"STAGE{n}", "FREEZE") and path):
                 continue
-            blob = wio.load_checkpoint(path)
-            if "self.optimizer" not in blob:
+            blob = wio.load_checkpoint(path, self.spec)
+            if blob.get("adam") is not None:
+                self.load_adam_state(blob["adam"])
+            elif "self.optimizer" in blob:
+                self.optimizer.load_state_dict(blob["self.optimizer"])
+            else:
                 log.info("No optimizer state in %s; fresh optimizer", path)
                 return
-            self.optimizer.load_state_dict(blob["self.optimizer"])
             self.epoch = max(int(blob.get("epoch", 1)), 1)
             self.step = int(blob.get("step", 0))
+            self.set_learning_rate(self.epoch)
             log.info("Resuming Adam state from %s at epoch %s", path, self.epoch)
             return
+
+    def adam_state(self) -> dict:
+        """Adam's state by stage (``training/checkpoint.py``'s form): a
+        parameter not stepped yet has zero moments."""
+        adam = {"step": 0, "learning_rate": self.optimizer.param_groups[0]["lr"], "exp_avg": {}, "exp_avg_sq": {}}
+        for stage, key, p in self.trainable:
+            st = self.optimizer.state.get(p, {})
+            adam["step"] = max(adam["step"], int(st.get("step", 0)))
+            for name in ("exp_avg", "exp_avg_sq"):
+                adam[name].setdefault(stage, {})[key] = st.get(name, torch.zeros_like(p))
+        return adam
+
+    def load_adam_state(self, adam: dict) -> None:
+        """Set Adam's step and moments from ``adam`` (``adam_state``'s form),
+        which must hold every trainable parameter."""
+        for stage, key, p in self.trainable:
+            self.optimizer.state[p] = {
+                "step": torch.tensor(float(adam["step"]), dtype=torch.float32),
+                **{name: torch.empty_like(p).copy_(adam[name][stage][key]) for name in ("exp_avg", "exp_avg_sq")},
+            }
 
     def set_learning_rate(self, epoch: int) -> float:
         lr = self.lr_schedule(epoch)
@@ -168,27 +219,33 @@ class Trainer:
     def train_step(self, frames, targets, t) -> torch.Tensor:
         """One optimization step on (B, T, H, W, 3) frames, (B, T-1, H, W, 3)
         targets and (B, T-1) instants (numpy arrays, or tensors, which are
-        used in place when they already lie on the model's device); returns
-        the (4,) loss vector (total, reconstruction, warp, perceptual),
-        averaged over the batch, on the model's device."""
+        used in place when they already lie on the model's device): this
+        rank's share of the global batch. Returns the (4,) loss vector
+        (total, reconstruction, warp, perceptual), averaged over the global
+        batch, on the model's device."""
         frames, targets, t = (torch.as_tensor(x, dtype=torch.float32).to(self.device) for x in (frames, targets, t))
         with tf32_off():
-            outputs = self.model(frames, t)
+            outputs = self.step_model(frames, t)
             losses = compute_losses(outputs, targets, self.spec, self.weights, self.vgg)
             self.optimizer.zero_grad(set_to_none=True)
             losses[:, 0].mean().backward()
             self.optimizer.step()
-        return losses.detach().mean(dim=0)
+        loss_vec = losses.detach().mean(dim=0)
+        if self.world > 1:  # SUM, then divide: gloo has no AVG
+            torch.distributed.all_reduce(loss_vec)
+            loss_vec /= self.world
+        return loss_vec
 
     def train(self, batches: Optional[Iterable] = None, max_steps: Optional[int] = None) -> np.ndarray:
         """Train from ``self.epoch`` to ``N_EPOCHS``, iterating ``batches``
-        (``(frames, targets, t)``, numpy or tensors) once per epoch; by
-        default ``get_dataset(cfg, "TRAIN")``, built once and fed through
+        (``(frames, targets, t)``, numpy or tensors: this rank's share) once
+        per epoch; by default ``get_dataset(cfg, "TRAIN")`` (this rank's
+        slice of each global batch), built once and fed through
         ``prefetch_to_device`` each epoch. Stop after ``max_steps`` steps in
         all. Saves every SAVE_EVERY epochs, at the end, at ``max_steps``, and
         on SIGTERM (then exits with 143). Returns the last step's loss
         vector."""
-        loader = get_dataset(self.cfg, "TRAIN") if batches is None else None
+        loader = get_dataset(self.cfg, "TRAIN", rank=self.rank, world=self.world) if batches is None else None
         loss_vec = None
 
         def on_sigterm(signum, frame):
@@ -252,11 +309,25 @@ class Trainer:
     def checkpoint_path(self, epoch: int) -> str:
         return os.path.join(self.ckpt_dir, f"{self.expt_name}_EPOCH_{epoch:04d}.pt")
 
-    def save(self) -> str:
-        """Write the reference ``.pt`` layout for the current epoch."""
+    def save(self) -> Optional[str]:
+        """Write the reference ``.pt`` layout for the current epoch (rank 0
+        only; None on the other ranks)."""
+        if self.rank != 0:
+            return None
         path = wio.save_checkpoint(
             self.checkpoint_path(self.epoch), self.model.stage1.state_dict(),
             self.model.stage2.state_dict(), self.optimizer.state_dict(), self.epoch, self.step,
         )
         log.info("Saved checkpoint %s", path)
         return path
+
+    def save_native(self, ckpt_dir: str) -> Optional[str]:
+        """Write the JAX package's native checkpoint directory, with Adam's
+        state and the JAX trainer's meta (epoch, step, spec); rank 0 only."""
+        if self.rank != 0:
+            return None
+        state = {stage: getattr(self.model, stage).state_dict() for stage in ("stage1", "stage2")}
+        meta = {"epoch": self.epoch, "step": self.step, "spec": dataclasses.asdict(self.spec)}
+        save_native_checkpoint(ckpt_dir, state, self.adam_state(), meta)
+        log.info("Saved native checkpoint %s", ckpt_dir)
+        return ckpt_dir

@@ -21,8 +21,9 @@ The reference checkpoint is a ``torch.save``d dict with ``stage1_state_dict``,
 whose parameters are stage 1's state-dict keys, then stage 2's) and
 ``epoch``; the JAX package reads the same keys
 (``training/checkpoint.py::convert_torch_checkpoint``,
-``convert_torch_opt_state``). The JAX package's native msgpack checkpoint is
-not read: the port has no msgpack decoder.
+``convert_torch_opt_state``). ``load_checkpoint`` reads the JAX package's
+native checkpoint directory too (``training/checkpoint.py``), and
+``jax_tree_from_torch_state`` gives the tree that its writer stores.
 """
 
 from __future__ import annotations
@@ -71,7 +72,9 @@ def _convert_recurrent(sd: dict, tree: dict, where: str) -> None:
             _put_conv(sd, prefix, node, f"{where}/{name}/{conv}")
 
 
-def _convert_stage(tree: dict, stage: str, spec: ModelSpec) -> "OrderedDict[str, torch.Tensor]":
+def stage_state_from_jax(tree: dict, stage: str, spec: ModelSpec) -> "OrderedDict[str, torch.Tensor]":
+    """One stage's JAX param subtree → its state dict, checked against the
+    shapes of a ``spec`` model's ``stage``."""
     sd = OrderedDict()
     for layer, node in tree.items():
         if layer == "conv6":
@@ -94,7 +97,48 @@ def torch_state_from_jax(params: dict, spec: ModelSpec = ModelSpec()) -> dict:
     tree = params["params"]
     if set(tree) != {"stage1", "stage2"}:
         raise KeyError(f"expected stages stage1 and stage2, got {sorted(tree)}")
-    return {stage: _convert_stage(tree[stage], stage, spec) for stage in ("stage1", "stage2")}
+    return {stage: stage_state_from_jax(tree[stage], stage, spec) for stage in ("stage1", "stage2")}
+
+
+def _jax_path(key: str) -> tuple:
+    """A state-dict key → its path in the JAX stage subtree (the inverse of
+    ``_torch_prefix`` and ``_RECURRENT_CONVS``)."""
+    prefix, _, leaf = key.rpartition(".")
+    leaf = {"weight": "kernel", "bias": "bias"}.get(leaf)
+    m = re.fullmatch(r"(conv\d+[ab]|fuse_conv)\.0|conv6\.([01])\.0|(final_conv)", prefix)
+    if leaf and m:
+        layer = m.group(1) or m.group(3) or f"conv6_{m.group(2)}"
+        return layer, "conv", leaf
+    m = re.fullmatch(r"conv6\.(forward|reverse)_net\.cell_list\.(\d+)\.(conv|conv_can)", prefix)
+    if leaf and m:
+        direction = "fwd" if m.group(1) == "forward" else "rev"
+        return "conv6", f"{direction}_l{m.group(2)}", "gates" if m.group(3) == "conv" else "candidate", leaf
+    raise KeyError(f"unknown key in the port's state dict: {key!r}")
+
+
+def _sorted_tree(node):
+    return {k: _sorted_tree(v) for k, v in sorted(node.items())} if isinstance(node, dict) else node
+
+
+def jax_stage_from_torch(sd: dict) -> dict:
+    """One stage's state dict → its JAX param subtree: float32 numpy
+    arrays, kernels HWIO, keys sorted as JAX orders a tree's."""
+    tree: dict = {}
+    for key, value in sd.items():
+        *path, leaf = _jax_path(key)
+        a = value.detach().to("cpu", torch.float32).numpy()
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        node[leaf] = np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if leaf == "kernel" else a.copy()
+    return _sorted_tree(tree)
+
+
+def jax_tree_from_torch_state(state: dict) -> dict:
+    """The inverse of ``torch_state_from_jax``: ``{"stage1": state_dict,
+    "stage2": state_dict}`` (either may be left out) → ``{"params":
+    {stage: subtree}}`` of numpy arrays."""
+    return {"params": {stage: jax_stage_from_torch(sd) for stage, sd in state.items()}}
 
 
 def _map_carry(carry, leaf_fn):
@@ -183,13 +227,19 @@ def save_checkpoint(path: str, stage1: dict, stage2: dict, optimizer: dict, epoc
     return path
 
 
-def load_checkpoint(path: str) -> dict:
-    """Read a ``.pt`` checkpoint onto the CPU. A directory (the JAX package's
-    native msgpack checkpoint) raises NotImplementedError."""
+def load_checkpoint(path: str, spec: ModelSpec = ModelSpec()) -> dict:
+    """Read a ``.pt`` checkpoint onto the CPU, or the JAX package's native
+    checkpoint directory (``training/checkpoint.py::load_native_checkpoint``,
+    its stages converted for a ``spec`` model) into the same keys: a stage
+    the directory lacks is None, its Adam state is ``"adam"`` (None without
+    ``opt.msgpack``), and ``epoch`` and ``step`` come from ``meta.json``."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a native msgpack checkpoint of the JAX package; the port reads only "
-            "the reference .pt layout (stage1_state_dict / stage2_state_dict / self.optimizer / epoch)")
+        from superslomo_tpu_torch.training.checkpoint import load_native_checkpoint
+
+        state, adam, meta = load_native_checkpoint(path, spec)
+        blob = {f"{stage}_state_dict": state.get(stage) for stage in ("stage1", "stage2")}
+        blob.update(adam=adam, epoch=int(meta.get("epoch", 1)), step=int(meta.get("step", 0)))
+        return blob
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -25,6 +25,7 @@ from superslomo_tpu_torch.cli import train as train_cli
 from superslomo_tpu_torch.cli import visualize as render_cli
 from superslomo_tpu_torch.cli.common import load_model_params
 from superslomo_tpu_torch.config import load_config
+from superslomo_tpu_torch.training.checkpoint import save_native_checkpoint
 from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -153,9 +154,11 @@ def test_load_model_params_applies_loadprev_and_weights(tmp_path):
     state = load_model_params(cfg)
     assert all(torch.equal(state["stage2"][k], v) for k, v in other["stage2"].items())
 
-    cfg.set("STAGE2", "WEIGHTS", str(tmp_path))  # a native checkpoint directory
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        load_model_params(cfg)
+    native = save_native_checkpoint(str(tmp_path / "native"), {"stage2": seeded["stage2"]})
+    cfg.set("STAGE1", "WEIGHTS", native)  # a native checkpoint directory without stage 1: stage 1 stays seeded
+    cfg.set("STAGE2", "WEIGHTS", native)
+    state = load_model_params(cfg)
+    assert all(torch.equal(state[s][k], v) for s in seeded for k, v in seeded[s].items())
 
 
 @pytest.mark.parametrize("cli", [eval_cli, train_cli, flow_cli, render_cli],

@@ -50,7 +50,7 @@ def _port_modules():
     )
 
 
-FORBIDDEN = ("jax", "flax", "superslomo_tpu", "cv2", "PIL")
+FORBIDDEN = ("jax", "flax", "msgpack", "superslomo_tpu", "cv2", "PIL")
 
 
 def _forbidden(name: str) -> bool:
@@ -69,7 +69,10 @@ def test_importing_every_port_module_leaves_jax_out():
         "superslomo_tpu_torch.cli.evaluate_interpolation", "superslomo_tpu_torch.utils.flo",
         "superslomo_tpu_torch.eval.evaluate_flow", "superslomo_tpu_torch.eval.visualize",
         "superslomo_tpu_torch.cli.evaluate_flow", "superslomo_tpu_torch.cli.visualize",
-    } <= set(modules) and len(modules) >= 38
+        "superslomo_tpu_torch.parallel", "superslomo_tpu_torch.parallel.distributed",
+        "superslomo_tpu_torch.cli.convert_checkpoint", "superslomo_tpu_torch.utils.make_clips",
+        "superslomo_tpu_torch.utils.msgpack", "superslomo_tpu_torch.training.checkpoint",
+    } <= set(modules) and len(modules) >= 44
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -98,6 +101,7 @@ def test_no_jax_imports_in_port_sources_or_chip_smoke():
             offenders += [(path, n) for n in names if _forbidden(n)]
     assert not offenders
     assert not _forbidden("superslomo_tpu_torch") and _forbidden("superslomo_tpu.ops") and _forbidden("PIL.Image")
+    assert _forbidden("msgpack") and not _forbidden("superslomo_tpu_torch.utils.msgpack")
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):

@@ -26,6 +26,7 @@ from superslomo_tpu_torch.models import losses, physics
 from superslomo_tpu_torch.models.layers import Conv2d
 from superslomo_tpu_torch.models.superslomo import SuperSloMo
 from superslomo_tpu_torch.models.vgg import VGG16Features
+from superslomo_tpu_torch.training.checkpoint import save_native_checkpoint
 from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 # the full-model bar of the JAX package against the executed reference
@@ -345,15 +346,20 @@ def test_checkpoint_reads_in_jax_and_resumes(tmp_path):
 
 
 def test_trainer_refuses_bf16_native_checkpoints_and_random_vgg(tmp_path):
-    """bf16 is no longer refused: the Trainer builds the bf16 model on
-    float32 master weights, all of them in its optimizer. The native
-    checkpoint and random VGG features without the opt-in still raise."""
+    """bf16 and the native checkpoint are no longer refused: the Trainer
+    builds the bf16 model on float32 master weights, all of them in its
+    optimizer, and loads the weights of the JAX package's native checkpoint
+    directory (one without ``opt.msgpack``: a fresh optimizer). Random VGG
+    features without the opt-in still raise."""
     tr = Trainer(_train_cfg(tmp_path, TPU_COMPUTE_DTYPE="bfloat16"), device="cpu")
     assert tr.model.compute_dtype == torch.bfloat16 and tr.model.param_dtype == torch.float32
     assert all(p.dtype == torch.float32 for p in tr.model.parameters())
     assert sum(len(g["params"]) for g in tr.optimizer.param_groups) == len(list(tr.model.parameters()))
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        Trainer(_train_cfg(tmp_path, STAGE1_LOADPREV="TRUE", STAGE1_WEIGHTS=str(tmp_path)), device="cpu")
+    other = weights.seeded_state(ModelSpec(), seed=7)
+    native = save_native_checkpoint(str(tmp_path / "native"), other, meta={"epoch": 5})
+    tr = Trainer(_train_cfg(tmp_path, STAGE1_LOADPREV="TRUE", STAGE1_WEIGHTS=native), device="cpu")
+    assert all(torch.equal(v, other["stage1"][k]) for k, v in tr.model.stage1.state_dict().items())
+    assert (tr.epoch, tr.step) == (1, 0) and not tr.optimizer.state
     with pytest.raises(ValueError, match="ALLOW_RANDOM_VGG"):
         Trainer(_train_cfg(tmp_path, TRAIN_ALLOW_RANDOM_VGG="FALSE"), device="cpu")
 
