@@ -388,94 +388,211 @@ def multiflow_grad_bound(B, C, n, H, W, esize):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_multiflow_grad():
-    """The multi-flow warp's gradients on the card (its autograd.Function: a
-    single-flow flow-gradient and image-gradient launch a flow) against
-    autograd of its plain version, at the serving path's shapes (736x1280,
-    B=2, C=3, n=7) on the step's kind of flows, with f32 and with bf16 planes:
-    the planes', u's and v's gradients each within GRAD_KERNEL_REL of the
-    reference's max |g| (bf16 planes: the plain f32 gradient of the planes
-    upcast, plus its one rounding to bf16), and 2n launches for a backward
-    that needs all three. Timed as the backward alone and as forward +
-    backward, each beside the plain version's and the library's:
-    grid_sample with the n flows folded into the batch, whose backward
-    (``aten.grid_sampler_2d_backward``, both gradients) computes the same
-    gradients but the planes' sum over the flows."""
-    from superslomo_tpu_torch import ops
-    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
-
+def multiflow_grad_cases():
+    """(case, dtype tag, planes, u, v, output gradient) of the multi-flow
+    backward at the serving path's shapes (736x1280, B=2, C=3, n=7): the
+    step's kind of flows with f32 and bf16 planes; noise flows (std 7 px,
+    patches shifted 150 px, as phase 2's); large flows (uniform within +-200
+    px: most taps beyond any block's shared window); and an odd case (37x53,
+    n=3: ragged tiles, no vector access) on a channels_last view of all six
+    channels of a pair (two channel groups) with flows up to ~90 px."""
     B, C, n, H, W = 2, 3, 7, 736, 1280
     dev = torch.device("cuda")
     rng = np.random.default_rng(21)
-    u, v = step_flows(np.random.default_rng(22), B, n, H, W, dev)
-    planes32 = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
-    g32 = torch.from_numpy(rng.standard_normal((B, C, n, H, W), dtype=np.float32)).to(dev)
+    su, sv = step_flows(np.random.default_rng(22), B, n, H, W, dev)
+    planes = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((B, C, n, H, W), dtype=np.float32)).to(dev)
+    nu = rng.normal(0.0, 7.0, (B, n, H, W)).astype(np.float32)
+    nv = rng.normal(0.0, 7.0, (B, n, H, W)).astype(np.float32)
+    nu[:, :, 200:400, 300:600] += 150.0
+    nv[:, :, 400:600, 100:400] -= 140.0
+    lu, lv = (rng.uniform(-200.0, 200.0, (B, n, H, W)).astype(np.float32) for _ in range(2))
+    ou, ov = step_flows(np.random.default_rng(23), 1, 3, 37, 53, dev, amp=90.0)
+    pair = torch.from_numpy(rng.standard_normal((1, 37, 53, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    og = torch.from_numpy(rng.standard_normal((1, 6, 3, 37, 53), dtype=np.float32)).to(dev)
+    gpu = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return [
+        ("step_flows", "f32", planes, su, sv, g),
+        ("step_flows", "bf16", planes.bfloat16(), su, sv, g.bfloat16()),
+        ("noise", "f32", planes, gpu(nu), gpu(nv), g),
+        ("large_flows", "f32", planes, gpu(lu), gpu(lv), g),
+        ("odd_strided", "f32", pair, ou, ov, og),
+        ("odd_strided", "bf16", pair.bfloat16(), ou, ov, og.bfloat16()),
+    ]
+
+
+def check_mf_grads(got, want, dtype):
+    """{name: max |err|, bar} of the multi-flow gradients ``got`` (planes, u, v;
+    None where not asked for) against the plain version's f32 ``want``, and
+    whether all are within GRAD_KERNEL_REL of each reference's max |g| (the
+    planes' gradient of bf16 planes: plus its one rounding to bf16, half a
+    bf16 ulp, at most 2^-8 of the value)."""
+    errs, ok = {}, True
+    for name, a, w in zip(("planes", "u", "v"), got, want):
+        if a is None:
+            continue
+        bar = GRAD_KERNEL_REL * w.abs().max().item()
+        tol = bar + (2.0**-8 * w.abs() if name == "planes" and dtype == torch.bfloat16 else 0.0)
+        errs[name] = {"max_abs_err": (a.float() - w).abs().max().item(), "bar": bar}
+        ok &= bool(((a.float() - w).abs() <= tol).all())
+    return errs, ok
+
+
+def phase_multiflow_grad():
+    """The multi-flow warp's backward kernel (through its autograd.Function,
+    as a caller differentiates the warp) against its plain version, in the
+    cases of ``multiflow_grad_cases``: the planes', u's and v's gradients
+    each within GRAD_KERNEL_REL of the plain f32 gradient's max |g| (bf16
+    planes: plus the one rounding to bf16); one kernel call and 3 device
+    operations a backward, no single-flow gradient launch; the planes' or
+    the flows' gradients alone (the step's flows and the odd case). The
+    720p cases timed: the backward through autograd and the wrapper alone
+    (``kernel``: ms, device_ms, host_ms), forward + backward, each beside the
+    plain version's and the library's: grid_sample with the n flows folded
+    into the batch, whose backward (``aten.grid_sampler_2d_backward``, both
+    gradients) computes the same gradients but the planes' sum over the
+    flows; and the bound."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda as kernel
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as single
+
+    plain = ops.warp_multiflow_backward_reference
     out = {}
-    for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        p, g = planes32.to(dt), g32.to(dt)
+    for case, tag, p, u, v, g in multiflow_grad_cases():
+        B, C, H, W = p.shape
+        n = u.shape[1]
         leaves = [x.detach().requires_grad_(True) for x in (p, u, v)]
         result = ops.warp_multiflow_planar(*leaves)
-        bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+        single.flow_grad_launches = single.img_grad_launches = kernel.launches = ops._WarpMultiflow.launches = 0
         got = torch.autograd.grad(result, leaves, g, retain_graph=True)
         torch.cuda.synchronize()
-        launches = {"flow_grad": bwd.flow_grad_launches, "img_grad": bwd.img_grad_launches,
-                    "multiflow_backward": ops._WarpMultiflow.launches}
-        # the plain version's autograd, in f32 for bf16 planes (their exact values)
-        plain = [x.detach().float().requires_grad_(True) for x in (p, u, v)]
-        want = torch.autograd.grad(ops.warp_multiflow_planar_reference(*plain, torch.float32), plain, g.float())
-        errs = {}
-        ok = result.grad_fn is not None and launches == {"flow_grad": n, "img_grad": n, "multiflow_backward": 2 * n}
-        for name, a, w, leaf in zip(("planes", "u", "v"), got, want, leaves):
-            bar = GRAD_KERNEL_REL * w.abs().max().item()
-            tol = bar + (2.0**-8 * w.abs() if name == "planes" and dt == torch.bfloat16 else 0.0)
-            errs[name] = {"max_abs_err": (a.float() - w).abs().max().item(), "bar": bar}
-            if a.dtype == torch.bfloat16:  # beside the plain f32 gradient rounded once to bf16
-                errs[name]["max_abs_err_vs_plain_cast"] = (a.float() - w.to(a.dtype).float()).abs().max().item()
-            ok &= a.dtype == leaf.dtype and bool(((a.float() - w).abs() <= tol).all())
-
-        def fwd_bwd():
-            xs = [x.detach().requires_grad_(True) for x in (p, u, v)]
-            torch.autograd.grad(ops.warp_multiflow_planar(*xs), xs, g)
-
-        def plain_fwd_bwd():
-            xs = [x.detach().float().requires_grad_(True) for x in (p, u, v)]
-            torch.autograd.grad(ops.warp_multiflow_planar_reference(*xs, torch.float32), xs, g.float())
-
-        plain_out = ops.warp_multiflow_planar_reference(*plain, torch.float32)
-
-        gx = 2 * (torch.arange(W, device=dev) + u) / (W - 1) - 1
-        gy = 2 * (torch.arange(H, device=dev)[:, None] + v) / (H - 1) - 1
-        grid = torch.stack([gx, gy], dim=-1).reshape(B * n, H, W, 2)
-        tiled = p.float()[:, None].expand(B, n, C, H, W).reshape(B * n, C, H, W)
-        g_lib = g.float().transpose(1, 2).reshape(B * n, C, H, W)
-
-        def library():  # f32: a bf16 grid could not address 1280 columns
-            xs = [tiled.detach().requires_grad_(True), grid.detach().requires_grad_(True)]
-            torch.autograd.grad(_grid_sample(*xs), xs, g_lib)
-
-        def library_bwd():
-            torch.ops.aten.grid_sampler_2d_backward(g_lib, tiled, grid, 0, 0, True, [True, True])
-
-        bound = multiflow_grad_bound(B, C, n, H, W, p.element_size())
-        res = {
-            "shape": [B, C, n, H, W], "flows": "the step's (smooth, <= 30 px)", "launches": launches,
-            "grad_fn": type(result.grad_fn).__name__, "grads": errs,
-            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
-            "backward": timings(lambda: torch.autograd.grad(result, leaves, g, retain_graph=True)),
-            "fwd_bwd": timings(fwd_bwd), "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, reps=5, warmup=1),
-            "plain_backward_ms": cuda_ms(lambda: torch.autograd.grad(plain_out, plain, g.float(), retain_graph=True),
-                                         reps=5, warmup=1),
-            "library_fwd_bwd_ms": cuda_ms(library), "library_backward_ms": cuda_ms(library_bwd),
-            "bound_ms": bound[0], "bound_by": bound[1],
-            "library": "grid_sample on the planes tiled n times, f32: its backward to the tiles and the grid",
-        }
-        out[tag] = res
-        emit({"phase": "multiflow_grad_vs_plain", "dtype": tag, **res})
+        launches = {"kernel": kernel.launches, "multiflow_backward": ops._WarpMultiflow.launches,
+                    "flow_grad": single.flow_grad_launches, "img_grad": single.img_grad_launches}
+        # the plain version in f32 (for bf16 planes, of their exact values)
+        want = plain(p.float(), u, v, g.float(), True, True)
+        errs, ok = check_mf_grads(got, want, p.dtype)
+        ok &= result.grad_fn is not None and all(a.dtype == x.dtype for a, x in zip(got, leaves))
+        ok &= launches == {"kernel": 1, "multiflow_backward": 3, "flow_grad": 0, "img_grad": 0}
+        res = {"shape": [B, C, n, H, W], "planes_strides": list(p.stride()), "launches": launches,
+               "grad_fn": type(result.grad_fn).__name__, "grads": errs,
+               "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+               "max_abs_flow": max(u.abs().max().item(), v.abs().max().item())}
+        if case in ("step_flows", "odd_strided"):  # each gradient alone: one kernel launch, 3 or 1 operations
+            subsets = {}
+            for need_planes, need_flow in ((True, False), (False, True)):
+                kernel.launches = kernel.operations = 0
+                sub = kernel(p, u, v, g, need_planes, need_flow)
+                torch.cuda.synchronize()
+                e, sub_ok = check_mf_grads(sub, want, p.dtype)
+                sub_ok &= (kernel.launches, kernel.operations) == (1, 3 if need_planes else 1)
+                sub_ok &= all((a is None) == (not need) for a, need in zip(sub, (need_planes, need_flow, need_flow)))
+                subsets["planes" if need_planes else "flows"] = {"grads": e, "ok": sub_ok,
+                                                                  "operations": kernel.operations}
+                ok &= sub_ok
+            res["alone"] = subsets
+        if H == 736:
+            res.update(time_mf_grad(p, u, v, g, result, leaves))
+        out[(case, tag)] = res
+        emit({"phase": "multiflow_grad_vs_plain", "case": case, "dtype": tag, **res})
         if not ok:
-            raise AssertionError(f"multi-flow warp gradients on the card, {tag}: {res}")
-        del result, got, want, leaves, plain, plain_out, tiled, grid, g_lib
+            raise AssertionError(f"multi-flow warp gradients on the card, {case} {tag}: {res}")
+        del result, got, want, leaves
         torch.cuda.empty_cache()
     return out
+
+
+def time_mf_grad(p, u, v, g, result, leaves):
+    """The multi-flow backward's times (see phase_multiflow_grad) beside its
+    bound, the plain version's and the library's."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda as kernel
+
+    B, C, H, W = p.shape
+    n = u.shape[1]
+
+    def fwd_bwd():
+        xs = [x.detach().requires_grad_(True) for x in (p, u, v)]
+        torch.autograd.grad(ops.warp_multiflow_planar(*xs), xs, g)
+
+    def plain_fwd_bwd():
+        xs = [x.detach().float().requires_grad_(True) for x in (p, u, v)]
+        torch.autograd.grad(ops.warp_multiflow_planar_reference(*xs, torch.float32), xs, g.float())
+
+    gx = 2 * (torch.arange(W, device=p.device) + u) / (W - 1) - 1
+    gy = 2 * (torch.arange(H, device=p.device)[:, None] + v) / (H - 1) - 1
+    grid = torch.stack([gx, gy], dim=-1).reshape(B * n, H, W, 2)
+    tiled = p.float()[:, None].expand(B, n, C, H, W).reshape(B * n, C, H, W)
+    g_lib = g.float().transpose(1, 2).reshape(B * n, C, H, W)
+
+    def library():  # f32: a bf16 grid could not address 1280 columns
+        xs = [tiled.detach().requires_grad_(True), grid.detach().requires_grad_(True)]
+        torch.autograd.grad(_grid_sample(*xs), xs, g_lib)
+
+    def library_bwd():
+        torch.ops.aten.grid_sampler_2d_backward(g_lib, tiled, grid, 0, 0, True, [True, True])
+
+    bound = multiflow_grad_bound(B, C, n, H, W, p.element_size())
+    return {
+        "backward": timings(lambda: torch.autograd.grad(result, leaves, g, retain_graph=True)),
+        "kernel": timings(lambda: kernel(p, u, v, g, True, True)),
+        "fwd_bwd": timings(fwd_bwd), "plain_fwd_bwd_ms": cuda_ms(plain_fwd_bwd, reps=5, warmup=1),
+        "plain_backward_ms": cuda_ms(lambda: ops.warp_multiflow_backward_reference(p, u, v, g, True, True),
+                                     reps=5, warmup=1),
+        "library_fwd_bwd_ms": cuda_ms(library), "library_backward_ms": cuda_ms(library_bwd),
+        "bound_ms": bound[0], "bound_by": bound[1],
+        "library": "grid_sample on the planes tiled n times, f32: its backward to the tiles and the grid",
+    }
+
+
+def phase_multiflow_grad_sweep():
+    """The multi-flow backward's tile and margin (ops/warp_plan.py's
+    MF_GRAD_TILE, MF_GRAD_MARGIN) and its measurement variants
+    (MF_GRAD_VARIANT: plain shared adds in place of the atomics, timing only;
+    finish (b); the H design) swept over the 720p cases of
+    ``multiflow_grad_cases``: each configuration's wrapper device_ms and
+    errors, the configuration as shipped first and last; raises at the end if
+    a configuration other than the plain adds is wrong."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops import warp_plan
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda as kernel
+
+    cases = [c for c in multiflow_grad_cases() if c[2].shape[2] == 736]
+    wants = [ops.warp_multiflow_backward_reference(p.float(), u, v, g.float(), True, True)
+             for _, _, p, u, v, g in cases]
+    default = (warp_plan.MF_GRAD_TILE, warp_plan.MF_GRAD_MARGIN)
+    bad = []
+    configs = [(0, tile, m) for tile in ((64, 16), (64, 32), (64, 8), (32, 32)) for m in (4, 8, 16)]
+    configs += [(1, (64, 16), 8), (3, (64, 32), 8), (3, (64, 16), 8)]
+    configs += [(2, tile, m) for tile in ((64, 16), (64, 32)) for m in (4, 8, 16)]
+    configs += [(0, (64, 16), 8)]
+    for variant, tile, margin in configs:
+        warp_plan.MF_GRAD_TILE, warp_plan.MF_GRAD_MARGIN, warp_plan.MF_GRAD_VARIANT = tile, margin, variant
+        warp_plan.plan_multiflow_grad.cache_clear()
+        res = {"variant": ["as shipped", "plain shared adds (races)", "finish (b)", "H design"][variant],
+               "tile": list(tile), "margin": margin, "threads": tile[0] * tile[1] // 2}
+        for (case, tag, p, u, v, g), want in zip(cases, wants):
+            got = kernel(p, u, v, g, True, True)
+            torch.cuda.synchronize()
+            errs, ok = check_mf_grads(got, want, p.dtype)
+            r = {"device_ms": cuda_ms(lambda: kernel(p, u, v, g, True, True), queued=True),
+                 "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "ok": ok}
+            if case == "step_flows" and variant == 0:
+                r["flows_only_ms"] = cuda_ms(lambda: kernel(p, u, v, g, False, True), queued=True)
+                r["planes_only_ms"] = cuda_ms(lambda: kernel(p, u, v, g, True, False), queued=True)
+                sub = kernel(p, u, v, g, False, True)
+                r["ok"] &= check_mf_grads(sub, want, p.dtype)[1]
+                sub = kernel(p, u, v, g, True, False)
+                r["ok"] &= check_mf_grads(sub, want, p.dtype)[1]
+            res[f"{case}_{tag}"] = r
+            if not r["ok"] and variant != 1:  # plain adds race: timing only
+                bad.append((res["tile"], margin, case, tag, errs))
+            del got
+        emit({"phase": "multiflow_grad_sweep", **res})
+    warp_plan.MF_GRAD_TILE, warp_plan.MF_GRAD_MARGIN = default
+    warp_plan.MF_GRAD_VARIANT = 0
+    warp_plan.plan_multiflow_grad.cache_clear()
+    if bad:
+        raise AssertionError(f"multi-flow backward sweep: wrong results {bad}")
 
 
 def single_bounds(B, C, H, W, esize):
@@ -2637,8 +2754,8 @@ def ptxas_usage(log):
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            kernel = re.search(r"warp_(?:multiflow|single_forward|single_flow_grad|single_img_grad(?:_store)?)_kernel",
-                               mangled)
+            kernel = re.search(r"(?:warp_(?:multiflow_grad(?:_sum)?|multiflow|single_forward|single_flow_grad|"
+                               r"single_img_grad)|grad_store)_kernel", mangled)
             dtype = "bf16" if "bfloat16" in mangled else "f32"
             name = f"{kernel.group(0) if kernel else mangled} {dtype}"
         elif name and "registers" in line:
@@ -2760,7 +2877,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             entry["cases"].update({f"720p_{tag}": {k: single[f"720p_{tag}"]["flow_grad"][k] for k in (
                 "max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")} for tag in ("f32", "bf16")})
         grads.append(entry)
-    f32 = mf_grad["f32"]
+    f32 = mf_grad[("step_flows", "f32")]
     bwd_by_path = {
         "main_path_float32": main_f32["warp_multiflow_backward_launches"],
         "main_path_bfloat16": main_bf16["warp_multiflow_backward_launches"],
@@ -2777,20 +2894,21 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         **{f"ddp_eval_cli_rank{i}": n for i, n in enumerate(scaled["ddp_eval"]["multiflow_backward_by_rank"])},
     }
     mf_bwd = {
-        "name": "warp_multiflow_planar_backward", "route": "cuda",
-        "source": "superslomo_tpu_torch/csrc/warp_single.cu",
+        "name": "warp_multiflow_grad", "route": "cuda",
+        "source": "superslomo_tpu_torch/csrc/warp_multiflow.cu",
         "replaces": "superslomo_tpu/ops/warp_pallas.py:428",
-        "composition": "ops._WarpMultiflow.backward: a warp_single_flow_grad and a warp_single_img_grad launch a flow",
         "launches": sum(bwd_by_path.values()), "launches_by_main_path": bwd_by_path,
         "launches_per_backward": f32["launches"], "max_abs_err": f32["max_abs_err"],
         "ms": f32["backward"]["ms"], "device_ms": f32["backward"]["device_ms"], "host_ms": f32["backward"]["host_ms"],
-        "plain_ms": f32["plain_backward_ms"], "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": f32["library_backward_ms"], "fwd_bwd_ms": f32["fwd_bwd"]["ms"],
+        "kernel": f32["kernel"], "plain_ms": f32["plain_backward_ms"], "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"], "library_ms": f32["library_backward_ms"], "fwd_bwd_ms": f32["fwd_bwd"]["ms"],
         "fwd_bwd_device_ms": f32["fwd_bwd"]["device_ms"], "plain_fwd_bwd_ms": f32["plain_fwd_bwd_ms"],
         "library_fwd_bwd_ms": f32["library_fwd_bwd_ms"], "shape": f32["shape"],
-        "plain": "the plain warp's autograd backward", "library": f32["library"],
-        "bf16": {k: mf_grad["bf16"][k] for k in ("launches", "max_abs_err", "backward", "fwd_bwd", "plain_backward_ms",
-                                                   "library_backward_ms", "bound_ms")},
+        "flows": "the step's (smooth, <= 30 px); the cases below at the same shape",
+        "plain": "ops.warp_multiflow_backward_reference", "library": f32["library"],
+        "cases": {f"{case}_{tag}": {k: r[k] for k in ("launches", "max_abs_err", "backward", "kernel", "fwd_bwd",
+                                                      "plain_backward_ms", "library_backward_ms", "bound_ms")}
+                  for (case, tag), r in mf_grad.items() if "kernel" in r and (case, tag) != ("step_flows", "f32")},
     }
     return [mf, fwd, *grads, mf_bwd]
 
@@ -2809,6 +2927,8 @@ def main() -> int:
                     help="build, then only the renderer and flow-EPE command-line phases (18-21)")
     ap.add_argument("--scale-only", action="store_true",
                     help="build, then only the native checkpoint and data-parallel phases (22-23)")
+    ap.add_argument("--sweep", action="store_true",
+                    help="build, then only the multi-flow backward's checks and its tile, margin and finish sweep")
     ap.add_argument("--ddp-ranks", type=int, default=None,
                     help="build, then only phases 23b-23c at this many ranks (one card a rank where there are "
                          "enough)")
@@ -2851,6 +2971,12 @@ def main() -> int:
         print(smi, flush=True)
         emit({"ddp_ranks": args.ddp_ranks, "device": {"kind": torch.cuda.get_device_name(0),
                                                       "count": torch.cuda.device_count()}})
+        return 0
+    if args.sweep:
+        phase_multiflow_grad()
+        phase_multiflow_grad_sweep()
+        print(smi, flush=True)
+        emit({"sweep": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
     if args.scale_only:
         scale_only(norm)

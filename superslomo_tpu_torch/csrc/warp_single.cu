@@ -211,26 +211,6 @@ warp_single_flow_grad_kernel(const T* __restrict__ img, const float* __restrict_
   }
 }
 
-// Channel c of a thread's kPX adjacent output-gradient values (0 past
-// `valid`), the first at g; kInPlanarVec: one aligned kPX-wide load.
-template <typename T>
-__device__ __forceinline__ void load_grad(const T* g, const Strides& s, int c, int mode, int valid,
-                                          float* out) {
-  if (mode == kInPlanarVec) {
-    const float2 p = load_f32x2(g + c * s.c);
-    out[0] = p.x;
-    out[1] = p.y;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < Tile::kPX; ++i) out[i] = i < valid ? load_f32(g + c * s.c + i * s.x) : 0.0f;
-}
-
-// acc += w * g (4 channels) with one vector atomic (global memory, sm_90).
-__device__ __forceinline__ void scatter4(float4* acc, float w, const float* g) {
-  atomicAdd(acc, make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
-}
-
 // The image gradient of the custom VJP at warp_pallas.py:663-666. Bound at
 // the training shape: 51.4 MB, 0.0153 ms (bytes). The kernel it replaced was
 // paced by its 12 scalar global atomics a pixel; this one makes 3 to 4
@@ -303,25 +283,6 @@ warp_single_img_grad_kernel(const float* __restrict__ flow, const T* __restrict_
   }
 }
 
-// The image gradient from the scratch: acc (B, G, H, W, 4) f32 → grad_img
-// (B, C, H, W) in the image's dtype, through its strides; one thread a pixel.
-template <typename T>
-__global__ void __launch_bounds__(256)
-warp_single_img_grad_store_kernel(const float4* __restrict__ acc, T* __restrict__ grad_img, int C,
-                                  int H, int W, Strides so) {
-  const int x = blockIdx.x * 256 + threadIdx.x, y = blockIdx.y, b = blockIdx.z;
-  if (x >= W) return;
-  const int groups = (C + 3) / 4;
-  T* dst = grad_img + b * so.b + static_cast<int64_t>(y) * so.y + x * so.x;
-  for (int q = 0; q < groups; ++q) {
-    const float4 a = acc[(static_cast<int64_t>(b * groups + q) * H + y) * W + x];
-    const float v[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (4 * q + k < C) store(dst + (4 * q + k) * so.c, v[k]);
-  }
-}
-
 Strides strides_at(const int64_t* s) { return Strides{s[0], s[1], s[2], s[3]}; }
 
 dim3 tile_grid(int B, int H, int W) {
@@ -358,7 +319,7 @@ cudaError_t launch_img_grad(const float* flow, const void* grad_out, float4* acc
       flow, static_cast<const T*>(grad_out), acc, C, H, W, strides_at(s), strides_at(s + 4), plan);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  warp_single_img_grad_store_kernel<T><<<dim3((W + 255) / 256, H, B), 256, 0, stream>>>(
+  grad_store_kernel<T><<<dim3((W + 255) / 256, H, B), 256, 0, stream>>>(
       acc, static_cast<T*>(grad_img), C, H, W, strides_at(s + 8));
   return cudaGetLastError();
 }

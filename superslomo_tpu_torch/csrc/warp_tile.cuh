@@ -220,4 +220,46 @@ __device__ __forceinline__ void store_px(__nv_bfloat16* p, const float* a, int64
     if (i < valid) store(p + i * sx, a[i]);
 }
 
+// ---------------------------------------------------------------------------
+// The image gradients' pieces (warp_single.cu, warp_multiflow.cu).
+
+// Channel c of a thread's kPX adjacent output-gradient values (0 past
+// `valid`), the first at g; kInPlanarVec: one aligned kPX-wide load.
+template <typename T>
+__device__ __forceinline__ void load_grad(const T* g, const Strides& s, int c, int mode, int valid,
+                                          float* out) {
+  if (mode == kInPlanarVec) {
+    const float2 p = load_f32x2(g + c * s.c);
+    out[0] = p.x;
+    out[1] = p.y;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < Tile::kPX; ++i) out[i] = i < valid ? load_f32(g + c * s.c + i * s.x) : 0.0f;
+}
+
+// acc += w * g (4 channels) with one vector atomic (global memory, sm_90).
+__device__ __forceinline__ void scatter4(float4* acc, float w, const float* g) {
+  atomicAdd(acc, make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
+}
+
+// An image gradient from its f32 scratch: acc (B, G, H, W, 4), G = ceil(C /
+// 4) groups of 4 channels → grad (B, C, H, W) in the image's dtype, through
+// its strides; one thread a pixel, 256 a block, grid (ceil(W / 256), H, B).
+template <typename T>
+__global__ void __launch_bounds__(256)
+grad_store_kernel(const float4* __restrict__ acc, T* __restrict__ grad, int C, int H, int W, Strides so) {
+  const int x = blockIdx.x * 256 + threadIdx.x, y = blockIdx.y, b = blockIdx.z;
+  if (x >= W) return;
+  const int groups = (C + 3) / 4;
+  T* dst = grad + b * so.b + static_cast<int64_t>(y) * so.y + x * so.x;
+  for (int q = 0; q < groups; ++q) {
+    const float4 a = acc[(static_cast<int64_t>(b * groups + q) * H + y) * W + x];
+    const float v[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (4 * q + k < C) store(dst + (4 * q + k) * so.c, v[k]);
+  }
+}
+
 }  // namespace warp

@@ -54,6 +54,54 @@ def warp_multiflow_planar_reference(
     return acc.to(out_dtype)
 
 
+def warp_multiflow_backward_reference(planes, u, v, grad_out, need_planes: bool, need_flow: bool):
+    """The plain version of the multi-flow backward kernel, with its arguments:
+    the gradients of ``warp_multiflow_planar_reference`` for the output
+    gradient ``grad_out`` (B, C, n, H, W), as ``(grad_planes, grad_u,
+    grad_v)``, each None unless asked for; grad_planes (B, C, H, W) in the
+    planes' dtype, grad_u and grad_v (B, n, H, W) f32. The taps written out:
+    floor() carries no gradient and a masked tap contributes nothing; bf16
+    planes and grad_out are upcast (exact), the planes' gradient is summed in
+    f32 with ``scatter_add_`` and rounded once."""
+    B, C, H, W = planes.shape
+    n = u.shape[1]
+    dev, f32 = planes.device, torch.float32
+    img, g = planes.to(f32), grad_out.to(f32)
+    sx = (torch.arange(W, device=dev, dtype=f32) + u.to(f32)).clamp(-2, W + 1)
+    sy = (torch.arange(H, device=dev, dtype=f32)[:, None] + v.to(f32)).clamp(-2, H + 1)
+    x0f, y0f = torch.floor(sx), torch.floor(sy)
+    wx, wy = sx - x0f, sy - y0f
+    ax, ay = 1 - wx, 1 - wy
+    x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
+    zero = torch.zeros((), device=dev, dtype=f32)
+    taps = {}  # (dy, dx) → (flat index, in-image mask), each (B, n, H, W)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            iy, ix = y0 + dy, x0 + dx
+            inside = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
+            taps[dy, dx] = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1), inside)
+    grad_planes = grad_u = grad_v = None
+    if need_flow:
+        flat = img.reshape(B, C, 1, H * W).expand(B, C, n, H * W)
+
+        def value(dy, dx):  # (B, C, n, H, W): the tap's value, 0 where masked
+            idx, inside = taps[dy, dx]
+            vals = torch.gather(flat, 3, idx.reshape(B, 1, n, H * W).expand(B, C, n, H * W))
+            return torch.where(inside[:, None], vals.reshape(B, C, n, H, W), zero)
+
+        v00, v01, v10, v11 = value(0, 0), value(0, 1), value(1, 0), value(1, 1)
+        grad_u = (g * (ay[:, None] * (v01 - v00) + wy[:, None] * (v11 - v10))).sum(1)
+        grad_v = (g * (ax[:, None] * (v10 - v00) + wx[:, None] * (v11 - v01))).sum(1)
+    if need_planes:
+        acc = torch.zeros((B, C, H * W), device=dev, dtype=f32)
+        for (dy, dx), wt in (((0, 0), ay * ax), ((0, 1), ay * wx), ((1, 0), wy * ax), ((1, 1), wy * wx)):
+            idx, inside = taps[dy, dx]
+            src = g * torch.where(inside, wt, zero)[:, None]
+            acc.scatter_add_(2, idx.reshape(B, 1, n * H * W).expand(B, C, n * H * W), src.reshape(B, C, n * H * W))
+        grad_planes = acc.reshape(B, C, H, W).to(planes.dtype)
+    return grad_planes, grad_u, grad_v
+
+
 def warp_single_reference(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """(B, C, H, W) image x (B, 2, H, W) flow (u, v) → (B, C, H, W) in the
     image dtype: the plain version of the single-flow kernel, NCHW."""

@@ -504,45 +504,89 @@ def test_warp_multiflow_planar_gradients_match_jax_vjp():
     assert (want[1] == 0).any()  # the outside taps carry no flow gradient
 
 
-def _plain_single_backward(calls):
-    """A stand-in for ``warp_single_backward_cuda`` that takes CPU tensors:
-    the plain warp's autograd, asked for the same gradients; ``calls``
-    records each call's layout and the gradients asked for."""
-    def bwd(img, flow, grad_out, need_img, need_flow):
-        calls.append((tuple(grad_out.stride()), img.dtype, grad_out.dtype, need_img, need_flow))
-        im, fl = img.detach().requires_grad_(need_img), flow.detach().requires_grad_(need_flow)
-        wanted = [x for x, need in ((im, need_img), (fl, need_flow)) if need]
-        with torch.enable_grad():  # a Function's backward runs without it
-            grads = iter(torch.autograd.grad(tops.warp_single_reference(im, fl), wanted, grad_out))
-        return (next(grads) if need_img else None), (next(grads) if need_flow else None)
+@functools.lru_cache(maxsize=1)
+def _jax_multiflow_vjp_bf16():
+    """JAX's f32 VJP (``_mfu_p_bwd``'s) at the inputs of ``_jax_multiflow_vjp``
+    with the planes and the output gradient rounded to bf16 (their exact
+    values upcast)."""
+    (planes, u, v, g), _ = _jax_multiflow_vjp()
+    p16 = torch.from_numpy(planes).bfloat16().float().numpy()
+    g16 = torch.from_numpy(g).bfloat16().float().numpy()
+    _, vjp = jax.vjp(jops.warp_multiflow_planar, *(jnp.asarray(a) for a in (p16, u, v)))
+    return tuple(np.asarray(x) for x in vjp(jnp.asarray(g16)))
+
+
+_NEEDS = {"all": (True, True, True), "flows": (False, True, True), "planes": (True, False, False)}
+_BF16_ROUNDING = lambda w: 2.0**-8 * np.abs(w)  # noqa: E731  half a bf16 ulp: the one rounding of the planes' gradient
+
+
+@pytest.mark.parametrize("needs", list(_NEEDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_multiflow_backward_reference_matches_jax_vjp(needs, dtype):
+    """The plain version of the backward kernel, asked for all three
+    gradients, the flows' alone or the planes' alone, against JAX's VJP of
+    ``warp_multiflow_planar`` (flows beyond the frame). bf16 planes and
+    output gradient: JAX's f32 VJP of their values, the planes' gradient
+    rounded once to bf16."""
+    (planes, u, v, g), want = _jax_multiflow_vjp()
+    if dtype == torch.bfloat16:
+        want = _jax_multiflow_vjp_bf16()
+    need_planes, need_flow, _ = _NEEDS[needs]
+    got = tops.warp_multiflow_backward_reference(
+        torch.from_numpy(planes).to(dtype), torch.from_numpy(u), torch.from_numpy(v),
+        torch.from_numpy(g).to(dtype), need_planes, need_flow)
+    asked = [need_planes, need_flow, need_flow]
+    assert [x is not None for x in got] == asked
+    if need_planes:
+        assert got[0].dtype == dtype and got[0].shape == planes.shape
+    if need_flow:
+        assert got[1].dtype == got[2].dtype == torch.float32 and got[1].shape == u.shape
+    names = [name for name, need in zip(("planes", "u", "v"), asked) if need]
+    _assert_mf_grads([x for x in got if x is not None], [w for w, need in zip(want, asked) if need], names,
+                     extra=_BF16_ROUNDING if dtype == torch.bfloat16 else None)
+
+
+def _plain_multiflow_backward(calls):
+    """A stand-in for ``warp_multiflow_backward_cuda`` that takes CPU tensors:
+    its plain version, with the wrapper's counts (one kernel launch a call; 3
+    device operations with the planes' gradient, else 1); ``calls`` records
+    each call's planes and output gradient layouts and the gradients asked
+    for."""
+    def bwd(planes, u, v, grad_out, need_planes, need_flow):
+        calls.append((tuple(planes.stride()), planes.dtype, tuple(grad_out.stride()), grad_out.dtype,
+                      need_planes, need_flow))
+        bwd.launches += 1
+        bwd.operations += 3 if need_planes else 1
+        return tops.warp_multiflow_backward_reference(planes, u, v, grad_out, need_planes, need_flow)
+    bwd.launches = bwd.operations = 0
     return bwd
 
 
-@pytest.mark.parametrize("needs", [(True, True, True), (False, True, True), (True, False, False)],
-                         ids=["all", "flows", "planes"])
+@pytest.mark.parametrize("needs", ["all", "flows", "planes"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_warp_multiflow_function_backward_matches_jax_vjp(monkeypatch, needs, dtype):
     """The card's autograd.Function for the multi-flow warp, on CPU tensors
     with its kernel wrappers replaced by their plain versions: its backward,
-    n single-flow gradients through ``grad_out[:, :, k]`` views, summed over
-    the flows, against JAX's VJP. bf16 planes are differentiated as the f32
-    warp of the planes upcast for the output gradient upcast (JAX's
-    ``_mfu_p_bwd``), so their gradient is JAX's f32 one rounded once to bf16
-    (half a bf16 ulp, at most 2^-8 of the value, beyond the f32 bar). One
-    launch of each gradient kernel a flow, and only those asked for."""
+    one call of the backward kernel for all n flows, against JAX's VJP. The
+    planes (a channels_last pair slice) and the output gradient reach the
+    kernel as they are, bf16 included (no upcast copy): bf16 planes are
+    differentiated as the f32 warp of the planes upcast for the output
+    gradient upcast (JAX's ``_mfu_p_bwd``), so their gradient is JAX's f32
+    one rounded once to bf16 (half a bf16 ulp, at most 2^-8 of the value,
+    beyond the f32 bar). One kernel launch whatever n: 3 device operations
+    with the planes' gradient, 1 without, and only the gradients asked for."""
     (planes, u, v, g), want = _jax_multiflow_vjp()
     n = u.shape[1]
+    needs = _NEEDS[needs]
     # the planes as the step passes them: a channels_last pair slice
     pair = torch.from_numpy(np.concatenate([np.zeros_like(planes), planes], 1)).to(dtype)
     pair = pair.contiguous(memory_format=torch.channels_last)
     calls = []
     monkeypatch.setattr(tops, "warp_multiflow_planar_cuda",
                         lambda p, uu, vv: tops.warp_multiflow_planar_reference(p, uu, vv, p.dtype))
-    monkeypatch.setattr(tops, "warp_single_backward_cuda", _plain_single_backward(calls))
+    monkeypatch.setattr(tops, "warp_multiflow_backward_cuda", _plain_multiflow_backward(calls))
     if dtype == torch.bfloat16:  # JAX's f32 VJP of the bf16 planes' values
-        _, vjp = jax.vjp(jops.warp_multiflow_planar, jnp.asarray(pair[:, 3:6].float().numpy()),
-                         jnp.asarray(u), jnp.asarray(v))
-        want = tuple(np.asarray(x) for x in vjp(jnp.asarray(torch.from_numpy(g).bfloat16().float().numpy())))
+        want = _jax_multiflow_vjp_bf16()
     leaves = [pair.requires_grad_(needs[0]), torch.from_numpy(u).requires_grad_(needs[1]),
               torch.from_numpy(v).requires_grad_(needs[2])]
     out = tops._WarpMultiflow.apply(leaves[0][:, 3:6], leaves[1], leaves[2])
@@ -554,12 +598,12 @@ def test_warp_multiflow_function_backward_matches_jax_vjp(monkeypatch, needs, dt
     asked = [(name, x, w) for name, x, w, need in zip(("planes", "u", "v"), got, want, needs) if need]
     assert all(x is None for x, need in zip(got, needs) if not need)
     _assert_mf_grads([x for _, x, _ in asked], [w for _, _, w in asked], [name for name, _, _ in asked],
-                     extra=(lambda w: 2.0**-8 * np.abs(w)) if dtype == torch.bfloat16 else None)
+                     extra=_BF16_ROUNDING if dtype == torch.bfloat16 else None)
     if needs[0]:
         assert leaves[0].grad.dtype == dtype and not leaves[0].grad[:, 0:3].any()
-    # one flow-gradient launch and one image-gradient launch a flow, as asked;
-    # the output gradient's flow k read in place, with its (B, C, n, H, W) strides
-    assert sum(c[3] for c in calls) == n * needs[0] and sum(c[4] for c in calls) == n * (needs[1] or needs[2])
-    assert tops._WarpMultiflow.launches == sum(c[3] + c[4] for c in calls)
-    assert len(calls) == n and all(c[0] == (3 * n * 19 * 24, n * 19 * 24, 24, 1) for c in calls)
-    assert all(c[1] == c[2] == torch.float32 for c in calls)
+    # one kernel call for all n flows, the fixed count of device operations;
+    # the planes read in place (the pair's strides) and the output gradient as
+    # autograd hands it, both in the planes' dtype
+    assert len(calls) == 1 and tops._WarpMultiflow.launches == (3 if needs[0] else 1)
+    assert calls[0] == (tuple(pair.stride()), dtype, (3 * n * 19 * 24, n * 19 * 24, 19 * 24, 24, 1), dtype,
+                        needs[0], needs[1] or needs[2])
