@@ -42,10 +42,13 @@ Phases, each of which raises on failure:
      host's time too); ``device_ms``, the same calls queued behind a
      device-side sleep, so each interval holds only device work; and
      ``host_ms``, the host's time to launch one call; then the multi-flow
-     warp's gradients (its autograd.Function, one flow-gradient and one
-     image-gradient launch a flow) against autograd of its plain version at
-     the serving path's shapes, f32 and bf16 planes, 2n launches a backward,
-     timed beside its bound and grid_sample's forward + backward;
+     warp's backward kernel (csrc/warp_multiflow.cu, through its
+     autograd.Function) against its plain version at the serving path's
+     shapes: the step's flows with f32 and bf16 planes, noise flows, large
+     flows (+-200 px, beyond every block's shared window) and an odd
+     strided shape of two channel groups; one kernel call and 3 device
+     operations a backward for any n, each gradient alone too; timed beside
+     its bound and grid_sample's backward and forward + backward;
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
@@ -542,57 +545,6 @@ def time_mf_grad(p, u, v, g, result, leaves):
         "bound_ms": bound[0], "bound_by": bound[1],
         "library": "grid_sample on the planes tiled n times, f32: its backward to the tiles and the grid",
     }
-
-
-def phase_multiflow_grad_sweep():
-    """The multi-flow backward's tile and margin (ops/warp_plan.py's
-    MF_GRAD_TILE, MF_GRAD_MARGIN) and its measurement variants
-    (MF_GRAD_VARIANT: plain shared adds in place of the atomics, timing only;
-    finish (b); the H design) swept over the 720p cases of
-    ``multiflow_grad_cases``: each configuration's wrapper device_ms and
-    errors, the configuration as shipped first and last; raises at the end if
-    a configuration other than the plain adds is wrong."""
-    from superslomo_tpu_torch import ops
-    from superslomo_tpu_torch.ops import warp_plan
-    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda as kernel
-
-    cases = [c for c in multiflow_grad_cases() if c[2].shape[2] == 736]
-    wants = [ops.warp_multiflow_backward_reference(p.float(), u, v, g.float(), True, True)
-             for _, _, p, u, v, g in cases]
-    default = (warp_plan.MF_GRAD_TILE, warp_plan.MF_GRAD_MARGIN)
-    bad = []
-    configs = [(0, tile, m) for tile in ((64, 16), (64, 32), (64, 8), (32, 32)) for m in (4, 8, 16)]
-    configs += [(1, (64, 16), 8), (3, (64, 32), 8), (3, (64, 16), 8)]
-    configs += [(2, tile, m) for tile in ((64, 16), (64, 32)) for m in (4, 8, 16)]
-    configs += [(0, (64, 16), 8)]
-    for variant, tile, margin in configs:
-        warp_plan.MF_GRAD_TILE, warp_plan.MF_GRAD_MARGIN, warp_plan.MF_GRAD_VARIANT = tile, margin, variant
-        warp_plan.plan_multiflow_grad.cache_clear()
-        res = {"variant": ["as shipped", "plain shared adds (races)", "finish (b)", "H design"][variant],
-               "tile": list(tile), "margin": margin, "threads": tile[0] * tile[1] // 2}
-        for (case, tag, p, u, v, g), want in zip(cases, wants):
-            got = kernel(p, u, v, g, True, True)
-            torch.cuda.synchronize()
-            errs, ok = check_mf_grads(got, want, p.dtype)
-            r = {"device_ms": cuda_ms(lambda: kernel(p, u, v, g, True, True), queued=True),
-                 "max_abs_err": max(e["max_abs_err"] for e in errs.values()), "ok": ok}
-            if case == "step_flows" and variant == 0:
-                r["flows_only_ms"] = cuda_ms(lambda: kernel(p, u, v, g, False, True), queued=True)
-                r["planes_only_ms"] = cuda_ms(lambda: kernel(p, u, v, g, True, False), queued=True)
-                sub = kernel(p, u, v, g, False, True)
-                r["ok"] &= check_mf_grads(sub, want, p.dtype)[1]
-                sub = kernel(p, u, v, g, True, False)
-                r["ok"] &= check_mf_grads(sub, want, p.dtype)[1]
-            res[f"{case}_{tag}"] = r
-            if not r["ok"] and variant != 1:  # plain adds race: timing only
-                bad.append((res["tile"], margin, case, tag, errs))
-            del got
-        emit({"phase": "multiflow_grad_sweep", **res})
-    warp_plan.MF_GRAD_TILE, warp_plan.MF_GRAD_MARGIN = default
-    warp_plan.MF_GRAD_VARIANT = 0
-    warp_plan.plan_multiflow_grad.cache_clear()
-    if bad:
-        raise AssertionError(f"multi-flow backward sweep: wrong results {bad}")
 
 
 def single_bounds(B, C, H, W, esize):
@@ -2927,8 +2879,6 @@ def main() -> int:
                     help="build, then only the renderer and flow-EPE command-line phases (18-21)")
     ap.add_argument("--scale-only", action="store_true",
                     help="build, then only the native checkpoint and data-parallel phases (22-23)")
-    ap.add_argument("--sweep", action="store_true",
-                    help="build, then only the multi-flow backward's checks and its tile, margin and finish sweep")
     ap.add_argument("--ddp-ranks", type=int, default=None,
                     help="build, then only phases 23b-23c at this many ranks (one card a rank where there are "
                          "enough)")
@@ -2971,12 +2921,6 @@ def main() -> int:
         print(smi, flush=True)
         emit({"ddp_ranks": args.ddp_ranks, "device": {"kind": torch.cuda.get_device_name(0),
                                                       "count": torch.cuda.device_count()}})
-        return 0
-    if args.sweep:
-        phase_multiflow_grad()
-        phase_multiflow_grad_sweep()
-        print(smi, flush=True)
-        emit({"sweep": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
     if args.scale_only:
         scale_only(norm)

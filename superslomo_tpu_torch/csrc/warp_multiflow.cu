@@ -37,22 +37,29 @@
 // and the planes' gradient is rounded once, at its store.
 //
 // Bound: device-memory bandwidth. The planes, u, v and g read once, the three
-// gradients written once: at the step's shapes ~414 MB in f32 (0.1237 ms at
-// 3.35 TB/s) and ~313 MB with bf16 planes (0.0934 ms). What holds a backward
-// back is the scatter of the planes' gradient: 4 taps x C channels of each of
-// the 13.2 M (pixel, flow) pairs, summed across the n flows.
+// gradients written once: at the step's shapes (B=2, C=3, n=7, 736x1280)
+// ~414 MB in f32 (0.1237 ms at 3.35 TB/s) and ~313 MB with bf16 planes
+// (0.0934 ms). The planes' gradient is a scatter: 4 taps x C channels of each
+// of the 13.2 M (pixel, flow) pairs, summed across the n flows.
 //
-// Design: one block a 2-D output tile, looping over all n flows as the
+// Design: one block a 64 x 8 output tile, looping over all n flows as the
 // forward does, so the plane lines around the tile serve every flow's
 // flow-gradient gather from L1. Each (pixel, flow) is visited once: its
 // position, weights and masks serve both gradients. The planes' gradient is
-// summed on chip: the block keeps its source window (the tile plus a margin)
-// in shared memory and adds every tap inside it there; a tap outside it
-// (large flows) goes to an f32 device scratch with a 16-byte vector atomic,
-// so the kernel is exact for any flow. After the n flows the block adds its
-// window's touched pixels to the scratch with one vector atomic each, and a
-// store pass writes the planes' dtype and memory format. A backward is at most
-// 3 device operations (zero the scratch, the kernel, the store), whatever n.
+// summed on chip: the block keeps its source window (the tile and 4 more
+// pixels on each side) in shared memory and adds every tap inside it there; a
+// tap outside it (large flows) goes to an f32 device scratch with a 16-byte
+// vector atomic, so the kernel is exact for any flow. A thread owns two
+// pixels of a column and the lanes of a warp adjacent columns, so the taps
+// that neighbouring pixels share are summed in registers and across lanes
+// before they reach shared memory (warp_multiflow_grad_kernel). After the n
+// flows the block adds its window's touched pixels to the scratch with one
+// vector atomic each, and a store pass writes the planes' dtype and memory
+// format: a backward is 3 device operations (zero the scratch, the kernel,
+// the store), 1 without the planes' gradient, whatever n. On the H100 this
+// measured faster than two adjacent pixels a thread with their loads and
+// stores 2 wide, and than a buffer of each block's window summed by a second
+// pass (deterministic), at every tile and margin tried (PERF.md).
 
 #include "warp_tile.cuh"
 
@@ -94,14 +101,16 @@ warp_multiflow_kernel(const T* __restrict__ planes, const float* __restrict__ u,
 // ---------------------------------------------------------------------------
 // The backward: the multi-flow warp's three gradients in one kernel.
 
-// How the backward reads and writes, and how its blocks are cut
-// (ops/warp_plan.py::plan_multiflow_grad).
+// How the backward's blocks are cut (ops/warp_plan.py::plan_multiflow_grad).
 struct MfGradPlan {
-  int tile_w, tile_h;  // a block's output tile; tile_w * tile_h / 2 threads
+  int tile_w, tile_h;  // a block's output tile: tile_w * tile_h / 2 threads, whole warps along x
   int margin;     // source pixels kept in shared memory on each side of the tile
   int smem;       // dynamic shared memory bytes: the window of min(C, 4) channels
-  int variant;    // measurement only: 0 as shipped, 1 plain adds, 2 finish (b), 3 the H design
 };
+
+// The most threads a block of the backward has (ops/warp_plan.py:
+// MF_GRAD_THREADS); 4 blocks an SM at 64 registers a thread.
+constexpr int kMfGradThreads = 256;
 
 // A block's source window: its tile, `margin` more on each side, and one more
 // column and row for the right and bottom taps.
@@ -117,8 +126,7 @@ __device__ __forceinline__ Window window_of(int bx, int by, const MfGradPlan& p)
 // Where one block's taps of the planes' gradient go: inside the window, into
 // shared memory (one f32 atomic a channel); outside, into the f32 scratch
 // (one 16-byte vector atomic for the group's channels).
-template <bool kPlain = false>
-struct TapSinkT {
+struct TapSink {
   float* win;    // [cg][w.h][w.w]
   float4* acc;   // this image's and group's (H, W) plane of the scratch
   Window w;
@@ -132,10 +140,7 @@ struct TapSinkT {
       const int plane = w.w * w.h;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (j < cg) {
-          if (kPlain) p[j * plane] += vals[j];  // measurement only: races
-          else atomicAdd(p + j * plane, vals[j]);
-        }
+        if (j < cg) atomicAdd(p + j * plane, vals[j]);
     } else {
       atomicAdd(acc + static_cast<int64_t>(ty) * W + tx, make_float4(vals[0], vals[1], vals[2], vals[3]));
     }
@@ -148,8 +153,6 @@ struct TapSinkT {
     add(ty, tx, vals);
   }
 };
-
-using TapSink = TapSinkT<false>;
 
 // After its n flows: the block adds its window's in-image pixels that any tap
 // reached to the scratch, one vector atomic each; a warp a window row.
@@ -187,8 +190,12 @@ __device__ __forceinline__ void flow_grad_taps(const Taps& t, const T* plane, in
   dv += gc * (t.ax * (v10 - v00) + t.wx * (v11 - v01));
 }
 
-// The V design: a thread owns the pixels (x, y) and (x, y + 1) of one tile
-// column, the 32 lanes of a warp 32 adjacent columns. Where the second pixel
+// The gradients of warp_multiflow_kernel for the output gradient g (B, C, n,
+// H, W). A block owns a tile_w x tile_h output tile of image b and channel
+// group q (4 channels; blockIdx.z = b * groups + q) and loops over all n
+// flows; kFlow (group 0 only) computes d/du and d/dv of each flow, kPlanes
+// the planes' gradient of the group. A thread owns the pixels (x, y) and
+// (x, y + 1) of one tile column, the 32 lanes of a warp 32 adjacent columns. Where the second pixel
 // samples one row below the first (its taps' top row is the first's bottom
 // row) the pair is aligned: its 8 taps fall on 3 rows x 2 columns, summed in
 // registers, and its flow-gradient gather reads 6 taps a channel, not 8.
@@ -197,17 +204,13 @@ __device__ __forceinline__ void flow_grad_taps(const Taps& t, const T* plane, in
 // warp shuffle, and each lane adds only its left column (and its right one
 // when no neighbour takes it). An aligned run of lanes makes 3 atomics a
 // channel for 2 pixels, against 8 unmerged.
-// Measurement variants (chip_smoke.py --sweep): kVariant 0 as shipped; 1
-// plain shared adds in place of the atomics (wrong: races; timing only); 2
-// finish (b): the window to a buffer slot of the block's own, summed by
-// warp_multiflow_grad_sum_kernel.
-template <typename T, bool kPlanes, bool kFlow, int kMaxThreads, int kVariant>
-__global__ void __launch_bounds__(kMaxThreads, 1024 / kMaxThreads)
+template <typename T, bool kPlanes, bool kFlow>
+__global__ void __launch_bounds__(kMfGradThreads, 4)
 warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict__ u,
                            const float* __restrict__ v, const T* __restrict__ grad_out,
                            float* __restrict__ grad_u, float* __restrict__ grad_v, float4* __restrict__ acc,
-                           float* __restrict__ windows, int C, int groups, int n, int H, int W, Strides sp,
-                           Strides su, Strides sv, Strides sg, int64_t sgk, MfGradPlan plan) {
+                           int C, int groups, int n, int H, int W, Strides sp, Strides su, Strides sv,
+                           Strides sg, int64_t sgk, MfGradPlan plan) {
   extern __shared__ float4 smem_f4[];
   float* win = reinterpret_cast<float*>(smem_f4);
   const int b = blockIdx.z / groups, q = blockIdx.z - b * groups;
@@ -217,7 +220,7 @@ warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict
   const int y = blockIdx.y * plan.tile_h + 2 * (threadIdx.x / plan.tile_w);
   const int valid = x < W ? max(0, min(2, H - y)) : 0;  // this thread's pixels inside the image
   const Window w = window_of(blockIdx.x, blockIdx.y, plan);
-  const TapSinkT<kVariant == 1> sink{win, acc + static_cast<int64_t>(b * groups + q) * H * W, w, cg, W};
+  const TapSink sink{win, acc + static_cast<int64_t>(b * groups + q) * H * W, w, cg, W};
   if (kPlanes) {
     for (int i = threadIdx.x; i < cg * w.w * w.h; i += blockDim.x) win[i] = 0.0f;
     __syncthreads();
@@ -339,169 +342,6 @@ warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict
   }
   if (!kPlanes) return;
   __syncthreads();
-  if (kVariant == 2) {
-    const int64_t blk = (static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    float* dst = windows + blk * min(C, 4) * (w.w * w.h);
-    for (int i = threadIdx.x; i < cg * w.w * w.h; i += blockDim.x) dst[i] = win[i];
-    return;
-  }
-  flush_window(win, sink.acc, w, cg, H, W);
-}
-
-// Finish (b)'s second pass (measurement only): for each pixel, the scratch
-// (taps outside every window) plus the windows of the blocks that cover it,
-// in a fixed order, → grad_planes through its strides; grid (ceil(W / 256),
-// H, B).
-template <typename T>
-__global__ void __launch_bounds__(256)
-warp_multiflow_grad_sum_kernel(const float* __restrict__ windows, const float4* __restrict__ acc,
-                               T* __restrict__ grad, int C, int H, int W, Strides so, MfGradPlan plan,
-                               int nbx, int nby) {
-  const int x = blockIdx.x * 256 + threadIdx.x, y = blockIdx.y, b = blockIdx.z;
-  if (x >= W) return;
-  const int groups = (C + 3) / 4, cw = min(C, 4);
-  const int ww = plan.tile_w + 2 * plan.margin + 1, wh = plan.tile_h + 2 * plan.margin + 1;
-  const int wsize = ww * wh;
-  const int bx0 = x > plan.margin ? (x - plan.margin - 1) / plan.tile_w : 0;
-  const int bx1 = min(nbx - 1, (x + plan.margin) / plan.tile_w);
-  const int by0 = y > plan.margin ? (y - plan.margin - 1) / plan.tile_h : 0;
-  const int by1 = min(nby - 1, (y + plan.margin) / plan.tile_h);
-  T* dst = grad + b * so.b + static_cast<int64_t>(y) * so.y + x * so.x;
-  for (int q = 0; q < groups; ++q) {
-    const int cg = min(4, C - 4 * q);
-    const float4 a = acc[(static_cast<int64_t>(b * groups + q) * H + y) * W + x];
-    float s[4] = {a.x, a.y, a.z, a.w};
-    for (int by = by0; by <= by1; ++by) {
-      for (int bx = bx0; bx <= bx1; ++bx) {
-        const int64_t blk = (static_cast<int64_t>(b * groups + q) * nby + by) * nbx + bx;
-        const float* p = windows + blk * cw * wsize + (y - (by * plan.tile_h - plan.margin)) * ww +
-                         (x - (bx * plan.tile_w - plan.margin));
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (j < cg) s[j] += p[j * wsize];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (j < cg) store(dst + (4 * q + j) * so.c, s[j]);
-  }
-}
-
-// The H design (measurement only, contiguous u, v and g, even W): a thread
-// owns 2 adjacent pixels of a tile row, read and stored 2 at a time; the
-// second pixel's left taps are the first's right taps where it samples one
-// column right.
-template <typename T, bool kPlanes, bool kFlow>
-__global__ void __launch_bounds__(1024)
-warp_multiflow_grad_h_kernel(const T* __restrict__ planes, const float* __restrict__ u,
-                             const float* __restrict__ v, const T* __restrict__ grad_out,
-                             float* __restrict__ grad_u, float* __restrict__ grad_v, float4* __restrict__ acc,
-                             float* __restrict__ windows, int C, int groups, int n, int H, int W, Strides sp,
-                             Strides su, Strides sv, Strides sg, int64_t sgk, MfGradPlan plan) {
-  extern __shared__ float4 smem_f4[];
-  float* win = reinterpret_cast<float*>(smem_f4);
-  constexpr int kPX = Tile::kPX;
-  const int b = blockIdx.z / groups, q = blockIdx.z - b * groups;
-  const int c0 = 4 * q, cg = min(4, C - c0);
-  const int cols = plan.tile_w / kPX;
-  const int x = blockIdx.x * plan.tile_w + (threadIdx.x % cols) * kPX;
-  const int y = blockIdx.y * plan.tile_h + threadIdx.x / cols;
-  const int valid = y < H ? min(kPX, W - x) : 0;
-  const Window w = window_of(blockIdx.x, blockIdx.y, plan);
-  const int wsize = w.w * w.h;
-  const TapSink sink{win, acc + static_cast<int64_t>(b * groups + q) * H * W, w, cg, W};
-  if (kPlanes) {
-    for (int i = threadIdx.x; i < cg * wsize; i += blockDim.x) win[i] = 0.0f;
-    __syncthreads();
-  }
-  const bool flow = kFlow && q == 0;
-  if (valid > 0 && (kPlanes || flow)) {
-    const int64_t px = static_cast<int64_t>(y) * W + x;
-    const float* ub = u + b * su.b + static_cast<int64_t>(y) * su.y + x * su.x;
-    const float* vb = v + b * sv.b + static_cast<int64_t>(y) * sv.y + x * sv.x;
-    const T* gb = grad_out + b * sg.b + static_cast<int64_t>(y) * sg.y + x * sg.x;
-    const T* img = planes + b * sp.b;
-    const int sc = static_cast<int>(sp.c), sy = static_cast<int>(sp.y), sx = static_cast<int>(sp.x);
-    for (int k = 0; k < n; ++k) {
-      float uu[kPX], vv[kPX];
-      load_uv(ub + k * su.c, su.x, vb + k * sv.c, sv.x, kFlowPlanarVec, valid, uu, vv);
-      Taps t[kPX];
-#pragma unroll
-      for (int i = 0; i < kPX; ++i) t[i] = sample_taps(x + i, y, uu[i], vv[i], H, W);
-      const T* gk = gb + k * sgk;
-      float gv[kPX][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float gc[kPX] = {0.0f, 0.0f};
-        if (j < cg) load_grad(gk, sg, c0 + j, kInPlanarVec, valid, gc);
-#pragma unroll
-        for (int i = 0; i < kPX; ++i) gv[i][j] = gc[i];
-      }
-      if (flow) {
-        float du[kPX] = {0.0f, 0.0f}, dv[kPX] = {0.0f, 0.0f};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (j < C) {
-#pragma unroll
-            for (int i = 0; i < kPX; ++i)
-              if (i < valid) flow_grad_taps(t[i], img + j * sc, sy, sx, gv[i][j], du[i], dv[i]);
-          }
-        }
-        for (int c = 4; c < C; ++c) {
-          float gc[kPX];
-          load_grad(gk, sg, c, kInPlanarVec, valid, gc);
-#pragma unroll
-          for (int i = 0; i < kPX; ++i)
-            if (i < valid) flow_grad_taps(t[i], img + c * sc, sy, sx, gc[i], du[i], dv[i]);
-        }
-        const int64_t o = static_cast<int64_t>(b * n + k) * H * W + px;
-        store_px(grad_u + o, du, 1, kOutPlanarVec, valid);
-        store_px(grad_v + o, dv, 1, kOutPlanarVec, valid);
-      }
-      if (kPlanes) {
-        float wt[kPX][4];
-#pragma unroll
-        for (int i = 0; i < kPX; ++i) {
-          wt[i][0] = __fmul_rn(t[i].ay, t[i].ax);
-          wt[i][1] = __fmul_rn(t[i].ay, t[i].wx);
-          wt[i][2] = __fmul_rn(t[i].wy, t[i].ax);
-          wt[i][3] = __fmul_rn(t[i].wy, t[i].wx);
-        }
-        const Taps& a = t[0];
-        sink.tap(a.m00, a.y0, a.x0, wt[0][0], gv[0]);
-        sink.tap(a.m10, a.y0 + 1, a.x0, wt[0][2], gv[0]);
-        if (valid == kPX && t[1].y0 == a.y0 && t[1].x0 == a.x0 + 1) {
-          const Taps& r = t[1];
-          if (a.m01) {
-            float m[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) m[j] = gv[0][j] * wt[0][1] + gv[1][j] * wt[1][0];
-            sink.add(a.y0, a.x0 + 1, m);
-          }
-          if (a.m11) {
-            float m[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) m[j] = gv[0][j] * wt[0][3] + gv[1][j] * wt[1][2];
-            sink.add(a.y0 + 1, a.x0 + 1, m);
-          }
-          sink.tap(r.m01, r.y0, r.x0 + 1, wt[1][1], gv[1]);
-          sink.tap(r.m11, r.y0 + 1, r.x0 + 1, wt[1][3], gv[1]);
-        } else {
-          sink.tap(a.m01, a.y0, a.x0 + 1, wt[0][1], gv[0]);
-          sink.tap(a.m11, a.y0 + 1, a.x0 + 1, wt[0][3], gv[0]);
-          if (valid == kPX) {
-            const Taps& r = t[1];
-            sink.tap(r.m00, r.y0, r.x0, wt[1][0], gv[1]);
-            sink.tap(r.m01, r.y0, r.x0 + 1, wt[1][1], gv[1]);
-            sink.tap(r.m10, r.y0 + 1, r.x0, wt[1][2], gv[1]);
-            sink.tap(r.m11, r.y0 + 1, r.x0 + 1, wt[1][3], gv[1]);
-          }
-        }
-      }
-    }
-  }
-  if (!kPlanes) return;
-  __syncthreads();
   flush_window(win, sink.acc, w, cg, H, W);
 }
 
@@ -516,50 +356,15 @@ cudaError_t launch(const void* planes, const float* u, const float* v, void* out
   return cudaGetLastError();
 }
 
-template <typename T, bool kPlanes, bool kFlow, int kMaxThreads, int kVariant>
-cudaError_t launch_v(dim3 grid, int threads, int smem, cudaStream_t stream, const T* planes, const float* u,
-                     const float* v, const T* g, float* gu, float* gv, float4* acc, float* windows, int C,
-                     int groups, int n, int H, int W, const int64_t* s, const MfGradPlan& plan) {
-  auto kernel = warp_multiflow_grad_kernel<T, kPlanes, kFlow, kMaxThreads, kVariant>;
-  if (plan.variant == 3) kernel = warp_multiflow_grad_h_kernel<T, kPlanes, kFlow>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, threads, smem, stream>>>(
-      planes, u, v, g, gu, gv, acc, windows, C, groups, n, H, W, Strides{s[0], s[1], s[2], s[3]},
+template <typename T, bool kPlanes, bool kFlow>
+cudaError_t launch_grad_kernel(dim3 grid, int threads, cudaStream_t stream, const T* planes, const float* u,
+                               const float* v, const T* g, float* gu, float* gv, float4* acc, int C, int groups,
+                               int n, int H, int W, const int64_t* s, const MfGradPlan& plan) {
+  warp_multiflow_grad_kernel<T, kPlanes, kFlow><<<grid, threads, kPlanes ? plan.smem : 0, stream>>>(
+      planes, u, v, g, gu, gv, acc, C, groups, n, H, W, Strides{s[0], s[1], s[2], s[3]},
       Strides{s[4], s[5], s[6], s[7]}, Strides{s[8], s[9], s[10], s[11]}, Strides{s[12], s[13], s[15], s[16]},
       s[14], plan);
   return cudaGetLastError();
-}
-
-template <typename T, bool kPlanes, bool kFlow, int kMaxThreads>
-cudaError_t launch_mt(dim3 grid, int threads, int smem, cudaStream_t stream, const T* planes, const float* u,
-                      const float* v, const T* g, float* gu, float* gv, float4* acc, float* windows, int C,
-                      int groups, int n, int H, int W, const int64_t* s, const MfGradPlan& plan) {
-  if (kPlanes && kFlow && plan.variant == 1)
-    return launch_v<T, kPlanes, kFlow, kMaxThreads, 1>(grid, threads, smem, stream, planes, u, v, g, gu, gv, acc,
-                                                       windows, C, groups, n, H, W, s, plan);
-  if (kPlanes && kFlow && plan.variant == 2)
-    return launch_v<T, kPlanes, kFlow, kMaxThreads, 2>(grid, threads, smem, stream, planes, u, v, g, gu, gv, acc,
-                                                       windows, C, groups, n, H, W, s, plan);
-  return launch_v<T, kPlanes, kFlow, kMaxThreads, 0>(grid, threads, smem, stream, planes, u, v, g, gu, gv, acc,
-                                                     windows, C, groups, n, H, W, s, plan);
-}
-
-template <typename T, bool kPlanes, bool kFlow>
-cudaError_t launch_grad_kernel(dim3 grid, int threads, cudaStream_t stream, const T* planes, const float* u,
-                               const float* v, const T* g, float* gu, float* gv, float4* acc, float* windows,
-                               int C, int groups, int n, int H, int W, const int64_t* s, const MfGradPlan& plan) {
-  const int smem = kPlanes ? plan.smem : 0;
-  if (threads <= 256)
-    return launch_mt<T, kPlanes, kFlow, 256>(grid, threads, smem, stream, planes, u, v, g, gu, gv, acc, windows, C,
-                                             groups, n, H, W, s, plan);
-  if (threads <= 512)
-    return launch_mt<T, kPlanes, kFlow, 512>(grid, threads, smem, stream, planes, u, v, g, gu, gv, acc, windows, C,
-                                             groups, n, H, W, s, plan);
-  return launch_mt<T, kPlanes, kFlow, 1024>(grid, threads, smem, stream, planes, u, v, g, gu, gv, acc, windows, C,
-                                            groups, n, H, W, s, plan);
 }
 
 // Zero the scratch, run the kernel, finish the planes' gradient (without the
@@ -568,7 +373,7 @@ cudaError_t launch_grad_kernel(dim3 grid, int threads, cudaStream_t stream, cons
 // c, y, x).
 template <typename T>
 cudaError_t launch_grad(const void* planes, const float* u, const float* v, const void* grad_out,
-                        void* grad_planes, float* gu, float* gv, float4* acc, float* windows, bool need_planes,
+                        void* grad_planes, float* gu, float* gv, float4* acc, bool need_planes,
                         bool need_flow, int B, int C, int n, int H, int W, const int64_t* s,
                         const MfGradPlan& plan, cudaStream_t stream) {
   const T* p = static_cast<const T*>(planes);
@@ -581,21 +386,17 @@ cudaError_t launch_grad(const void* planes, const float* u, const float* v, cons
   if (need_planes) {
     err = cudaMemsetAsync(acc, 0, static_cast<size_t>(B) * groups * H * W * sizeof(float4), stream);
     if (err != cudaSuccess) return err;
-    err = need_flow ? launch_grad_kernel<T, true, true>(grid, threads, stream, p, u, v, g, gu, gv, acc, windows, C,
+    err = need_flow ? launch_grad_kernel<T, true, true>(grid, threads, stream, p, u, v, g, gu, gv, acc, C,
                                                         groups, n, H, W, s, plan)
-                    : launch_grad_kernel<T, true, false>(grid, threads, stream, p, u, v, g, gu, gv, acc, windows,
+                    : launch_grad_kernel<T, true, false>(grid, threads, stream, p, u, v, g, gu, gv, acc,
                                                          C, groups, n, H, W, s, plan);
     if (err != cudaSuccess) return err;
     const Strides so{s[17], s[18], s[19], s[20]};
     const dim3 rows((W + 255) / 256, H, B);
-    if (plan.variant == 2)
-      warp_multiflow_grad_sum_kernel<T><<<rows, 256, 0, stream>>>(windows, acc, static_cast<T*>(grad_planes), C,
-                                                                  H, W, so, plan, nbx, nby);
-    else
-      grad_store_kernel<T><<<rows, 256, 0, stream>>>(acc, static_cast<T*>(grad_planes), C, H, W, so);
+    grad_store_kernel<T><<<rows, 256, 0, stream>>>(acc, static_cast<T*>(grad_planes), C, H, W, so);
     return cudaGetLastError();
   }
-  return launch_grad_kernel<T, false, true>(grid, threads, stream, p, u, v, g, gu, gv, acc, windows, C, groups, n,
+  return launch_grad_kernel<T, false, true>(grid, threads, stream, p, u, v, g, gu, gv, acc, C, groups, n,
                                             H, W, s, plan);
 }
 
@@ -621,10 +422,10 @@ extern "C" int warp_multiflow_planar(const void* planes, const void* u, const vo
 // dtype (need_planes), grad_u and grad_v (B, n, H, W) f32 contiguous
 // (need_flow). scratch: B * ceil(C/4) * H * W float4 (need_planes).
 // strides: 21 element strides, planes (b, c, y, x), u, v (b, k, y, x),
-// grad_out (b, c, k, y, x), grad_planes (b, c, y, x). plan: the 8 ints of
+// grad_out (b, c, k, y, x), grad_planes (b, c, y, x). plan: the 4 ints of
 // MfGradPlan (ops/warp_plan.py). Returns the first CUDA error (0: launched).
 extern "C" int warp_multiflow_grad(const void* planes, const void* u, const void* v, const void* grad_out,
-                                   void* grad_planes, void* grad_u, void* grad_v, void* scratch, void* windows,
+                                   void* grad_planes, void* grad_u, void* grad_v, void* scratch,
                                    int bf16, int need_planes, int need_flow, int B, int C, int n, int H, int W,
                                    const int64_t* strides, const int* plan, void* stream) {
   const float* uf = static_cast<const float*>(u);
@@ -632,12 +433,11 @@ extern "C" int warp_multiflow_grad(const void* planes, const void* u, const void
   float* gu = static_cast<float*>(grad_u);
   float* gv = static_cast<float*>(grad_v);
   float4* acc = static_cast<float4*>(scratch);
-  float* win = static_cast<float*>(windows);
-  const MfGradPlan p{plan[0], plan[1], plan[2], plan[3], plan[4]};
+  const MfGradPlan p{plan[0], plan[1], plan[2], plan[3]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return static_cast<int>(launch_grad<__nv_bfloat16>(planes, uf, vf, grad_out, grad_planes, gu, gv, acc, win,
+    return static_cast<int>(launch_grad<__nv_bfloat16>(planes, uf, vf, grad_out, grad_planes, gu, gv, acc,
                                                        need_planes, need_flow, B, C, n, H, W, strides, p, s));
-  return static_cast<int>(launch_grad<float>(planes, uf, vf, grad_out, grad_planes, gu, gv, acc, win, need_planes,
+  return static_cast<int>(launch_grad<float>(planes, uf, vf, grad_out, grad_planes, gu, gv, acc, need_planes,
                                              need_flow, B, C, n, H, W, strides, p, s));
 }

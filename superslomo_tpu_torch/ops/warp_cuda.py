@@ -25,7 +25,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
     fn.restype = i
     fn = lib.warp_multiflow_grad
-    fn.argtypes = [p] * 9 + [i] * 8 + [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
+    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
     fn.restype = i
 
 
@@ -117,11 +117,6 @@ def warp_multiflow_backward_cuda(planes, u, v, grad_out, need_planes: bool, need
         raise ValueError(f"planes of strides {planes.stride()} are too large for the backward kernel")
     plan = warp_plan.plan_multiflow_grad(C)
     scratch = torch.empty((B, (C + 3) // 4, H, W, 4), device=dev, dtype=torch.float32) if need_planes else None
-    windows = None
-    if need_planes and plan.variant == 2:  # measurement only: finish (b)'s buffer, a window a block
-        blocks = -(-W // plan.tile_w) * -(-H // plan.tile_h) * B * ((C + 3) // 4)
-        window = warp_plan.mf_grad_window((plan.tile_w, plan.tile_h), plan.margin)
-        windows = torch.empty((blocks, min(C, 4) * window), device=dev, dtype=torch.float32)
     dummy = (0, 0, 0, 0)
     strides = (ctypes.c_int64 * 21)(*planes.stride(), *u.stride(), *v.stride(), *grad_out.stride(),
                                     *(grad_planes.stride() if need_planes else dummy))
@@ -133,7 +128,7 @@ def warp_multiflow_backward_cuda(planes, u, v, grad_out, need_planes: bool, need
     with torch.cuda.device(dev):
         err = lib.warp_multiflow_grad(
             planes.data_ptr(), u.data_ptr(), v.data_ptr(), grad_out.data_ptr(), ptr(grad_planes), ptr(grad_u),
-            ptr(grad_v), ptr(scratch), ptr(windows), int(planes.dtype == torch.bfloat16), int(need_planes),
+            ptr(grad_v), ptr(scratch), int(planes.dtype == torch.bfloat16), int(need_planes),
             int(need_flow), B, C, n, H, W, strides, warp_plan.as_ints(plan), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

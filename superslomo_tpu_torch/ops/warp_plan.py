@@ -20,16 +20,12 @@ TILE_W, TILE_H, PX = 64, 8, 2
 # a launch's dynamic shared memory stays within what every kernel may take
 # without an opt-in
 SMEM_DEFAULT = 48 * 1024
-# what one block may take after cudaFuncSetAttribute (H100)
-SMEM_MAX = 232_448
-
-# the multi-flow backward's output tile (width, height), and the source
-# pixels kept in shared memory on each side of it (csrc/warp_multiflow.cu)
-MF_GRAD_TILE = (64, 16)
-MF_GRAD_MARGIN = 8
-# measurement only (chip_smoke.py --sweep): 0 as shipped, 1 plain shared adds
-# (races), 2 finish (b), 3 the H design (contiguous inputs, even W)
-MF_GRAD_VARIANT = 0
+# the multi-flow backward's output tile (width, height: two rows a thread,
+# whole warps along x), the source pixels kept in shared memory on each side
+# of it, and the most threads its kernel's blocks have (csrc/warp_multiflow.cu)
+MF_GRAD_TILE = (64, 8)
+MF_GRAD_MARGIN = 4
+MF_GRAD_THREADS = 256
 
 FLOW_SCALAR, FLOW_PAIR, FLOW_PLANAR_VEC = 0, 1, 2
 IN_SCALAR, IN_PLANAR_VEC = 0, 1
@@ -60,7 +56,6 @@ class MfGradPlan(NamedTuple):
     tile_h: int
     margin: int
     smem: int  # dynamic shared memory bytes: the window of min(C, 4) channels
-    variant: int
 
 
 class GradPlan(NamedTuple):
@@ -76,11 +71,11 @@ def layout(t: torch.Tensor) -> Layout:
 
 
 def planar_vec_ok(t: Layout, W: int) -> bool:
-    """Whether every thread's PX adjacent values of t (x stride 1, the last)
-    make one aligned PX-wide access: PX divides W and every stride, and the
-    base address is PX elements aligned."""
-    return (t.strides[-1] == 1 and W % PX == 0 and t.ptr % (PX * t.esize) == 0
-            and all(s % PX == 0 for s in t.strides[:-1]))
+    """Whether every thread's PX adjacent values of t (x stride 1) make one
+    aligned PX-wide access: PX divides W and every stride, and the base
+    address is PX elements aligned."""
+    return (t.strides[3] == 1 and W % PX == 0 and t.ptr % (PX * t.esize) == 0
+            and all(s % PX == 0 for s in t.strides[:3]))
 
 
 def pair_ok(t: Layout) -> bool:
@@ -157,18 +152,18 @@ def mf_grad_window(tile, margin) -> int:
 
 @functools.lru_cache(maxsize=256)
 def plan_multiflow_grad(C: int) -> MfGradPlan:
-    """The multi-flow backward's plan for C channels: the tile MF_GRAD_TILE
-    (whole warps of lanes along x, two rows a thread, at most 1024 threads),
-    the margin MF_GRAD_MARGIN, and the window's shared memory for min(C, 4)
-    channels (a block sums a group of 4). Raises where the window does not
-    fit a block."""
+    """The multi-flow backward's plan for C channels: the tile MF_GRAD_TILE,
+    the margin MF_GRAD_MARGIN, and the shared memory of the window for
+    min(C, 4) channels (a block sums one group of 4). Raises unless the tile
+    is whole warps along x of at most MF_GRAD_THREADS threads and the window
+    fits SMEM_DEFAULT."""
     tile_w, tile_h = MF_GRAD_TILE
-    if tile_w % 32 or tile_h % 2 or tile_w * tile_h // 2 > 1024:
-        raise ValueError(f"a tile of {tile_w}x{tile_h} is not whole warps of at most 1024 threads")
+    if tile_w % 32 or tile_h % 2 or tile_w * tile_h // 2 > MF_GRAD_THREADS:
+        raise ValueError(f"a {tile_w}x{tile_h} tile is not whole warps along x of at most {MF_GRAD_THREADS} threads")
     smem = min(C, 4) * mf_grad_window(MF_GRAD_TILE, MF_GRAD_MARGIN) * 4
-    if smem > SMEM_MAX:
-        raise ValueError(f"a window of {smem} bytes exceeds a block's {SMEM_MAX}")
-    return MfGradPlan(tile_w, tile_h, MF_GRAD_MARGIN, smem, MF_GRAD_VARIANT)
+    if smem > SMEM_DEFAULT:
+        raise ValueError(f"a window of {smem} bytes exceeds the {SMEM_DEFAULT} a block takes without an opt-in")
+    return MfGradPlan(tile_w, tile_h, MF_GRAD_MARGIN, smem)
 
 
 def as_ints(plan: Sequence[int]):

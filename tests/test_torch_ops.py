@@ -467,6 +467,43 @@ def test_flow_grad_offsets_fit_int32(C, H, W, fits):
     assert wp.offsets_fit_int32(channels_last, C, H, W) == fits
 
 
+@pytest.mark.parametrize("C", [1, 3, 4, 6])
+def test_multiflow_grad_plan(C):
+    """The multi-flow backward's plan: its tile is whole warps along x, two
+    rows a thread, within the kernel's block size; the window (the tile, the
+    margin on each side and one more column and row) holds min(C, 4) f32
+    channels (a block sums one group of 4) and fits a block's default shared
+    memory; the plan passes as its 4 ints."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+
+    plan = wp.plan_multiflow_grad(C)
+    tile_w, tile_h = wp.MF_GRAD_TILE
+    assert (plan.tile_w, plan.tile_h, plan.margin) == (tile_w, tile_h, wp.MF_GRAD_MARGIN)
+    assert tile_w % 32 == 0 and tile_h % 2 == 0 and tile_w * tile_h // 2 <= wp.MF_GRAD_THREADS
+    window = (tile_w + 2 * plan.margin + 1) * (tile_h + 2 * plan.margin + 1)
+    assert wp.mf_grad_window(wp.MF_GRAD_TILE, wp.MF_GRAD_MARGIN) == window
+    assert plan.smem == min(C, 4) * window * 4 <= wp.SMEM_DEFAULT
+    assert list(wp.as_ints(plan)) == list(plan) and len(plan) == 4
+
+
+@pytest.mark.parametrize("tile,margin,match", [((48, 8), 4, "whole warps"), ((64, 7), 4, "whole warps"),
+                                               ((64, 16), 4, "whole warps"), ((64, 8), 40, "exceeds")])
+def test_multiflow_grad_plan_refuses_what_the_kernel_does_not_take(monkeypatch, tile, margin, match):
+    """A tile that is not whole warps along x (48 columns), an odd height, a
+    block of more threads than the kernel's launch bound (64x16: 512), or a
+    window beyond the default shared memory raises instead of launching."""
+    from superslomo_tpu_torch.ops import warp_plan as wp
+
+    monkeypatch.setattr(wp, "MF_GRAD_TILE", tile)
+    monkeypatch.setattr(wp, "MF_GRAD_MARGIN", margin)
+    wp.plan_multiflow_grad.cache_clear()
+    try:
+        with pytest.raises(ValueError, match=match):
+            wp.plan_multiflow_grad(3)
+    finally:
+        wp.plan_multiflow_grad.cache_clear()
+
+
 # the multi-flow warp's gradients: f32 sums of a few products per tap over n
 # flows, in another order than XLA's; 1e-5 of each gradient's largest value
 MF_GRAD_REL = 1e-5

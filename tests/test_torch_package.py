@@ -20,7 +20,7 @@ from superslomo_tpu.config import load_config as jax_load_config
 from superslomo_tpu_torch import Evaluator, Interpolator, SuperSloMo, Trainer, default_config, evaluate_flow
 from superslomo_tpu_torch.config import load_config
 from superslomo_tpu_torch.ops import cuda_build
-from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda
+from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda, warp_multiflow_planar_cuda
 from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda, warp_single_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -126,15 +126,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 def test_cuda_wrapper_raises_on_cpu_tensors():
     planes = torch.zeros(1, 3, 8, 8)
     flow = torch.zeros(1, 2, 8, 8)
-    counters = (warp_multiflow_planar_cuda.launches, warp_single_cuda.launches, warp_single_backward_cuda.launches)
+    counts = lambda: (warp_multiflow_planar_cuda.launches, warp_single_cuda.launches,  # noqa: E731
+                      warp_single_backward_cuda.launches, warp_multiflow_backward_cuda.launches,
+                      warp_multiflow_backward_cuda.operations)
+    counters = counts()
     with pytest.raises(ValueError, match="CUDA"):
         warp_multiflow_planar_cuda(planes, flow, flow)
     with pytest.raises(ValueError, match="CUDA"):
         warp_single_cuda(planes, flow)
     with pytest.raises(ValueError, match="CUDA"):
         warp_single_backward_cuda(planes, flow, planes, True, True)
-    assert counters == (
-        warp_multiflow_planar_cuda.launches, warp_single_cuda.launches, warp_single_backward_cuda.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        warp_multiflow_backward_cuda(planes, flow, flow, torch.zeros(1, 3, 2, 8, 8), True, True)
+    assert counters == counts()
 
 
 def test_build_names_libraries_by_source_hash(tmp_path, monkeypatch):
