@@ -211,6 +211,26 @@ warp_single_flow_grad_kernel(const T* __restrict__ img, const float* __restrict_
   }
 }
 
+// Channel c of a thread's kPX adjacent output-gradient values (0 past
+// `valid`), the first at g; kInPlanarVec: one aligned kPX-wide load.
+template <typename T>
+__device__ __forceinline__ void load_grad(const T* g, const Strides& s, int c, int mode, int valid,
+                                          float* out) {
+  if (mode == kInPlanarVec) {
+    const float2 p = load_f32x2(g + c * s.c);
+    out[0] = p.x;
+    out[1] = p.y;
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < Tile::kPX; ++i) out[i] = i < valid ? load_f32(g + c * s.c + i * s.x) : 0.0f;
+}
+
+// acc += w * g (4 channels) with one vector atomic (global memory, sm_90).
+__device__ __forceinline__ void scatter4(float4* acc, float w, const float* g) {
+  atomicAdd(acc, make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
+}
+
 // The image gradient of the custom VJP at warp_pallas.py:663-666. Bound at
 // the training shape: 51.4 MB, 0.0153 ms (bytes). The kernel it replaced was
 // paced by its 12 scalar global atomics a pixel; this one makes 3 to 4

@@ -221,27 +221,7 @@ __device__ __forceinline__ void store_px(__nv_bfloat16* p, const float* a, int64
 }
 
 // ---------------------------------------------------------------------------
-// The image gradients' pieces (warp_single.cu, warp_multiflow.cu).
-
-// Channel c of a thread's kPX adjacent output-gradient values (0 past
-// `valid`), the first at g; kInPlanarVec: one aligned kPX-wide load.
-template <typename T>
-__device__ __forceinline__ void load_grad(const T* g, const Strides& s, int c, int mode, int valid,
-                                          float* out) {
-  if (mode == kInPlanarVec) {
-    const float2 p = load_f32x2(g + c * s.c);
-    out[0] = p.x;
-    out[1] = p.y;
-    return;
-  }
-#pragma unroll
-  for (int i = 0; i < Tile::kPX; ++i) out[i] = i < valid ? load_f32(g + c * s.c + i * s.x) : 0.0f;
-}
-
-// acc += w * g (4 channels) with one vector atomic (global memory, sm_90).
-__device__ __forceinline__ void scatter4(float4* acc, float w, const float* g) {
-  atomicAdd(acc, make_float4(g[0] * w, g[1] * w, g[2] * w, g[3] * w));
-}
+// The image gradients' store pass (warp_single.cu, warp_multiflow.cu).
 
 // An image gradient from its f32 scratch: acc (B, G, H, W, 4), G = ceil(C /
 // 4) groups of 4 channels → grad (B, C, H, W) in the image's dtype, through
