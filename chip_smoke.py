@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels against plain
-    python3 chip_smoke.py --data-only      # phases 1 and 15-17: build, the data path and the CLIs
-    python3 chip_smoke.py --render-only    # phases 1 and 18-21: build, the renderer and flow-EPE CLIs
+    python3 chip_smoke.py --data-only      # phases 1 and 15-17: build, the PNG and JPEG data path and the CLIs
+    python3 chip_smoke.py --render-only    # phases 1 and 18-21: build, the renderer (PNG and JPEG) and flow-EPE CLIs
     python3 chip_smoke.py --scale-only     # phases 1 and 22-23: build, native checkpoints, data parallel
     python3 chip_smoke.py --ddp-ranks 4    # phases 1 and 23b-c at 4 ranks (a card a rank on 4 cards)
 
@@ -101,7 +101,11 @@ Phases, each of which raises on failure:
       version on 720p frames that the script encodes itself (zlib and numpy),
       one file per filter type: both equal the written pixels bit for bit;
       the unfilter's and a whole decode's ms, compiled and plain, and a
-      decode's on 12 threads;
+      decode's on 12 threads; then the JPEG decode (csrc/jpeg_decode.cpp,
+      host C++) against its plain version on a 720p frame that the script's
+      own baseline JPEG writer (numpy) writes at q95 in 4:2:0, 4:4:4, grey
+      and 4:2:0 with restart markers: bit for bit, the decode ms beside the
+      PNG decode's (``jpeg_decode_vs_plain``);
   16. the eval CLI's main path: ``cli.evaluate_interpolation`` at
       configs/superslomo_eval.ini as shipped (720p padded to 736, B=8, 12
       loader threads, f32) over a made-up dataset of 720p PNGs in a
@@ -118,7 +122,10 @@ Phases, each of which raises on failure:
       224x224 crops, 12 loader threads), in f32 and bf16, 10 steps through
       the pinned side-stream feed: step ms, the wait for the feed before each
       step, the same Trainer's step on in-memory batches, the Loader's ms a
-      batch, 8 single-flow forward and 8 flow-gradient launches a step.
+      batch, 8 single-flow forward and 8 flow-gradient launches a step;
+      then in f32 for 4 steps over ADOBE and NFS clip lists that
+      ``utils.make_clips`` writes from the clip written again as JPEG frames
+      (``train_cli_main_path`` with ``frames`` "jpeg").
   18. the render CLI's main path: ``cli.visualize`` at
       configs/superslomo_eval.ini's model (CONV, f32, TF32 off) over a
       9-frame 720p panning clip at 8x (8 windows, 65 frames written), and in
@@ -126,7 +133,9 @@ Phases, each of which raises on failure:
       720x1280, the originals equal to the input frames bit for bit, 4
       multi-flow and no single-flow launch a window; wall s, frames written
       a second, and the ms a window split into decode, fused step (CUDA
-      events) and encode;
+      events) and encode; then in f32 over 3 windows of the clip written as
+      JPEG frames, and over PNG copies of the port's decode of them: the two
+      runs' files equal byte for byte (``render_jpeg_vs_png_copy``);
   19. the same at configs/superslomo_recurrent.ini's model (CLSTM,
       N_FRAMES=4, each window from a zero state) over 3 windows; then
       ``--dump-intermediates`` over 2 windows: the visibility (grey) and
@@ -1698,6 +1707,229 @@ def write_clip(folder, frames, name="frame_{:05d}.png", start=0):
         write_png(os.path.join(folder, name.format(i)), img)
 
 
+# a baseline JPEG writer, numpy only (the card's machine has no cv2 or PIL): a
+# float forward DCT, Annex K's quantisation tables scaled by quality as libjpeg
+# scales them, and Annex K's Huffman tables. The CPU tests hold cv2's decode
+# of its files against the port's.
+
+_ZIGZAG = np.array(sorted(range(64), key=lambda n: (n // 8 + n % 8, n // 8 if (n // 8 + n % 8) % 2 else -(n // 8))))
+# the quantisation tables of ITU T.81 Annex K.1 (luminance) and K.2 (chrominance), natural order
+_LUMA_Q = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+                    14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+                    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
+_CHROMA_Q = np.full(64, 99)
+_CHROMA_Q[[0, 1, 2, 3, 8, 9, 10, 11, 16, 17, 18, 24, 25]] = [17, 18, 24, 47, 18, 21, 26, 66, 24, 26, 56, 47, 66]
+# the Huffman tables of Annex K.3: (code counts by length 1-16, symbols)
+_AC_LUMA_SYMBOLS = bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a3435363738"
+    "393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a92939495969798999aa2a3a4"
+    "a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa")
+_AC_CHROMA_SYMBOLS = bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a262728292a35"
+    "363738393a434445464748494a535455565758595a636465666768696a737475767778797a82838485868788898a9293949596979899"
+    "9aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8f9fa")
+STD_HUFFMAN = {  # (class 0 DC / 1 AC, table 0 luma / 1 chroma) → (counts, symbols)
+    (0, 0): ((0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0), bytes(range(12))),
+    (0, 1): ((0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0), bytes(range(12))),
+    (1, 0): ((0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125), _AC_LUMA_SYMBOLS),
+    (1, 1): ((0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119), _AC_CHROMA_SYMBOLS),
+}
+JPEG_SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2), "411": (4, 1)}  # the luma's (h, v)
+
+
+def quant_tables(quality):
+    """Annex K's two tables scaled to ``quality`` (1-100) as libjpeg scales
+    them, each entry clamped to 1-255 (baseline)."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [np.clip((base * scale + 50) // 100, 1, 255) for base in (_LUMA_Q, _CHROMA_Q)]
+
+
+def _huffman_codes(counts, symbols):
+    """symbol → (code, length) of a canonical Huffman table, as two arrays of 256."""
+    code_of, size_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            code_of[symbols[k]], size_of[symbols[k]] = code, length
+            code, k = code + 1, k + 1
+        code <<= 1
+    return code_of, size_of
+
+
+_DCT = np.array([[np.sqrt((1 if u == 0 else 2) / 8) * np.cos((2 * x + 1) * u * np.pi / 16) for x in range(8)]
+                 for u in range(8)])
+
+
+def _blocks(plane, by, bx):
+    """(by * 8, bx * 8) plane → (by, bx, 8, 8) blocks."""
+    return plane.reshape(by, 8, bx, 8).transpose(0, 2, 1, 3)
+
+
+def _amplitude(v):
+    """(size, bits) of JPEG's magnitude category coding of integers ``v``."""
+    a = np.abs(v)
+    size = np.zeros(v.shape, np.int64)
+    nz = a > 0
+    size[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+    bits = np.where(v >= 0, v, v + (1 << size) - 1)
+    return size, bits
+
+
+def _pack_bits(codes, sizes):
+    """The bit string of ``codes`` (each ``sizes`` <= 16 bits, MSB first),
+    padded with 1-bits to a byte, as bytes with a 0x00 stuffed after each 0xFF."""
+    pad = -int(sizes.sum()) % 8
+    codes, sizes = np.append(codes, (1 << pad) - 1), np.append(sizes, pad)
+    left = (codes << (16 - sizes)).astype(">u2")  # each code in the top bits of 16
+    bits = np.unpackbits(left.view(np.uint8)).reshape(-1, 16)
+    out = np.packbits(bits[np.arange(16) < sizes[:, None]])
+    return np.insert(out, np.flatnonzero(out == 0xFF) + 1, 0).tobytes()
+
+
+def _entropy_code(blocks, comps, restart):
+    """Huffman-code quantised ``blocks`` (a list per scan component of (by, bx,
+    64) natural-order arrays) in the scan's order, with a restart every
+    ``restart`` MCUs (0: none): the entropy-coded segment with its RST markers."""
+    tables = {(c, t): _huffman_codes(*STD_HUFFMAN[(c, t)]) for (c, t) in STD_HUFFMAN}
+    if len(comps) == 1:  # one component: a block an MCU, in raster order
+        coef = blocks[0].reshape(-1, 64)
+        ci = np.zeros(len(coef), np.int64)
+        per_mcu = 1
+    else:  # each MCU: each component's v x h blocks in raster order
+        my, mx = blocks[0].shape[0] // comps[0][2], blocks[0].shape[1] // comps[0][1]
+        per = [b.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4).reshape(my * mx, v * h, 64)
+               for b, (_, h, v, _) in zip(blocks, comps)]
+        coef = np.concatenate(per, axis=1).reshape(-1, 64)
+        per_mcu = sum(h * v for _, h, v, _ in comps)
+        ci = np.tile(np.repeat(np.arange(len(comps)), [h * v for _, h, v, _ in comps]), my * mx)
+    coef = coef[:, _ZIGZAG]  # zigzag order
+    n = len(coef)
+    mcu = np.arange(n) // per_mcu
+    segment = mcu // restart if restart else np.zeros(n, np.int64)
+    table = np.array([c[3] for c in comps])[ci]
+    # DC differences, each component's predictor reset at each restart
+    diff = coef[:, 0].copy()
+    for c in range(len(comps)):
+        idx = np.flatnonzero(ci == c)
+        d = np.diff(coef[idx, 0], prepend=0)
+        first = np.r_[True, segment[idx][1:] != segment[idx][:-1]]
+        d[first] = coef[idx[first], 0]
+        diff[idx] = d
+    pieces = []  # (sort key, code, size)
+    dsize, dbits = _amplitude(diff)
+    key = np.arange(n) * 65 * 4
+    for t in (0, 1):
+        m = table == t
+        code, size = tables[(0, t)]
+        pieces += [(key[m], code[dsize[m]], size[dsize[m]]), (key[m] + 1, dbits[m], dsize[m])]
+    b, k = np.nonzero(coef[:, 1:])
+    k = k + 1
+    prev = np.zeros_like(k)
+    prev[1:] = np.where(b[1:] == b[:-1], k[:-1], 0)
+    run = k - prev - 1
+    v = coef[b, k]
+    asize, abits = _amplitude(v)
+    sym = (run % 16) * 16 + asize
+    zrl = run // 16
+    last = np.zeros(n, np.int64)  # each block's last nonzero position
+    last[b] = k
+    for t in (0, 1):
+        m = table[b] == t
+        code, size = tables[(1, t)]
+        kb = b[m] * 65 * 4 + k[m] * 4
+        nz = np.repeat(kb, zrl[m])
+        pieces += [(nz, np.full(len(nz), code[0xF0]), np.full(len(nz), size[0xF0])),
+                   (kb + 1, code[sym[m]], size[sym[m]]), (kb + 2, abits[m], asize[m])]
+        eob = np.flatnonzero((last < 63) & (table == t))
+        pieces.append((eob * 65 * 4 + 64 * 4, np.full(len(eob), code[0]), np.full(len(eob), size[0])))
+    keys = np.concatenate([p[0] for p in pieces])
+    codes = np.concatenate([p[1] for p in pieces]).astype(np.int64)
+    sizes = np.concatenate([p[2] for p in pieces]).astype(np.int64)
+    order = np.argsort(keys, kind="stable")
+    keys, codes, sizes = keys[order], codes[order], sizes[order]
+    seg_of = segment[keys // 260]
+    out = b""
+    bounds = np.searchsorted(seg_of, np.arange(seg_of[-1] + 2 if n else 1))
+    for s in range(len(bounds) - 1):
+        lo, hi = bounds[s], bounds[s + 1]
+        if s:
+            out += bytes([0xFF, 0xD0 + (s - 1) % 8])
+        out += _pack_bits(codes[lo:hi], sizes[lo:hi])
+    return out
+
+
+def _segment(marker, body):
+    return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def exif_block(orientation, big_endian=False):
+    """A TIFF-structured EXIF block whose IFD0 holds one entry, Orientation
+    (0x0112, SHORT) = ``orientation``."""
+    e = ">" if big_endian else "<"
+    return ((b"MM" if big_endian else b"II") + struct.pack(e + "HI", 42, 8) + struct.pack(e + "H", 1)
+            + struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(e + "I", 0))
+
+
+def jpeg_from_coefficients(w, h, comps, blocks, qtables, restart=0, orientation=None):
+    """A baseline JPEG of quantised DCT ``blocks``: ``comps`` (id, h, v,
+    table) per component (table 0 luma, 1 chroma), ``blocks`` their (by, bx,
+    64) natural-order arrays covering the MCUs, ``qtables`` the tables they
+    were quantised by; a restart every ``restart`` MCUs; an APP1 EXIF block
+    with ``orientation``."""
+    out = b"\xff\xd8" + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    if orientation is not None:
+        out += _segment(0xE1, b"Exif\x00\x00" + exif_block(orientation))
+    for t, q in enumerate(qtables[: 1 + max(c[3] for c in comps)]):
+        out += _segment(0xDB, bytes([t]) + bytes(np.asarray(q)[_ZIGZAG].astype(np.uint8)))
+    out += _segment(0xC0, struct.pack(">BHHB", 8, h, w, len(comps))
+                    + b"".join(bytes([i, hh * 16 + vv, t]) for i, hh, vv, t in comps))
+    for t in range(1 + max(c[3] for c in comps)):
+        for c in (0, 1):
+            counts, symbols = STD_HUFFMAN[(c, t)]
+            out += _segment(0xC4, bytes([c * 16 + t, *counts]) + symbols)
+    if restart:
+        out += _segment(0xDD, struct.pack(">H", restart))
+    out += _segment(0xDA, bytes([len(comps)]) + b"".join(bytes([i, t * 17]) for i, _, _, t in comps) + b"\x00\x3f\x00")
+    return out + _entropy_code(blocks, comps, restart) + b"\xff\xd9"
+
+
+def jpeg_bytes(img, quality=95, sampling="420", restart=0, orientation=None):
+    """A baseline JPEG of ``img``: (H, W, 3) uint8 RGB as YCbCr at
+    ``sampling`` (one of JPEG_SAMPLING; chroma averaged over each sample's
+    pixels), or (H, W) uint8 grey; quantised by Annex K's tables at
+    ``quality``, Huffman-coded with Annex K's tables; a restart interval of
+    ``restart`` MCUs and an EXIF ``orientation`` when given."""
+    img = np.asarray(img, np.float64)
+    H, W = img.shape[:2]
+    if img.ndim == 2:
+        planes, comps = [img], [(1, 1, 1, 0)]
+        hmax = vmax = 1
+    else:
+        r, g, b = img[..., 0], img[..., 1], img[..., 2]
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        planes = [y, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b, 128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
+        hmax, vmax = JPEG_SAMPLING[sampling]
+        comps = [(1, hmax, vmax, 0), (2, 1, 1, 1), (3, 1, 1, 1)]
+    mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    q = quant_tables(quality)
+    blocks = []
+    for plane, (_, h, v, t) in zip(planes, comps):
+        fy, fx = vmax // v, hmax // h
+        ph, pw = -(-H // fy), -(-W // fx)  # the component's own size
+        plane = np.pad(plane, ((0, ph * fy - H), (0, pw * fx - W)), mode="edge")
+        plane = plane.reshape(ph, fy, pw, fx).mean(axis=(1, 3))
+        by, bx = (my * v, mx * h) if len(comps) > 1 else (-(-H // 8), -(-W // 8))
+        plane = np.pad(plane, ((0, by * 8 - ph), (0, bx * 8 - pw)), mode="edge") - 128
+        coef = _DCT @ _blocks(plane, by, bx) @ _DCT.T
+        blocks.append(np.round(coef.reshape(by, bx, 64) / q[t]).astype(np.int64))
+    return jpeg_from_coefficients(W, H, comps, blocks, q, restart, orientation)
+
+
+def write_jpeg(path, img, **kwargs):
+    with open(path, "wb") as f:
+        f.write(jpeg_bytes(img, **kwargs))
+
+
 def phase_png_unfilter(H=720, W=1280, reps=5):
     """The compiled PNG unfilter (csrc/png_unfilter.cpp) against its plain
     version on a 720p panning-texture frame written with each filter type on
@@ -1717,7 +1949,7 @@ def phase_png_unfilter(H=720, W=1280, reps=5):
         for ft, name in enumerate(FILTERS):
             path = os.path.join(d, f"{name}.png")
             write_png(path, frame, ft)
-            _, stream, _ = png.read_chunks(path)
+            _, stream, _, _ = png.read_chunks(path)
             raw = np.frombuffer(zlib.decompress(stream), np.uint8)
             times, got = [], None
             for _ in range(reps):
@@ -1726,7 +1958,7 @@ def phase_png_unfilter(H=720, W=1280, reps=5):
                 got = png.unfilter(buf, H, W * 3, 3)
                 times.append((time.perf_counter() - t0) * 1e3)
             t0 = time.perf_counter()
-            _, stream, _ = png.read_chunks(path)
+            _, stream, _, _ = png.read_chunks(path)
             inflated = np.frombuffer(zlib.decompress(stream), np.uint8)
             t1 = time.perf_counter()
             plain = png.unfilter_plain(inflated, H, W * 3, 3)
@@ -1753,6 +1985,69 @@ def phase_png_unfilter(H=720, W=1280, reps=5):
     bad = [k for k, v in out["filters"].items() if not (v["compiled_equals_plain"] and v["equals_written"])]
     if bad:
         raise AssertionError(f"the PNG unfilter differs from its plain version or the written pixels: {bad}")
+    return out
+
+
+JPEG_CASES = {  # name → the writer's arguments (q95, a 720p panning-texture frame)
+    "420": {"sampling": "420"}, "444": {"sampling": "444"}, "grey": {"grey": True},
+    "420_restart": {"sampling": "420", "restart": 8},
+}
+
+
+def phase_jpeg_decode(png_res, H=720, W=1280, reps=5):
+    """The compiled JPEG decode (csrc/jpeg_decode.cpp: entropy decode, IDCT,
+    upsampling and colour conversion) against its plain version
+    (``jpeg.decode_plain``) on a 720p panning-texture frame written at q95 in
+    4:2:0, 4:4:4, grey, and 4:2:0 with a restart every 8 MCUs: bit for bit,
+    and within 30 dB PSNR of the written frame (the writer's own loss).
+    Times: a whole decode (``jpeg.imread``: read, markers, the routine;
+    median of ``reps``) beside the PNG decode of phase 15 on the same frame
+    kind; the plain decode (one call); 24 decodes of the 4:2:0 frame on 12
+    threads (the routine releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from superslomo_tpu_torch.data import jpeg
+
+    frame = panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
+    out = {"phase": "jpeg_decode_vs_plain", "frame_hw": [H, W], "quality": 95, "cases": {},
+           "png_sub_decode_ms": png_res["filters"]["sub"]["decode_ms"]}
+    with tempfile.TemporaryDirectory() as d:
+        for name, kw in JPEG_CASES.items():
+            kw = dict(kw)
+            img = frame[..., 1] if kw.pop("grey", False) else frame
+            path = os.path.join(d, f"{name}.jpg")
+            write_jpeg(path, img, quality=95, **kw)
+            jpeg.imread(path)  # untimed: the file in the page cache
+            times, got = [], None
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = jpeg.imread(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            with open(path, "rb") as f:
+                data = f.read()
+            header = jpeg.read_header(data, path)
+            t0 = time.perf_counter()
+            plain = jpeg.decode_plain(data, header, path)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ref = np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img
+            mse = float(np.mean((got.astype(np.float64) - ref) ** 2))
+            out["cases"][name] = {
+                "file_mib": os.path.getsize(path) / 2**20, "decode_ms": statistics.median(times),
+                "decode_ms_each": times, "plain_ms": plain_ms, "shape": list(got.shape),
+                "compiled_equals_plain": bool(np.array_equal(got, plain)),
+                "psnr_db": 10 * np.log10(255**2 / mse) if mse else float("inf"),
+            }
+        path = os.path.join(d, "420.jpg")
+        with ThreadPoolExecutor(12) as pool:
+            list(pool.map(jpeg.imread, [path] * 12))
+            t0 = time.perf_counter()
+            list(pool.map(jpeg.imread, [path] * 24))
+            out["420_decode_12_threads_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / 24
+    emit(out)
+    bad = {k: v for k, v in out["cases"].items()
+           if not (v["compiled_equals_plain"] and v["shape"] == [H, W, 3] and v["psnr_db"] > 30)}
+    if bad:
+        raise AssertionError(f"the JPEG decode differs from its plain version or the written frame: {bad}")
     return out
 
 
@@ -1794,6 +2089,26 @@ def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, n
     }
 
 
+def write_jpeg_train_lists(root, sections, H=720, W=1280, entries=280):
+    """The 57-frame 720p clip of ``write_dataset`` (the same seed) written
+    again as q95 4:2:0 JPEG frames, and ADOBE and NFS train lists that
+    ``utils.make_clips`` writes from that directory, naming the clip
+    ``entries`` times each; returns ``sections`` with those lists (Vimeo's
+    septuplets stay PNG, as the readers name them)."""
+    from superslomo_tpu_torch.utils import make_clips
+
+    clip_dir = os.path.join(root, "adobe_jpeg", "clip_000")
+    os.makedirs(clip_dir)
+    for i, img in enumerate(panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]):
+        write_jpeg(os.path.join(clip_dir, f"frame_{i:05d}.jpg"), img, quality=95)
+    clips = make_clips.process_single_dir(clip_dir, clip_length=57, step=65)
+    lists = {}
+    for name in ("ADOBE_DATA", "NFS_DATA"):
+        lists[name] = os.path.join(root, f"{name.lower()}_jpeg_train.txt")
+        make_clips.write_clip_list(clips * entries, lists[name])
+    return {**sections, **{name: {**sections[name], "TRAINPATHS": path} for name, path in lists.items()}}
+
+
 def write_small_eval_dataset(root, H=48, W=96, n=17):
     """One ``n``-frame clip at H x W (padded to 64x96 by the ADOBE eval
     transform: 2 sliding windows) and its VAL_CLIPS pickle; returns the
@@ -1807,9 +2122,11 @@ def write_small_eval_dataset(root, H=48, W=96, n=17):
 
 def data_phases(norm, scale=False):
     """Phases 15-17 over a made-up dataset in a temporary directory: the PNG
-    unfilter, the eval CLI, and the train CLI in f32 and bf16; with
-    ``scale``, then phase 23 over the same datasets (else None)."""
+    unfilter, the JPEG decode, the eval CLI, the train CLI in f32 and bf16,
+    and in f32 over clip lists naming JPEG frames; with ``scale``, then phase
+    23 over the same datasets (else None)."""
     png = phase_png_unfilter()
+    jpeg = phase_jpeg_decode(png)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         sections = write_dataset(root, val_repeats=1)
@@ -1817,8 +2134,13 @@ def data_phases(norm, scale=False):
         emit({"phase": "dataset_written", "seconds": time.perf_counter() - t0})
         eval_cli = phase_eval_cli(root, sections, small, n_windows=7)  # the clip's 7 windows: one batch
         train_clis = [phase_train_cli(root, sections, norm, dtype) for dtype in ("float32", "bfloat16")]
+        t0 = time.perf_counter()
+        jpeg_sections = write_jpeg_train_lists(root, sections)
+        emit({"phase": "jpeg_dataset_written", "seconds": time.perf_counter() - t0})
+        train_clis.append(phase_train_cli(root, jpeg_sections, norm, "float32", steps=4, warmup=2, synthetic_steps=0,
+                                          loader_batches=3))
         scaled = scale_phase(root, sections, norm) if scale else None
-    return png, eval_cli, train_clis, scaled
+    return png, jpeg, eval_cli, train_clis, scaled
 
 
 def write_config(path, base, *section_dicts):
@@ -1975,7 +2297,21 @@ def phase_eval_cli(root, sections, small_sections, n_windows):
     return res
 
 
-def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_steps=5, **overrides):
+def list_frame_kind(sections):
+    """"jpeg" or "png": the kind of the first frame that the ADOBE train list
+    of ``sections`` names, by the file's signature, as the frame reader picks
+    its decoder."""
+    from superslomo_tpu_torch.data import jpeg
+
+    with open(sections["ADOBE_DATA"]["TRAINPATHS"]) as f:
+        f.readline()  # the clip's frame count
+        first = f.readline().strip()
+    with open(first, "rb") as f:
+        return "jpeg" if f.read(3) == jpeg.SIGNATURE else "png"
+
+
+def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_steps=5, loader_batches=6,
+                    **overrides):
     """The train CLI (``python -m superslomo_tpu_torch.cli.train``, on the
     card by default) at configs/superslomo_original.ini as shipped (ALL:
     ADOBE + NFS + Vimeo, B=32, 224x224 crops, 12 loader threads, random VGG
@@ -1984,17 +2320,20 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     synchronised: its step ms and the wait for the feed before each step;
     then ``synthetic_steps`` steps of the same Trainer on synthetic
     in-memory batches (the step with its pageable H2D copy, no Loader
-    running), and the Loader alone. The single-flow kernels' launches a step
-    counted."""
+    running), and the Loader alone over ``loader_batches``. The single-flow
+    kernels' launches a step counted. The record names the kind of frames
+    the clip lists name (``list_frame_kind``)."""
     from superslomo_tpu_torch import Trainer, load_config
     from superslomo_tpu_torch.cli import train as train_cli
 
-    ini = write_config(os.path.join(root, f"train_{dtype}.ini"), "superslomo_original.ini", sections, {
+    frames = list_frame_kind(sections)
+    tag = dtype if frames == "png" else f"{dtype}_{frames}"
+    ini = write_config(os.path.join(root, f"train_{tag}.ini"), "superslomo_original.ini", sections, {
         "TRAIN": {"ALLOW_RANDOM_VGG": "TRUE", "CKPT_DIR": os.path.join(root, "ckpt")},
         "PROJECT": {"LOGDIR": os.path.join(root, "logs")}, "TPU": {"COMPUTE_DTYPE": dtype}}, overrides)
     cfg = load_config(ini)
     B = cfg.getint("TRAIN", "BATCH_SIZE")
-    loader, _ = loader_ms(cfg, "TRAIN", n_batches=6)
+    loader, _ = loader_ms(cfg, "TRAIN", n_batches=loader_batches)
 
     def synced(loss):
         torch.cuda.synchronize()
@@ -2003,7 +2342,7 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     reset_single_counts()
     t_start = time.perf_counter()
     with _Recorder(Trainer, "train_step", after=synced) as rec:
-        trainer = train_cli.main(["-c", ini, "--expt", f"chip_smoke_{dtype}", "--log", os.path.join(root, "train.log"),
+        trainer = train_cli.main(["-c", ini, "--expt", f"chip_smoke_{tag}", "--log", os.path.join(root, "train.log"),
                                   "--max-steps", str(steps)])
     cli_wall = time.perf_counter() - t_start
     launches = single_counts()
@@ -2014,9 +2353,10 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     losses = np.stack([r.cpu().numpy() for *_, r in calls])
     checkpoint = trainer.checkpoint_path(trainer.epoch)
 
-    batch = synthetic_train_batches(norm, n_batches=1, B=B, H=cfg.getint("TRAIN", "CROP_IMH"),
-                                    W=cfg.getint("TRAIN", "CROP_IMW"), seed=41)[0]
     synthetic = []
+    if synthetic_steps:
+        batch = synthetic_train_batches(norm, n_batches=1, B=B, H=cfg.getint("TRAIN", "CROP_IMH"),
+                                        W=cfg.getint("TRAIN", "CROP_IMW"), seed=41)[0]
     for _ in range(synthetic_steps):
         t0 = time.perf_counter()
         trainer.train_step(*batch)
@@ -2028,11 +2368,13 @@ def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_s
     per_step = (calls[-1][1] - calls[warmup - 1][1]) * 1e3 / (len(calls) - warmup)
     res = {
         "phase": "train_cli_main_path", "config": "configs/superslomo_original.ini", "compute_dtype": dtype,
-        "batch": B, "crop_hw": [cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")],
+        "frames": frames, "tag": tag, "batch": B,
+        "crop_hw": [cfg.getint("TRAIN", "CROP_IMH"), cfg.getint("TRAIN", "CROP_IMW")],
         "loader_threads": cfg.getint("DATALOADER", "N_WORKERS"), "steps": len(calls), "cli_wall_s": cli_wall,
         "cli_ms_per_step": per_step, "step_ms_median": statistics.median(step_ms[steady]),
         "feed_wait_ms_median": statistics.median(wait_ms[steady]), "step_ms": step_ms, "feed_wait_ms": wait_ms,
-        "synthetic_step_ms_median": statistics.median(synthetic), "synthetic_step_ms": synthetic,
+        "synthetic_step_ms_median": statistics.median(synthetic) if synthetic else None,
+        "synthetic_step_ms": synthetic,
         "train_loader": loader, "batches_on_card": on_card, "loss_first": losses[0].tolist(),
         "loss_last": losses[-1].tolist(), "checkpoint_saved": os.path.exists(checkpoint),
         "launches": launches, "launches_per_step": {k: v / len(calls) for k, v in launches.items()},
@@ -2072,12 +2414,13 @@ def _reset_launch_counts():
 SEEDED = {"STAGE1": {"LOADPREV": "FALSE"}, "STAGE2": {"LOADPREV": "FALSE"}}  # the CLIs' seeded weights
 
 
-def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False):
+def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False, clip="clip", ext="png"):
     """The render CLI (``python -m superslomo_tpu_torch.cli.visualize``, on
     the card by default, seeded weights, ``--upsample-rate 8``) at
     ``configs/<base>``'s model (``dtype``: its ``[TPU] COMPUTE_DTYPE``)
-    over the first ``n_windows + 1`` frames of the 720p clip in
-    ``root/clip``: ``n_windows`` windows, 8 frames written a window and the
+    over the first ``n_windows + 1`` frames (``frame_%05d.<ext>``) of the
+    720p clip in ``root/<clip>`` (``frames``: their decoded pixels):
+    ``n_windows`` windows, 8 frames written a window and the
     clip's last. Checks the file names and count, that every file decodes
     through ``png.imread`` to (720, 1280, 3), that the originals equal the
     input frames bit for bit, and the launches: 4 multi-flow a window, and
@@ -2096,8 +2439,8 @@ def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False)
     clip_dir, out_dir = os.path.join(root, f"in_{tag}"), os.path.join(root, f"out_{tag}")
     os.makedirs(clip_dir)
     for i in range(n_windows + 1):
-        name = f"frame_{i:05d}.png"
-        os.symlink(os.path.join(root, "clip", name), os.path.join(clip_dir, name))
+        name = f"frame_{i:05d}.{ext}"
+        os.symlink(os.path.join(root, clip, name), os.path.join(clip_dir, name))
     ini = write_config(os.path.join(root, f"render_{tag}.ini"), base, SEEDED,
                        {"TPU": {"COMPUTE_DTYPE": dtype}} if dtype else {})
     args = ["-c", ini, "--input-dir", clip_dir, "--output-dir", out_dir, "--log", os.path.join(root, "render.log")]
@@ -2129,7 +2472,8 @@ def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False)
     run_s = run.calls[0][1] - run.calls[0][0]
     res = {
         "phase": f"render_{tag}", "config": f"configs/{base}", "compute_dtype": dtype or "float32",
-        "dump_intermediates": dump, "frame_hw": list(frames.shape[1:3]), "upsample_rate": 8, "windows": n_windows,
+        "frames": ext, "dump_intermediates": dump, "frame_hw": list(frames.shape[1:3]), "upsample_rate": 8,
+        "windows": n_windows,
         "frames_written": n_out, "cli_wall_s": cli_wall, "render_wall_s": run_s,
         "frames_per_s": n_out / run_s, "first_window_ms": windows[0]["window_ms"],
         "steady_frames_per_s": 8 * len(steady) / (sum(w["window_ms"] for w in steady) / 1e3),
@@ -2169,6 +2513,40 @@ def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False)
     if shapes != {tuple(frames.shape[1:])} or not originals_equal:
         raise AssertionError(f"render {tag}: file shapes {shapes}, originals bit-identical {originals_equal}")
     return res
+
+
+def phase_render_jpeg(root, frames, n_windows=3):
+    """The render CLI over a JPEG clip: the first ``n_windows + 1`` frames
+    of the 720p clip written as q95 4:2:0 JPEG files (CONV, f32, as phase
+    18), then over PNG copies of the port's decode of those files; every
+    file the two runs write is the same, byte for byte (the same pixels in,
+    the same renders out)."""
+    from superslomo_tpu_torch.data import jpeg
+
+    os.makedirs(os.path.join(root, "clip_jpg"))
+    for i, img in enumerate(frames[: n_windows + 1]):
+        write_jpeg(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"), img, quality=95)
+    decoded = np.stack([jpeg.imread(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"))
+                        for i in range(n_windows + 1)])
+    write_clip(os.path.join(root, "clip_jpg_png"), decoded)
+    runs = [phase_render_cli(root, decoded, "cli_main_path_jpeg", "superslomo_eval.ini", n_windows, clip="clip_jpg",
+                             ext="jpg"),
+            phase_render_cli(root, decoded, "cli_main_path_jpeg_png_copy", "superslomo_eval.ini", n_windows,
+                             clip="clip_jpg_png")]
+    names = sorted(os.listdir(os.path.join(root, "out_cli_main_path_jpeg")))
+    differ = []
+    for name in names:
+        with open(os.path.join(root, "out_cli_main_path_jpeg", name), "rb") as a, \
+                open(os.path.join(root, "out_cli_main_path_jpeg_png_copy", name), "rb") as b:
+            if a.read() != b.read():
+                differ.append(name)
+    res = {"phase": "render_jpeg_vs_png_copy", "windows": n_windows, "files": len(names), "files_differing": differ,
+           "decode_ms_jpeg": runs[0]["median_ms_per_window"]["decode_ms"],
+           "decode_ms_png_copy": runs[1]["median_ms_per_window"]["decode_ms"]}
+    emit(res)
+    if differ or len(names) != 8 * n_windows + 1:
+        raise AssertionError(f"the renders of the JPEG clip and of its PNG copy differ: {res}")
+    return runs
 
 
 def write_sintel(root, H, W, n, seed, clip="alley_1"):
@@ -2282,8 +2660,9 @@ def phase_render_flow_card_vs_cpu(root):
 
 def render_phases(render_fwd):
     """Phases 18-21 in a temporary directory: the render CLI (CONV f32 over
-    8 windows, CONV bf16 over 4, SSM-R over 3, the intermediates dump over
-    2) over a 9-frame 720p panning clip, the flow-EPE CLI, and both CLIs on
+    8 windows, CONV bf16 over 4, SSM-R over 3, CONV f32 over 3 windows of
+    JPEG frames and of their PNG copy, the intermediates dump over 2) over a
+    9-frame 720p panning clip, the flow-EPE CLI, and both CLIs on
     the card against the CPU; every single-flow launch of the dump and the
     flow evaluator held to a layout of ``render_fwd``'s cases."""
     with tempfile.TemporaryDirectory() as root:
@@ -2294,6 +2673,7 @@ def render_phases(render_fwd):
             phase_render_cli(root, frames, "cli_main_path_bf16", "superslomo_eval.ini", n_windows=4,
                              dtype="bfloat16"),
             phase_render_cli(root, frames, "ssmr_main_path", "superslomo_recurrent.ini", n_windows=3),
+            *phase_render_jpeg(root, frames),
             phase_render_cli(root, frames, "dump_intermediates", "superslomo_eval.ini", n_windows=2, dump=True),
         ]
         flow_eval = phase_flow_eval_cli(root)
@@ -2789,7 +3169,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "ssmr_launches_per_window": {r["compute_dtype"]: r["launches"]["warp_single"] / r["windows"]
                                      for r in ssmr_stream},
         "launches_per_train_step": {r["phase"]: r["launches_per_step"]["forward"] for r in trains},
-        "launches_per_train_cli_step": {r["compute_dtype"]: r["launches_per_step"]["forward"] for r in train_clis},
+        "launches_per_train_cli_step": {r["tag"]: r["launches_per_step"]["forward"] for r in train_clis},
         "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_single"] for r in renders},
         "flow_eval_cli_launches_per_sample": flow_eval["launches_per_sample"]["warp_single"],
         "launches_per_ddp_train_step_by_rank": [r["forward"] for r in scaled["ddp_train"]["launches_per_step_by_rank"]],
@@ -2818,7 +3198,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             "library": "aten.grid_sampler_2d_backward computing this gradient alone",
             "plain": "the plain warp's forward + backward to this input",
             "launches_per_train_step": {r["phase"]: r["launches_per_step"][key] for r in trains},
-            "launches_per_train_cli_step": {r["compute_dtype"]: r["launches_per_step"][key] for r in train_clis},
+            "launches_per_train_cli_step": {r["tag"]: r["launches_per_step"][key] for r in train_clis},
             "launches_per_ddp_train_step_by_rank": [r[key] for r in scaled["ddp_train"]["launches_per_step_by_rank"]],
             "launches_per_resumed_train_step": scaled["native"]["resumed_step_launches"][key],
             "cases": {case: {k: c[key].get(k) for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
@@ -2838,7 +3218,7 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
            + r.get("eval_warp_multiflow_backward_launches", 0) for r in ssmr_main},
         **{r["phase"]: r["launches"]["multiflow_backward"] for r in trains},
         "eval_cli_main_path": eval_cli["warp_multiflow_backward_launches"],
-        **{f"train_cli_main_path_{r['compute_dtype']}": r["launches"]["multiflow_backward"] for r in train_clis},
+        **{f"train_cli_main_path_{r['tag']}": r["launches"]["multiflow_backward"] for r in train_clis},
         **{r["phase"]: r["launches"]["warp_multiflow_backward"] for r in renders},
         "flow_eval_cli_main_path": flow_eval["launches"]["warp_multiflow_backward"],
         "native_resumed_train_step": scaled["native"]["resumed_step_launches"]["multiflow_backward"],
@@ -2965,7 +3345,7 @@ def main() -> int:
         bf16_train = phase_bf16_train_main(ckpt_dir, norm, train["loss_first"])
     trains = [train, ssmr_train, ssmr_remat, bf16_train]
     check_backward_layouts(single["layouts"], [r for t in trains for r in t["backward_layouts_first_step"]])
-    _, eval_cli, train_clis, scaled = data_phases(norm, scale=True)
+    _, _, eval_cli, train_clis, scaled = data_phases(norm, scale=True)
     renders, flow_eval, _ = render_phases(render_fwd)
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,

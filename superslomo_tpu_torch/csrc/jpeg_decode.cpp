@@ -1,0 +1,462 @@
+// The scan of a baseline or extended sequential Huffman JPEG (8-bit, one
+// interleaved scan), decoded to an RGB image as cv2.imread decodes it through
+// its bundled libjpeg-turbo at its defaults: the Huffman decode with the DC
+// predictors and the restart markers; dequantisation and the slow-integer
+// IDCT in the arithmetic of libjpeg-turbo's x86 SIMD version of jidctint.c
+// (16-bit dequantised coefficients and sums, a saturating 16-bit workspace,
+// the output clamped), which cv2 takes on x86-64; the chroma upsampling of
+// jdsample.c (fancy h2v1, h2v2 and h1v2; box replication where a component is
+// 2 samples wide or less, or the factors are other integers); the
+// fixed-point YCbCr to RGB of jdcolor.c.
+//
+// Host code: the frame decoder (data/jpeg.py) parses the markers and calls
+// jpeg_decode through ctypes, which releases the interpreter lock, so the
+// Loader's threads decode frames in parallel. ops/cuda_build.py compiles this
+// file with the host C++ compiler at first use.
+
+#include <cstdint>
+#include <cstring>
+#include <vector>
+
+namespace {
+
+// the natural (row-major) index of each zigzag position, then 16 entries of
+// 63 so that a corrupt run past the block's end stays inside it
+constexpr int kNatural[64 + 16] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
+    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
+    47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+enum Error : int64_t {
+  kOk = 0,
+  kTruncated = 1,     // the scan ends before its last block
+  kBadCode = 2,       // a bit string that is no code of the table
+  kBadRestart = 3,    // a missing or misnumbered RSTn marker
+  kBadTable = 4,      // a Huffman table that libjpeg refuses (see build_huffman)
+  kMissingTable = 5,  // a scan component names an undefined Huffman table
+};
+
+constexpr int kFastBits = 9;
+
+struct Huffman {
+  uint16_t fast[1 << kFastBits];  // (length << 8) | symbol for codes of <= 9 bits; 0: a longer code
+  // an AC table's codes with their magnitude bits in <= 9 bits: (value << 8) | (run << 4) | total length; 0: none
+  int32_t fast_ac[1 << kFastBits];
+  int32_t maxcode[17];            // the largest code of each length, -1 where none
+  int32_t valptr[17];             // the index in symbols of each length's first code, less that code
+  uint8_t symbols[256];
+  bool present;
+};
+
+// counts: the number of codes of each length 1-16; symbols: in code order.
+// Refuses what libjpeg's jpeg_make_d_derived_tbl refuses: more than 256
+// codes, a length whose codes do not fit in its bits with the all-ones code
+// left free (checked before that length's codes are written), a DC symbol
+// past 15.
+bool build_huffman(const uint8_t* counts, const uint8_t* symbols, bool dc, Huffman& h) {
+  std::memset(&h, 0, sizeof(h));
+  int total = 0;
+  for (int l = 0; l < 16; ++l) total += counts[l];
+  if (total == 0) return true;  // absent
+  if (total > 256) return false;
+  std::memcpy(h.symbols, symbols, total);
+  for (int k = 0; k < total && dc; ++k)
+    if (h.symbols[k] > 15) return false;
+  int32_t code = 0;
+  int k = 0;
+  for (int l = 1; l <= 16; ++l) {
+    const int n = counts[l - 1];
+    if (code + n >= (1 << l)) return false;
+    h.valptr[l] = k - code;
+    h.maxcode[l] = n ? code + n - 1 : -1;
+    for (int i = 0; i < n; ++i, ++k, ++code) {
+      if (l <= kFastBits) {
+        const int shift = kFastBits - l;
+        for (int j = 0; j < (1 << shift); ++j) h.fast[(code << shift) | j] = static_cast<uint16_t>((l << 8) | h.symbols[k]);
+      }
+    }
+    code <<= 1;
+  }
+  for (int i = 0; i < (1 << kFastBits); ++i) {  // a code and its magnitude bits looked up at once
+    const int l = h.fast[i] >> 8, rs = h.fast[i] & 0xFF, size = rs & 15;
+    if (!h.fast[i] || !size || l + size > kFastBits) continue;
+    int32_t v = (i >> (kFastBits - l - size)) & ((1 << size) - 1);
+    if (v < (1 << (size - 1))) v += 1 - (1 << size);
+    h.fast_ac[i] = static_cast<int32_t>(static_cast<uint32_t>(v) << 8) | ((rs >> 4) << 4) | (l + size);
+  }
+  h.present = true;
+  return true;
+}
+
+// The entropy-coded bits, MSB first, with the 0xFF00 stuffing removed. At a
+// marker (or the data's end) it feeds zero bits and stops counting them as
+// real: a decode that consumes one has run past the data.
+struct Bits {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t buf = 0;   // n bits, MSB-aligned
+  int n = 0;
+  int64_t real = 0;   // real bits among the n, less those consumed past them
+  bool at_marker = false;
+
+  void fill() {
+    while (n <= 56) {
+      uint64_t byte = 0;
+      if (!at_marker && p < end) {
+        if (*p != 0xFF) {
+          byte = *p++;
+          real += 8;
+        } else if (p + 1 < end && p[1] == 0x00) {
+          byte = 0xFF;
+          p += 2;
+          real += 8;
+        } else {
+          at_marker = true;
+        }
+      }
+      buf |= byte << (56 - n);
+      n += 8;
+    }
+  }
+  void skip(int k) {
+    buf <<= k;
+    n -= k;
+    real -= k;
+  }
+  // k (1-16) bits as an unsigned value
+  uint32_t get(int k) {
+    if (n < k) fill();
+    const uint32_t v = static_cast<uint32_t>(buf >> (64 - k));
+    skip(k);
+    return v;
+  }
+  // the next RSTn: the rest of the current byte is padding; returns false
+  // unless the marker RST(expected) follows
+  bool restart(int expected) {
+    if (real >= 8 || real < 0) return false;
+    while (p + 1 < end && p[0] == 0xFF && p[1] == 0xFF) ++p;  // fill bytes before the marker
+    if (!(p + 1 < end && p[0] == 0xFF && p[1] == 0xD0 + expected)) return false;
+    p += 2;
+    buf = 0;
+    n = 0;
+    real = 0;
+    at_marker = false;
+    return true;
+  }
+};
+
+inline int decode(Bits& b, const Huffman& h) {
+  if (b.n < 16) b.fill();
+  const uint16_t e = h.fast[b.buf >> (64 - kFastBits)];
+  if (e) {
+    b.skip(e >> 8);
+    return e & 0xFF;
+  }
+  const uint32_t code16 = static_cast<uint32_t>(b.buf >> 48);
+  for (int l = kFastBits + 1; l <= 16; ++l) {
+    const int32_t code = static_cast<int32_t>(code16 >> (16 - l));
+    if (code <= h.maxcode[l]) {
+      b.skip(l);
+      return h.symbols[h.valptr[l] + code];
+    }
+  }
+  return -1;
+}
+
+// JPEG's magnitude category: s bits, a value below 2^(s-1) is negative
+inline int32_t receive_extend(Bits& b, int s) {
+  if (s == 0) return 0;
+  const int32_t v = static_cast<int32_t>(b.get(s));
+  return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
+}
+
+// one block's coefficients (natural order, zeroed by the caller)
+int64_t decode_block(Bits& b, const Huffman& dc, const Huffman& ac, int32_t& pred, int16_t* coef) {
+  const int s = decode(b, dc);
+  if (s < 0 || s > 15) return kBadCode;
+  pred += receive_extend(b, s);
+  coef[0] = static_cast<int16_t>(pred);
+  for (int k = 1; k < 64; ++k) {
+    if (b.n < 16) b.fill();
+    const int32_t f = ac.fast_ac[b.buf >> (64 - kFastBits)];
+    if (f) {
+      b.skip(f & 15);
+      k += (f >> 4) & 15;
+      coef[kNatural[k]] = static_cast<int16_t>(f >> 8);
+      continue;
+    }
+    const int rs = decode(b, ac);
+    if (rs < 0) return kBadCode;
+    const int r = rs >> 4, size = rs & 15;
+    if (size) {
+      k += r;
+      coef[kNatural[k]] = static_cast<int16_t>(receive_extend(b, size));
+    } else {
+      if (r != 15) break;  // end of block
+      k += 15;             // sixteen zeros
+    }
+  }
+  return b.real < 0 ? kTruncated : kOk;
+}
+
+// --- the slow-integer IDCT, as libjpeg-turbo's SIMD version computes it ----
+
+inline int32_t wrap16(int32_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+inline int32_t sat16(int32_t x) { return x < -32768 ? -32768 : (x > 32767 ? 32767 : x); }
+// (x + 2^(n-1)) >> n of a 32-bit sum, which wraps as the SIMD code's adds do
+inline int32_t descale(uint32_t x, int n) { return static_cast<int32_t>(x + (1u << (n - 1))) >> n; }
+
+constexpr uint32_t F029 = 2446, F039 = 3196, F054 = 4433, F076 = 6270, F089 = 7373, F117 = 9633, F150 = 12299,
+                   F184 = 15137, F196 = 16069, F205 = 16819, F256 = 20995, F307 = 25172;
+
+// One 1-D pass over 8 values in[0], in[s], ..., in[7 s] (16-bit inputs; the
+// sums in0 +- in4, in7 + in3 and in5 + in1 in 16 bits, the products and their
+// sums in 32, unsigned so that they wrap), descaled by `shift` into out[0],
+// out[s], ... The products are paired as the SIMD code pairs them; with no
+// overflow this equals jidctint.c's pass exactly.
+inline void idct_1d(const int32_t* in, int32_t* out, int s, int shift) {
+  const uint32_t z2 = in[2 * s], z3 = in[6 * s];
+  const uint32_t tmp2 = z2 * F054 + z3 * (F054 - F184);
+  const uint32_t tmp3 = z2 * (F054 + F076) + z3 * F054;
+  const uint32_t t0 = static_cast<uint32_t>(wrap16(in[0] + in[4 * s])) << 13;
+  const uint32_t t1 = static_cast<uint32_t>(wrap16(in[0] - in[4 * s])) << 13;
+  const uint32_t tmp10 = t0 + tmp3, tmp13 = t0 - tmp3, tmp11 = t1 + tmp2, tmp12 = t1 - tmp2;
+
+  const uint32_t i7 = in[7 * s], i5 = in[5 * s], i3 = in[3 * s], i1 = in[s];
+  const uint32_t z3o = wrap16(in[7 * s] + in[3 * s]), z4o = wrap16(in[5 * s] + in[s]);
+  const uint32_t z3s = z3o * (F117 - F196) + z4o * F117;
+  const uint32_t z4s = z3o * F117 + z4o * (F117 - F039);
+  const uint32_t o0 = i7 * (F029 - F089) - i1 * F089 + z3s;
+  const uint32_t o3 = i1 * (F150 - F089) - i7 * F089 + z4s;
+  const uint32_t o1 = i5 * (F205 - F256) - i3 * F256 + z4s;
+  const uint32_t o2 = i3 * (F307 - F256) - i5 * F256 + z3s;
+
+  out[0] = descale(tmp10 + o3, shift);
+  out[7 * s] = descale(tmp10 - o3, shift);
+  out[s] = descale(tmp11 + o2, shift);
+  out[6 * s] = descale(tmp11 - o2, shift);
+  out[2 * s] = descale(tmp12 + o1, shift);
+  out[5 * s] = descale(tmp12 - o1, shift);
+  out[3 * s] = descale(tmp13 + o0, shift);
+  out[4 * s] = descale(tmp13 - o0, shift);
+}
+
+// coef: natural order; q: the quantisation table, natural order; out: 8 rows
+// of 8 samples, `stride` bytes apart
+void idct_islow(const int16_t* coef, const uint16_t* q, uint8_t* out, int64_t stride) {
+  int32_t in[64], ws[64], res[64];
+  bool dc_only = true;  // every column's vertical AC terms zero: pass 1 is a shift
+  for (int i = 8; i < 64 && dc_only; ++i) dc_only = coef[i] == 0;
+  if (dc_only) {
+    for (int c = 0; c < 8; ++c) {
+      const int32_t v = wrap16(wrap16(coef[c] * static_cast<int32_t>(q[c])) * 4);
+      for (int r = 0; r < 8; ++r) ws[r * 8 + c] = v;
+    }
+  } else {
+    for (int i = 0; i < 64; ++i) in[i] = wrap16(coef[i] * static_cast<int32_t>(q[i]));
+    for (int c = 0; c < 8; ++c) idct_1d(in + c, ws + c, 8, 13 - 2);  // the columns
+    for (int i = 0; i < 64; ++i) ws[i] = sat16(ws[i]);
+  }
+  for (int r = 0; r < 8; ++r) idct_1d(ws + r * 8, res + r * 8, 1, 13 + 2 + 3);  // the rows
+  for (int r = 0; r < 8; ++r) {
+    uint8_t* o = out + r * stride;
+    for (int c = 0; c < 8; ++c) {
+      const int32_t v = res[r * 8 + c];
+      o[c] = static_cast<uint8_t>((v < -128 ? -128 : (v > 127 ? 127 : v)) + 128);
+    }
+  }
+}
+
+// --- chroma upsampling (jdsample.c) -----------------------------------------
+
+// src: a (dh, dw) plane, `sstride` apart; dst: the (dh * vexp, dw * hexp)
+// result, `dstride` apart
+void upsample(const uint8_t* src, int64_t sstride, int dh, int dw, int hexp, int vexp, uint8_t* dst,
+              int64_t dstride) {
+  if (hexp == 2 && vexp == 2 && dw > 2) {  // h2v2_fancy_upsample
+    std::vector<int32_t> sum(dw + 2);
+    for (int y = 0; y < 2 * dh; ++y) {
+      const int near = y >> 1;
+      int far = (y & 1) ? near + 1 : near - 1;
+      far = far < 0 ? 0 : (far >= dh ? dh - 1 : far);
+      const uint8_t* a = src + near * sstride;
+      const uint8_t* b = src + far * sstride;
+      for (int x = 0; x < dw; ++x) sum[x + 1] = 3 * a[x] + b[x];
+      sum[0] = sum[1];
+      sum[dw + 1] = sum[dw];
+      uint8_t* o = dst + y * dstride;
+      for (int x = 0; x < dw; ++x) {
+        o[2 * x] = static_cast<uint8_t>((3 * sum[x + 1] + sum[x] + 8) >> 4);
+        o[2 * x + 1] = static_cast<uint8_t>((3 * sum[x + 1] + sum[x + 2] + 7) >> 4);
+      }
+    }
+  } else if (hexp == 2 && vexp == 1 && dw > 2) {  // h2v1_fancy_upsample
+    for (int y = 0; y < dh; ++y) {
+      const uint8_t* a = src + y * sstride;
+      uint8_t* o = dst + y * dstride;
+      for (int x = 0; x < dw; ++x) {
+        const int left = a[x > 0 ? x - 1 : 0], right = a[x < dw - 1 ? x + 1 : dw - 1];
+        o[2 * x] = static_cast<uint8_t>((3 * a[x] + left + 1) >> 2);
+        o[2 * x + 1] = static_cast<uint8_t>((3 * a[x] + right + 2) >> 2);
+      }
+    }
+  } else if (hexp == 1 && vexp == 2) {  // h1v2_fancy_upsample
+    for (int y = 0; y < 2 * dh; ++y) {
+      const int near = y >> 1;
+      int far = (y & 1) ? near + 1 : near - 1;
+      far = far < 0 ? 0 : (far >= dh ? dh - 1 : far);
+      const int bias = (y & 1) ? 2 : 1;
+      const uint8_t* a = src + near * sstride;
+      const uint8_t* b = src + far * sstride;
+      uint8_t* o = dst + y * dstride;
+      for (int x = 0; x < dw; ++x) o[x] = static_cast<uint8_t>((3 * a[x] + b[x] + bias) >> 2);
+    }
+  } else {  // fullsize, h2v1 / h2v2 box, int_upsample
+    for (int y = 0; y < dh * vexp; ++y) {
+      const uint8_t* a = src + (y / vexp) * sstride;
+      uint8_t* o = dst + y * dstride;
+      for (int x = 0; x < dw * hexp; ++x) o[x] = a[x / hexp];
+    }
+  }
+}
+
+inline uint8_t clamp255(int32_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+}  // namespace
+
+// Decodes the scan whose entropy-coded data starts at `scan` (its first
+// `scan_len` bytes hold it, and may run on past it) into `out`, a (height,
+// width, 3) RGB uint8 array.
+//   frame: width, height, the number of frame components (1 or 3), the
+//          restart interval in MCUs (0: none), colour (0 grey, 1 YCbCr, 2 RGB);
+//   comps: per scan component, in scan order: its frame index, h, v, DC table, AC table;
+//   quant: per frame component, in frame order, its 64 quantisation values, natural order;
+//   huff:  the 4 DC then the 4 AC tables, each 16 code counts then 256 symbols (all counts 0: absent).
+// Returns 0 or an Error.
+extern "C" int64_t jpeg_decode(const uint8_t* scan, int64_t scan_len, const int32_t* frame, const int32_t* comps,
+                               const uint16_t* quant, const uint8_t* huff, uint8_t* out) {
+  const int W = frame[0], H = frame[1], nc = frame[2], restart = frame[3], colour = frame[4];
+  Huffman tables[8];  // built where the scan names them, as libjpeg builds them
+  bool built[8] = {};
+  for (int c = 0; c < nc; ++c) {
+    for (const int t : {comps[c * 5 + 3], 4 + comps[c * 5 + 4]}) {
+      if (built[t]) continue;
+      if (!build_huffman(huff + t * 272, huff + t * 272 + 16, t < 4, tables[t])) return kBadTable;
+      built[t] = true;
+    }
+  }
+
+  int hmax = 1, vmax = 1;
+  for (int c = 0; c < nc && nc > 1; ++c) {
+    hmax = comps[c * 5 + 1] > hmax ? comps[c * 5 + 1] : hmax;
+    vmax = comps[c * 5 + 2] > vmax ? comps[c * 5 + 2] : vmax;
+  }
+  // a single-component scan is not interleaved: an MCU is one block, the
+  // blocks cover the component alone
+  const int mcux = nc == 1 ? (W + 7) / 8 : (W + 8 * hmax - 1) / (8 * hmax);
+  const int mcuy = nc == 1 ? (H + 7) / 8 : (H + 8 * vmax - 1) / (8 * vmax);
+  struct Plane {
+    std::vector<uint8_t> px;
+    int64_t stride;
+    int h, v, frame_index;
+    const Huffman* dc;
+    const Huffman* ac;
+    const uint16_t* q;
+    int32_t pred;
+  };
+  std::vector<Plane> planes(nc);
+  for (int c = 0; c < nc; ++c) {
+    Plane& p = planes[c];
+    p.frame_index = comps[c * 5];
+    p.h = nc == 1 ? 1 : comps[c * 5 + 1];
+    p.v = nc == 1 ? 1 : comps[c * 5 + 2];
+    p.dc = &tables[comps[c * 5 + 3]];
+    p.ac = &tables[4 + comps[c * 5 + 4]];
+    if (!p.dc->present || !p.ac->present) return kMissingTable;
+    p.q = quant + 64 * p.frame_index;
+    p.stride = static_cast<int64_t>(mcux) * p.h * 8;
+    p.px.resize(p.stride * mcuy * p.v * 8);
+    p.pred = 0;
+  }
+
+  Bits bits{scan, scan + scan_len};
+  int16_t coef[64];
+  int64_t err = kOk;
+  const int64_t n_mcu = static_cast<int64_t>(mcux) * mcuy;
+  for (int64_t m = 0; m < n_mcu && err == kOk; ++m) {
+    if (restart && m && m % restart == 0) {
+      if (!bits.restart(static_cast<int>((m / restart - 1) % 8))) {
+        err = bits.real < 0 ? kTruncated : kBadRestart;
+        break;
+      }
+      for (Plane& p : planes) p.pred = 0;
+    }
+    const int64_t my = m / mcux, mx = m % mcux;
+    for (Plane& p : planes) {
+      for (int dy = 0; dy < p.v && err == kOk; ++dy) {
+        for (int dx = 0; dx < p.h && err == kOk; ++dx) {
+          std::memset(coef, 0, sizeof(coef));
+          err = decode_block(bits, *p.dc, *p.ac, p.pred, coef);
+          if (err == kOk) {
+            uint8_t* o = p.px.data() + (my * p.v + dy) * 8 * p.stride + (mx * p.h + dx) * 8;
+            idct_islow(coef, p.q, o, p.stride);
+          }
+        }
+      }
+    }
+  }
+  if (err != kOk) return err;
+
+  // every component at full size: upsampled where it is subsampled
+  const int64_t fw = static_cast<int64_t>(mcux) * hmax * 8;
+  std::vector<uint8_t> full[3];
+  const uint8_t* rows[3];
+  int64_t strides[3];
+  for (int c = 0; c < nc; ++c) {
+    const Plane& p = planes[c];
+    const int fi = p.frame_index;
+    const int hexp = hmax / p.h, vexp = vmax / p.v;
+    if (hexp == 1 && vexp == 1) {
+      rows[fi] = p.px.data();
+      strides[fi] = p.stride;
+      continue;
+    }
+    const int dw = (W + hexp - 1) / hexp, dh = (H + vexp - 1) / vexp;  // the component's own size
+    full[fi].resize(fw * dh * vexp);
+    upsample(p.px.data(), p.stride, dh, dw, hexp, vexp, full[fi].data(), fw);
+    rows[fi] = full[fi].data();
+    strides[fi] = fw;
+  }
+
+  if (colour == 1) {  // jdcolor.c: SCALEBITS 16, the four tables, ONE_HALF rounding
+    int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+    const int64_t one_half = int64_t{1} << 15;
+    for (int i = 0; i < 256; ++i) {
+      const int64_t x = i - 128;
+      cr_r[i] = static_cast<int32_t>((91881 * x + one_half) >> 16);   // FIX(1.40200)
+      cb_b[i] = static_cast<int32_t>((116130 * x + one_half) >> 16);  // FIX(1.77200)
+      cr_g[i] = static_cast<int32_t>(-46802 * x);                     // -FIX(0.71414)
+      cb_g[i] = static_cast<int32_t>(-22554 * x + one_half);          // -FIX(0.34414), + ONE_HALF
+    }
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* py = rows[0] + y * strides[0];
+      const uint8_t* pb = rows[1] + y * strides[1];
+      const uint8_t* pr = rows[2] + y * strides[2];
+      uint8_t* o = out + static_cast<int64_t>(y) * W * 3;
+      for (int x = 0; x < W; ++x) {
+        const int32_t yy = py[x], cb = pb[x], cr = pr[x];
+        o[3 * x] = clamp255(yy + cr_r[cr]);
+        o[3 * x + 1] = clamp255(yy + ((cb_g[cb] + cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp255(yy + cb_b[cb]);
+      }
+    }
+  } else {
+    for (int y = 0; y < H; ++y) {
+      uint8_t* o = out + static_cast<int64_t>(y) * W * 3;
+      for (int x = 0; x < W; ++x)
+        for (int ch = 0; ch < 3; ++ch) o[3 * x + ch] = rows[nc == 1 ? 0 : ch][y * strides[nc == 1 ? 0 : ch] + x];
+    }
+  }
+  return kOk;
+}

@@ -1,7 +1,7 @@
 """PNG frame decoder: the counterpart of ``cv2.imread(path)`` (its
 ``IMREAD_COLOR`` default) for the datasets' PNG frames, with no cv2.
 
-It parses the chunks itself (``IHDR``, the ``IDAT``s joined, ``PLTE``; the CRCs
+It parses the chunks itself (``IHDR``, the ``IDAT``s joined, ``PLTE``, ``eXIf``; the CRCs
 are not checked), inflates with ``zlib`` and undoes the row filters with the
 host C++ routine of ``csrc/png_unfilter.cpp`` (built at first use by
 ``ops/cuda_build.py``, called through ctypes with the GIL released, so the
@@ -13,7 +13,9 @@ in numpy and Python, for the tests.
 composited), grey is replicated to three channels, a palette is expanded
 through ``PLTE``, and a 16-bit sample keeps its high byte. It reads bit depths
 8 and 16 (8 for a palette); interlaced files and other depths raise
-NotImplementedError. EXIF orientation is not applied.
+NotImplementedError. The EXIF orientation of an ``eXIf`` chunk (the first,
+before or after the ``IDAT``s, as cv2 reads it) is applied as cv2 applies it
+(``data/exif.py``).
 
 ``imwrite`` is the counterpart of ``cv2.imwrite`` for the renderer's frames:
 an 8-bit RGB file from a (H, W, 3) RGB array, or an 8-bit grey file from a
@@ -29,10 +31,11 @@ import zlib
 
 import numpy as np
 
+from superslomo_tpu_torch.data.exif import apply_orientation, orientation
 from superslomo_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "png_unfilter.cpp"
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples a pixel
 
 
@@ -56,7 +59,7 @@ def imwrite(path: str, img: np.ndarray) -> None:
     rows[:, 1 : 1 + bpp] = x[:, :bpp]
     np.subtract(x[:, bpp:], x[:, :-bpp], out=rows[:, 1 + bpp :])
     header = struct.pack(">IIBBBBB", w, h, 8, 0 if bpp == 1 else 2, 0, 0, 0)
-    data = (_SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(rows.data, 1))
+    data = (SIGNATURE + _chunk(b"IHDR", header) + _chunk(b"IDAT", zlib.compress(rows.data, 1))
             + _chunk(b"IEND", b""))
     with open(path, "wb") as f:
         f.write(data)
@@ -119,14 +122,16 @@ def unfilter_plain(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray
     return out
 
 
-def read_chunks(path: str) -> tuple:
+def read_chunks(path: str, data: bytes | None = None) -> tuple:
     """(IHDR fields (w, h, bit depth, colour type, interlace), the IDATs'
-    zlib stream, the PLTE bytes or None)."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != _SIGNATURE:
+    zlib stream, the PLTE bytes or None, the first eXIf chunk's body or None)
+    of the PNG at ``path``, or of its bytes ``data`` where they were read."""
+    if data is None:
+        with open(path, "rb") as f:
+            data = f.read()
+    if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat, palette = 8, None, [], None
+    pos, header, idat, palette, exif = 8, None, [], None, None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos : pos + 8])
         body = data[pos + 8 : pos + 8 + length]
@@ -138,17 +143,20 @@ def read_chunks(path: str) -> tuple:
             idat.append(body)
         elif kind == b"PLTE":
             palette = body
+        elif kind == b"eXIf" and exif is None:
+            exif = body
         elif kind == b"IEND":
             break
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or no IDAT chunk")
-    return header, b"".join(idat), palette
+    return header, b"".join(idat), palette, exif
 
 
-def imread(path: str) -> np.ndarray:
-    """Decode the PNG at ``path`` to a (H, W, 3) uint8 RGB array, as
-    ``cv2.imread(path)[..., ::-1]`` does."""
-    (w, h, depth, ctype, interlace), stream, palette = read_chunks(path)
+def imread(path: str, data: bytes | None = None) -> np.ndarray:
+    """Decode the PNG at ``path`` (or its bytes ``data``) to a (H, W, 3)
+    uint8 RGB array, as ``cv2.imread(path)[..., ::-1]`` does, its EXIF
+    orientation applied."""
+    (w, h, depth, ctype, interlace), stream, palette, exif = read_chunks(path, data)
     if interlace:
         raise NotImplementedError(f"{path}: interlaced (Adam7) PNG files are not read")
     if ctype not in _CHANNELS:
@@ -165,7 +173,9 @@ def imread(path: str) -> np.ndarray:
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: a palette image without PLTE")
-        return np.frombuffer(palette, np.uint8).reshape(-1, 3)[img[..., 0]]
-    if channels < 3:  # grey, grey + alpha
-        return np.repeat(img[..., :1], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
+        img = np.frombuffer(palette, np.uint8).reshape(-1, 3)[img[..., 0]]
+    elif channels < 3:  # grey, grey + alpha
+        img = np.repeat(img[..., :1], 3, axis=2)
+    else:
+        img = img[..., :3]
+    return apply_orientation(img, orientation(exif) if exif is not None else 1)

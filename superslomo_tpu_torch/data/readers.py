@@ -8,7 +8,8 @@ septuplets, Slowflow, Sintel-HFR and the combined train set, with
   MIDDLE t shared across windows, t = idx / 8;
 * eval: sliding windows with edge replication and per-window counts of valid
   targets;
-* frames decoded by ``data/png.py`` to RGB, vertical videos swapped back;
+* frames decoded by ``data/image.py`` (PNG or JPEG, EXIF orientation
+  applied) to RGB, vertical videos swapped back;
 * Vimeo's septuplet index tables for train and eval.
 
 Samples are NHWC float32 arrays; every random draw comes from the
@@ -29,7 +30,7 @@ import numpy as np
 
 from superslomo_tpu_torch.data.augmentations import Compose, EvalPad, Normalize, RandomCrop, ToFloatArray
 from superslomo_tpu_torch.data.pipeline import Loader
-from superslomo_tpu_torch.data.png import imread
+from superslomo_tpu_torch.data.image import imread
 from superslomo_tpu_torch.utils.flo import read_flo
 from superslomo_tpu_torch.utils.validators import check_clip_window
 

@@ -1,17 +1,17 @@
 """Slow-motion renderer (reference: scripts/visualize_interpolation.py), as in
 the JAX package.
 
-Globs a directory of PNG frames, optionally decimates 240 fps input to 30 fps
-(``[::8]``), slides an N_FRAMES window with edge clamping, pads each frame to
-/32 dims, and writes the original plus ``upsample_rate - 1`` interpolated
-PNGs a frame pair, made by ONE fused multi-t step a window. A recurrent model
+Globs a directory of PNG and JPEG frames, optionally decimates 240 fps
+input to 30 fps (``[::8]``), slides an N_FRAMES window with edge clamping,
+pads each frame to /32 dims, and writes the original plus
+``upsample_rate - 1`` interpolated PNGs a frame pair, made by ONE fused
+multi-t step a window. A recurrent model
 renders each window from a zero state, as the JAX renderer does. With
 ``dump_intermediates`` it also writes the visibility map and the estimated
 and refined flows' Middlebury colourings of each window at t=0.5.
 
-Frames are read by ``data/png.py`` (no cv2); a ``.jpg`` in the directory
-raises NotImplementedError, since the port has no JPEG decoder and skipping
-the file would change the frame sequence.
+Frames are read by ``data/image.py`` (PNG or JPEG, no cv2) and written by
+``data/png.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ import torch
 
 from superslomo_tpu_torch.config import Config
 from superslomo_tpu_torch.data.augmentations import Normalize, eval_padding_for
-from superslomo_tpu_torch.data.png import imread, imwrite
+from superslomo_tpu_torch.data.image import imread
+from superslomo_tpu_torch.data.png import imwrite
 from superslomo_tpu_torch.device import resolve_device
 from superslomo_tpu_torch.models.superslomo import model_on
 from superslomo_tpu_torch.utils.flo import flow_to_image
@@ -84,12 +85,8 @@ class Interpolator:
 
     def frame_paths(self, input_dir: str, decimate: bool = False) -> list:
         """The directory's ``*.png`` and ``*.jpg`` files, sorted; every 8th
-        with ``decimate`` (240 fps → 30 fps). Raises NotImplementedError on a
-        ``.jpg``."""
+        with ``decimate`` (240 fps → 30 fps)."""
         paths = sorted(glob.glob(os.path.join(input_dir, "*.png")) + glob.glob(os.path.join(input_dir, "*.jpg")))
-        jpegs = [p for p in paths if p.endswith(".jpg")]
-        if jpegs:
-            raise NotImplementedError(f"{jpegs[0]}: JPEG frames are not read (no JPEG decoder); convert them to PNG")
         return paths[::8] if decimate else paths
 
     def interpolate_directory(self, input_dir: str, output_dir: str, decimate: bool = False,

@@ -86,7 +86,7 @@ def _texture(rng, h, w):
 
 
 def _filter_types(path):
-    (w, h, depth, ctype, _), stream, _ = png.read_chunks(path)
+    (w, h, depth, ctype, _), stream, _, _ = png.read_chunks(path)
     raw = np.frombuffer(zlib.decompress(stream), np.uint8)
     return set(raw.reshape(h, -1)[:, 0].tolist())
 

@@ -164,7 +164,7 @@ def test_imwrite_decodes_bit_for_bit_through_cv2_and_png(tmp_path, shape):
     np.testing.assert_array_equal(_decode(path), img)
     ours = png.imread(path)
     np.testing.assert_array_equal(ours, img if img.ndim == 3 else np.repeat(img[..., None], 3, axis=2))
-    (w, h, depth, ctype, interlace), stream, _ = png.read_chunks(path)
+    (w, h, depth, ctype, interlace), stream, _, _ = png.read_chunks(path)
     assert (w, h, depth, ctype, interlace) == (shape[1], shape[0], 8, 2 if img.ndim == 3 else 0, 0)
     stride = w * (3 if img.ndim == 3 else 1)
     rows = np.frombuffer(zlib.decompress(stream), np.uint8).reshape(h, stride + 1)
@@ -274,12 +274,32 @@ def test_sliding_windows_equal_jax(n_frames):
     assert ours[0] == ([0, 1] if n_frames == 2 else [0, 0, 1, 2]) and ours[-1][-1] == 4
 
 
-def test_renderer_refuses_jpeg(renders, tmp_path):
-    frames = _clip(tmp_path, 2, H, W, seed=9)
-    cv2.imwrite(str(tmp_path / "frame_00000.jpg"), frames[0])
-    with pytest.raises(NotImplementedError, match="frame_00000.jpg"):
-        renders["interp"].interpolate_directory(str(tmp_path), str(tmp_path / "out"))
-    assert not os.path.exists(tmp_path / "out")
+def test_renderer_reads_jpeg_as_jax(renders, tmp_path):
+    """A .jpg copy of the fixture's clip (cv2's files, q95 4:2:0) rendered
+    by the fixture's JAX and port interpolators for 2 windows: the originals
+    equal cv2's decode bit for bit on both sides, the renders are held to the
+    bars of ``test_renderer_matches_jax``."""
+    os.makedirs(tmp_path / "clip")
+    for i, frame in enumerate(renders["frames"]):
+        cv2.imwrite(str(tmp_path / "clip" / f"frame_{i:05d}.jpg"), frame[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 95])
+    decoded = [cv2.imread(str(tmp_path / "clip" / f"frame_{i:05d}.jpg"))[..., ::-1] for i in range(5)]
+    n_jax = renders["jax_interp"].interpolate_directory(str(tmp_path / "clip"), str(tmp_path / "jax"), max_windows=2)
+    n_port = renders["interp"].interpolate_directory(str(tmp_path / "clip"), str(tmp_path / "port"), max_windows=2)
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert n_port == n_jax == len(names) == 9 and names == sorted(os.listdir(tmp_path / "jax"))
+    originals = {0: decoded[0], 4: decoded[1], 8: decoded[4]}
+    flipped = 0
+    for i, name in enumerate(names):
+        ours, theirs = png.imread(str(tmp_path / "port" / name)), _decode(str(tmp_path / "jax" / name))
+        assert ours.shape == theirs.shape == (H, W, 3)
+        if i in originals:
+            np.testing.assert_array_equal(ours, originals[i])
+            np.testing.assert_array_equal(theirs, originals[i])
+            continue
+        diff = np.abs(ours.astype(np.int16) - theirs.astype(np.int16))
+        assert diff.max() <= 1, name
+        flipped += int((diff > 0).sum())
+    assert flipped <= 0.01 * 6 * H * W * 3
 
 
 def test_renderer_decimates_as_jax(renders, tmp_path):
