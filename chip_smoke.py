@@ -7,6 +7,7 @@
     python3 chip_smoke.py --render-only    # phases 1 and 18-21: build, the renderer (PNG and JPEG) and flow-EPE CLIs
     python3 chip_smoke.py --scale-only     # phases 1 and 22-23: build, native checkpoints, data parallel
     python3 chip_smoke.py --ddp-ranks 4    # phases 1 and 23b-c at 4 ranks (a card a rank on 4 cards)
+    python3 chip_smoke.py --spatial-ranks 4  # phases 1 and 5b at 2 and 4 ranks (a card a rank on 4 cards)
 
 Phases, each of which raises on failure:
   1. device: the card's name and power limit, the CUDA version, and the nvcc
@@ -19,7 +20,12 @@ Phases, each of which raises on failure:
      up to ~30 px) with contiguous planes and with the channels_last slices of
      a 6-channel pair that the step passes (timed through ops.warp_multiflow_planar,
      the op the step calls), and an odd shape with ragged tiles; each timed
-     beside grid_sample and the memory bound;
+     beside grid_sample and the memory bound; then the kernel under a row
+     window (``kernel_rows_vs_plain``: the halo warp of phase 5b, the first
+     and the last of 2 spatial ranks' blocks of the 736-row pair extended by
+     HALO_ROWS rows each side, f32 and bf16, the step's flows and noise
+     with |v| up to 130 px) against its
+     plain version with the same window;
   3. single-flow kernels against plain: the forward kernel at the training
      shape (B=32, C=3, 224x224) through the strided channels_last views the
      step passes (the flow of a 4-channel head on noise flows and on the
@@ -52,8 +58,22 @@ Phases, each of which raises on failure:
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
-     two synthetic batches, in f32 and bf16, with the step's time, frames/s
+     a synthetic batch (two until the script neared its time limit), in f32
+     and bf16, with the step's time, frames/s
      and peak memory, and the multi-flow kernel's launches counted per step;
+  5b. height sharding for serving (``sharded_serving``): 2 ranks on a
+     (1 x 2) grid (NCCL, a card a rank, where there are two cards, else both
+     on the one card over gloo, staging the halo rows through host memory),
+     each with its 384- or 352-row block of phase 5's first batch: the fused
+     step in f32 and bf16 against phase 5's one-process step (f32 within the
+     serving bar, bf16 by the mean, the bound), with each rank's step ms,
+     peak memory, 4 multi-flow launches, 60 halo exchanges and the MB it
+     sends a step; the warp pair through the halo (the step's flows, noise
+     within the 135-px reach) and through the whole height (+-200 px)
+     against the one-process kernel; then the main path, the Evaluator on
+     the grid over the batch: its scores against phase 5's, 4 launches a
+     fused step a rank, no rerun. ``--spatial-ranks N`` runs it at 2 and N
+     ranks, with one f32 step at 2176x3840 (4K), B=1, at N ranks on N cards;
   6. the decoder's last upsample of the 720p SuperSloMo-R step (batch 21,
      beyond the CUDA kernel's 32-bit indexing, so written in batch slices)
      bit for bit F.interpolate on the same slices, f32 and bf16; then the
@@ -70,7 +90,7 @@ Phases, each of which raises on failure:
   8. SuperSloMo-R main path: the fused 8x step at 720p with a streamed-in
      state, f32 at B=1 and bf16 at B=1 and B=2 (step ms, frames/s, peak
      memory, 4 multi-flow launches a step), bf16 against f32, and the
-     Evaluator with the shipped recurrent config over two 4-frame batches;
+     Evaluator with the shipped recurrent config over a 4-frame batch;
   9. train step on the card against the same step on the CPU (64x64, B=2,
      f32, panning-texture frames): the loss vector, and the gradient of all
      parameters together;
@@ -90,8 +110,8 @@ Phases, each of which raises on failure:
   13. SuperSloMo-R's training main path: the Trainer at
       configs/superslomo_recurrent.ini as shipped (B=32, 224x224, N_FRAMES=4,
       f32) as in phase 11 but on cuDNN's heuristics (its autotuning at this
-      shape takes minutes), then with [TPU] REMAT (a lower peak, the same
-      first loss);
+      shape takes minutes) and with 5 timed steps, then with [TPU] REMAT (a
+      lower peak, the same first loss);
   14. bf16 training: the Trainer at configs/superslomo_original.ini with
       [TPU] COMPUTE_DTYPE = bfloat16 as in phase 11: every parameter,
       gradient and Adam moment f32, the first loss beside the f32 one. The
@@ -176,7 +196,9 @@ device, or without the package beside this script, it exits non-zero and
 prints no result. Phases 2 and 3, up to the multi-flow warp's gradients,
 use only wrapper calls that earlier versions of the package have too, so a
 copy of this script placed in an older checkout runs them there
-(``--kernels-only``) for a same-card comparison.
+(``--kernels-only``) for a same-card comparison; the row-window cases
+(``phase_kernel_rows``) need a package whose multi-flow wrapper takes a row
+window.
 """
 
 import argparse
@@ -216,7 +238,14 @@ LOSS_RTOL, GRAD_REL = 1e-4, 1e-3
 BF16_LOSS_REL = 1e-2
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; each phase's line carries the script's seconds so far
+    (``t_s``), so that the phases' durations can be read from the output."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -262,11 +291,13 @@ def timings(fn):
     return {"ms": cuda_ms(fn), "device_ms": cuda_ms(fn, queued=True), "host_ms": host_ms(fn)}
 
 
-def warp_bound(B, C, n, H, W, in_bytes, out_bytes):
-    """Least time of one multi-flow warp: each input read once and each output
-    written once, against 12 f32 operations per (pixel, flow) for the
-    position and weights and 7 per channel for the taps."""
-    nbytes = B * C * H * W * in_bytes + 2 * B * n * H * W * 4 + B * C * n * H * W * out_bytes
+def warp_bound(B, C, n, H, W, in_bytes, out_bytes, planes_rows=None):
+    """Least time of one multi-flow warp: each input read once (planes of
+    ``planes_rows`` rows, by default H) and each output written once, against
+    12 f32 operations per (pixel, flow) for the position and weights and 7
+    per channel for the taps."""
+    Hp = H if planes_rows is None else planes_rows
+    nbytes = B * C * Hp * W * in_bytes + 2 * B * n * H * W * 4 + B * C * n * H * W * out_bytes
     ops = B * n * H * W * (12 + 7 * C)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -296,16 +327,18 @@ def step_flows(rng, B, n, H, W, dev, amp=30.0):
     return ft1[:, :, 0].contiguous(), ft1[:, :, 1].contiguous()
 
 
-def _mf_library(p, u, v):
+def _mf_library(p, u, v, row_off=0):
     """grid_sample over the planes tiled n times: one f32 call computing the
     same warp (a bf16 grid could not address 1280 columns; for bf16 planes it
-    samples the same bf16 values in f32, as the kernel does)."""
+    samples the same bf16 values in f32, as the kernel does). ``row_off``:
+    the planes' row of the flows' first row (a row window's y_base -
+    p_base; rows past the frame are zeros in the planes there)."""
     B, n, H, W = u.shape
-    C = p.shape[1]
+    C, Hp = p.shape[1], p.shape[2]
     xs = torch.arange(W, device=u.device, dtype=torch.float32)
-    ys = torch.arange(H, device=u.device, dtype=torch.float32)[:, None]
-    grid = torch.stack([2 * (xs + u) / (W - 1) - 1, 2 * (ys + v) / (H - 1) - 1], dim=-1).reshape(B * n, H, W, 2)
-    tiled = p.float()[:, None].expand(B, n, C, H, W).reshape(B * n, C, H, W)
+    ys = torch.arange(H, device=u.device, dtype=torch.float32)[:, None] + row_off
+    grid = torch.stack([2 * (xs + u) / (W - 1) - 1, 2 * (ys + v) / (Hp - 1) - 1], dim=-1).reshape(B * n, H, W, 2)
+    tiled = p.float()[:, None].expand(B, n, C, Hp, W).reshape(B * n, C, Hp, W)
     return lambda: F.grid_sample(tiled, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
 
 
@@ -385,6 +418,71 @@ def phase_kernel():
         res["bound_ms"], res["bound_by"] = warp_bound(B, C, n, H, W, p.element_size(), got.element_size())
         out[(case, tag)] = res
         emit({"phase": "kernel_vs_plain", "case": case, "dtype": tag, **res})
+    return out
+
+
+def sharded_window_cases():
+    """(case, dtype tag, planes, u, v, RowWindow) at the sharded serving
+    path's shapes (phase 5b): the first and the last of 2 spatial ranks'
+    blocks of a 736-row frame (384 and 352 rows), the 6-channel pair's
+    channels_last slice extended by HALO_ROWS rows of each neighbour (zeros
+    past the frame), n=7 flows of the block's rows, f32 and bf16 planes;
+    the step's kind of flows (smooth, up to ~30 px: its rows of phase 2's),
+    and noise with |v| up to 130 px (within the halo's reach)."""
+    from superslomo_tpu_torch.parallel import halo
+
+    B, n, H, W, hv = 2, 7, 736, 1280, halo.HALO_ROWS
+    rng = np.random.default_rng(13)
+    dev = torch.device("cuda")
+    pair = torch.from_numpy(rng.standard_normal((B, H + 2 * hv, W, 6), dtype=np.float32)).to(dev)
+    pair[:, :hv] = 0
+    pair[:, hv + H:] = 0  # the frame's top and bottom halos are zeros
+    pair = pair.permute(0, 3, 1, 2)
+    su, sv = step_flows(np.random.default_rng(11), B, n, H, W, dev)
+    cases = []
+    for rank, (y0, rows) in enumerate(((0, 384), (384, 352))):
+        window = halo.RowWindow(y0, y0 - hv, rows + 2 * hv, H)
+        planes = pair[:, :, y0:y0 + rows + 2 * hv]
+        flows = {"step_flows": (su[:, :, y0:y0 + rows], sv[:, :, y0:y0 + rows]), "noise_130px": tuple(
+            torch.from_numpy(x).to(dev) for x in (rng.normal(0.0, 7.0, (B, n, rows, W)).astype(np.float32),
+                                                  rng.uniform(-130.0, 130.0, (B, n, rows, W)).astype(np.float32)))}
+        for kind, (u, v) in flows.items():
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                cases.append((f"rank{rank}_of_2_{kind}", tag, planes.to(dt)[:, 3:6], u, v, window))
+    return cases
+
+
+def phase_kernel_rows():
+    """The multi-flow kernel under a row window (the halo warp of phase 5b:
+    positions in frame rows, the planes' rows around the block's) against
+    its plain version with the same window, exact in f32 and the f32 result
+    cast in bf16; timed beside the memory bound and grid_sample over the
+    extended planes."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops import warp_cuda
+
+    kernel, plain = warp_cuda.warp_multiflow_planar_cuda, ops.warp_multiflow_planar_reference
+    out = {}
+    for case, tag, p, u, v, window in sharded_window_cases():
+        B, C, Hp, W = p.shape
+        n, H = u.shape[1], u.shape[2]
+        call = lambda: kernel(p, u, v, rows=window)  # noqa: E731
+        got, want = call(), plain(p, u, v, p.dtype, rows=window)
+        lib = _mf_library(p, u, v, row_off=window.y_base - window.p_base)
+        torch.cuda.synchronize()
+        err, same = check_mf(f"{case} {tag}", p, u, v, got, want, lambda: kernel(p.float(), u, v, rows=window))
+        res = {
+            "shape": [B, C, n, H, W], "planes_rows": Hp, "window": list(window), "planes_strides": list(p.stride()),
+            "max_abs_err": err, "library_max_abs_diff": (lib().reshape(B, n, C, H, W).transpose(1, 2)
+                                                         - got.float()).abs().max().item(),
+            **timings(call), "plain_ms": cuda_ms(lambda: plain(p, u, v, p.dtype, rows=window), reps=20, warmup=1),
+            "library_ms": cuda_ms(lib), "max_abs_flow": max(u.abs().max().item(), v.abs().max().item()),
+        }
+        if same is not None:
+            res["bit_identical_to_f32_cast"] = same
+        res["bound_ms"], res["bound_by"] = warp_bound(B, C, n, H, W, p.element_size(), got.element_size(), Hp)
+        out[(case, tag)] = res
+        emit({"phase": "kernel_rows_vs_plain", "case": case, "dtype": tag, **res})
     return out
 
 
@@ -1083,7 +1181,7 @@ def phase_main_path(dtype, batches, steps=8):
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
-        model.interpolate_multi_t(frames, t_values, with_bounds=True)
+        pred, bound = model.interpolate_multi_t(frames, t_values, with_bounds=True)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
@@ -1091,7 +1189,8 @@ def phase_main_path(dtype, batches, steps=8):
 
     counter.launches = ops._WarpMultiflow.launches = 0
     t0 = time.perf_counter()
-    results = Evaluator(cfg, model).run(batches)
+    ev = Evaluator(cfg, model)
+    results = ev.run(batches)
     wall = time.perf_counter() - t0
     launches, bwd_launches = counter.launches, ops._WarpMultiflow.launches
     res = {
@@ -1107,7 +1206,300 @@ def phase_main_path(dtype, batches, steps=8):
                              "steps, expected 4 per step (none)")
     if not all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"], results["max_flow_bound"]])):
         raise AssertionError(f"non-finite metrics: {results}")
+    # the first batch's step and scores, for the sharded step of phase 5b
+    n = B * n_t
+    res["reference"] = {"pred": pred.cpu(), "bound": float(bound), "scores": [ev.psnr[:n], ev.ssim[:n], ev.ie[:n]],
+                        "eval_bound": ev.bounds[0]}
     return res
+
+
+# a bf16 step of the spatial ranks against one process's bf16 step on the same
+# card: the ranks' convs run other cuDNN algorithms (heuristics, other
+# shapes), so their bf16 roundings differ, and a flow's rounding moves its
+# warp by up to a bf16 ulp of the flow; held by the mean, at a tenth of the
+# bf16-against-f32 bar of phase 8
+SHARD_BF16_MEAN = 1e-3
+
+
+def _serving_config(dtype, H=720, W=1280):
+    from superslomo_tpu_torch import default_config
+
+    cfg = default_config(DATA_DATASET="ADOBE", TPU_COMPUTE_DTYPE=dtype)
+    cfg.set("ADOBE_DATA", "H_IN", H)
+    cfg.set("ADOBE_DATA", "W_IN", W)
+    return cfg
+
+
+def serving_batch(norm):
+    """Phase 5's first batch: 2 samples of 720p padded to 736, 7 targets."""
+    from superslomo_tpu_torch.data.augmentations import eval_padding_for
+
+    return synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=1, B=2, H=720, W=1280, seed=2)[0]
+
+
+def serving_reference(batch):
+    """One process's step (f32, bf16) and f32 Evaluator scores on ``batch``,
+    on cuDNN's heuristics: phase 5b's reference where phase 5 did not run
+    (``--spatial-ranks``)."""
+    from superslomo_tpu_torch import Evaluator, SuperSloMo, weights
+
+    ref = {}
+    frames = torch.from_numpy(batch[0]).cuda()
+    t_values = torch.arange(1, 8, dtype=torch.float32, device="cuda") / 8
+    for dtype in ("float32", "bfloat16"):
+        cfg = _serving_config(dtype)
+        model = SuperSloMo(cfg.model_spec()).load_state(weights.seeded_state(cfg.model_spec(), seed=0))
+        torch.backends.cudnn.benchmark = False
+        pred, bound = model.interpolate_multi_t(frames, t_values, with_bounds=True)
+        ref[dtype] = {"pred": pred.cpu(), "bound": float(bound)}
+        if dtype == "float32":
+            ev = Evaluator(cfg, model)
+            ev.run([batch])
+            ref[dtype].update(scores=[ev.psnr, ev.ssim, ev.ie], eval_bound=ev.bounds[0])
+        del model
+    torch.backends.cudnn.benchmark = True
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _rows_of(blocks, s):
+    r0 = sum(blocks[:s])
+    return slice(r0, r0 + blocks[s])
+
+
+def sharded_steps(model, grid, frames, t_values, steps):
+    """The fused step on this rank's rows under the grid: one warm-up step,
+    then ``steps`` timed on the host clock (synchronised): ms, peak GiB, and
+    per step the multi-flow launches, halo exchanges and the bytes sent."""
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
+    from superslomo_tpu_torch.parallel import halo
+
+    with halo.spatial(grid):
+        model.interpolate_multi_t(frames, t_values, with_bounds=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter.launches = 0
+        halo.reset_counts()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            pred, bound = model.interpolate_multi_t(frames, t_values, with_bounds=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return {"step_ms": times, "step_ms_median": statistics.median(times),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_step": counter.launches / steps, "exchanges_per_step": halo.counts["exchanges"] / steps,
+            "exchange_mb_sent_per_step": halo.counts["bytes_sent"] / steps / 1e6, "bound": float(bound),
+            "finite": bool(torch.isfinite(pred).all()), "pred": pred.cpu()}
+
+
+def sharded_warps(grid, blocks, reps=10):
+    """The step's warp pair on this rank's rows of a 720p pair (B=2, n=7)
+    under the grid, through the halo (the step's kind of flows; noise flows
+    with |v| up to 130 px, within the halo's reach) and through the whole
+    height (flows up to +-200 px, beyond it), each against the one-process
+    kernel on the whole frame, cut to this rank's rows; the host ms of a
+    pair (the exchange or gather and 2 launches, synchronised) beside one
+    process's 2 launches over the whole frame."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.models.superslomo import _halo_pair_warps
+    from superslomo_tpu_torch.parallel import halo
+
+    B, n, H, W = 2, 7, 736, 1280
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    pair = torch.from_numpy(rng.standard_normal((B, H, W, 6), dtype=np.float32)).to(dev).permute(0, 3, 1, 2)
+    rows = _rows_of(blocks, grid.spatial_index)
+    cases = {
+        "halo_step_flows": [step_flows(np.random.default_rng(20 + i), B, n, H, W, dev) for i in range(2)],
+        "halo_noise_within_reach": [tuple(torch.from_numpy(x).to(dev) for x in (
+            rng.normal(0.0, 7.0, (B, n, H, W)).astype(np.float32),
+            rng.uniform(-130.0, 130.0, (B, n, H, W)).astype(np.float32))) for _ in range(2)],
+        "full_height_200px": [tuple(torch.from_numpy(rng.uniform(-200.0, 200.0, (B, n, H, W)).astype(np.float32)).to(
+            dev) for _ in range(2)) for _ in range(2)],
+    }
+
+    def host_median(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    out = {}
+    local_pair = pair[:, :, rows]
+    for case, flows in cases.items():
+        full = case.startswith("full")
+        local = [(u[:, :, rows], v[:, :, rows]) for u, v in flows]
+        with halo.spatial(grid), halo.full_height_warps() if full else contextlib.nullcontext():
+            def sharded():
+                return _halo_pair_warps(local_pair, blocks, *local)
+
+            got = sharded()
+            ms = host_median(sharded)
+
+        def whole():
+            return [ops.warp_multiflow_planar(pair[:, 3 * i:3 * i + 3], u, v) for i, (u, v) in enumerate(flows)]
+
+        want = whole()
+        err = max((g - w[:, :, :, rows]).abs().max().item() for g, w in zip(got, want))
+        out[case] = {"max_abs_err": err, "pair_ms": ms, "one_process_pair_ms": host_median(whole),
+                     "max_abs_v": max(v.abs().max().item() for _, v in flows)}
+    return out
+
+
+def sharded_serving_rank(rank, world, port, backend, local_ranks, steps, four_k):
+    """One rank of phase 5b on a (1 x world) grid: the 720p serving step in
+    f32 and bf16 on its block of rows (``sharded_steps``), the warp pairs
+    (``sharded_warps``), then the main path, the Evaluator on the grid over
+    phase 5's first batch with the launch and exchange counts set to 0 just
+    before it; with ``four_k``, one f32 step at 2176x3840, B=1. cuDNN's
+    heuristics throughout (the ranks' conv shapes are new)."""
+    from superslomo_tpu_torch import Evaluator, SuperSloMo, ops, parallel, weights
+    from superslomo_tpu_torch.data.augmentations import Normalize
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
+    from superslomo_tpu_torch.parallel import halo
+
+    torchrun_env(rank, world, local_ranks[rank], port)
+    device = parallel.init_data_parallel(backend=backend)
+    grid = parallel.make_grid(1, world)
+    blocks = parallel.row_blocks(736, world)
+    rows = _rows_of(blocks, grid.spatial_index)
+    cfg = _serving_config("float32")
+    batch = serving_batch(Normalize(cfg.pixel_mean(), cfg.pixel_std()))
+    frames = torch.from_numpy(np.ascontiguousarray(batch[0][:, :, rows])).to(device)
+    t_values = torch.arange(1, 8, dtype=torch.float32, device=device) / 8
+    res = {"rank": rank, "grid": [grid.data_index, grid.spatial_index], "backend": torch.distributed.get_backend(),
+           "device": str(device), "blocks": list(blocks), "halo_reach": halo.halo_reach(blocks)}
+    models = {}
+    for dtype in ("float32", "bfloat16"):
+        spec = _serving_config(dtype).model_spec()
+        models[dtype] = SuperSloMo(spec).load_state(weights.seeded_state(spec, seed=0))
+        torch.backends.cudnn.benchmark = False
+        res[dtype] = sharded_steps(models[dtype], grid, frames, t_values, steps)
+    del models["bfloat16"]
+    torch.cuda.empty_cache()
+    res["warps"] = sharded_warps(grid, blocks)
+
+    counter.launches = ops._WarpMultiflow.launches = 0
+    halo.reset_counts()
+    t0 = time.perf_counter()
+    ev = Evaluator(cfg, models["float32"], grid=grid)
+    results = ev.run([batch])
+    res["eval"] = {"wall_s": time.perf_counter() - t0, "results": results, "scores": [ev.psnr, ev.ssim, ev.ie],
+                   "launches": counter.launches, "multiflow_backward": ops._WarpMultiflow.launches,
+                   "exchanges": halo.counts["exchanges"], "reruns": ev.reruns, "threshold": ev.bound_threshold,
+                   "step_samples": ev.step_samples}
+    if four_k:
+        res["4k"] = sharded_4k_step(models["float32"], grid, steps=2)
+    torch.distributed.destroy_process_group()
+    return res
+
+
+def sharded_4k_step(model, grid, steps):
+    """One f32 fused step at 2176x3840 (4K, /32-padded), B=1, 8x, on this
+    rank's rows: the frames made on the card from a seed, a warm-up step,
+    then ``steps`` timed (``sharded_steps``)."""
+    from superslomo_tpu_torch import parallel
+
+    H, W = 2176, 3840
+    blocks = parallel.row_blocks(H, grid.n_spatial)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    frames = torch.randn((1, 2, H, W, 3), generator=gen, device="cuda")[:, :, _rows_of(blocks, grid.spatial_index)]
+    t_values = torch.arange(1, 8, dtype=torch.float32, device="cuda") / 8
+    res = sharded_steps(model, grid, frames.contiguous(), t_values, steps)
+    res.pop("pred")
+    return {"frame_hw": [H, W], "batch": 1, "blocks": list(blocks), **res}
+
+
+def phase_sharded_serving(world, reference, steps=3, four_k=False):
+    """Phase 5b: height sharding for serving, ``world`` ranks on a (1 x
+    world) grid (NCCL, a card a rank, where there are enough cards, else all
+    on the one card over gloo): ``sharded_serving_rank``. Checks: each
+    dtype's step, the ranks' blocks put together, against one process's on
+    the same card (``reference``: phase 5's, or ``serving_reference``): f32
+    within the serving bar (SLICE_ATOL, SLICE_RTOL), bf16 by the mean
+    (SHARD_BF16_MEAN); the bound (the MAX over the ranks) within 1e-4 (f32)
+    and a bf16 rounding of one process's; 4 multi-flow launches a step on
+    every rank; the halo and full-height warp pairs within KERNEL_ATOL of
+    the one-process kernel; the Evaluator's per-image scores within the
+    serving bar of one process's, equal on every rank, 4 launches a fused
+    step a rank, no rerun (the bound within the reach of 135 px)."""
+    backend, local_ranks = _ranks_layout(world)
+    print(f"chip_smoke: phase 5b runs {world} spatial ranks over {backend} on cards {local_ranks}", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharded_serving_rank, world, (world, _free_port(), backend, local_ranks, steps, four_k),
+                        timeout=900)
+    res = {"phase": "sharded_serving", "config": "configs/superslomo_eval.ini", "grid": [1, world],
+           "backend": [r["backend"] for r in ranks], "devices": [r["device"] for r in ranks],
+           "blocks": ranks[0]["blocks"], "halo_rows_reach": ranks[0]["halo_reach"], "batch": 2, "n_t": 7,
+           "frame_hw": [736, 1280]}
+    bad = []
+    for dtype in ("float32", "bfloat16"):
+        got = torch.cat([r[dtype].pop("pred") for r in ranks], dim=2)
+        want = reference[dtype]["pred"]
+        diff = (got - want).abs()
+        entry = {"max_abs_diff": diff.max().item(), "mean_abs_diff": diff.mean().item(),
+                 "bound_by_rank": [r[dtype]["bound"] for r in ranks], "one_process_bound": reference[dtype]["bound"],
+                 **{k: [r[dtype][k] for r in ranks] for k in (
+                     "step_ms_median", "step_ms", "peak_mem_gib", "launches_per_step", "exchanges_per_step",
+                     "exchange_mb_sent_per_step", "finite")}}
+        res[dtype] = entry
+        bound_rel = 1e-4 if dtype == "float32" else 2.0**-7
+        close = (torch.allclose(got, want, atol=SLICE_ATOL, rtol=SLICE_RTOL) if dtype == "float32"
+                 else entry["mean_abs_diff"] <= SHARD_BF16_MEAN)
+        if not (close and all(entry["finite"]) and all(
+                abs(b - entry["one_process_bound"]) <= bound_rel * entry["one_process_bound"]
+                for b in entry["bound_by_rank"])):
+            bad.append(f"{dtype} step")
+        if any(n != 4 for n in entry["launches_per_step"]):
+            bad.append(f"{dtype} launches")
+    res["warps"] = {case: {k: [r["warps"][case][k] for r in ranks] for k in ranks[0]["warps"][case]}
+                    for case in ranks[0]["warps"]}
+    if any(e > KERNEL_ATOL for w in res["warps"].values() for e in w["max_abs_err"]):
+        bad.append("warps")
+    want_scores = reference["float32"]["scores"]
+    res["eval"] = {k: [r["eval"][k] for r in ranks] for k in (
+        "wall_s", "launches", "multiflow_backward", "exchanges", "reruns", "threshold", "step_samples")}
+    res["eval"]["results"] = ranks[0]["eval"]["results"]
+    res["eval"]["launches_per_fused_step_by_rank"] = [r["eval"]["launches"] / -(-2 // r["eval"]["step_samples"])
+                                                      for r in ranks]
+    res["eval"]["scores_max_abs_diff"] = [
+        float(np.max(np.abs(np.asarray(g) - np.asarray(w)))) for g, w in zip(ranks[0]["eval"]["scores"], want_scores)]
+    scores_ok = all(np.allclose(r["eval"]["scores"][i], want_scores[i], atol=SLICE_ATOL, rtol=SLICE_RTOL)
+                    for r in ranks for i in range(3))
+    if not (scores_ok and all(r["eval"]["results"] == ranks[0]["eval"]["results"] for r in ranks)):
+        bad.append("evaluator scores")
+    if any(n != 4 for n in res["eval"]["launches_per_fused_step_by_rank"]) or any(res["eval"]["multiflow_backward"]) \
+            or any(res["eval"]["reruns"]):
+        bad.append("evaluator launches or reruns")
+    if four_k:
+        res["4k"] = {k: [r["4k"][k] for r in ranks] for k in ranks[0]["4k"]}
+        if not all(res["4k"]["finite"]) or any(n != 4 for n in res["4k"]["launches_per_step"]):
+            bad.append("4k step")
+    res["phase_s"] = time.perf_counter() - t0
+    emit(res)
+    if bad:
+        raise AssertionError(f"sharded serving at {world} ranks: {bad}")
+    return res
+
+
+def spatial_only(norm, world):
+    """``--spatial-ranks N``: phase 5b at 2 ranks and at N (a card a rank
+    over NCCL where there are enough cards), against one process's steps and
+    scores on the same card (``serving_reference``); at N ranks, when they
+    have a card each, one f32 step at 2176x3840, which one card cannot
+    hold."""
+    reference = serving_reference(serving_batch(norm))
+    four_k = torch.cuda.device_count() >= world
+    runs = [phase_sharded_serving(2, reference, four_k=four_k and world == 2)]
+    if world != 2:
+        runs.append(phase_sharded_serving(world, reference, four_k=four_k))
+    return runs
 
 
 def ssmr_spec(cell="CLSTM", merge="CONCAT", dtype="float32"):
@@ -1234,13 +1626,14 @@ def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
     return res
 
 
-def phase_ssmr_main_path(batches, steps=8):
+def phase_ssmr_main_path(batches, steps=8, eval_batches=1):
     """The fused 8x step of SuperSloMo-R at 720p with a streamed-in state
     (from ``forward_inference`` of the window before): f32 at B=1, bf16 at
     B=1 and B=2; each step's ms (median of ``steps`` after 2 warm-up
     steps), frames/s, peak memory and the multi-flow kernel's launches, 4 a
-    step. Then the Evaluator with the f32 model over ``batches`` at B=1,
-    and bf16 against f32 on the same input."""
+    step. Then the Evaluator with the f32 model over the first
+    ``eval_batches`` of ``batches`` at B=1 (two until the script neared its
+    time limit), and bf16 against f32 on the same input."""
     from superslomo_tpu_torch import Evaluator, SuperSloMo, ops, weights
     from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as single
@@ -1289,14 +1682,14 @@ def phase_ssmr_main_path(batches, steps=8):
         if dtype == "float32":  # the shipped config's model under the Evaluator
             mf.launches = ops._WarpMultiflow.launches = 0
             t0 = time.perf_counter()
-            results = Evaluator(cfg, model).run([(f[:1], g[:1], n[:1]) for f, g, n in batches])
-            res.update(eval_batches=len(batches), eval_batch=1, eval_wall_s=time.perf_counter() - t0,
+            results = Evaluator(cfg, model).run([(f[:1], g[:1], n[:1]) for f, g, n in batches[:eval_batches]])
+            res.update(eval_batches=eval_batches, eval_batch=1, eval_wall_s=time.perf_counter() - t0,
                        eval_warp_multiflow_launches=mf.launches,
                        eval_warp_multiflow_backward_launches=ops._WarpMultiflow.launches, **results)
             if not all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"]])):
                 raise AssertionError(f"non-finite SSM-R metrics: {results}")
-            if mf.launches != 4 * len(batches) or ops._WarpMultiflow.launches != 0:
-                raise AssertionError(f"{mf.launches} multi-flow launches over {len(batches)} evaluator batches")
+            if mf.launches != 4 * eval_batches or ops._WarpMultiflow.launches != 0:
+                raise AssertionError(f"{mf.launches} multi-flow launches over {eval_batches} evaluator batches")
         emit(res)
         out.append(res)
         del model, frames, before, carry
@@ -1617,7 +2010,7 @@ def phase_ssmr_train_main(ckpt_dir, norm):
     before the first step on an NVIDIA H100 80GB HBM3 at 700 W (the steps
     after it 18% faster; PERF.md)."""
     res, tr, grads = trainer_main_path("ssmr_train_main_path", ckpt_dir, "superslomo_recurrent.ini", norm,
-                                       cudnn_benchmark=False)
+                                       timed=5, cudnn_benchmark=False)
     del tr
     torch.cuda.empty_cache()
     remat, tr, grads_remat = trainer_main_path("ssmr_train_main_path_remat", ckpt_dir, "superslomo_recurrent.ini",
@@ -3120,7 +3513,7 @@ def check_forward_layouts(cases, recorded, path="ssmr"):
 
 
 def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains,
-                 eval_cli, train_clis, render_fwd, renders, flow_eval, scaled):
+                 eval_cli, train_clis, render_fwd, renders, flow_eval, scaled, kern_rows, sharded):
     """Every kernel of the paths with its launches on the main paths (the
     SuperSloMo-R ones a step and a window as well, the single-flow kernels'
     a step of each train path in ``trains`` and of each train CLI run in
@@ -3133,7 +3526,9 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
     times, bound, plain and library times; and the multi-flow warp's backward, its
     launches counted on every main path (none expected: serving runs without
     autograd, training uses the single-flow warp) and a backward in its own
-    phase."""
+    phase. The multi-flow kernel's entry also has its launches a step and a
+    fused step of the Evaluator on each rank of the sharded serving path
+    (``sharded``, phase 5b) and its row-window cases (``kern_rows``)."""
     f32, bf16 = kern[("noise", "f32")], kern[("noise", "bf16")]
     mf = {
         "name": "warp_multiflow_planar", "route": "cuda",
@@ -3154,10 +3549,16 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "eval_cli_launches": eval_cli["warp_launches"], "eval_cli_launches_per_step": eval_cli["warp_launches_per_step"],
         "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_multiflow"] for r in renders},
         "ddp_eval_cli_launches_per_step_by_rank": scaled["ddp_eval"]["launches_per_step_by_rank"],
+        "sharded_launches_per_step_by_rank": {dtype: sharded[dtype]["launches_per_step"]
+                                              for dtype in ("float32", "bfloat16")},
+        "sharded_eval_launches_per_fused_step_by_rank": sharded["eval"]["launches_per_fused_step_by_rank"],
         "flows": "noise (std 7 px, patches shifted 150 px); the cases below at the same shape",
         "cases": {f"{case}_{tag}": {k: r[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                       "bound_ms", "planes_strides")}
                   for (case, tag), r in kern.items()},
+        "row_window_cases": {f"{case}_{tag}": {k: r[k] for k in (
+            "max_abs_err", "ms", "device_ms", "host_ms", "plain_ms", "library_ms", "bound_ms", "window")}
+            for (case, tag), r in kern_rows.items()},
     }
     ts = single["train_shape"]
     fwd = {
@@ -3262,6 +3663,9 @@ def main() -> int:
     ap.add_argument("--ddp-ranks", type=int, default=None,
                     help="build, then only phases 23b-23c at this many ranks (one card a rank where there are "
                          "enough)")
+    ap.add_argument("--spatial-ranks", type=int, default=None,
+                    help="build, then only phase 5b at 2 and at this many spatial ranks (one card a rank where "
+                         "there are enough), with a 2176x3840 f32 step at this many")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3296,6 +3700,12 @@ def main() -> int:
         print(smi, flush=True)
         emit({"render_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
+    if args.spatial_ranks:
+        spatial_only(norm, args.spatial_ranks)
+        print(smi, flush=True)
+        emit({"spatial_ranks": args.spatial_ranks, "device": {"kind": torch.cuda.get_device_name(0),
+                                                              "count": torch.cuda.device_count()}})
+        return 0
     if args.ddp_ranks:
         ddp_only(norm, args.ddp_ranks)
         print(smi, flush=True)
@@ -3310,6 +3720,7 @@ def main() -> int:
 
     clock_before = nvidia_smi("clocks.sm,clocks.max.sm")
     kern = phase_kernel()
+    kern_rows = phase_kernel_rows()
     single = phase_single_kernels()
     ssmr_fwd = phase_ssmr_forward_cases()
     render_fwd = phase_render_forward_cases()
@@ -3321,10 +3732,11 @@ def main() -> int:
         emit({"kernels_only": True, "device": {"kind": torch.cuda.get_device_name(0)}})
         return 0
     phase_slice()
-    batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=2, B=2, H=720, W=1280, seed=2)
+    batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=1, B=2, H=720, W=1280, seed=2)
     main_f32 = phase_main_path("float32", batches)
     main_bf16 = phase_main_path("bfloat16", batches)
     del batches
+    sharded = phase_sharded_serving(2, {"float32": main_f32.pop("reference"), "bfloat16": main_bf16.pop("reference")})
     phase_upsample_slices()
     phase_ssmr_slice()
     ssmr_stream = [phase_ssmr_stream(dtype) for dtype in ("bfloat16", "float32")]
@@ -3349,7 +3761,8 @@ def main() -> int:
     renders, flow_eval, _ = render_phases(render_fwd)
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,
-                           trains, eval_cli, train_clis, render_fwd, renders, flow_eval, {"native": native, **scaled})
+                           trains, eval_cli, train_clis, render_fwd, renders, flow_eval, {"native": native, **scaled},
+                           kern_rows, sharded)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,15 @@
 // contiguous). The planes are read through element strides, so the step's
 // channels_last slices of its 6-channel pairs need no copy.
 //
+// Height sharding (parallel/halo.py) launches the same kernel under a row
+// window: the output and the flows are a block of a taller frame's rows, and
+// the planes hold the block's rows and the halo rows around it. Each sample
+// position is taken in frame rows, with one process's arithmetic, and its
+// taps are then read at the planes' rows; a tap outside the planes' rows
+// reads 0. So within the halo's reach the sharded warp is one process's bit
+// for bit. The window is a template parameter: the whole-frame launch
+// compiles as before.
+//
 // The backward (warp_multiflow_grad_kernel) replaces the kernel's custom VJP,
 // `_mfu_p_bwd` (warp_pallas.py:428-432: jax.vjp of the XLA planar warp, for
 // f32 planes or bf16 planes upcast, with the output gradient upcast): the
@@ -67,11 +76,36 @@ namespace {
 
 using namespace warp;
 
-template <typename T>
+// Where a launch's rows lie in a taller frame (height sharding,
+// parallel/halo.py): the output's and the flows' first frame row, the
+// planes' first frame row and their rows, and the frame's rows.
+struct RowWindow {
+  int y_base, p_base, p_rows, frame_rows;
+};
+
+// One pixel's sample under a row window: the position and weights taken in
+// frame rows, as one process takes them over the whole frame, then the taps'
+// rows moved to the planes' rows; a tap outside the planes' rows reads 0.
+__device__ __forceinline__ Sample make_sample_rows(int x, int y, float u, float v, const RowWindow& r, int W) {
+  Sample s = make_sample(x, y + r.y_base, u, v, r.frame_rows, W);
+  s.y0 -= r.p_base;
+  const bool top = s.y0 >= 0 && s.y0 < r.p_rows, bottom = s.y0 + 1 >= 0 && s.y0 + 1 < r.p_rows;
+  s.m00 = s.m00 && top;
+  s.m01 = s.m01 && top;
+  s.m10 = s.m10 && bottom;
+  s.m11 = s.m11 && bottom;
+  if (!top) s.w00 = s.w01 = 0.0f;
+  if (!bottom) s.w10 = s.w11 = 0.0f;
+  return s;
+}
+
+// kRows: the planes are p_rows frame rows around the output's H (rows);
+// otherwise planes, flows and output share the frame's H rows.
+template <typename T, bool kRows>
 __global__ void __launch_bounds__(Tile::kThreads)
 warp_multiflow_kernel(const T* __restrict__ planes, const float* __restrict__ u,
                       const float* __restrict__ v, T* __restrict__ out, int C, int n, int H, int W,
-                      Strides sp, Strides su, Strides sv, Plan plan) {
+                      Strides sp, Strides su, Strides sv, Plan plan, RowWindow rows) {
   constexpr int kPX = Tile::kPX;
   const int b = blockIdx.z;
   const int x = blockIdx.x * Tile::kW + (threadIdx.x % Tile::kCols) * kPX;
@@ -87,7 +121,8 @@ warp_multiflow_kernel(const T* __restrict__ planes, const float* __restrict__ u,
     load_uv(ub + k * su.c, su.x, vb + k * sv.c, sv.x, plan.flow_mode, valid, uu, vv);
     Sample s[kPX];
 #pragma unroll
-    for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
+    for (int i = 0; i < kPX; ++i)
+      s[i] = kRows ? make_sample_rows(x + i, y, uu[i], vv[i], rows, W) : make_sample(x + i, y, uu[i], vv[i], H, W);
     for (int c = 0; c < C; ++c) {
       float acc[kPX];
 #pragma unroll
@@ -347,12 +382,17 @@ warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict
 
 template <typename T>
 cudaError_t launch(const void* planes, const float* u, const float* v, void* out, int B, int C,
-                   int n, int H, int W, const int64_t* s, const Plan& plan, cudaStream_t stream) {
+                   int n, int H, int W, const int64_t* s, const Plan& plan, const int* rows, cudaStream_t stream) {
   const dim3 grid((W + Tile::kW - 1) / Tile::kW, (H + Tile::kH - 1) / Tile::kH, B);
-  warp_multiflow_kernel<T><<<grid, Tile::kThreads, 0, stream>>>(
-      static_cast<const T*>(planes), u, v, static_cast<T*>(out), C, n, H, W,
-      Strides{s[0], s[1], s[2], s[3]}, Strides{s[4], s[5], s[6], s[7]},
-      Strides{s[8], s[9], s[10], s[11]}, plan);
+  const Strides sp{s[0], s[1], s[2], s[3]}, su{s[4], s[5], s[6], s[7]}, sv{s[8], s[9], s[10], s[11]};
+  const T* p = static_cast<const T*>(planes);
+  if (rows) {
+    warp_multiflow_kernel<T, true><<<grid, Tile::kThreads, 0, stream>>>(
+        p, u, v, static_cast<T*>(out), C, n, H, W, sp, su, sv, plan, RowWindow{rows[0], rows[1], rows[2], rows[3]});
+  } else {
+    warp_multiflow_kernel<T, false><<<grid, Tile::kThreads, 0, stream>>>(
+        p, u, v, static_cast<T*>(out), C, n, H, W, sp, su, sv, plan, RowWindow{0, 0, H, H});
+  }
   return cudaGetLastError();
 }
 
@@ -405,16 +445,18 @@ cudaError_t launch_grad(const void* planes, const float* u, const float* v, cons
 // planes (B, C, H, W) f32 or bf16; u, v (B, n, H, W) f32; out (B, C, n, H, W)
 // contiguous in the planes' dtype; all on one device. strides: 12 element
 // strides (b, c, y, x) of planes, u, v (any). plan: the 3 ints of Plan
-// (ops/warp_plan.py). Returns the launch's CUDA error (0: launched).
+// (ops/warp_plan.py). rows: null, or the 4 ints of a RowWindow, with planes
+// (B, C, p_rows, W) and H the output's rows. Returns the launch's CUDA error
+// (0: launched).
 extern "C" int warp_multiflow_planar(const void* planes, const void* u, const void* v, void* out,
                                      int bf16, int B, int C, int n, int H, int W,
-                                     const int64_t* strides, const int* plan, void* stream) {
+                                     const int64_t* strides, const int* plan, const int* rows, void* stream) {
   const float* uf = static_cast<const float*>(u);
   const float* vf = static_cast<const float*>(v);
   const Plan p{plan[0], plan[1], plan[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return static_cast<int>(launch<__nv_bfloat16>(planes, uf, vf, out, B, C, n, H, W, strides, p, s));
-  return static_cast<int>(launch<float>(planes, uf, vf, out, B, C, n, H, W, strides, p, s));
+  if (bf16) return static_cast<int>(launch<__nv_bfloat16>(planes, uf, vf, out, B, C, n, H, W, strides, p, rows, s));
+  return static_cast<int>(launch<float>(planes, uf, vf, out, B, C, n, H, W, strides, p, rows, s));
 }
 
 // The three gradients of warp_multiflow_planar for grad_out (B, C, n, H, W) in

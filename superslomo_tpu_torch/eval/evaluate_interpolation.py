@@ -19,10 +19,25 @@ batch is padded to a multiple of ``world`` with its last sample (as the JAX
 Evaluator pads to its data axis), each rank runs and scores its contiguous
 share, and the per-image scores are gathered in sample order with the
 padding left out, so ``results()`` is the single-process one on every rank.
+
+With ``grid`` (``parallel.make_grid``, the counterpart of the JAX
+Evaluator's ``mesh``), batches are shared and padded the same way along its
+data axis, and along its spatial axis each rank runs its block of each
+frame's rows (``parallel.row_blocks`` of the padded height) under
+``halo.spatial``: the fused steps exchange halo rows, and their warps read
+``halo.HALO_ROWS`` rows of each neighbour. The host checks each batch's flow
+bound (the MAX over every rank) against ``halo.halo_reach`` and reruns a
+batch beyond it under ``halo.full_height_warps()``, as the JAX Evaluator
+reruns it through its guarded program; every rank takes the same decision,
+and ``reruns`` counts them. The first spatial rank of each data row gathers
+the predictions' rows and scores them. Under ``torchrun``:
+``Evaluator(cfg, weights, grid=make_grid(n_data, n_spatial))`` after
+``parallel.init_data_parallel()``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import logging
 from typing import Iterable, Optional
@@ -37,6 +52,8 @@ from superslomo_tpu_torch.data.augmentations import Normalize
 from superslomo_tpu_torch.data.readers import get_dataset
 from superslomo_tpu_torch.device import resolve_device
 from superslomo_tpu_torch.models.superslomo import model_on
+from superslomo_tpu_torch.parallel import halo
+from superslomo_tpu_torch.parallel.mesh import block_start, row_blocks
 from superslomo_tpu_torch.utils.metrics import score_image
 from superslomo_tpu_torch.utils.validators import check_eval_result_count, check_t_interp
 
@@ -57,9 +74,11 @@ class Evaluator:
         ``{"stage1": state_dict, "stage2": state_dict}``.
     :param device: ``None`` for the CUDA card (raises without one), or
         ``"cpu"``.
+    :param grid: a (data, spatial) ``parallel.mesh.Grid`` over every rank;
+        None shares batches over the data-parallel ranks alone.
     """
 
-    def __init__(self, cfg: Config, model_or_state, device=None):
+    def __init__(self, cfg: Config, model_or_state, device=None, grid=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dataset = cfg.get("DATA", "DATASET").upper()
@@ -73,6 +92,16 @@ class Evaluator:
         self.normalize = Normalize(cfg.pixel_mean(), cfg.pixel_std())
         self.psnr, self.ssim, self.ie, self.bounds = [], [], [], []
         self.rank, self.world = parallel.rank(), parallel.world()
+        self.grid, self.reruns = grid, 0
+        # the batch is shared over the data axis (every rank without a grid)
+        self.n_share, self.share_index = (grid.n_data, grid.data_index) if grid else (self.world, self.rank)
+        # this rank's rows of the padded frames under a spatial grid, and the
+        # flow bound within which its halo warps are exact
+        self.blocks, self.bound_threshold, rows = None, float("inf"), self.H_REF
+        if grid is not None and grid.n_spatial > 1:
+            self.blocks = row_blocks(self.H_REF, grid.n_spatial)
+            self.bound_threshold = float(halo.halo_reach(self.blocks))
+            rows = max(self.blocks)
 
         if self.dataset == "VIMEO":
             t_values = np.asarray([0.5], dtype=np.float32)
@@ -84,7 +113,7 @@ class Evaluator:
         # STEP_PIXELS (at 720p, B=8 runs as four steps of 2; the flow bound of
         # a batch is the max of its steps')
         n_windows = self.model.spec.n_frames - 1
-        self.step_samples = max(1, STEP_PIXELS // (len(t_values) * n_windows * self.H_REF * self.W_REF))
+        self.step_samples = max(1, STEP_PIXELS // (len(t_values) * n_windows * rows * self.W_REF))
 
     def get_dims(self):
         """/32-aligned dims, input dims and crop offsets."""
@@ -111,50 +140,78 @@ class Evaluator:
 
     def _share(self, frames, targets, n_avail):
         """This rank's contiguous share of a batch padded to a multiple of
-        ``world`` with its last sample: the frames it runs, and the targets
-        and ``n_avail`` of the real samples among them."""
+        the data ranks with its last sample: the frames it runs, and the
+        targets and ``n_avail`` of the real samples among them."""
         B = len(frames)
-        pad = -B % self.world
+        pad = -B % self.n_share
         if pad:
             frames = np.concatenate([frames, np.repeat(frames[-1:], pad, axis=0)])
-        per = (B + pad) // self.world
-        lo = self.rank * per
+        per = (B + pad) // self.n_share
+        lo = self.share_index * per
         return frames[lo:lo + per], targets[lo:lo + per], np.asarray(n_avail)[lo:lo + per]
 
+    def _steps(self, frames):
+        """The fused steps over a batch's frames on the device, ``step_samples``
+        samples each: (predictions, flow bound), under the grid if any."""
+        with halo.spatial(self.grid) if self.grid else contextlib.nullcontext():
+            steps = [self.model.interpolate_multi_t(f, self.t_values, with_bounds=True)
+                     for f in frames.split(self.step_samples)]
+        out = steps[0][0] if len(steps) == 1 else torch.cat([o for o, _ in steps])
+        return out, torch.stack([b for _, b in steps]).amax()
+
     def _submit(self, frames, targets, n_avail):
-        """Launch one batch's fused steps (``step_samples`` samples each; this
-        rank's share across ranks) and their copy back to the host without
-        waiting: the card computes while the host scores the previous batch."""
-        if self.world > 1:
+        """Launch one batch's fused steps (this rank's share across ranks, its
+        rows under a spatial grid) and, without a grid, their copy back to the
+        host, without waiting: the card computes while the host scores the
+        previous batch."""
+        if self.n_share > 1:
             frames, targets, n_avail = self._share(frames, targets, n_avail)
+        if self.blocks is not None:
+            r0 = block_start(self.blocks, self.grid.spatial_index)
+            frames = frames[:, :, r0:r0 + self.blocks[self.grid.spatial_index]]
         cuda = self.device.type == "cuda"
         frames = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32))
         if cuda:
             frames = frames.pin_memory()
         frames = frames.to(self.device, non_blocking=True)
-        steps = [self.model.interpolate_multi_t(f, self.t_values, with_bounds=True)
-                 for f in frames.split(self.step_samples)]
-        out = steps[0][0] if len(steps) == 1 else torch.cat([o for o, _ in steps])
-        bound = torch.stack([b for _, b in steps]).amax()
+        out, bound = self._steps(frames)
+        if self.grid is not None:  # every rank's bound, so that all decide alike on a rerun
+            return out, halo.all_reduce_max(bound), None, targets, n_avail, frames
         if not cuda:
-            return out, bound, None, targets, n_avail
+            return out, bound, None, targets, n_avail, None
         host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in (out, bound)]
         for h, x in zip(host, (out, bound)):
             h.copy_(x, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host[0], host[1], done, targets, n_avail
+        return host[0], host[1], done, targets, n_avail, None
+
+    def _grid_predictions(self, out, bound, frames):
+        """A submitted batch's predictions under the grid, on the host, on the
+        first spatial rank of each data row (None on the others): rerun under
+        ``halo.full_height_warps()`` when its bound exceeds the halo's reach,
+        then its rows gathered from the data row's ranks."""
+        if float(bound) > self.bound_threshold:
+            log.info("flow bound %.1f px > %.0f: full-height rerun", float(bound), self.bound_threshold)
+            self.reruns += 1
+            with halo.full_height_warps():
+                out, _ = self._steps(frames)
+        if self.blocks is not None:
+            out = halo.gather_rows(out, self.blocks, dst=0, grid=self.grid)
+        return None if out is None else out.cpu()
 
     def _score(self, pending) -> None:
-        """Wait for one submitted batch's copy and score it."""
-        out, bound, done, targets, n_avail = pending
-        if done is not None:
+        """Wait for one submitted batch's predictions and score them."""
+        out, bound, done, targets, n_avail, frames = pending
+        if self.grid is not None:
+            out = self._grid_predictions(out, bound, frames)
+        elif done is not None:
             done.synchronize()
-        out = out.numpy()  # (B, n_t, H, W, 3)
-        check_eval_result_count(out.shape[1], self.interp_factor, self.dataset)
-
         scores = []  # (PSNR, SSIM, IE) an image, in sample order
-        n_avail = np.asarray(n_avail).tolist()
+        n_avail = np.asarray(n_avail).tolist() if out is not None else []
+        if out is not None:
+            out = out.numpy()  # (B, n_t, H, W, 3)
+            check_eval_result_count(out.shape[1], self.interp_factor, self.dataset)
         if n_avail:
             preds = self.to_uint8(np.concatenate([out[i, :n] for i, n in enumerate(n_avail)], axis=0))
             gts = self.to_uint8(np.concatenate([targets[i, :n] for i, n in enumerate(n_avail)], axis=0))

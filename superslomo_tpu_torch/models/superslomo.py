@@ -22,6 +22,17 @@ max|Δflow|)``. A streamed-in ``rnn_carry`` starts stage 1 as given and
 stage 2 with each sample's state repeated over its t-grid; the step returns
 no state.
 
+Under a spatial grid (``parallel.halo.spatial``) the fused step serves with
+each frame's rows split across the spatial ranks: the frames given are this
+rank's block of rows, every conv and upsample of the U-Nets exchanges halo
+rows (``models/layers.py``, ``ops/resize.py``), each of the step's two warp
+pairs exchanges its 6-channel pair's halo rows once and warps through a row
+window (``halo.warp_source``: the halo rows, or the whole height under
+``halo.full_height_warps()``), and the bound is reduced by MAX over the
+spatial ranks, so it is one process's bound. The step then returns this
+rank's rows of the predictions. Training and the single-t forward under a
+grid come with the next slice.
+
 The U-Nets run NCHW in ``torch.channels_last`` memory format. In float32 the
 convolutions run with TF32 off (cuDNN and matmul); cuDNN's TF32 default keeps
 about three decimal digits and breaks float32 parity with the reference. In
@@ -52,6 +63,7 @@ from superslomo_tpu_torch.device import resolve_device
 from superslomo_tpu_torch.models import physics
 from superslomo_tpu_torch.models.unet import UNet
 from superslomo_tpu_torch.ops import warp_multiflow_planar
+from superslomo_tpu_torch.parallel import halo
 
 
 def stage_unets(spec: ModelSpec):
@@ -223,6 +235,9 @@ class SuperSloMo(nn.Module):
         :returns: ``ModelOutputs``; its ``rnn_carry`` is the new state of a
             recurrent model, else None.
         """
+        if halo.active() is not None:
+            raise NotImplementedError("the forward over windows under a spatial grid comes with the next slice, "
+                                      "training under a spatial grid; the fused step serves under one")
         f32, cdt = torch.float32, self.compute_dtype
         frames = torch.as_tensor(frames, dtype=f32, device=self.device)
         pairs = make_pairs(frames)  # (B, W_n, H, W, 6)
@@ -267,15 +282,18 @@ class SuperSloMo(nn.Module):
         """The fused multi-t interpolation step.
 
         :param frames: (B, T, H, W, 3) normalized frames; H, W /32-divisible.
+            Under a spatial grid, this rank's block of each frame's rows.
         :param t_values: (n_t,) interpolation instants in (0, 1).
         :param rnn_carry: a recurrent model's state from a previous window
             (batch B, from ``forward``); stage 2's is repeated over the
             t-grid. The step returns no new state.
         :param with_bounds: also return the flow bound (a 0-d f32 tensor on
-            the model's device). The CUDA warp is exact for any flow, so the
-            bound is informational: no rerun depends on it.
+            the model's device). The CUDA warp is exact for any flow, so in
+            one process the bound is informational; under a spatial grid the
+            halo warps are exact within ``halo.halo_reach`` of it.
         :returns: (B, n_t, H, W, 3) f32 predictions of the mid window, one per
-            t; with ``with_bounds``, ``(pred, bound)``.
+            t (this rank's rows under a grid); with ``with_bounds``, ``(pred,
+            bound)``.
         """
         frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
         t_values = torch.as_tensor(t_values, dtype=torch.float32, device=self.device)
@@ -291,6 +309,8 @@ class SuperSloMo(nn.Module):
         B, W_n, H, W, _ = pairs.shape
         BW, n_t = B * W_n, t_values.shape[0]
         planes6 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
+        grid = halo.active()
+        blocks = None if grid is None else halo.frame_blocks(H, grid)  # every rank's rows
 
         x6 = planes6.to(cdt)  # the pairs in the compute dtype, channels-last
         head1, encoding, _ = self.stage1(
@@ -304,8 +324,11 @@ class SuperSloMo(nn.Module):
 
         # stage-2 input warps store the compute dtype (f32 accumulation)
         pl0, pl1 = x6[:, 0:3], x6[:, 3:6]  # views: the warp reads them in place
-        w1t = warp_multiflow_planar(pl1, u_t1, v_t1, out_dtype=cdt)  # (BW, 3, n_t, H, W)
-        w0t = warp_multiflow_planar(pl0, u_t0, v_t0, out_dtype=cdt)
+        if grid is None:
+            w1t = warp_multiflow_planar(pl1, u_t1, v_t1, out_dtype=cdt)  # (BW, 3, n_t, H, W)
+            w0t = warp_multiflow_planar(pl0, u_t0, v_t0, out_dtype=cdt)
+        else:
+            w0t, w1t = _halo_pair_warps(x6, blocks, (u_t0, v_t0), (u_t1, v_t1))
 
         def bc(x):  # (BW, c, H, W) → (BW, c, n_t, H, W)
             return x[:, :, None].expand(-1, -1, n_t, -1, -1)
@@ -321,7 +344,11 @@ class SuperSloMo(nn.Module):
         carry2 = _tile_carry(_stage_carry(rnn_carry, "stage2"), n_t)
         head2, _, _ = self.stage2(x2, enc_t, n_windows=W_n, rnn_carry=carry2)  # (B·n_t·W_n, 5, H, W) cdt
         # refined flows = est + Δ, so boundC + max|Δ| bounds the final warps
-        bound = torch.maximum(bound_c, bound_c + head2[:, 1:5].abs().amax().to(f32))
+        if grid is None:
+            bound = torch.maximum(bound_c, bound_c + head2[:, 1:5].abs().amax().to(f32))
+        else:  # both maxima over the whole frame, then one process's sum
+            m = halo.all_reduce_max(torch.stack([bound_c, head2[:, 1:5].abs().amax().to(f32)]), grid.spatial_group)
+            bound = torch.maximum(m[0], m[0] + m[1])
 
         mid = W_n // 2
         head2_mid = head2.reshape(B, n_t, W_n, 5, H, W)[:, :, mid]
@@ -338,11 +365,24 @@ class SuperSloMo(nn.Module):
         v_p_t0 = mid_est(v_t0) + s2.dflow_t0[1]
 
         mp = pairs[:, mid].permute(0, 3, 1, 2)  # (B, 6, H, W) f32
-        w0 = warp_multiflow_planar(mp[:, 0:3], u_p_t0, v_p_t0, out_dtype=f32)
-        w1 = warp_multiflow_planar(mp[:, 3:6], u_p_t1, v_p_t1, out_dtype=f32)
+        if grid is None:
+            w0 = warp_multiflow_planar(mp[:, 0:3], u_p_t0, v_p_t0, out_dtype=f32)
+            w1 = warp_multiflow_planar(mp[:, 3:6], u_p_t1, v_p_t1, out_dtype=f32)
+        else:
+            w0, w1 = _halo_pair_warps(mp, blocks, (u_p_t0, v_p_t0), (u_p_t1, v_p_t1))
         t_g = t_values.reshape(1, 1, n_t, 1, 1)
         pred = physics.blend(w0, w1, s2.v_0t[:, None], s2.v_1t[:, None], t_g)
         return pred.permute(0, 2, 3, 4, 1).contiguous(), bound  # (B, n_t, H, W, 3)
+
+
+def _halo_pair_warps(pair, blocks, flows0, flows1):
+    """Under a spatial grid: frame 0 and frame 1 of a 6-channel pair of this
+    rank's rows, each warped by its (u, v) flows (B, n, h, W), through one
+    exchange of the pair's halo rows (or its whole height, under
+    ``halo.full_height_warps()``); stored in the pair's dtype."""
+    planes, window = halo.warp_source(pair, blocks)
+    return tuple(warp_multiflow_planar(planes[:, 3 * i:3 * i + 3], u, v, rows=window)
+                 for i, (u, v) in enumerate((flows0, flows1)))
 
 
 def model_on(spec: ModelSpec, model_or_state, device: torch.device) -> SuperSloMo:

@@ -21,20 +21,30 @@ from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda, war
 from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda, warp_single_cuda
 
 
-def warp_multiflow_planar(planes, u, v, out_dtype=None):
+def warp_multiflow_planar(planes, u, v, out_dtype=None, rows=None):
     """Planar multi-flow warp: (B, C, H, W) f32 or bf16 image planes x
     (B, n, H, W) f32 u/v → (B, C, n, H, W), stored in the planes' dtype (the
     only pairs the step uses: bf16 stage-2 input warps, f32 final warps).
     ``out_dtype``, when given, must be that dtype. Accumulation is f32; bf16
     planes give the f32 warp of the same planes upcast, cast afterwards, bit
-    for bit."""
+    for bit.
+
+    ``rows``, a row window (``parallel.halo.RowWindow``), warps a block of
+    rows of a taller frame against planes that hold other rows of it (height
+    sharding); it serves only, and raises NotImplementedError under autograd
+    with inputs that need a gradient."""
     if out_dtype is not None and out_dtype != planes.dtype:
         raise ValueError(f"the warp stores the planes' dtype {planes.dtype}, not {out_dtype}")
     u, v = u.to(torch.float32), v.to(torch.float32)
+    if rows is not None and torch.is_grad_enabled() and any(t.requires_grad for t in (planes, u, v)):
+        raise NotImplementedError("the row-window warp serves only: its gradients come with the next slice, "
+                                  "training under a spatial grid")
     if planes.device.type == "cuda":
+        if rows is not None:
+            return warp_multiflow_planar_cuda(planes, u, v, rows=rows)
         return _WarpMultiflow.apply(planes, u, v)  # any strides: views are read in place
     if planes.device.type == "cpu":
-        return warp_multiflow_planar_reference(planes, u, v, planes.dtype)
+        return warp_multiflow_planar_reference(planes, u, v, planes.dtype, rows=rows)
     raise ValueError(f"no warp for device {planes.device}")
 
 

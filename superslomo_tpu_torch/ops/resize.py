@@ -1,11 +1,24 @@
 """Bilinear 2x upsampling with half-pixel centres (align_corners=False), the
 decoder's upsample: output pixel i samples source coordinate (i + 0.5) / 2 -
-0.5, clamped at the borders."""
+0.5, clamped at the borders.
+
+Under a spatial grid (``parallel.halo.spatial``) the input is a block of the
+frame's rows: it receives 1 row from each neighbouring rank (the frame's
+edge row repeated past its edges) and the 2 output rows at each end are
+dropped. Output row i of the extended input samples its row (i + 0.5) / 2 -
+0.5, so the block's row i lies at extended output row i + 2 with the same
+weights, and at the frame's edges the repeated row gives the clamp's value.
+The frame's first output row is one process's bit for bit only from the
+first row alone (one process's clamp weighs it by 1 and its neighbour by 0;
+the repeated row weighs two equal rows by 0.25 and 0.75), so it is taken so.
+"""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from superslomo_tpu_torch.parallel import halo
 
 # PyTorch's CUDA upsample kernels index their output with 32 bits: a larger
 # output (the stage-2 decoder's last upsample at 720p from a batch of 18 up,
@@ -21,6 +34,16 @@ def upsample_2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     autograd (training) it is one call."""
     if x.dim() != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
+    grid = halo.active()
+    if grid is None:
+        return _upsample(x)
+    out = _upsample(halo.exchange_rows(x, 1, 1, "replicate"))[:, :, 2:-2]  # a view: the next conv copies it
+    if grid.spatial_index == 0:  # the frame's first row: one process weighs the edge row by exactly 1
+        out[:, :, :1] = _upsample(x[:, :, :1])[:, :, :1]
+    return out
+
+
+def _upsample(x: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and x.requires_grad:
         return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
     N, C, H, W = x.shape

@@ -16,34 +16,44 @@ import torch
 
 
 def warp_multiflow_planar_reference(
-    planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, out_dtype=torch.float32
+    planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, out_dtype=torch.float32, rows=None
 ) -> torch.Tensor:
     """(B, C, H, W) planes x (B, n, H, W) u/v → (B, C, n, H, W) ``out_dtype``.
 
     Sums the four taps in the kernel's order, (((v00·w00) + v01·w01) +
-    v10·w10) + v11·w11, in f32."""
-    B, C, H, W = planes.shape
-    if u.shape != v.shape or u.dim() != 4 or u.shape[0] != B or u.shape[2:] != (H, W):
-        raise ValueError(f"bad shapes planes={tuple(planes.shape)} u={tuple(u.shape)} v={tuple(v.shape)}")
+    v10·w10) + v11·w11, in f32.
+
+    ``rows``, a ``(y_base, p_base, p_rows, frame_rows)`` row window
+    (``parallel.halo.RowWindow``), warps rows of a taller frame: u, v and the
+    output are frame rows [y_base, y_base + h), the planes (B, C, p_rows, W)
+    frame rows [p_base, p_base + p_rows); positions are taken in frame rows,
+    and a tap outside the frame or outside the planes' rows reads 0."""
+    B, C, Hp, W = planes.shape
+    H = u.shape[2]
+    y_base, p_base, p_rows, frame_rows = (0, 0, Hp, Hp) if rows is None else rows
+    if u.shape != v.shape or u.dim() != 4 or u.shape[0] != B or u.shape[3] != W or p_rows != Hp or (
+            rows is None and H != Hp):
+        raise ValueError(f"bad shapes planes={tuple(planes.shape)} u={tuple(u.shape)} v={tuple(v.shape)} rows={rows}")
     n = u.shape[1]
     dev = planes.device
     f32 = torch.float32
     sx = torch.arange(W, device=dev, dtype=f32) + u.to(f32)
-    sy = torch.arange(H, device=dev, dtype=f32)[:, None] + v.to(f32)
+    sy = torch.arange(y_base, y_base + H, device=dev, dtype=f32)[:, None] + v.to(f32)
     x0f, y0f = torch.floor(sx), torch.floor(sy)
     wx, wy = sx - x0f, sy - y0f
     # clamp before the int conversion, as the kernel does: every tap of a
     # clamped position lies outside the image and is masked
     x0 = x0f.clamp(-2, W + 1).to(torch.int64)
-    y0 = y0f.clamp(-2, H + 1).to(torch.int64)
+    y0 = y0f.clamp(-2, frame_rows + 1).to(torch.int64)
     x1, y1 = x0 + 1, y0 + 1
 
-    flat = planes.to(f32).reshape(B, C, 1, H * W).expand(B, C, n, H * W)
+    flat = planes.to(f32).reshape(B, C, 1, Hp * W).expand(B, C, n, Hp * W)
     zero = torch.zeros((), device=dev, dtype=f32)
 
     def tap(iy, ix, w):
-        inside = (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
-        idx = (iy.clamp(0, H - 1) * W + ix.clamp(0, W - 1)).reshape(B, 1, n, H * W)
+        inside = ((iy >= 0) & (iy < frame_rows) & (iy >= p_base) & (iy < p_base + p_rows)
+                  & (ix >= 0) & (ix < W))
+        idx = ((iy - p_base).clamp(0, Hp - 1) * W + ix.clamp(0, W - 1)).reshape(B, 1, n, H * W)
         vals = torch.gather(flat, 3, idx.expand(B, C, n, H * W)).reshape(B, C, n, H, W)
         return vals * torch.where(inside, w, zero)[:, None]
 

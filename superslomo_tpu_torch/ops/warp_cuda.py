@@ -22,7 +22,8 @@ SOURCE = cuda_build.CSRC / "warp_multiflow.cu"
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.warp_multiflow_planar
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i),
+                   ctypes.POINTER(i), p]
     fn.restype = i
     fn = lib.warp_multiflow_grad
     fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
@@ -37,7 +38,8 @@ def load_library() -> ctypes.CDLL:
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
-def _check(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, grad_out: torch.Tensor | None = None) -> None:
+def _check(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, grad_out: torch.Tensor | None = None,
+           rows=None) -> None:
     for name, t in (("planes", planes), ("u", u), ("v", v), ("grad_out", grad_out)):
         if t is not None and (t.device.type != "cuda" or t.device != planes.device):
             raise ValueError(f"{name} must lie on the planes' CUDA device, got {t.device}")
@@ -48,6 +50,12 @@ def _check(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, grad_out: tor
     if planes.dim() != 4:
         raise ValueError(f"planes must be (B, C, H, W), got {tuple(planes.shape)}")
     B, C, H, W = planes.shape
+    if rows is not None:  # the planes hold rows.p_rows frame rows, the flows their own
+        h = u.shape[2] if u.dim() == 4 else 0
+        y_base, _, p_rows, frame_rows = rows
+        if p_rows != H or y_base < 0 or y_base + h > frame_rows:
+            raise ValueError(f"planes of {H} rows and flows of {h} under the row window {tuple(rows)}")
+        H = h
     if u.shape != v.shape or u.dim() != 4 or u.shape[0] != B or u.shape[2:] != (H, W):
         raise ValueError(f"u, v must be (B, n, H, W) = ({B}, n, {H}, {W}), got {tuple(u.shape)}")
     want = (B, C, u.shape[1], H, W)
@@ -55,16 +63,20 @@ def _check(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, grad_out: tor
         raise ValueError(f"grad_out must be {want} {planes.dtype}, got {tuple(grad_out.shape)} {grad_out.dtype}")
 
 
-def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.Tensor, rows=None) -> torch.Tensor:
     """Launch the kernel: (B, C, H, W) f32/bf16 planes x (B, n, H, W) f32 u/v →
     (B, C, n, H, W) contiguous in the planes' dtype, on the current stream.
-    Any strides.
+    Any strides. ``rows``, a row window ``(y_base, p_base, p_rows,
+    frame_rows)`` (``parallel.halo.RowWindow``), warps frame rows [y_base,
+    y_base + h) of u and v (B, n, h, W) against planes (B, C, p_rows, W) that
+    hold frame rows [p_base, p_base + p_rows): positions in frame rows, taps
+    outside the frame or the planes' rows read 0.
 
     Raises on anything the kernel does not take: a tensor off the card,
     another dtype or a bad shape."""
-    _check(planes, u, v)
-    B, C, H, W = planes.shape
-    n = u.shape[1]
+    _check(planes, u, v, rows=rows)
+    B, C, _, W = planes.shape
+    n, H = u.shape[1], u.shape[2]
     out = torch.empty((B, C, n, H, W), device=planes.device, dtype=planes.dtype)
     if out.numel() == 0:
         return out
@@ -72,12 +84,13 @@ def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.T
     out_layout = warp_plan.Layout((C * n * H * W, H * W, W, 1), out.data_ptr() % 16, out.element_size())
     plan = warp_plan.plan_multiflow(warp_plan.layout(u), warp_plan.layout(v), out_layout, W)
     strides = (ctypes.c_int64 * 12)(*planes.stride(), *u.stride(), *v.stride())
+    window = None if rows is None else (ctypes.c_int * 4)(*rows)
     lib = load_library()
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.warp_multiflow_planar(
             planes.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(planes.dtype == torch.bfloat16), B, C, n, H, W, strides, warp_plan.as_ints(plan), stream,
+            int(planes.dtype == torch.bfloat16), B, C, n, H, W, strides, warp_plan.as_ints(plan), window, stream,
         )
     if err != 0:
         raise RuntimeError(f"warp_multiflow_planar launch failed: CUDA error {err}")

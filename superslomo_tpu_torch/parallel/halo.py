@@ -1,0 +1,253 @@
+"""Height sharding for serving: each frame's rows split across the spatial
+ranks of a grid (``parallel/mesh.py``), with halo rows exchanged between
+neighbouring ranks before every op that reads across a block's edge. The
+counterpart of the JAX package's ``parallel/warp_spmd.py`` and of the conv
+halos that XLA's partitioner inserts there by itself.
+
+Under ``spatial(grid)`` (the counterpart of JAX's ``ops.warp_mesh``) the
+layers consult this module:
+- every ``layers.Conv2d`` of kernel k receives k // 2 rows from each
+  neighbour (zeros at the frame's first and last rows, the conv's own zero
+  padding) and convolves with no row padding;
+- every ``upsample_2x_bilinear`` receives 1 row from each neighbour (the
+  frame's edge row repeated at the frame's edges: the upsample's clamp) and
+  drops the 2 output rows at each end;
+- the multi-flow warps of the fused step read this rank's rows and
+  ``HALO_ROWS`` rows of each neighbour (the halo warp), or, under
+  ``full_height_warps()`` (the counterpart of JAX's guarded program), the
+  whole height gathered from every rank of the data row.
+Pools and pointwise ops stay local: a block is whole 32-row units, so no
+2x2 pool straddles two ranks.
+
+The warps read their planes through a row window (``RowWindow``): the
+kernel computes each sample position in frame rows, exactly as one process
+does, and reads the rows it holds, so within ``halo_reach`` the halo warp
+gives one process's result bit for bit, and the full-height warp does for
+any flow. The full-height path gathers only the planes: the flows and the
+output stay this rank's rows.
+
+``HALO_ROWS`` is the JAX package's 136 (its 128-row kernel band + 8).
+Nothing in the port's kernel fixes it (the Hopper kernel has no band); it
+keeps the halo path exact for the flows of the JAX package's band at the
+same cost in exchanged rows, and a rank's block is at least 160 rows at 720p
+on 4 ranks, so the one-hop halo is whole. The fused step returns its flow
+bound; a caller that runs the halo warps checks it against ``halo_reach``
+and reruns a batch beyond it under ``full_height_warps()``
+(``eval/evaluate_interpolation.py``).
+
+The transport is point-to-point (``dist.batch_isend_irecv``) on the grid's
+spatial group. Gloo's send and receive take host memory only, so over gloo
+(ranks sharing one card, which NCCL refuses) the rows of a CUDA tensor are
+staged through host copies; the compute stays on the card. Over NCCL they
+go card to card.
+
+Serving only: under autograd, with a tensor that needs a gradient, every op
+here raises NotImplementedError (the halo gradients come with training under
+a spatial grid).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple, Optional
+
+import torch
+import torch.distributed as dist
+
+from superslomo_tpu_torch.parallel.mesh import Grid, block_start
+
+HALO_ROWS = 136
+
+_GRID: Optional[Grid] = None
+_FULL_HEIGHT = False
+
+# exchanges made by exchange_rows and the bytes this rank sent in them, since
+# the last reset_counts()
+counts = {"exchanges": 0, "bytes_sent": 0}
+
+
+def reset_counts() -> None:
+    counts.update(exchanges=0, bytes_sent=0)
+
+
+@contextlib.contextmanager
+def spatial(grid: Grid):
+    """Run the layers with each frame's rows split over ``grid``'s spatial
+    ranks: tensors hold this rank's block of rows."""
+    global _GRID
+    prev, _GRID = _GRID, grid
+    try:
+        yield grid
+    finally:
+        _GRID = prev
+
+
+@contextlib.contextmanager
+def full_height_warps():
+    """Under ``spatial``, warp against the whole height gathered from the
+    spatial ranks (exact for any flow) instead of the halo rows."""
+    global _FULL_HEIGHT
+    prev, _FULL_HEIGHT = _FULL_HEIGHT, True
+    try:
+        yield
+    finally:
+        _FULL_HEIGHT = prev
+
+
+def active() -> Optional[Grid]:
+    """The grid in effect when it splits rows (2 or more spatial ranks), else None."""
+    return _GRID if _GRID is not None and _GRID.n_spatial > 1 else None
+
+
+def halo_reach(blocks) -> int:
+    """The largest |flow| (px) for which the halo warp over blocks of these
+    rows is exact: one-hop halos of min(HALO_ROWS, the smallest block) rows,
+    less the bilinear tap one row below."""
+    return min(HALO_ROWS, min(blocks)) - 1
+
+
+def refuse_autograd(*tensors) -> None:
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "height sharding serves only: the halo gradients come with the next slice, training under a "
+            "spatial grid")
+
+
+def _p2p(sends, recvs, group) -> None:
+    """Post every (tensor, global peer) send and receive in one batch and wait
+    for them; received rows are copied into the given (possibly strided)
+    tensors. Over gloo the wire buffers live in host memory."""
+    staged = dist.get_backend(group) == "gloo"
+
+    def wire(t):
+        t = t.contiguous()
+        return t.cpu() if staged else t
+
+    out = [(wire(t), peer) for t, peer in sends]
+    into = [(torch.empty(t.shape, dtype=t.dtype, device="cpu" if staged else t.device), t, peer)
+            for t, peer in recvs]
+    ops = [dist.P2POp(dist.isend, b, peer, group) for b, peer in out]
+    ops += [dist.P2POp(dist.irecv, b, peer, group) for b, _, peer in into]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for b, t, _ in into:
+        t.copy_(b)
+
+
+def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
+    """``t`` reduced by MAX over ``group`` (every rank without one), in place."""
+    staged = dist.get_backend(group) == "gloo" and t.device.type != "cpu"
+    wire = t.cpu() if staged else t
+    dist.all_reduce(wire, dist.ReduceOp.MAX, group=group)
+    if staged:
+        t.copy_(wire)
+    return t
+
+
+def _grid(grid):
+    grid = grid or active()
+    if grid is None:
+        raise RuntimeError("no spatial grid in effect: enter halo.spatial(grid) with 2 or more spatial ranks")
+    return grid
+
+
+def _format(x):
+    return torch.channels_last if x.dim() == 4 and x.stride(1) == 1 and x.shape[1] > 1 else torch.contiguous_format
+
+
+def exchange_rows(x: torch.Tensor, top: int, bottom: int, edge: str = "zeros", grid: Optional[Grid] = None):
+    """(N, C, h, W) rows of this rank → (N, C, top + h + bottom, W): ``top``
+    rows of the rank above, these, and ``bottom`` rows of the rank below, in
+    ``x``'s dtype and memory format. At the frame's first and last rows the
+    halo is zeros (``edge="zeros"``) or the edge row repeated
+    (``"replicate"``)."""
+    if edge not in ("zeros", "replicate"):
+        raise ValueError(f"edge must be 'zeros' or 'replicate', got {edge!r}")
+    grid = _grid(grid)
+    refuse_autograd(x)
+    N, C, h, W = x.shape
+    if max(top, bottom) > h:
+        raise ValueError(f"a one-hop halo of {max(top, bottom)} rows needs blocks of as many rows, got {h}")
+    out = torch.empty((N, C, top + h + bottom, W), dtype=x.dtype, device=x.device, memory_format=_format(x))
+    out[:, :, top:top + h].copy_(x)
+    s, ranks = grid.spatial_index, grid.spatial_ranks
+    sends, recvs = [], []
+    for rows, dst, neighbour, ours, edge_row in (
+            (top, out[:, :, :top], s - 1, x[:, :, :bottom], x[:, :, :1]),
+            (bottom, out[:, :, top + h:], s + 1, x[:, :, h - top:], x[:, :, h - 1:])):
+        if 0 <= neighbour < grid.n_spatial:  # the neighbour's rows in, ours out
+            if rows:
+                recvs.append((dst, ranks[neighbour]))
+            if ours.shape[2]:
+                sends.append((ours, ranks[neighbour]))
+        elif rows and edge == "zeros":
+            dst.zero_()
+        elif rows:
+            dst.copy_(edge_row.expand_as(dst))
+    _p2p(sends, recvs, grid.spatial_group)
+    counts["exchanges"] += 1
+    counts["bytes_sent"] += sum(t.numel() * t.element_size() for t, _ in sends)
+    return out
+
+
+def gather_rows(x: torch.Tensor, blocks, dst: Optional[int] = None, grid: Optional[Grid] = None):
+    """Put the spatial ranks' blocks of rows (dim 2 of ``x``) together: the
+    whole height on spatial rank ``dst`` (None elsewhere), or on every rank
+    when ``dst`` is None; in ``x``'s memory format for a 4-D ``x``."""
+    grid = _grid(grid)
+    refuse_autograd(x)
+    s, ranks = grid.spatial_index, grid.spatial_ranks
+    if x.shape[2] != blocks[s]:
+        raise ValueError(f"this rank holds {x.shape[2]} rows, its block is {blocks[s]}")
+    receivers = range(grid.n_spatial) if dst is None else (dst,)
+    sends = [(x, ranks[r]) for r in receivers if r != s]
+    out, recvs = None, []
+    if s in receivers:
+        shape = x.shape[:2] + (sum(blocks),) + x.shape[3:]
+        fmt = _format(x) if x.dim() == 4 else torch.contiguous_format
+        out = torch.empty(shape, dtype=x.dtype, device=x.device, memory_format=fmt)
+        out.narrow(2, block_start(blocks, s), blocks[s]).copy_(x)
+        recvs = [(out.narrow(2, block_start(blocks, r), blocks[r]), ranks[r])
+                 for r in range(grid.n_spatial) if r != s]
+    _p2p(sends, recvs, grid.spatial_group)
+    return out
+
+
+def frame_blocks(rows: int, grid: Optional[Grid] = None):
+    """Every spatial rank's block rows, top first, from each rank's ``rows``
+    (one small all-reduce over the data row)."""
+    grid = _grid(grid)
+    t = torch.zeros(grid.n_spatial, dtype=torch.int64)
+    t[grid.spatial_index] = rows
+    dev = "cuda" if dist.get_backend(grid.spatial_group) == "nccl" else "cpu"
+    t = t.to(dev)
+    dist.all_reduce(t, group=grid.spatial_group)
+    return tuple(int(r) for r in t.tolist())
+
+
+class RowWindow(NamedTuple):
+    """Where a warp's rows lie in the frame: the output's (and the flows')
+    first row ``y_base``, the planes' first row ``p_base`` and their number
+    ``p_rows``, and the frame's ``frame_rows``. A sample position is taken in
+    frame rows; taps outside the frame or outside the planes' rows read 0."""
+
+    y_base: int
+    p_base: int
+    p_rows: int
+    frame_rows: int
+
+
+def warp_source(pair: torch.Tensor, blocks, grid: Optional[Grid] = None):
+    """The planes a warp of this rank's rows reads, as ``(planes,
+    RowWindow)``: ``pair`` (N, C, h, W) with ``hv = min(HALO_ROWS, the
+    smallest block)`` rows of each neighbour (zeros past the frame's edges),
+    one exchange for all its channels; under ``full_height_warps()``, the
+    whole height gathered from every spatial rank."""
+    grid = _grid(grid)
+    y_base, H = block_start(blocks, grid.spatial_index), sum(blocks)
+    if _FULL_HEIGHT:
+        return gather_rows(pair, blocks, grid=grid), RowWindow(y_base, 0, H, H)
+    hv = min(HALO_ROWS, min(blocks))
+    planes = exchange_rows(pair, hv, hv, "zeros", grid)
+    return planes, RowWindow(y_base, y_base - hv, planes.shape[2], H)

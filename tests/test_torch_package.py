@@ -22,6 +22,8 @@ from superslomo_tpu_torch.config import load_config
 from superslomo_tpu_torch.ops import cuda_build
 from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda, warp_multiflow_planar_cuda
 from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda, warp_single_cuda
+from superslomo_tpu_torch.parallel.halo import RowWindow
+from superslomo_tpu_torch.parallel.mesh import Grid
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "superslomo_tpu_torch")
@@ -72,7 +74,8 @@ def test_importing_every_port_module_leaves_jax_out():
         "superslomo_tpu_torch.parallel", "superslomo_tpu_torch.parallel.distributed",
         "superslomo_tpu_torch.cli.convert_checkpoint", "superslomo_tpu_torch.utils.make_clips",
         "superslomo_tpu_torch.utils.msgpack", "superslomo_tpu_torch.training.checkpoint",
-    } <= set(modules) and len(modules) >= 44
+        "superslomo_tpu_torch.parallel.mesh", "superslomo_tpu_torch.parallel.halo",
+    } <= set(modules) and len(modules) >= 46
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -113,6 +116,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     cfg.set("ADOBE_DATA", "W_IN", 32)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Evaluator(cfg, {"stage1": {}, "stage2": {}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):  # the sharded Evaluator's grid changes nothing there
+        Evaluator(cfg, {"stage1": {}, "stage2": {}}, grid=Grid(1, 2, 0, None, None, (0,), (0, 1)))
     with pytest.raises(RuntimeError):
         SuperSloMo(device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -132,6 +137,8 @@ def test_cuda_wrapper_raises_on_cpu_tensors():
     counters = counts()
     with pytest.raises(ValueError, match="CUDA"):
         warp_multiflow_planar_cuda(planes, flow, flow)
+    with pytest.raises(ValueError, match="CUDA"):  # the halo warp's row window
+        warp_multiflow_planar_cuda(planes, flow[:, :, 2:6], flow[:, :, 2:6], rows=RowWindow(2, 0, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         warp_single_cuda(planes, flow)
     with pytest.raises(ValueError, match="CUDA"):
