@@ -7,7 +7,7 @@
     python3 chip_smoke.py --render-only    # phases 1 and 18-21: build, the renderer (PNG and JPEG) and flow-EPE CLIs
     python3 chip_smoke.py --scale-only     # phases 1 and 22-23: build, native checkpoints, data parallel
     python3 chip_smoke.py --ddp-ranks 4    # phases 1 and 23b-c at 4 ranks (a card a rank on 4 cards)
-    python3 chip_smoke.py --spatial-ranks 4  # phases 1 and 5b at 2 and 4 ranks (a card a rank on 4 cards)
+    python3 chip_smoke.py --spatial-ranks 4  # phases 1, 5b and 14b at 2 and 4 ranks (a card a rank on 4 cards)
 
 Phases, each of which raises on failure:
   1. device: the card's name and power limit, the CUDA version, and the nvcc
@@ -54,7 +54,17 @@ Phases, each of which raises on failure:
      flows (+-200 px, beyond every block's shared window) and an odd
      strided shape of two channel groups; one kernel call and 3 device
      operations a backward for any n, each gradient alone too; timed beside
-     its bound and grid_sample's backward and forward + backward;
+     its bound and grid_sample's backward and forward + backward; then the
+     single-flow forward and flow-gradient kernels under a row window
+     (``phase_single_rows``, cases ``rows_*``: the last of 2 spatial ranks'
+     blocks of the train step under a grid, 96 rows of 224 at B=32 through
+     the pair's view and the head's flow, and 352 rows of 736 at B=2, f32
+     and bf16, the image the whole frame) against their plain versions with
+     the same window: the forward exact in f32 and the f32 result cast in
+     bf16, the flow gradient within GRAD_KERNEL_REL; beside the whole-frame
+     kernels (the same rows' results, their device ms over the frame), the
+     bound of the block's bytes and grid_sample and its backward on the same
+     rows;
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
@@ -117,6 +127,19 @@ Phases, each of which raises on failure:
       gradient and Adam moment f32, the first loss beside the f32 one. The
       backward launches' layouts of phases 11, 13 and 14 must each be a
       gradient case of phase 3;
+  14b. training under a spatial grid (``sharded_train``): 2 ranks on a (1 x
+      2) grid (gloo on one card, NCCL a card a rank where there are two),
+      each with its block of rows (128 + 96 of 224): the Trainer at
+      configs/superslomo_original.ini, global B=8, f32, 2 steps, and at
+      configs/superslomo_recurrent.ini, B=2, with [TPU] REMAT, 1 step, on
+      cuDNN's heuristics, against one process's Trainer on the same batches:
+      the first step's gradients within GRAD_REL of each tensor's max, every
+      loss within LOSS_RTOL, the ranks' weights bit-identical; 8 single-flow
+      forward and 8 flow-gradient launches a step a rank, all under a row
+      window, no image gradient; the halo exchanges forward and backward,
+      the MB sent and the gathers a step a rank; step ms and peak GiB a rank
+      against one process's. ``--spatial-ranks N`` runs it at 2 and N ranks
+      on the shipped training config (224², B=32) and a 720p f32 step at B=2;
   15. the PNG unfilter (csrc/png_unfilter.cpp, host C++) against its plain
       version on 720p frames that the script encodes itself (zlib and numpy),
       one file per filter type: both equal the written pixels bit for bit;
@@ -197,8 +220,8 @@ prints no result. Phases 2 and 3, up to the multi-flow warp's gradients,
 use only wrapper calls that earlier versions of the package have too, so a
 copy of this script placed in an older checkout runs them there
 (``--kernels-only``) for a same-card comparison; the row-window cases
-(``phase_kernel_rows``) need a package whose multi-flow wrapper takes a row
-window.
+(``phase_kernel_rows``, ``phase_single_rows``) need a package whose warp
+wrappers take a row window.
 """
 
 import argparse
@@ -969,6 +992,119 @@ def phase_single_kernels():
     return res
 
 
+def _grid_rows(flow, y_base, H):
+    """grid_sample's normalised sample positions of a (B, 2, h, W) flow of
+    frame rows [y_base, y_base + h) over an image of the frame's H rows."""
+    W = flow.shape[-1]
+    xs = torch.arange(W, device=flow.device, dtype=torch.float32)
+    ys = torch.arange(y_base, y_base + flow.shape[2], device=flow.device, dtype=torch.float32)[:, None]
+    return torch.stack([2 * (xs + flow[:, 0]) / (W - 1) - 1, 2 * (ys + flow[:, 1]) / (H - 1) - 1], dim=-1)
+
+
+def single_window_cases(rng, dev):
+    """(case, dtype tag, image, the whole frame's flow, the window) of the
+    single-flow kernels under a row window, as the train step under a
+    spatial grid launches them: the image the whole frame gathered, the flow
+    and the output the last of 2 spatial ranks' blocks. At 224² (the shipped
+    training shape, B=32: rows [128, 224), 96 of 224) the image is the
+    frame's view of a 6-channel pair (pixel stride 6) and the flow a
+    4-channel head's (stride 4); at 720p (B=2, rows [384, 736), 352 of 736)
+    NCHW; noise flows (std 4 and 7 px) with patches shifted 150 px, f32 and
+    the bf16 pair."""
+    from superslomo_tpu_torch.parallel import halo
+    from superslomo_tpu_torch.parallel.mesh import row_blocks
+
+    cases = []
+    for case, B, H, W, std, pair_view in (("train224_rank1_of_2", 32, 224, 224, 4.0, True),
+                                          ("720p_rank1_of_2", 2, 736, 1280, 7.0, False)):
+        y0 = row_blocks(H, 2)[0]
+        window = halo.RowWindow(y0, 0, H, H)
+        flow = _flow_field(rng, B, H, W, std, 150.0)
+        if pair_view:
+            pairs = _channels_last(rng, B, 6, H, W, dev)
+            head = np.concatenate([flow, rng.normal(0, std, (B, H, W, 2)).astype(np.float32)], -1)
+            flow = torch.from_numpy(head).to(dev).permute(0, 3, 1, 2)[:, 0:2]
+            imgs = {"f32": pairs[:, 3:6], "bf16": pairs.bfloat16()[:, 3:6]}
+        else:
+            img = torch.from_numpy(rng.standard_normal((B, 3, H, W), dtype=np.float32)).to(dev)
+            flow = torch.from_numpy(flow).to(dev).permute(0, 3, 1, 2).contiguous()
+            imgs = {"f32": img, "bf16": img.bfloat16()}
+        for tag, img in imgs.items():
+            cases.append((case, tag, img, flow, window))
+    return cases
+
+
+def phase_single_rows():
+    """The single-flow forward and flow-gradient kernels under a row window
+    (``single_window_cases``) against their plain versions with the same
+    window: the forward exact in f32 and the f32 result cast in bf16, the
+    flow gradient within GRAD_KERNEL_REL of the max; beside the whole-frame
+    kernels on the same rows (the windowed results equal to their rows,
+    reported) and their device ms over the whole frame. Each timed beside
+    the bound of the block's bytes, the plain version and grid_sample (its
+    backward computing the grid's gradient alone) on the same rows, a grid
+    over the whole-height image."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    out = {}
+    for case, tag, img, whole_flow, window in single_window_cases(rng, dev):
+        B, C, H, W = img.shape
+        rows = slice(window.y_base, H)
+        flow = whole_flow[:, :, rows]
+        h = flow.shape[2]
+        g = torch.from_numpy(rng.standard_normal((B, C, h, W), dtype=np.float32)).to(dev, img.dtype)
+        got = fwd(img, flow, rows=window)
+        want = ops.warp_single_reference(img, flow, rows=window)
+        whole = fwd(img, whole_flow)[:, :, rows]
+        fl = flow.detach().clone().requires_grad_(True)
+        want_gf, = torch.autograd.grad(ops.warp_single_reference(img.float(), fl, rows=window), fl, g.float())
+        _, got_gf = bwd(img, flow, g, False, True, rows=window)
+        g_whole = torch.zeros((B, C, H, W), device=dev, dtype=img.dtype)
+        g_whole[:, :, rows] = g
+        whole_gf = bwd(img, whole_flow, g_whole, False, True)[1][:, :, rows]
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        bounds = single_bounds(B, C, h, W, img.element_size())
+        img32, g32 = img.float(), g.float()
+        grid = _grid_rows(flow, window.y_base, H)
+        res = {
+            "shape": [B, C, h, W], "frame_rows": H, "window": list(window), "img_strides": list(img.stride()),
+            "flow_strides": list(flow.stride()), "max_abs_err": err,
+            "equal_to_whole_frame_rows": bool(torch.equal(got, whole)),
+            **timings(lambda: fwd(img, flow, rows=window)),
+            "whole_frame_device_ms": cuda_ms(lambda: fwd(img, whole_flow), queued=True),
+            "plain_ms": cuda_ms(lambda: ops.warp_single_reference(img, flow, rows=window), reps=5, warmup=1),
+            "library_ms": cuda_ms(lambda: _grid_sample(img32, grid)),
+            "bound_ms": bounds["forward"][0], "bound_by": bounds["forward"][1],
+        }
+        if tag == "bf16":
+            res["bit_identical_to_f32_cast"] = torch.equal(
+                got.view(torch.int16), fwd(img32, flow, rows=window).bfloat16().view(torch.int16))
+        grad = {
+            "max_abs_err": (got_gf - want_gf).abs().max().item(),
+            "bar": GRAD_KERNEL_REL * want_gf.abs().max().item(),
+            "equal_to_whole_frame_rows": bool(torch.equal(got_gf, whole_gf)),
+            **timings(lambda: bwd(img, flow, g, False, True, rows=window)),
+            "whole_frame_device_ms": cuda_ms(lambda: bwd(img, whole_flow, g_whole, False, True), queued=True),
+            "library_ms": cuda_ms(lambda: _library_grads(img32, grid, g32, [False, True])),
+            "bound_ms": bounds["flow_grad"][0], "bound_by": bounds["flow_grad"][1],
+        }
+        res["flow_grad"] = grad
+        out[(case, tag)] = res
+        emit({"phase": "single_kernels_vs_plain", "case": f"rows_{case}", "dtype": tag,
+              **{k: v for k, v in res.items() if k != "flow_grad"}})
+        emit({"phase": "single_grad_kernels_vs_plain", "case": f"rows_{case}", "dtype": tag, "flow_grad": grad})
+        ok = (err == 0.0 if tag == "f32" else res["bit_identical_to_f32_cast"]
+              and err <= 2.0**-7 * want.float().abs().max().item())
+        if not ok or grad["max_abs_err"] > grad["bar"]:
+            raise AssertionError(f"single-flow kernels under a row window, {case} {tag}: {res}")
+    return out
+
+
 def forward_layout(img, flow):
     """What a single-flow forward launch's plan and reads depend on: the
     image's dtype, shape, strides and address mod 16, the flow's strides and
@@ -987,9 +1123,9 @@ class _RecordForwardLayouts:
 
         self.ops, self.inner, self.layouts = ops, ops.warp_single_cuda, []
 
-        def recording(img, flow):
+        def recording(img, flow, **window):
             self.layouts.append(forward_layout(img, flow))
-            return self.inner(img, flow)
+            return self.inner(img, flow, **window)
 
         ops.warp_single_cuda = recording  # the name _WarpSingle.forward calls
         return self
@@ -1493,12 +1629,20 @@ def spatial_only(norm, world):
     over NCCL where there are enough cards), against one process's steps and
     scores on the same card (``serving_reference``); at N ranks, when they
     have a card each, one f32 step at 2176x3840, which one card cannot
-    hold."""
+    hold. Then phase 14b at 2 and N ranks on the shipped training config
+    (224², B=32) and a 720p step at B=2, f32, against one process's."""
     reference = serving_reference(serving_batch(norm))
     four_k = torch.cuda.device_count() >= world
     runs = [phase_sharded_serving(2, reference, four_k=four_k and world == 2)]
     if world != 2:
         runs.append(phase_sharded_serving(world, reference, four_k=four_k))
+    del reference
+    torch.cuda.empty_cache()
+    references = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        for w in sorted({2, world}):
+            runs.append(phase_sharded_train(ckpt_dir, norm, world=w, cases=sharded_train_cases(shipped=True),
+                                            references=references, shipped=True))
     return runs
 
 
@@ -1830,7 +1974,8 @@ def single_counts():
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
 
     return {"forward": fwd.launches, "backward": bwd.launches, "flow_grad": bwd.flow_grad_launches,
-            "img_grad": bwd.img_grad_launches, "multiflow_backward": ops._WarpMultiflow.launches}
+            "img_grad": bwd.img_grad_launches, "multiflow_backward": ops._WarpMultiflow.launches,
+            "forward_windowed": fwd.windowed, "flow_grad_windowed": bwd.windowed_flow_grad_launches}
 
 
 def reset_single_counts():
@@ -1839,14 +1984,17 @@ def reset_single_counts():
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as fwd
 
     fwd.launches = bwd.launches = bwd.flow_grad_launches = bwd.img_grad_launches = ops._WarpMultiflow.launches = 0
+    fwd.windowed = bwd.windowed_flow_grad_launches = 0
 
 
-def train_step_launches(steps):
+def train_step_launches(steps, windowed=False):
     """What ``steps`` train steps launch: 8 single-flow forward and 8
     flow-gradient launches a step, no image gradient, no multi-flow
-    backward."""
-    return {"forward": 8 * steps, "backward": 8 * steps, "flow_grad": 8 * steps, "img_grad": 0,
-            "multiflow_backward": 0}
+    backward; under a spatial grid (``windowed``) all 16 under a row
+    window, else none."""
+    n = 8 * steps
+    return {"forward": n, "backward": n, "flow_grad": n, "img_grad": 0, "multiflow_backward": 0,
+            "forward_windowed": n if windowed else 0, "flow_grad_windowed": n if windowed else 0}
 
 
 def trainer_main_path(phase, ckpt_dir, config, norm, timed=10, resume=True, cudnn_benchmark=True,
@@ -3401,6 +3549,177 @@ def phase_ddp_train(ckpt_dir, norm, world=2, B=8, steps=2):
     return res
 
 
+def sharded_train_cases(shipped=False):
+    """(name, config, global batch, H, W, N_FRAMES, steps, config overrides)
+    of phase 14b: in the whole run, configs/superslomo_original.ini at 224²
+    and global B=8, f32, 2 steps, and configs/superslomo_recurrent.ini at
+    B=2 with [TPU] REMAT, 1 step; with ``shipped`` (``--spatial-ranks``),
+    the shipped training config (224², B=32, f32) and a 720p f32 step at
+    B=2 (736x1280), 3 steps each."""
+    if shipped:
+        return [("conv_f32_b32", "superslomo_original.ini", 32, 224, 224, 2, 3, {}),
+                ("conv_f32_720p_b2", "superslomo_original.ini", 2, 736, 1280, 2, 3, {})]
+    return [("conv_f32_b8", "superslomo_original.ini", 8, 224, 224, 2, 2, {}),
+            ("ssmr_remat_b2", "superslomo_recurrent.ini", 2, 224, 224, 4, 1, {"TPU_REMAT": "TRUE"})]
+
+
+def _case_config(ckpt_dir, config, B, overrides):
+    return _train_config(ckpt_dir, _config_path(config), TRAIN_BATCH_SIZE=str(B), **overrides)
+
+
+def sharded_train_rank(rank, world, port, backend, local_ranks, ckpt_dir, cases):
+    """One rank of phase 14b on a (1 x world) grid: for each case a
+    ``Trainer(grid=...)`` on cuDNN's heuristics over the case's synthetic
+    batches (whole frames: the Trainer takes this rank's rows), with the
+    single-flow launches and the halo exchanges set to 0 just before its
+    steps: step and backward ms, losses, launches, exchanges, peak GiB, a
+    digest of the weights after the steps; rank 0 also returns the first
+    step's gradients."""
+    import hashlib
+
+    from superslomo_tpu_torch import Trainer, parallel
+    from superslomo_tpu_torch.data.augmentations import Normalize
+    from superslomo_tpu_torch.parallel import halo
+
+    torchrun_env(rank, world, local_ranks[rank], port)
+    device = parallel.init_data_parallel(backend=backend)
+    grid = parallel.make_grid(1, world)
+    out = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(device), "cases": {}}
+    for name, config, B, H, W, n_frames, steps, overrides in cases:
+        cfg = _case_config(ckpt_dir, config, B, overrides)
+        tr = Trainer(cfg, expt_name=f"sharded_{name}_rank{rank}", grid=grid)
+        torch.backends.cudnn.benchmark = False
+        batches = synthetic_train_batches(Normalize(cfg.pixel_mean(), cfg.pixel_std()), steps, B, H, W, seed=73,
+                                          n_frames=n_frames)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_single_counts()
+        halo.reset_counts()
+        step_ms, backward_ms, losses, grads = timed_train_steps(tr, batches)
+        digest = hashlib.sha256()
+        for *_, p in tr.trainable:
+            digest.update(p.detach().cpu().contiguous().numpy().tobytes())
+        res = {"step_ms": step_ms, "backward_ms": backward_ms, "loss": losses, "launches": single_counts(),
+               "halo": dict(halo.counts), "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "weights_sha256": digest.hexdigest()}
+        if rank == 0:
+            res["first_grads"], res["names"] = grads, [f"{stage}.{key}" for stage, key, _ in tr.trainable]
+        out["cases"][name] = res
+        del tr, grads
+        torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def sharded_train_reference(ckpt_dir, norm, case):
+    """One process's Trainer on phase 14b's batches of ``case``, on cuDNN's
+    heuristics: step ms, losses, the first step's gradients, peak GiB."""
+    from superslomo_tpu_torch import Trainer
+
+    name, config, B, H, W, n_frames, steps, overrides = case
+    tr = Trainer(_case_config(ckpt_dir, config, B, overrides), expt_name=f"sharded_reference_{name}")
+    torch.backends.cudnn.benchmark = False
+    batches = synthetic_train_batches(norm, steps, B, H, W, seed=73, n_frames=n_frames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, backward_ms, losses, grads = timed_train_steps(tr, batches)
+    ref = {"step_ms": step_ms, "backward_ms": backward_ms, "loss": losses, "first_grads": grads,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    torch.backends.cudnn.benchmark = True
+    del tr
+    torch.cuda.empty_cache()
+    return ref
+
+
+def phase_sharded_train(ckpt_dir, norm, world=2, cases=None, references=None, shipped=False):
+    """Phase 14b: training under a spatial grid, ``world`` ranks on a (1 x
+    world) grid (NCCL, a card a rank, where there are enough cards, else all
+    on the one card over gloo, the halo rows staged through host memory):
+    ``sharded_train_rank`` for each of ``cases`` (``sharded_train_cases``)
+    against one process's Trainer on the same batches
+    (``sharded_train_reference``, kept in ``references`` across calls).
+    Checks: the first step's gradients within GRAD_REL of each tensor's max,
+    every step's loss within LOSS_RTOL on every rank, the ranks' weights
+    after the steps bit-identical; 8 single-flow forward and 8 flow-gradient
+    launches a step a rank, all under a row window, no image gradient, no
+    multi-flow backward. With ``shipped`` (``--spatial-ranks``: the cases of
+    ``sharded_train_cases(shipped=True)``, 3 steps) the first step's loss and
+    the first step's gradient of all parameters together (relative L2, the
+    bar of phase 9) are gated, and each tensor's reported: the step's
+    gradient is discontinuous (the leaky ReLUs', the max pools' and the
+    warps' switches, the L1 kinks), and where a tensor's gradient sums over
+    few positions one switch moves it by a visible share of its max; at
+    224², B=32, stage 2's second bottleneck conv (7x7 positions a sample)
+    lay 1.85e-3 of its max from one process's in two calls on two cards,
+    every other tensor within 1e-4. Adam then passes a rounding of a
+    gradient near zero on to its weight as lr · rounding / eps, so the later
+    steps' losses start from weights that far apart and are reported.
+    Reports each rank's step ms and peak GiB beside one process's, the halo
+    exchanges forward and backward and the MB sent a step a rank, and the
+    gathers a step."""
+    from superslomo_tpu_torch.parallel.mesh import row_blocks
+
+    backend, local_ranks = _ranks_layout(world)
+    print(f"chip_smoke: phase 14b runs {world} spatial ranks over {backend} on cards {local_ranks}", flush=True)
+    cases = cases or sharded_train_cases()
+    references = {} if references is None else references
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(sharded_train_rank, world, (world, _free_port(), backend, local_ranks, ckpt_dir, cases),
+                        timeout=900)
+    res = {"phase": "sharded_train", "grid": [1, world], "backend": [r["backend"] for r in ranks],
+           "devices": [r["device"] for r in ranks], "cudnn_benchmark": False, "cases": {}}
+    bad = []
+    for case in cases:
+        name, config, B, H, W, n_frames, steps, overrides = case
+        if name not in references:
+            references[name] = sharded_train_reference(ckpt_dir, norm, case)
+        want = references[name]
+        got = [r["cases"][name] for r in ranks]
+        per_tensor = {n: ((x - w).abs().max() / w.abs().max()).item()
+                      for n, x, w in zip(got[0]["names"], got[0]["first_grads"], want["first_grads"])}
+        worst = max(per_tensor, key=per_tensor.get)
+        grad_rel = per_tensor[worst]
+        grad_l2 = (sum(((x - w) ** 2).sum() for x, w in zip(got[0]["first_grads"], want["first_grads"]))
+                   / sum((w ** 2).sum() for w in want["first_grads"])).sqrt().item()
+        loss_rel = max(float(np.max(np.abs(a - b) / np.abs(b)))
+                       for r in got for a, b in list(zip(r["loss"], want["loss"]))[:1 if shipped else steps])
+        identical = len({r["weights_sha256"] for r in got}) == 1
+        per_step = {k: [r["halo"][k] / steps for r in got] for k in got[0]["halo"]}
+        entry = {
+            "config": f"configs/{config}", "overrides": overrides, "global_batch": B, "frame_hw": [H, W],
+            "n_frames": n_frames, "steps": steps, "blocks": list(row_blocks(H, world)),
+            "step_ms_by_rank": [r["step_ms"] for r in got], "backward_ms_by_rank": [r["backward_ms"] for r in got],
+            "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in got],
+            "single_process_step_ms": want["step_ms"], "single_process_backward_ms": want["backward_ms"],
+            "single_process_peak_mem_gib": want["peak_mem_gib"],
+            "last_step_ms_ratio_by_rank": [r["step_ms"][-1] / want["step_ms"][-1] for r in got],
+            "launches_per_step_by_rank": [{k: v / steps for k, v in r["launches"].items()} for r in got],
+            "exchanges_per_step_by_rank": per_step["exchanges"],
+            "backward_exchanges_per_step_by_rank": per_step["backward_exchanges"],
+            "exchange_mb_sent_per_step_by_rank": [x / 1e6 for x in per_step["bytes_sent"]],
+            "backward_exchange_mb_sent_per_step_by_rank": [x / 1e6 for x in per_step["backward_bytes_sent"]],
+            "gathers_per_step_by_rank": per_step["gathers"],
+            "first_grads_max_rel_diff": grad_rel, "first_grads_worst_tensor": worst,
+            "first_grads_tensors_over_grad_rel": {n: e for n, e in per_tensor.items() if e > GRAD_REL},
+            "first_grads_rel_l2_diff": grad_l2, "gradient_gate": "all_parameters_l2" if shipped else "per_tensor",
+            "loss_max_rel_diff": loss_rel, "loss_gated_steps": 1 if shipped else steps,
+            "ranks_bit_identical": identical,
+            "loss_rank0": [x.tolist() for x in got[0]["loss"]], "loss_single_process": [x.tolist() for x in want["loss"]],
+        }
+        res["cases"][name] = entry
+        if not (identical and (grad_l2 if shipped else grad_rel) <= GRAD_REL and loss_rel <= LOSS_RTOL):
+            bad.append(f"{name}: gradients, losses or ranks")
+        if any(r["launches"] != train_step_launches(steps, windowed=True) for r in got):
+            bad.append(f"{name}: launches")
+        if any(n != 1 for n in per_step["gathers"]):
+            bad.append(f"{name}: gathers")
+    res["phase_s"] = time.perf_counter() - t0
+    emit(res)
+    if bad:
+        raise AssertionError(f"sharded training at {world} ranks: {bad}")
+    return res
+
+
 def phase_ddp_eval_cli(root, world=2):
     """Phase 23c: ``cli.evaluate_interpolation`` at ``world`` ranks (as in
     phase 23b: NCCL on a card each, else gloo on the one card) over phase
@@ -3513,7 +3832,8 @@ def check_forward_layouts(cases, recorded, path="ssmr"):
 
 
 def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains,
-                 eval_cli, train_clis, render_fwd, renders, flow_eval, scaled, kern_rows, sharded):
+                 eval_cli, train_clis, render_fwd, renders, flow_eval, scaled, kern_rows, sharded, single_rows,
+                 sharded_train):
     """Every kernel of the paths with its launches on the main paths (the
     SuperSloMo-R ones a step and a window as well, the single-flow kernels'
     a step of each train path in ``trains`` and of each train CLI run in
@@ -3528,7 +3848,27 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
     autograd, training uses the single-flow warp) and a backward in its own
     phase. The multi-flow kernel's entry also has its launches a step and a
     fused step of the Evaluator on each rank of the sharded serving path
-    (``sharded``, phase 5b) and its row-window cases (``kern_rows``)."""
+    (``sharded``, phase 5b) and its row-window cases (``kern_rows``). The
+    single-flow kernels' entries have their launches by main path
+    (``launches_by_main_path``: each train path's, each train CLI run's, each
+    DDP rank's, the resumed step's and each rank's of each case of the
+    sharded Trainer, ``sharded_train``, phase 14b) and the forward's and the
+    flow gradient's row-window cases (``single_rows``)."""
+    def train_launches(key):
+        paths = {r["phase"]: r["launches"][key] for r in trains}
+        paths.update({f"train_cli_main_path_{r['tag']}": r["launches"][key] for r in train_clis})
+        paths.update({f"ddp_train_rank{i}": r[key] for i, r in enumerate(scaled["ddp_train"]["launches_by_rank"])})
+        paths["native_resumed_train_step"] = scaled["native"]["resumed_step_launches"][key]
+        for case, c in sharded_train["cases"].items():
+            paths.update({f"sharded_train_{case}_rank{i}": r[key] * c["steps"]
+                          for i, r in enumerate(c["launches_per_step_by_rank"])})
+        return paths
+
+    def rows_cases(key=None):
+        return {f"{case}_{tag}": {k: (r if key is None else r[key])[k] for k in (
+            "max_abs_err", "ms", "device_ms", "host_ms", "whole_frame_device_ms", "library_ms", "bound_ms")}
+            for (case, tag), r in single_rows.items()}
+
     f32, bf16 = kern[("noise", "f32")], kern[("noise", "bf16")]
     mf = {
         "name": "warp_multiflow_planar", "route": "cuda",
@@ -3575,6 +3915,10 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "flow_eval_cli_launches_per_sample": flow_eval["launches_per_sample"]["warp_single"],
         "launches_per_ddp_train_step_by_rank": [r["forward"] for r in scaled["ddp_train"]["launches_per_step_by_rank"]],
         "launches_per_resumed_train_step": scaled["native"]["resumed_step_launches"]["forward"],
+        "launches_by_main_path": train_launches("forward"),
+        "launches_per_sharded_train_step_by_rank": {
+            case: [r["forward"] for r in c["launches_per_step_by_rank"]] for case, c in sharded_train["cases"].items()},
+        "row_window_cases": rows_cases(),
         **{case: {k: single[case][k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")}
            for case in ("dense_flow", "smooth_flow", "720p_f32", "720p_bf16")},
         **{f"ssmr_window_{case}": {k: c[k] for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
@@ -3602,11 +3946,15 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             "launches_per_train_cli_step": {r["tag"]: r["launches_per_step"][key] for r in train_clis},
             "launches_per_ddp_train_step_by_rank": [r[key] for r in scaled["ddp_train"]["launches_per_step_by_rank"]],
             "launches_per_resumed_train_step": scaled["native"]["resumed_step_launches"][key],
+            "launches_by_main_path": train_launches(key),
+            "launches_per_sharded_train_step_by_rank": {
+                case: [r[key] for r in c["launches_per_step_by_rank"]] for case, c in sharded_train["cases"].items()},
             "cases": {case: {k: c[key].get(k) for k in ("max_abs_err", "ms", "device_ms", "host_ms", "library_ms",
                                                         "bound_ms")}
                       for case, c in grad_cases.items()},
         }
         if key == "flow_grad":
+            entry["row_window_cases"] = rows_cases("flow_grad")
             entry["cases"].update({f"720p_{tag}": {k: single[f"720p_{tag}"]["flow_grad"][k] for k in (
                 "max_abs_err", "ms", "device_ms", "host_ms", "library_ms", "bound_ms")} for tag in ("f32", "bf16")})
         grads.append(entry)
@@ -3625,6 +3973,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "native_resumed_train_step": scaled["native"]["resumed_step_launches"]["multiflow_backward"],
         **{f"ddp_train_rank{i}": r["multiflow_backward"] for i, r in enumerate(scaled["ddp_train"]["launches_by_rank"])},
         **{f"ddp_eval_cli_rank{i}": n for i, n in enumerate(scaled["ddp_eval"]["multiflow_backward_by_rank"])},
+        **{f"sharded_train_{case}_rank{i}": r["multiflow_backward"] * c["steps"]
+           for case, c in sharded_train["cases"].items() for i, r in enumerate(c["launches_per_step_by_rank"])},
     }
     mf_bwd = {
         "name": "warp_multiflow_grad", "route": "cuda",
@@ -3664,8 +4014,8 @@ def main() -> int:
                     help="build, then only phases 23b-23c at this many ranks (one card a rank where there are "
                          "enough)")
     ap.add_argument("--spatial-ranks", type=int, default=None,
-                    help="build, then only phase 5b at 2 and at this many spatial ranks (one card a rank where "
-                         "there are enough), with a 2176x3840 f32 step at this many")
+                    help="build, then only phases 5b and 14b at 2 and at this many spatial ranks (one card a rank "
+                         "where there are enough), with a 2176x3840 f32 serving step at this many")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3722,6 +4072,7 @@ def main() -> int:
     kern = phase_kernel()
     kern_rows = phase_kernel_rows()
     single = phase_single_kernels()
+    single_rows = phase_single_rows()
     ssmr_fwd = phase_ssmr_forward_cases()
     render_fwd = phase_render_forward_cases()
     mf_grad = phase_multiflow_grad()
@@ -3755,6 +4106,7 @@ def main() -> int:
         phase_ssmr_train_vs_cpu(ckpt_dir, norm)
         ssmr_train, ssmr_remat = phase_ssmr_train_main(ckpt_dir, norm)
         bf16_train = phase_bf16_train_main(ckpt_dir, norm, train["loss_first"])
+        sharded_train = phase_sharded_train(ckpt_dir, norm)
     trains = [train, ssmr_train, ssmr_remat, bf16_train]
     check_backward_layouts(single["layouts"], [r for t in trains for r in t["backward_layouts_first_step"]])
     _, _, eval_cli, train_clis, scaled = data_phases(norm, scale=True)
@@ -3762,7 +4114,7 @@ def main() -> int:
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,
                            trains, eval_cli, train_clis, render_fwd, renders, flow_eval, {"native": native, **scaled},
-                           kern_rows, sharded)
+                           kern_rows, sharded, single_rows, sharded_train)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -76,29 +76,6 @@ namespace {
 
 using namespace warp;
 
-// Where a launch's rows lie in a taller frame (height sharding,
-// parallel/halo.py): the output's and the flows' first frame row, the
-// planes' first frame row and their rows, and the frame's rows.
-struct RowWindow {
-  int y_base, p_base, p_rows, frame_rows;
-};
-
-// One pixel's sample under a row window: the position and weights taken in
-// frame rows, as one process takes them over the whole frame, then the taps'
-// rows moved to the planes' rows; a tap outside the planes' rows reads 0.
-__device__ __forceinline__ Sample make_sample_rows(int x, int y, float u, float v, const RowWindow& r, int W) {
-  Sample s = make_sample(x, y + r.y_base, u, v, r.frame_rows, W);
-  s.y0 -= r.p_base;
-  const bool top = s.y0 >= 0 && s.y0 < r.p_rows, bottom = s.y0 + 1 >= 0 && s.y0 + 1 < r.p_rows;
-  s.m00 = s.m00 && top;
-  s.m01 = s.m01 && top;
-  s.m10 = s.m10 && bottom;
-  s.m11 = s.m11 && bottom;
-  if (!top) s.w00 = s.w01 = 0.0f;
-  if (!bottom) s.w10 = s.w11 = 0.0f;
-  return s;
-}
-
 // kRows: the planes are p_rows frame rows around the output's H (rows);
 // otherwise planes, flows and output share the frame's H rows.
 template <typename T, bool kRows>

@@ -70,6 +70,18 @@
 // position lies outside and is masked, so its value and gradient are 0 either
 // way. Offsets are 64-bit, except inside one image in the flow gradient
 // (32-bit; the wrapper checks that they fit).
+//
+// Row window (kRows; height sharding under training, models/superslomo.py):
+// the forward and the flow gradient take an optional RowWindow
+// (warp_tile.cuh). The flows, the output and its gradient are then h rows of
+// a taller frame, from frame row y_base, and the image holds p_rows frame
+// rows from p_base (in the train step, the whole frame gathered from the
+// spatial ranks). The grid covers the output's h rows; each position is taken
+// in frame rows, so a block's results are one process's rows of them, and
+// the image is read through its strides at its own rows. A template
+// parameter, so the whole-frame launch (a null window) is the same
+// instantiation as before. The image gradient has no window: no path
+// differentiates a warped image under one.
 
 #include "warp_tile.cuh"
 
@@ -82,11 +94,12 @@ using namespace warp;
 // (a dense channels_last output) the block writes its results to a shared
 // tile and then stores each tile row, kW * C contiguous values, with 16-byte
 // stores where aligned; otherwise each thread stores its pixels.
-template <typename T>
+// kRows: H is the output's rows, the image's lie in `rows`.
+template <typename T, bool kRows>
 __global__ void __launch_bounds__(Tile::kThreads)
 warp_single_forward_kernel(const T* __restrict__ img, const float* __restrict__ flow,
                            T* __restrict__ out, int C, int H, int W, Strides si, Strides sf,
-                           Strides so, Plan plan) {
+                           Strides so, Plan plan, RowWindow rows) {
   extern __shared__ float4 smem_f4[];
   T* out_tile = reinterpret_cast<T*>(smem_f4);  // kH rows of kW * C values
   constexpr int kPX = Tile::kPX;
@@ -103,7 +116,8 @@ warp_single_forward_kernel(const T* __restrict__ img, const float* __restrict__ 
     load_uv(f, sf.x, f + sf.c, sf.x, plan.flow_mode, valid, uu, vv);
     Sample s[kPX];
 #pragma unroll
-    for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
+    for (int i = 0; i < kPX; ++i)
+      s[i] = kRows ? make_sample_rows(x + i, y, uu[i], vv[i], rows, W) : make_sample(x + i, y, uu[i], vv[i], H, W);
     for (int c = 0; c < C; ++c) {
       float acc[kPX];
 #pragma unroll
@@ -154,13 +168,14 @@ warp_single_forward_kernel(const T* __restrict__ img, const float* __restrict__ 
 // with masked taps read as 0 (floor() carries no gradient). Offsets inside
 // one image are 32-bit (the wrapper checks that they fit): with 64-bit ones
 // the kernel took 48 registers, 5 blocks an SM. grad_out has the image's
-// dtype (autograd hands back the output's dtype).
-template <typename T>
+// dtype (autograd hands back the output's dtype). kRows: H is the output's
+// rows, the image's lie in `rows`.
+template <typename T, bool kRows>
 __global__ void __launch_bounds__(Tile::kThreads)
 warp_single_flow_grad_kernel(const T* __restrict__ img, const float* __restrict__ flow,
                              const T* __restrict__ grad_out, float* __restrict__ grad_flow, int C,
                              int H, int W, Strides si, Strides sf, Strides sg, Strides sgf,
-                             GradPlan plan) {
+                             GradPlan plan, RowWindow rows) {
   constexpr int kPX = Tile::kPX, kStep = Tile::kCols;  // a thread's pixels are kStep apart
   static_assert(kPX == 2, "`valid` below counts two pixels");
   const int b = blockIdx.z;
@@ -175,7 +190,9 @@ warp_single_flow_grad_kernel(const T* __restrict__ img, const float* __restrict_
   load_uv(f, kStep * sf.x, f + sf.c, kStep * sf.x, plan.flow_mode, valid, uu, vv);
   Taps t[kPX];
 #pragma unroll
-  for (int i = 0; i < kPX; ++i) t[i] = sample_taps(x + i * kStep, y, uu[i], vv[i], H, W);
+  for (int i = 0; i < kPX; ++i)
+    t[i] = kRows ? sample_taps_rows(x + i * kStep, y, uu[i], vv[i], rows, W)
+                 : sample_taps(x + i * kStep, y, uu[i], vv[i], H, W);
   const T* src = img + b * si.b;
   const int sc = static_cast<int>(si.c), sy = static_cast<int>(si.y), sx = static_cast<int>(si.x);
   float du[kPX], dv[kPX];
@@ -309,22 +326,43 @@ dim3 tile_grid(int B, int H, int W) {
   return dim3((W + Tile::kW - 1) / Tile::kW, (H + Tile::kH - 1) / Tile::kH, B);
 }
 
+// The 4 ints of a RowWindow, or the whole frame of H rows for null.
+RowWindow window_at(const int* rows, int H) {
+  return rows ? RowWindow{rows[0], rows[1], rows[2], rows[3]} : RowWindow{0, 0, H, H};
+}
+
+// H: the output's rows.
 template <typename T>
 cudaError_t launch_forward(const void* img, const float* flow, void* out, int B, int C, int H, int W,
-                           const int64_t* s, const Plan& plan, cudaStream_t stream) {
-  warp_single_forward_kernel<T><<<tile_grid(B, H, W), Tile::kThreads, plan.smem, stream>>>(
-      static_cast<const T*>(img), flow, static_cast<T*>(out), C, H, W, strides_at(s),
-      strides_at(s + 4), strides_at(s + 8), plan);
+                           const int64_t* s, const Plan& plan, const int* rows, cudaStream_t stream) {
+  const T* im = static_cast<const T*>(img);
+  const RowWindow r = window_at(rows, H);
+  if (rows) {
+    warp_single_forward_kernel<T, true><<<tile_grid(B, H, W), Tile::kThreads, plan.smem, stream>>>(
+        im, flow, static_cast<T*>(out), C, H, W, strides_at(s), strides_at(s + 4), strides_at(s + 8), plan, r);
+  } else {
+    warp_single_forward_kernel<T, false><<<tile_grid(B, H, W), Tile::kThreads, plan.smem, stream>>>(
+        im, flow, static_cast<T*>(out), C, H, W, strides_at(s), strides_at(s + 4), strides_at(s + 8), plan, r);
+  }
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_flow_grad(const void* img, const float* flow, const void* grad_out,
                              float* grad_flow, int B, int C, int H, int W, const int64_t* s,
-                             const GradPlan& plan, cudaStream_t stream) {
-  warp_single_flow_grad_kernel<T><<<tile_grid(B, H, W), Tile::kThreads, 0, stream>>>(
-      static_cast<const T*>(img), flow, static_cast<const T*>(grad_out), grad_flow, C, H, W,
-      strides_at(s), strides_at(s + 4), strides_at(s + 8), strides_at(s + 12), plan);
+                             const GradPlan& plan, const int* rows, cudaStream_t stream) {
+  const T* im = static_cast<const T*>(img);
+  const T* g = static_cast<const T*>(grad_out);
+  const RowWindow r = window_at(rows, H);
+  if (rows) {
+    warp_single_flow_grad_kernel<T, true><<<tile_grid(B, H, W), Tile::kThreads, 0, stream>>>(
+        im, flow, g, grad_flow, C, H, W, strides_at(s), strides_at(s + 4), strides_at(s + 8), strides_at(s + 12),
+        plan, r);
+  } else {
+    warp_single_flow_grad_kernel<T, false><<<tile_grid(B, H, W), Tile::kThreads, 0, stream>>>(
+        im, flow, g, grad_flow, C, H, W, strides_at(s), strides_at(s + 4), strides_at(s + 8), strides_at(s + 12),
+        plan, r);
+  }
   return cudaGetLastError();
 }
 
@@ -349,31 +387,35 @@ cudaError_t launch_img_grad(const float* flow, const void* grad_out, float4* acc
 // img (B, C, H, W) f32 or bf16; flow (B, 2, H, W) f32; out (B, C, H, W) in the
 // image's dtype; all on one device, any strides. strides: 12 element strides
 // (b, c, y, x) of img, flow, out. plan: the 3 ints of Plan
-// (ops/warp_plan.py). Returns the launch's CUDA error (0: launched).
+// (ops/warp_plan.py). rows: null, or the 4 ints of a RowWindow, with img (B,
+// C, p_rows, W) and H the rows of flow and out. Returns the launch's CUDA
+// error (0: launched).
 extern "C" int warp_single_forward(const void* img, const void* flow, void* out, int bf16, int B,
                                    int C, int H, int W, const int64_t* strides, const int* plan,
-                                   void* stream) {
+                                   const int* rows, void* stream) {
   const float* f = static_cast<const float*>(flow);
   const Plan p{plan[0], plan[1], plan[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return static_cast<int>(launch_forward<__nv_bfloat16>(img, f, out, B, C, H, W, strides, p, s));
-  return static_cast<int>(launch_forward<float>(img, f, out, B, C, H, W, strides, p, s));
+  if (bf16) return static_cast<int>(launch_forward<__nv_bfloat16>(img, f, out, B, C, H, W, strides, p, rows, s));
+  return static_cast<int>(launch_forward<float>(img, f, out, B, C, H, W, strides, p, rows, s));
 }
 
 // The flow gradient of the forward above. grad_out (B, C, H, W) in the
 // image's dtype; grad_flow (B, 2, H, W) f32. strides: 16 element strides (b,
 // c, y, x) of img, flow, grad_out, grad_flow. plan: the 3 ints of GradPlan
-// (ops/warp_plan.py). Returns the launch's CUDA error (0: launched).
+// (ops/warp_plan.py). rows: as for warp_single_forward. Returns the launch's
+// CUDA error (0: launched).
 extern "C" int warp_single_flow_grad(const void* img, const void* flow, const void* grad_out,
                                      void* grad_flow, int bf16, int B, int C, int H, int W,
-                                     const int64_t* strides, const int* plan, void* stream) {
+                                     const int64_t* strides, const int* plan, const int* rows, void* stream) {
   const float* f = static_cast<const float*>(flow);
   float* gf = static_cast<float*>(grad_flow);
   const GradPlan p{plan[0], plan[1], plan[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return static_cast<int>(launch_flow_grad<__nv_bfloat16>(img, f, grad_out, gf, B, C, H, W, strides, p, s));
-  return static_cast<int>(launch_flow_grad<float>(img, f, grad_out, gf, B, C, H, W, strides, p, s));
+    return static_cast<int>(
+        launch_flow_grad<__nv_bfloat16>(img, f, grad_out, gf, B, C, H, W, strides, p, rows, s));
+  return static_cast<int>(launch_flow_grad<float>(img, f, grad_out, gf, B, C, H, W, strides, p, rows, s));
 }
 
 // The image gradient of the forward above: zero the scratch, scatter into it,

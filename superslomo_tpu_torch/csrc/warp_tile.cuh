@@ -1,5 +1,5 @@
 // Shared pieces of the bilinear backward-warp kernels (warp_single.cu,
-// warp_multiflow.cu) for Hopper (sm_90a).
+// warp_multiflow.cu) for Hopper (sm_90a), the row window of both included.
 //
 // The sample arithmetic (`sample_taps`, `make_sample`, `bilinear`) is the
 // plain version's (ops/warp.py): f32 position and weight math with the
@@ -88,6 +88,32 @@ __device__ __forceinline__ Taps sample_taps(int x, int y, float u, float v, int 
 }
 
 // ---------------------------------------------------------------------------
+// Row windows (height sharding, parallel/halo.py): the output and the flows
+// are a block of a taller frame's rows, and the image or planes hold other
+// rows of it. Each sample position is taken in frame rows, with one
+// process's arithmetic, and its taps are then read at the image's rows; a tap
+// outside the image's rows reads 0.
+
+// The output's and the flows' first frame row, the image's first frame row
+// and its rows, and the frame's rows.
+struct RowWindow {
+  int y_base, p_base, p_rows, frame_rows;
+};
+
+// sample_taps under a row window: position and weights in frame rows, the
+// taps' rows moved to the image's rows and masked outside them.
+__device__ __forceinline__ Taps sample_taps_rows(int x, int y, float u, float v, const RowWindow& r, int W) {
+  Taps t = sample_taps(x, y + r.y_base, u, v, r.frame_rows, W);
+  t.y0 -= r.p_base;
+  const bool top = t.y0 >= 0 && t.y0 < r.p_rows, bottom = t.y0 + 1 >= 0 && t.y0 + 1 < r.p_rows;
+  t.m00 = t.m00 && top;
+  t.m01 = t.m01 && top;
+  t.m10 = t.m10 && bottom;
+  t.m11 = t.m11 && bottom;
+  return t;
+}
+
+// ---------------------------------------------------------------------------
 // The tiled kernels.
 
 // A block's output tile: kW x kH pixels, kPX adjacent ones of a row a thread
@@ -142,6 +168,22 @@ __device__ __forceinline__ Sample make_sample(int x, int y, float u, float v, in
   s.w01 = t.m01 ? __fmul_rn(t.ay, t.wx) : 0.0f;
   s.w10 = t.m10 ? __fmul_rn(t.wy, t.ax) : 0.0f;
   s.w11 = t.m11 ? __fmul_rn(t.wy, t.wx) : 0.0f;
+  return s;
+}
+
+// One pixel's sample under a row window: the position and weights taken in
+// frame rows, as one process takes them over the whole frame, then the taps'
+// rows moved to the image's rows; a tap outside the image's rows reads 0.
+__device__ __forceinline__ Sample make_sample_rows(int x, int y, float u, float v, const RowWindow& r, int W) {
+  Sample s = make_sample(x, y + r.y_base, u, v, r.frame_rows, W);
+  s.y0 -= r.p_base;
+  const bool top = s.y0 >= 0 && s.y0 < r.p_rows, bottom = s.y0 + 1 >= 0 && s.y0 + 1 < r.p_rows;
+  s.m00 = s.m00 && top;
+  s.m01 = s.m01 && top;
+  s.m10 = s.m10 && bottom;
+  s.m11 = s.m11 && bottom;
+  if (!top) s.w00 = s.w01 = 0.0f;
+  if (!bottom) s.w10 = s.w11 = 0.0f;
   return s;
 }
 

@@ -176,7 +176,7 @@ class Evaluator:
         frames = frames.to(self.device, non_blocking=True)
         out, bound = self._steps(frames)
         if self.grid is not None:  # every rank's bound, so that all decide alike on a rerun
-            return out, halo.all_reduce_max(bound), None, targets, n_avail, frames
+            return out, halo.all_reduce(bound, dist.ReduceOp.MAX), None, targets, n_avail, frames
         if not cuda:
             return out, bound, None, targets, n_avail, None
         host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in (out, bound)]

@@ -16,6 +16,16 @@ averaged over windows.
 Tensors arrive in the JAX layout (N, H, W, c). They are views of the model's
 NCHW ``channels_last`` tensors, so the permutes back to NCHW copy nothing and
 the warps read the frames and flows in place.
+
+Under a spatial grid (``ModelOutputs.pair_rows`` set by the model's forward
+under ``parallel.halo.spatial``) the tensors hold this rank's rows. The four
+loss warps read their frames from the gathered pairs through this rank's
+row window, the VGG's convs exchange halo rows, and
+each per-sample mean over H·W·C becomes this rank's sum over the whole
+frame's count: the ranks' losses are parts that sum to one process's, and
+each rank's backward differentiates its own part, with no collective inside
+the autograd graph. The caller sums the parts over the spatial ranks
+(``training/trainer.py``).
 """
 
 from __future__ import annotations
@@ -40,9 +50,17 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def _per_sample_mean(x: torch.Tensor) -> torch.Tensor:
-    """(N, ...) → (N,) mean over all non-batch axes."""
-    return x.mean(dim=tuple(range(1, x.dim())))
+def _per_sample_mean(x: torch.Tensor, frame_rows=None) -> torch.Tensor:
+    """(N, C, h, W) → (N,) mean over all non-batch axes. ``frame_rows``,
+    under a spatial grid, ``(h0, H)``: this rank's rows and the frame's at
+    full scale; the mean is then this rank's sum over the count of the whole
+    frame at x's scale (``h`` is h0 at that scale)."""
+    dims = tuple(range(1, x.dim()))
+    if frame_rows is None:
+        return x.mean(dim=dims)
+    h0, H = frame_rows
+    h = x.shape[2]
+    return x.sum(dim=dims) / (x[0].numel() // h * (h * H // h0))
 
 
 def window_losses(
@@ -55,32 +73,40 @@ def window_losses(
     spec: ModelSpec,
     weights: LossWeights,
     vgg: Callable[[torch.Tensor], torch.Tensor],  # (N, 3, H, W) → features
+    pair_rows=None,  # under a spatial grid: ModelOutputs.pair_rows, the pairs' whole height and its window
 ) -> torch.Tensor:
-    """Losses of one interpolation window → (N, 4)."""
+    """Losses of one interpolation window → (N, 4); under a spatial grid,
+    this rank's parts of them."""
     pair, pred, tgt = _nchw(img_pair), _nchw(pred_img), _nchw(target)
     img_0, img_1 = pair[:, 0:3], pair[:, 3:6]
+    rows = None if pair_rows is None else (pred.shape[2], pair_rows[1].frame_rows)
 
-    loss_r = weights.lambda_r * _per_sample_mean(torch.abs(pred - tgt))
+    def warped(i, flow):  # frame i warped: from the pair, or from its whole height through the window
+        if pair_rows is None:
+            return warp_auto(pair[:, 3 * i:3 * i + 3], flow)
+        return warp_auto(pair_rows[0][:, 3 * i:3 * i + 3], flow, rows=pair_rows[1])
+
+    loss_r = weights.lambda_r * _per_sample_mean(torch.abs(pred - tgt), rows)
 
     warp = torch.zeros(pred.shape[0], dtype=pred.dtype, device=pred.device)
     if not spec.stage1_freeze:
         flowC = _nchw(flowC_out)
         warp = warp + _per_sample_mean(
-            torch.abs(warp_auto(img_1, flowC[:, 0:2]) - img_0)
-            + torch.abs(warp_auto(img_0, flowC[:, 2:4]) - img_1)
+            torch.abs(warped(1, flowC[:, 0:2]) - img_0)
+            + torch.abs(warped(0, flowC[:, 2:4]) - img_1), rows
         )
     if not spec.stage2_freeze:
         pred_flow_t1, pred_flow_t0 = refined_flows(_nchw(flowI_in), _nchw(flowI_out))
         warp = warp + _per_sample_mean(
-            torch.abs(warp_auto(img_0, pred_flow_t0) - tgt)
-            + torch.abs(warp_auto(img_1, pred_flow_t1) - tgt)
+            torch.abs(warped(0, pred_flow_t0) - tgt)
+            + torch.abs(warped(1, pred_flow_t1) - tgt), rows
         )
     loss_w = weights.lambda_w * warp
 
     feat_pred = vgg(pred)
     with torch.no_grad():
         feat_tgt = vgg(tgt)
-    loss_p = weights.lambda_p * _per_sample_mean((feat_pred - feat_tgt) ** 2)
+    loss_p = weights.lambda_p * _per_sample_mean((feat_pred - feat_tgt) ** 2, rows)
 
     total = loss_r + loss_w + loss_p
     return torch.stack([total, loss_r, loss_w, loss_p], dim=1)
@@ -93,7 +119,8 @@ def compute_losses(
     weights: LossWeights,
     vgg: Callable[[torch.Tensor], torch.Tensor],
 ) -> torch.Tensor:
-    """All windows → (B, 4), averaged over windows."""
+    """All windows → (B, 4), averaged over windows; under a spatial grid,
+    this rank's parts of them."""
     B, W_n = targets.shape[:2]
 
     def fold(x):
@@ -102,6 +129,6 @@ def compute_losses(
     per_sample = window_losses(
         fold(outputs.image_pairs), fold(outputs.flowC_out), fold(outputs.flowI_in),
         fold(outputs.flowI_out), fold(outputs.pred_images), fold(targets),
-        spec, weights, vgg,
+        spec, weights, vgg, outputs.pair_rows,
     )
     return per_sample.reshape(B, W_n, 4).mean(dim=1)

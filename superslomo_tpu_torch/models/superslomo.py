@@ -30,8 +30,30 @@ pairs exchanges its 6-channel pair's halo rows once and warps through a row
 window (``halo.warp_source``: the halo rows, or the whole height under
 ``halo.full_height_warps()``), and the bound is reduced by MAX over the
 spatial ranks, so it is one process's bound. The step then returns this
-rank's rows of the predictions. Training and the single-t forward under a
-grid come with the next slice.
+rank's rows of the predictions.
+
+``SuperSloMo.forward`` (training) runs under a grid too, on this rank's
+block of each frame's rows. The convs and upsamples exchange halo rows as
+in the fused step, and under autograd send the halo rows' gradient back to
+their owners (``halo.exchange_rows``). The warps do not read halo rows: the
+6-channel pairs are gathered to the whole height once a forward
+(``halo.gather_rows``; frames are data, so nothing is differentiated through
+the gather), and each of the step's eight single-flow warps (two for the
+stage-2 input, two for the output, four in the losses, which reuse the
+gathered pairs through ``ModelOutputs.pair_rows``) reads its frame from the
+whole height through a ``RowWindow`` of this rank's rows. Positions are
+taken in frame rows, so the warps and their flow gradients are one
+process's rows of them for any flow: no guard, no host sync, no rerun, and
+no exchange for the warps in the backward. Where this departs from the JAX
+package's sharded train step (``parallel/warp_spmd.py::warp_sharded``):
+within its ``halo_reach`` JAX's halo warp takes positions from the halo's
+first row, an f32 ulp of a position apart from one process's (1.8-2.4e-5 on
+noise planes); beyond it JAX's backward is still the halo path's gradient
+(``g_bwd``), where the port's is the exact gradient, JAX's single-device
+one. Under ``[TPU] REMAT`` the backward recomputes each U-Net stage, whose
+exchanges then run again, in the same order on every rank; the gather is
+outside the stages and is not repeated. The caller keeps ``halo.spatial``
+in effect through the backward (``training/trainer.py``).
 
 The U-Nets run NCHW in ``torch.channels_last`` memory format. In float32 the
 convolutions run with TF32 off (cuDNN and matmul); cuDNN's TF32 default keeps
@@ -55,6 +77,7 @@ import contextlib
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.utils.checkpoint
 
@@ -64,6 +87,7 @@ from superslomo_tpu_torch.models import physics
 from superslomo_tpu_torch.models.unet import UNet
 from superslomo_tpu_torch.ops import warp_multiflow_planar
 from superslomo_tpu_torch.parallel import halo
+from superslomo_tpu_torch.parallel.mesh import block_start
 
 
 def stage_unets(spec: ModelSpec):
@@ -103,6 +127,9 @@ class ModelOutputs(NamedTuple):
     pred_images: torch.Tensor  # (B, T-1, H, W, 3) interpolated frames
     t_interp: torch.Tensor  # (B, T-1, 1, 1, 1)
     rnn_carry: Optional[dict] = None  # {"stage1": …, "stage2": …} of a recurrent model, else None
+    # under a spatial grid: the windows' pairs gathered to the whole height,
+    # (B·(T-1), 6, H, W) channels-last, and the RowWindow of this rank's rows
+    pair_rows: Optional[tuple] = None
 
 
 class Intermediates(NamedTuple):
@@ -227,17 +254,16 @@ class SuperSloMo(nn.Module):
         inference, and the streamed forward of a recurrent model).
 
         :param frames: (B, T, H, W, 3) normalized frames, T = N_FRAMES; H, W
-            /32-divisible.
+            /32-divisible. Under a spatial grid, this rank's block of each
+            frame's rows.
         :param t_interp: per-window instants in (0, 1): (B, T-1) or
             (B, T-1, 1, 1, 1).
         :param rnn_carry: a recurrent model's state from a previous window
             (``ModelOutputs.rnn_carry``); None starts from zeros.
         :returns: ``ModelOutputs``; its ``rnn_carry`` is the new state of a
-            recurrent model, else None.
+            recurrent model, else None; under a grid, this rank's rows and
+            ``pair_rows``.
         """
-        if halo.active() is not None:
-            raise NotImplementedError("the forward over windows under a spatial grid comes with the next slice, "
-                                      "training under a spatial grid; the fused step serves under one")
         f32, cdt = torch.float32, self.compute_dtype
         frames = torch.as_tensor(frames, dtype=f32, device=self.device)
         pairs = make_pairs(frames)  # (B, W_n, H, W, 6)
@@ -246,22 +272,24 @@ class SuperSloMo(nn.Module):
         BW = B * W_n
         x1 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
         t_f = t.reshape(BW, 1, 1, 1)
+        pair_rows = _gathered_pairs(x1)
         with tf32_off():
             head1, encoding, carry1 = self._run_stage(
                 self.stage1, x1.to(cdt), None, W_n, _stage_carry(rnn_carry, "stage1"))
             flowC = head1.to(f32)
             flowI_in = physics.compute_stage2_inputs(
-                x1, flowC, t_f, warp_dtype=cdt if cdt != f32 else None)
+                x1, flowC, t_f, warp_dtype=cdt if cdt != f32 else None, pair_rows=pair_rows)
             head2, _, carry2 = self._run_stage(
                 self.stage2, flowI_in.to(cdt), encoding, W_n, _stage_carry(rnn_carry, "stage2"))
             flowI_out = head2.to(f32)
-            pred = physics.compute_output_image(x1, flowI_in, flowI_out, t_f)
+            pred = physics.compute_output_image(x1, flowI_in, flowI_out, t_f, pair_rows)
 
         def unfold(x):  # (BW, c, H, W) → (B, W_n, H, W, c)
             return x.permute(0, 2, 3, 1).reshape(B, W_n, H, W, x.shape[1])
 
         carry = None if carry1 is None and carry2 is None else {"stage1": carry1, "stage2": carry2}
-        return ModelOutputs(pairs, unfold(flowC), unfold(flowI_in), unfold(flowI_out), unfold(pred), t, carry)
+        return ModelOutputs(pairs, unfold(flowC), unfold(flowI_in), unfold(flowI_out), unfold(pred), t, carry,
+                            pair_rows)
 
     def _run_stage(self, unet, x, cross_encoding, n_windows, carry):
         """One U-Net stage of ``forward``: under ``[TPU] REMAT``, while
@@ -347,7 +375,8 @@ class SuperSloMo(nn.Module):
         if grid is None:
             bound = torch.maximum(bound_c, bound_c + head2[:, 1:5].abs().amax().to(f32))
         else:  # both maxima over the whole frame, then one process's sum
-            m = halo.all_reduce_max(torch.stack([bound_c, head2[:, 1:5].abs().amax().to(f32)]), grid.spatial_group)
+            m = halo.all_reduce(torch.stack([bound_c, head2[:, 1:5].abs().amax().to(f32)]), dist.ReduceOp.MAX,
+                                grid.spatial_group)
             bound = torch.maximum(m[0], m[0] + m[1])
 
         mid = W_n // 2
@@ -373,6 +402,19 @@ class SuperSloMo(nn.Module):
         t_g = t_values.reshape(1, 1, n_t, 1, 1)
         pred = physics.blend(w0, w1, s2.v_0t[:, None], s2.v_1t[:, None], t_g)
         return pred.permute(0, 2, 3, 4, 1).contiguous(), bound  # (B, n_t, H, W, 3)
+
+
+def _gathered_pairs(x1):
+    """Under a spatial grid, ``(pairs, RowWindow)``: the (BW, 6, h, W) pairs
+    of this rank's rows gathered to the whole height from the spatial ranks
+    of its data row, channels-last, and the window of its rows in them; None
+    without a grid."""
+    grid = halo.active()
+    if grid is None:
+        return None
+    blocks = halo.frame_blocks(x1.shape[2], grid)
+    H = sum(blocks)
+    return halo.gather_rows(x1, blocks, grid=grid), halo.RowWindow(block_start(blocks, grid.spatial_index), 0, H, H)
 
 
 def _halo_pair_warps(pair, blocks, flows0, flows1):

@@ -7,6 +7,11 @@ dict, or the ``.npz`` of one that the JAX package reads, loads 1:1. The network
 is frozen: its parameters never take a gradient; the perceptual loss only
 differentiates through it to its input.
 
+The convs are ``layers.Conv2d``, so under a spatial grid
+(``parallel.halo.spatial``) each receives a halo row from each neighbouring
+rank, and its gradient goes back, as the U-Nets' convs do. The three 2x2 max
+pools stay local: a block is whole 32-row units, 4 rows at 1/8 scale.
+
 No weights ship with the repo and there is no download. Without a weights
 file the features come from seeded numpy weights (normal, std sqrt(1/fan_in),
 zero bias), which the trainer allows only under ``[TRAIN] ALLOW_RANDOM_VGG``.
@@ -21,6 +26,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from superslomo_tpu_torch.models.layers import Conv2d
 from superslomo_tpu_torch.ops import max_pool_2x2
 
 # torchvision features index → (in, out) channels; a pool follows the ReLU of
@@ -37,7 +43,7 @@ class VGG16Features(nn.Module):
     def __init__(self):
         super().__init__()
         self.features = nn.ModuleDict(OrderedDict(
-            (str(idx), nn.Conv2d(cin, cout, 3, padding=1)) for idx, cin, cout in _VGG_CONVS
+            (str(idx), Conv2d(cin, cout, 3, padding=1)) for idx, cin, cout in _VGG_CONVS
         ))
         self.requires_grad_(False)
 

@@ -6,7 +6,10 @@ a CPU tensor goes to the plain PyTorch version (ops/warp.py). Nothing falls
 back from one to the other. Both warps are differentiable on the card: their
 ``torch.autograd.Function``s compute the gradients with their own backward
 kernels (the multi-flow warp's one kernel over all n flows, the single-flow
-warp's two gradient kernels).
+warp's two gradient kernels). Under a row window (height sharding,
+``parallel.halo.RowWindow``) the multi-flow warp serves only and the
+single-flow warp gives the flow's gradient only: no path differentiates a
+warped image under one.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from superslomo_tpu_torch.ops.warp import (  # noqa: F401
     warp_multiflow_backward_reference, warp_multiflow_planar_reference, warp_single_reference)
 from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda, warp_multiflow_planar_cuda
 from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda, warp_single_cuda
+from superslomo_tpu_torch.parallel import halo
 
 
 def warp_multiflow_planar(planes, u, v, out_dtype=None, rows=None):
@@ -36,9 +40,8 @@ def warp_multiflow_planar(planes, u, v, out_dtype=None, rows=None):
     if out_dtype is not None and out_dtype != planes.dtype:
         raise ValueError(f"the warp stores the planes' dtype {planes.dtype}, not {out_dtype}")
     u, v = u.to(torch.float32), v.to(torch.float32)
-    if rows is not None and torch.is_grad_enabled() and any(t.requires_grad for t in (planes, u, v)):
-        raise NotImplementedError("the row-window warp serves only: its gradients come with the next slice, "
-                                  "training under a spatial grid")
+    if rows is not None:
+        halo.refuse_autograd("the row-window multi-flow warp", planes, u, v)
     if planes.device.type == "cuda":
         if rows is not None:
             return warp_multiflow_planar_cuda(planes, u, v, rows=rows)
@@ -77,28 +80,40 @@ class _WarpMultiflow(torch.autograd.Function):
 
 class _WarpSingle(torch.autograd.Function):
     """The single-flow warp on the card: the forward kernel, and the backward
-    kernel for whichever of the two gradients autograd asks for."""
+    kernel for whichever of the two gradients autograd asks for; under a row
+    window, the flow's."""
 
     @staticmethod
-    def forward(ctx, img, flow):
+    def forward(ctx, img, flow, rows=None):
         ctx.save_for_backward(img, flow)
-        return warp_single_cuda(img, flow)
+        ctx.rows = rows
+        return warp_single_cuda(img, flow) if rows is None else warp_single_cuda(img, flow, rows=rows)
 
     @staticmethod
     def backward(ctx, grad_out):
         img, flow = ctx.saved_tensors
-        need_img, need_flow = ctx.needs_input_grad
-        return warp_single_backward_cuda(img, flow, grad_out, need_img, need_flow)
+        need_img, need_flow = ctx.needs_input_grad[:2]
+        if ctx.rows is None:
+            return (*warp_single_backward_cuda(img, flow, grad_out, need_img, need_flow), None)
+        return (*warp_single_backward_cuda(img, flow, grad_out, need_img, need_flow, rows=ctx.rows), None)
 
 
-def warp_auto(img, flow):
+def warp_auto(img, flow, rows=None):
     """Single-flow backward warp, NCHW: (B, C, H, W) f32 or bf16 image x
     (B, 2, H, W) flow (u, v) → (B, C, H, W) in the image dtype, with f32
     position math and accumulation. Differentiable in both arguments. Strided
-    views (channels_last slices) are read in place on the card."""
+    views (channels_last slices) are read in place on the card.
+
+    ``rows``, a row window (``parallel.halo.RowWindow``), warps a block of
+    rows of a taller frame (the flow's, (B, 2, h, W)) against an image that
+    holds other rows of it, positions in frame rows: one process's rows of
+    the warp and of its flow gradient. Differentiable in the flow only: an
+    image that needs a gradient raises NotImplementedError under autograd."""
     flow = flow.to(torch.float32)
+    if rows is not None:
+        halo.refuse_autograd("the single-flow warp's image under a row window", img)
     if img.device.type == "cuda":
-        return _WarpSingle.apply(img, flow)
+        return _WarpSingle.apply(img, flow) if rows is None else _WarpSingle.apply(img, flow, rows)
     if img.device.type == "cpu":
-        return warp_single_reference(img, flow)
+        return warp_single_reference(img, flow, rows=rows)
     raise ValueError(f"no warp for device {img.device}")

@@ -10,7 +10,14 @@ dropped. Output row i of the extended input samples its row (i + 0.5) / 2 -
 weights, and at the frame's edges the repeated row gives the clamp's value.
 The frame's first output row is one process's bit for bit only from the
 first row alone (one process's clamp weighs it by 1 and its neighbour by 0;
-the repeated row weighs two equal rows by 0.25 and 0.75), so it is taken so.
+the repeated row weighs two equal rows by 0.25 and 0.75), so it is taken so:
+written in place over the output's first row, a copy into a view that
+autograd follows (the overwritten row's gradient goes to the first row alone,
+none to the extended upsample), so under autograd the gradient is one
+process's, the exchange's backward (``parallel.halo``) summing the repeated
+rows' gradient into the edge rows. (A ``torch.cat`` of the row and the rest
+would copy the whole output on the first rank, which the other ranks wait
+for at every exchange.)
 """
 
 from __future__ import annotations

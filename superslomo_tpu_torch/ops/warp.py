@@ -112,11 +112,16 @@ def warp_multiflow_backward_reference(planes, u, v, grad_out, need_planes: bool,
     return grad_planes, grad_u, grad_v
 
 
-def warp_single_reference(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_single_reference(img: torch.Tensor, flow: torch.Tensor, rows=None) -> torch.Tensor:
     """(B, C, H, W) image x (B, 2, H, W) flow (u, v) → (B, C, H, W) in the
-    image dtype: the plain version of the single-flow kernel, NCHW."""
+    image dtype: the plain version of the single-flow kernel, NCHW.
+
+    ``rows``, a row window (``parallel.halo.RowWindow``), warps frame rows
+    [y_base, y_base + h) of the flow (B, 2, h, W) against an image (B, C,
+    p_rows, W) of frame rows [p_base, p_base + p_rows), as
+    ``warp_multiflow_planar_reference`` does: positions in frame rows, so the
+    result and the flow's gradient are one process's rows of them."""
     if img.dim() != 4 or flow.dim() != 4 or flow.shape[1] != 2:
         raise ValueError(f"bad shapes img={tuple(img.shape)} flow={tuple(flow.shape)}")
-    out = warp_multiflow_planar_reference(img, flow[:, 0:1], flow[:, 1:2], out_dtype=img.dtype)
+    out = warp_multiflow_planar_reference(img, flow[:, 0:1], flow[:, 1:2], out_dtype=img.dtype, rows=rows)
     return out[:, :, 0]
-

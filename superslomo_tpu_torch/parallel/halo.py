@@ -1,8 +1,8 @@
-"""Height sharding for serving: each frame's rows split across the spatial
-ranks of a grid (``parallel/mesh.py``), with halo rows exchanged between
-neighbouring ranks before every op that reads across a block's edge. The
-counterpart of the JAX package's ``parallel/warp_spmd.py`` and of the conv
-halos that XLA's partitioner inserts there by itself.
+"""Height sharding: each frame's rows split across the spatial ranks of a
+grid (``parallel/mesh.py``), with halo rows exchanged between neighbouring
+ranks before every op that reads across a block's edge. The counterpart of
+the JAX package's ``parallel/warp_spmd.py`` and of the conv halos (and
+their transposes) that XLA's partitioner inserts there by itself.
 
 Under ``spatial(grid)`` (the counterpart of JAX's ``ops.warp_mesh``) the
 layers consult this module:
@@ -41,9 +41,16 @@ spatial group. Gloo's send and receive take host memory only, so over gloo
 staged through host copies; the compute stays on the card. Over NCCL they
 go card to card.
 
-Serving only: under autograd, with a tensor that needs a gradient, every op
-here raises NotImplementedError (the halo gradients come with training under
-a spatial grid).
+Under autograd ``exchange_rows`` is differentiable: its backward keeps the
+gradient of this rank's own rows and adds to it the halo rows' gradients
+that the neighbours send back for the rows this rank sent them, in one
+point-to-point round as the forward's (at the frame's edges a replicated
+row's gradient is summed into the edge row, a zero row's dropped). So the
+convs and upsamples of a training step under a grid give one process's
+gradients. The train step's warps read whole frames (``gather_rows``, no
+gradient: frames are data; see ``models/superslomo.py``), so no warp
+gradient crosses ranks. ``gather_rows`` and the row-window multi-flow warp
+refuse a tensor that needs a gradient: no path differentiates them.
 """
 
 from __future__ import annotations
@@ -61,13 +68,14 @@ HALO_ROWS = 136
 _GRID: Optional[Grid] = None
 _FULL_HEIGHT = False
 
-# exchanges made by exchange_rows and the bytes this rank sent in them, since
-# the last reset_counts()
-counts = {"exchanges": 0, "bytes_sent": 0}
+# since the last reset_counts(): exchanges made by exchange_rows and the bytes
+# this rank sent in them, in the forward and in the backward apart, and the
+# calls of gather_rows
+counts = {"exchanges": 0, "bytes_sent": 0, "backward_exchanges": 0, "backward_bytes_sent": 0, "gathers": 0}
 
 
 def reset_counts() -> None:
-    counts.update(exchanges=0, bytes_sent=0)
+    counts.update(dict.fromkeys(counts, 0))
 
 
 @contextlib.contextmanager
@@ -106,11 +114,13 @@ def halo_reach(blocks) -> int:
     return min(HALO_ROWS, min(blocks)) - 1
 
 
-def refuse_autograd(*tensors) -> None:
+def refuse_autograd(what: str, *tensors) -> None:
+    """Raise NotImplementedError where ``what`` would be differentiated:
+    under autograd, with a tensor that needs a gradient."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise NotImplementedError(
-            "height sharding serves only: the halo gradients come with the next slice, training under a "
-            "spatial grid")
+            f"{what} has no gradient: no path differentiates it (the train step's warps read whole frames, "
+            "which are data)")
 
 
 def _p2p(sends, recvs, group) -> None:
@@ -135,14 +145,16 @@ def _p2p(sends, recvs, group) -> None:
         t.copy_(b)
 
 
-def all_reduce_max(t: torch.Tensor, group=None) -> torch.Tensor:
-    """``t`` reduced by MAX over ``group`` (every rank without one), in place."""
+def all_reduce(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """``t`` reduced by ``op`` over ``group`` (every rank without one), in
+    place; under gloo a CUDA tensor goes through a host copy."""
     staged = dist.get_backend(group) == "gloo" and t.device.type != "cpu"
     wire = t.cpu() if staged else t
-    dist.all_reduce(wire, dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(wire, op, group=group)
     if staged:
         t.copy_(wire)
     return t
+
 
 
 def _grid(grid):
@@ -161,34 +173,82 @@ def exchange_rows(x: torch.Tensor, top: int, bottom: int, edge: str = "zeros", g
     rows of the rank above, these, and ``bottom`` rows of the rank below, in
     ``x``'s dtype and memory format. At the frame's first and last rows the
     halo is zeros (``edge="zeros"``) or the edge row repeated
-    (``"replicate"``)."""
+    (``"replicate"``). Differentiable: the backward sends the halo rows'
+    gradient back to the ranks that own those rows and adds what they send
+    back to this rank's rows."""
     if edge not in ("zeros", "replicate"):
         raise ValueError(f"edge must be 'zeros' or 'replicate', got {edge!r}")
     grid = _grid(grid)
-    refuse_autograd(x)
-    N, C, h, W = x.shape
+    h = x.shape[2]
     if max(top, bottom) > h:
         raise ValueError(f"a one-hop halo of {max(top, bottom)} rows needs blocks of as many rows, got {h}")
-    out = torch.empty((N, C, top + h + bottom, W), dtype=x.dtype, device=x.device, memory_format=_format(x))
-    out[:, :, top:top + h].copy_(x)
+    return _ExchangeRows.apply(x, top, bottom, edge, grid)
+
+
+def _neighbours(grid: Grid):
+    """(the rank above, the rank below): global ranks, None past the frame's edges."""
     s, ranks = grid.spatial_index, grid.spatial_ranks
-    sends, recvs = [], []
-    for rows, dst, neighbour, ours, edge_row in (
-            (top, out[:, :, :top], s - 1, x[:, :, :bottom], x[:, :, :1]),
-            (bottom, out[:, :, top + h:], s + 1, x[:, :, h - top:], x[:, :, h - 1:])):
-        if 0 <= neighbour < grid.n_spatial:  # the neighbour's rows in, ours out
-            if rows:
-                recvs.append((dst, ranks[neighbour]))
-            if ours.shape[2]:
-                sends.append((ours, ranks[neighbour]))
-        elif rows and edge == "zeros":
-            dst.zero_()
-        elif rows:
-            dst.copy_(edge_row.expand_as(dst))
-    _p2p(sends, recvs, grid.spatial_group)
-    counts["exchanges"] += 1
-    counts["bytes_sent"] += sum(t.numel() * t.element_size() for t, _ in sends)
-    return out
+    return (ranks[s - 1] if s > 0 else None), (ranks[s + 1] if s + 1 < grid.n_spatial else None)
+
+
+def _bytes(sends) -> int:
+    return sum(t.numel() * t.element_size() for t, _ in sends)
+
+
+class _ExchangeRows(torch.autograd.Function):
+    """``exchange_rows``: the forward receives the neighbours' rows around
+    this rank's; the backward is its transpose, one round the other way."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, edge, grid):
+        N, C, h, W = x.shape
+        ctx.top, ctx.bottom, ctx.edge, ctx.grid = top, bottom, edge, grid
+        out = torch.empty((N, C, top + h + bottom, W), dtype=x.dtype, device=x.device, memory_format=_format(x))
+        out[:, :, top:top + h].copy_(x)
+        above, below = _neighbours(grid)
+        sends, recvs = [], []
+        for rows, dst, neighbour, ours, edge_row in (
+                (top, out[:, :, :top], above, x[:, :, :bottom], x[:, :, :1]),
+                (bottom, out[:, :, top + h:], below, x[:, :, h - top:], x[:, :, h - 1:])):
+            if neighbour is not None:  # the neighbour's rows in, ours out
+                if rows:
+                    recvs.append((dst, neighbour))
+                if ours.shape[2]:
+                    sends.append((ours, neighbour))
+            elif rows and edge == "zeros":
+                dst.zero_()
+            elif rows:
+                dst.copy_(edge_row.expand_as(dst))
+        _p2p(sends, recvs, grid.spatial_group)
+        counts["exchanges"] += 1
+        counts["bytes_sent"] += _bytes(sends)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        top, bottom, grid = ctx.top, ctx.bottom, ctx.grid
+        h = grad_out.shape[2] - top - bottom
+        grad = grad_out[:, :, top:top + h].clone(memory_format=_format(grad_out))
+        above, below = _neighbours(grid)
+        sends, recvs = [], []
+        # the rows this rank sent up (its first `bottom`) and down (its last
+        # `top`) take the gradient of the neighbours' halos
+        for rows, halo_grad, neighbour, mine, edge_row in (
+                (top, grad_out[:, :, :top], above, grad[:, :, :bottom], grad[:, :, :1]),
+                (bottom, grad_out[:, :, top + h:], below, grad[:, :, h - top:], grad[:, :, h - 1:])):
+            if neighbour is not None:
+                if rows:
+                    sends.append((halo_grad, neighbour))
+                if mine.shape[2]:
+                    recvs.append((torch.empty(mine.shape, dtype=grad.dtype, device=grad.device), mine, neighbour))
+            elif rows and ctx.edge == "replicate":  # the edge row repeated: its rows' gradient summed into it,
+                edge_row += halo_grad.sum(dim=2, keepdim=True, dtype=torch.float32)  # rounded once
+        _p2p(sends, [(buf, peer) for buf, _, peer in recvs], grid.spatial_group)
+        for buf, mine, _ in recvs:
+            mine += buf
+        counts["backward_exchanges"] += 1
+        counts["backward_bytes_sent"] += _bytes(sends)
+        return grad, None, None, None, None
 
 
 def gather_rows(x: torch.Tensor, blocks, dst: Optional[int] = None, grid: Optional[Grid] = None):
@@ -196,7 +256,7 @@ def gather_rows(x: torch.Tensor, blocks, dst: Optional[int] = None, grid: Option
     whole height on spatial rank ``dst`` (None elsewhere), or on every rank
     when ``dst`` is None; in ``x``'s memory format for a 4-D ``x``."""
     grid = _grid(grid)
-    refuse_autograd(x)
+    refuse_autograd("gather_rows", x)
     s, ranks = grid.spatial_index, grid.spatial_ranks
     if x.shape[2] != blocks[s]:
         raise ValueError(f"this rank holds {x.shape[2]} rows, its block is {blocks[s]}")
@@ -211,6 +271,7 @@ def gather_rows(x: torch.Tensor, blocks, dst: Optional[int] = None, grid: Option
         recvs = [(out.narrow(2, block_start(blocks, r), blocks[r]), ranks[r])
                  for r in range(grid.n_spatial) if r != s]
     _p2p(sends, recvs, grid.spatial_group)
+    counts["gathers"] += 1
     return out
 
 

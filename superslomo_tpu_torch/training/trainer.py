@@ -36,10 +36,29 @@ slice of each global batch) under ``DistributedDataParallel``, which
 averages the gradients; the loss vector is averaged over the ranks, so
 every rank returns the single-process loss. Rank 0 alone writes
 checkpoints; every rank loads and resumes.
+
+On a (data, spatial) grid (``Trainer(cfg, grid=parallel.make_grid(n_data,
+n_spatial))``, the counterpart of the JAX trainer's ``mesh``) each frame's
+rows are split across the spatial ranks of a data row as well. BATCH_SIZE
+is the global batch, a multiple of ``n_data``; every rank of a data row
+reads the same samples (the Loader's slice by data index: its batches are
+seeded by (seed, epoch, index), so they are bit for bit the same) and takes
+its block of their rows (``parallel.mesh.row_blocks``). The forward, the
+losses and the backward run under ``halo.spatial(grid)``
+(``models/superslomo.py``, ``models/losses.py``): each rank's backward gives
+its rows' part of its samples' gradient. The model is not wrapped in DDP:
+its bucketed all-reduces would run inside the backward, beside the halo
+exchanges of other groups, and ranks that issue collectives in different
+orders deadlock under NCCL. After the backward every trainable gradient
+(flattened into buckets) is summed over all ranks and divided by
+``n_data``: a sum over the spatial ranks' parts and a mean over the data
+rows, as one process's gradient of the global batch's mean loss. The
+reported loss vector is reduced the same way, detached.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -58,10 +77,14 @@ from superslomo_tpu_torch.data import get_dataset, prefetch_to_device
 from superslomo_tpu_torch.models.losses import LossWeights, compute_losses
 from superslomo_tpu_torch.models.superslomo import SuperSloMo, mid_window, tf32_off
 from superslomo_tpu_torch.models.vgg import VGG16Features, vgg_state
+from superslomo_tpu_torch.parallel import halo
+from superslomo_tpu_torch.parallel.mesh import block_start, row_blocks
 from superslomo_tpu_torch.training.checkpoint import ADAM_BETAS, ADAM_EPS, save_native_checkpoint, trainable_stages
 from superslomo_tpu_torch.utils.validators import check_forward_inputs
 
 log = logging.getLogger(__name__)
+
+GRAD_BUCKET_BYTES = 25 * 2**20  # the gradients' all-reduce under a grid, in buckets of about this size
 
 
 def step_lr(base_lr: float, decay: float, period: float):
@@ -91,10 +114,13 @@ class Trainer:
         ``"cpu"``.
     :param vgg_weights: a ``.npz`` of torchvision's VGG-16 ``features.*``;
         defaults to ``[TRAIN] VGG_WEIGHTS``.
+    :param grid: a (data, spatial) ``parallel.mesh.Grid`` over every rank
+        (``parallel.make_grid`` after ``parallel.init_data_parallel``), or
+        None: data parallel over every rank under DDP.
     """
 
     def __init__(self, cfg: Config, expt_name: str = "expt", writer=None, device=None,
-                 vgg_weights: Optional[str] = None):
+                 vgg_weights: Optional[str] = None, grid=None):
         self.cfg = cfg
         self.expt_name = expt_name
         self.spec = cfg.model_spec()
@@ -113,9 +139,12 @@ class Trainer:
         self.ckpt_dir = os.path.join(cfg.get("TRAIN", "CKPT_DIR"), expt_name)
         self.writer = writer
         self.rank, self.world = parallel.rank(), parallel.world()
+        self.grid = grid
+        # the global batch is shared over the data axis (every rank without a grid)
+        self.n_share, self.share_index = (grid.n_data, grid.data_index) if grid else (self.world, self.rank)
         batch = cfg.getint("TRAIN", "BATCH_SIZE")
-        if batch % self.world:
-            raise ValueError(f"[TRAIN] BATCH_SIZE {batch} is not a multiple of the {self.world} data-parallel ranks")
+        if batch % self.n_share:
+            raise ValueError(f"[TRAIN] BATCH_SIZE {batch} is not a multiple of the {self.n_share} data-parallel ranks")
 
         vgg_path = vgg_weights
         if vgg_path is None and cfg.has("TRAIN", "VGG_WEIGHTS"):
@@ -155,10 +184,10 @@ class Trainer:
                                           betas=ADAM_BETAS, eps=ADAM_EPS)
         self.epoch, self.step = 1, 0
         self.resume_if_configured()
-        # the model the step runs: under DDP across ranks, which all-reduces
-        # the gradients of the parameters that require them
+        # the model the step runs: under DDP across ranks without a grid,
+        # which all-reduces the gradients of the parameters that require them
         self.step_model = self.model
-        if self.world > 1:
+        if self.world > 1 and grid is None:
             cuda = self.device.type == "cuda"
             self.step_model = torch.nn.parallel.DistributedDataParallel(
                 self.model, device_ids=[self.device.index] if cuda else None)
@@ -220,32 +249,68 @@ class Trainer:
         """One optimization step on (B, T, H, W, 3) frames, (B, T-1, H, W, 3)
         targets and (B, T-1) instants (numpy arrays, or tensors, which are
         used in place when they already lie on the model's device): this
-        rank's share of the global batch. Returns the (4,) loss vector
-        (total, reconstruction, warp, perceptual), averaged over the global
-        batch, on the model's device."""
+        rank's share of the global batch (under a grid, its data row's, whole
+        frames: the step takes this rank's rows of them). Returns the (4,)
+        loss vector (total, reconstruction, warp, perceptual), averaged over
+        the global batch, on the model's device."""
+        frames, targets = self._rows(frames), self._rows(targets)
         frames, targets, t = (torch.as_tensor(x, dtype=torch.float32).to(self.device) for x in (frames, targets, t))
-        with tf32_off():
+        spatial = halo.spatial(self.grid) if self.grid is not None else contextlib.nullcontext()
+        with tf32_off(), spatial:  # the backward too: a REMAT recompute exchanges halo rows
             outputs = self.step_model(frames, t)
             losses = compute_losses(outputs, targets, self.spec, self.weights, self.vgg)
             self.optimizer.zero_grad(set_to_none=True)
             losses[:, 0].mean().backward()
+            if self.grid is not None:
+                self._reduce_grads()
             self.optimizer.step()
         loss_vec = losses.detach().mean(dim=0)
         if self.world > 1:  # SUM, then divide: gloo has no AVG
-            torch.distributed.all_reduce(loss_vec)
-            loss_vec /= self.world
+            halo.all_reduce(loss_vec)
+            loss_vec /= self.n_share
         return loss_vec
+
+    def _rows(self, x):
+        """Under a spatial grid, this rank's block of rows (dim 2) of a data
+        row's frames or targets (numpy or tensors); else ``x``."""
+        if self.grid is None or self.grid.n_spatial == 1:
+            return x
+        blocks = row_blocks(x.shape[2], self.grid.n_spatial)
+        r0 = block_start(blocks, self.grid.spatial_index)
+        return x[:, :, r0:r0 + blocks[self.grid.spatial_index]]
+
+    def _reduce_grads(self) -> None:
+        """Every trainable gradient summed over all ranks and divided by
+        ``n_data``, in flattened buckets of about GRAD_BUCKET_BYTES: the sum
+        of the spatial ranks' parts, the mean over the data rows."""
+        buckets, size = [[]], 0
+        for *_, p in self.trainable:
+            if p.grad is None:  # every rank reduces the same buckets
+                p.grad = torch.zeros_like(p)
+            if size >= GRAD_BUCKET_BYTES:
+                buckets.append([])
+                size = 0
+            buckets[-1].append(p.grad)
+            size += p.grad.numel() * p.grad.element_size()
+        for bucket in buckets:
+            flat = halo.all_reduce(torch.cat([g.reshape(-1) for g in bucket]))
+            if self.grid.n_data > 1:
+                flat /= self.grid.n_data
+            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+                g.copy_(part.view(g.shape))
 
     def train(self, batches: Optional[Iterable] = None, max_steps: Optional[int] = None) -> np.ndarray:
         """Train from ``self.epoch`` to ``N_EPOCHS``, iterating ``batches``
-        (``(frames, targets, t)``, numpy or tensors: this rank's share) once
-        per epoch; by default ``get_dataset(cfg, "TRAIN")`` (this rank's
-        slice of each global batch), built once and fed through
+        (``(frames, targets, t)``, numpy or tensors: this rank's share, under
+        a grid its data row's) once per epoch; by default ``get_dataset(cfg,
+        "TRAIN")`` (this rank's, or data row's, slice of each global batch),
+        built once and fed through
         ``prefetch_to_device`` each epoch. Stop after ``max_steps`` steps in
         all. Saves every SAVE_EVERY epochs, at the end, at ``max_steps``, and
         on SIGTERM (then exits with 143). Returns the last step's loss
         vector."""
-        loader = get_dataset(self.cfg, "TRAIN", rank=self.rank, world=self.world) if batches is None else None
+        loader = (get_dataset(self.cfg, "TRAIN", rank=self.share_index, world=self.n_share)
+                  if batches is None else None)
         loss_vec = None
 
         def on_sigterm(signum, frame):
@@ -291,7 +356,9 @@ class Trainer:
 
     def write_image(self, frames, t, step, split) -> None:
         """The mid window's interpolation of the first sample, denormalized
-        and clipped to [0, 1], as a (3, H, W) image."""
+        and clipped to [0, 1], as a (3, H, W) image. Under a grid too it runs
+        one process's forward on the whole frames given, outside the grid, so
+        it waits for no other rank."""
         with torch.no_grad():
             out = self.model(frames[:1], _host(t)[:1])
         img = out.pred_images[0, mid_window(out)].cpu().numpy()

@@ -4,8 +4,8 @@ run the layers, the warps, the fused step and the Evaluator with each
 frame's rows split over the two spatial ranks of their data row; this
 process holds what they return against the one-process port on the same
 numpy inputs, and the warps and the f32 step against the JAX package. The
-grid's rules, ``row_blocks``, ``halo_reach`` and the autograd refusals run
-here. JAX is imported only inside test functions, so the spawned ranks never
+grid's rules, ``row_blocks``, ``halo_reach`` and the autograd refusals that
+remain run here. JAX is imported only inside test functions, so the spawned ranks never
 import it.
 
 Bars, with what was measured here (oneDNN on this host's CPU):
@@ -266,22 +266,23 @@ def test_halo_reach_and_the_grid_refusals():
 
 
 def test_halo_ops_refuse_autograd():
-    """Serving only: under autograd, a tensor that needs a gradient makes
-    every halo op raise before it talks to another rank (this grid has no
-    groups to talk over)."""
+    """What stays refused under autograd, with a tensor that needs a
+    gradient: ``gather_rows``, the row-window multi-flow warp and the
+    single-flow warp's image under a row window, which no path
+    differentiates; each raises before it talks to another rank (this grid
+    has no groups to talk over). The convs, the upsample, ``exchange_rows``
+    and the forward train under a grid (``tests/test_torch_halo_train.py``)."""
     grid = Grid(1, 2, 0, None, None, (0,), (0, 1))
     x = torch.zeros(1, 8, 32, 16, requires_grad=True)
-    with halo.spatial(grid):
-        for call in (lambda: _conv(3)(x), lambda: ops.upsample_2x_bilinear(x),
-                     lambda: halo.exchange_rows(x, 1, 1), lambda: halo.gather_rows(x, (32, 32))):
-            with pytest.raises(NotImplementedError, match="training under a spatial grid"):
-                call()
-        model = SuperSloMo(ModelSpec(), device="cpu")
-        with pytest.raises(NotImplementedError, match="training under a spatial grid"):
-            model(np.zeros((1, 2, 32, 32, 3), np.float32), np.full((1, 1), 0.5, np.float32))
+    with halo.spatial(grid), pytest.raises(NotImplementedError, match="no path differentiates"):
+        halo.gather_rows(x, (32, 32))
     planes, flow = torch.zeros(1, 3, 8, 8, requires_grad=True), torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="training under a spatial grid"):
+    with pytest.raises(NotImplementedError, match="no path differentiates"):
         ops.warp_multiflow_planar(planes, flow, flow, rows=halo.RowWindow(2, 0, 8, 8))
+    img, flow2 = torch.zeros(1, 3, 8, 8, requires_grad=True), torch.zeros(1, 2, 4, 8)
+    with pytest.raises(NotImplementedError, match="no path differentiates"):
+        ops.warp_auto(img, flow2, rows=halo.RowWindow(2, 0, 8, 8))
+    assert ops.warp_auto(img.detach(), flow2.requires_grad_(True), rows=halo.RowWindow(2, 0, 8, 8)).requires_grad
 
 
 def test_row_window_warp_is_the_one_process_warp_on_its_rows():
