@@ -64,7 +64,19 @@ Phases, each of which raises on failure:
      bf16, the flow gradient within GRAD_KERNEL_REL; beside the whole-frame
      kernels (the same rows' results, their device ms over the frame), the
      bound of the block's bytes and grid_sample and its backward on the same
-     rows;
+     rows; then the two gradient kernels that differentiate an image under a
+     row window (``phase_windowed_grads``): the single-flow image gradient
+     at B=32, 224², on the last of 2 ranks' rows [128, 224) against its
+     288-row halo planes (frame rows [32, 320)), noise flows with patches
+     shifted 150 px (taps past the planes' first row and the frame's last)
+     and smooth flows, f32 and bf16, against autograd of the plain warp with
+     the same window; the multi-flow backward at B=2, n=7 on rows [384, 736)
+     of the 736-row pair against its 624-row halo planes, the step's flows
+     and noise within 130 px in f32 and bf16 and +-200 px in f32, against
+     the plain backward with the same window; each within GRAD_KERNEL_REL
+     (bf16: plus the one rounding), timed beside the bound with the planes'
+     rows, the kernel's device ms over the whole frame and grid_sample's
+     backward on the same rows;
   4. serving slice on the card against the same slice on the CPU: the
      full-width model with seeded weights at 128x224, f32 with TF32 off;
   5. serving main path: the Evaluator at 720p (padded to 736), 8x, B=2, over
@@ -82,11 +94,21 @@ Phases, each of which raises on failure:
      within the 135-px reach) and through the whole height (+-200 px)
      against the one-process kernel; then the main path, the Evaluator on
      the grid over the batch: its scores against phase 5's, 4 launches a
-     fused step a rank, no rerun. ``--spatial-ranks N`` runs it at 2 and N
-     ranks, with one f32 step at 2176x3840 (4K), B=1, at N ranks on N cards;
+     fused step a rank, no rerun; then the gradients
+     (``sharded_gradients``): ``warp_spmd.warp_sharded`` and
+     ``warp_multiflow_sharded`` (f32, bf16) on each rank's rows of 720p
+     planes through the halo and the whole height, their image and flow
+     gradients against one process's, and the f32 fused step at 720p B=1
+     differentiated (the sum of its prediction's squares) by every parameter
+     and the frames against one process's, by the relative L2 distance, with
+     the backward exchanges and gathers and the windowed multi-flow backward
+     launches (4) a rank. ``--spatial-ranks N`` runs it at 2 and N ranks,
+     with one f32 step at 2176x3840 (4K), B=1, at N ranks on N cards;
   6. the decoder's last upsample of the 720p SuperSloMo-R step (batch 21,
      beyond the CUDA kernel's 32-bit indexing, so written in batch slices)
-     bit for bit F.interpolate on the same slices, f32 and bf16; then the
+     bit for bit F.interpolate on the same slices, f32 and bf16, and under
+     autograd in bf16 (a slice a call, joined) its output and input gradient
+     bit for bit each slice's own F.interpolate and backward; then the
      SuperSloMo-R slice on the card against the CPU
      (configs/superslomo_recurrent.ini's model at 128x224, f32, TF32 off,
      with the CLSTM / CONCAT and the CGRU / SUM bottleneck): two streamed
@@ -509,13 +531,15 @@ def phase_kernel_rows():
     return out
 
 
-def multiflow_grad_bound(B, C, n, H, W, esize):
+def multiflow_grad_bound(B, C, n, H, W, esize, planes_rows=None):
     """Least time of the multi-flow warp's backward, as (ms, bound_by): the
-    planes, u, v and the output gradient read once, the three gradients
-    written once, against the f32 operations per (pixel, flow): 12 for the
-    position and weights, per channel 12 for the flow gradient's taps and 8
-    for the image gradient's scatter."""
-    nbytes = 2 * B * C * H * W * esize + 4 * B * n * H * W * 4 + B * C * n * H * W * esize
+    planes (of ``planes_rows`` rows, by default H), u, v and the output
+    gradient read once, the three gradients written once, against the f32
+    operations per (pixel, flow): 12 for the position and weights, per
+    channel 12 for the flow gradient's taps and 8 for the image gradient's
+    scatter."""
+    Hp = H if planes_rows is None else planes_rows
+    nbytes = 2 * B * C * Hp * W * esize + 4 * B * n * H * W * 4 + B * C * n * H * W * esize
     ops = B * n * H * W * (12 + 20 * C)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -677,22 +701,24 @@ def time_mf_grad(p, u, v, g, result, leaves):
     }
 
 
-def single_bounds(B, C, H, W, esize):
+def single_bounds(B, C, H, W, esize, planes_rows=None):
     """Least times of the single-flow kernels, as (ms, bound_by) each: every
-    input read once and every output written once, against the f32
+    input read once and every output written once (the image, and the image
+    gradient, of ``planes_rows`` rows, by default H), against the f32
     operations per pixel (12 for the position and weights; per channel 7 for
     the forward's taps, 12 for the flow gradient's, 8 for the image
     gradient's scatter)."""
-    img, flow, px = B * C * H * W * esize, B * 2 * H * W * 4, B * H * W
+    img = B * C * (H if planes_rows is None else planes_rows) * W * esize
+    out, flow, px = B * C * H * W * esize, B * 2 * H * W * 4, B * H * W
 
     def bound(nbytes, ops):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
     return {
-        "forward": bound(2 * img + flow, px * (12 + 7 * C)),
-        "flow_grad": bound(2 * img + 2 * flow, px * (12 + 12 * C)),  # img, g, flow in; grad_flow out
-        "img_grad": bound(2 * img + flow, px * (12 + 8 * C)),  # g, flow in; grad_img out in the image's dtype
+        "forward": bound(img + out + flow, px * (12 + 7 * C)),
+        "flow_grad": bound(img + out + 2 * flow, px * (12 + 12 * C)),  # img, g, flow in; grad_flow out
+        "img_grad": bound(out + img + flow, px * (12 + 8 * C)),  # g, flow in; grad_img out in the image's dtype
     }
 
 
@@ -1105,6 +1131,178 @@ def phase_single_rows():
     return out
 
 
+def img_grad_window_cases(rng, dev):
+    """(case, dtype tag, image, flow, output gradient, window) of the
+    single-flow image gradient under a row window, as ``warp_spmd.warp_sharded``
+    launches it on the last of 2 spatial ranks at the training shape (B=32,
+    224², rows [128, 224)): the image its halo planes, frame rows [32, 320),
+    288 rows (96 of the rank above, its own 96, 96 of zeros past the frame),
+    the frame of a 6-channel pair (pixel stride 6), the flow a 4-channel
+    head's (stride 4); noise flows (std 4 px) with patches shifted 150 px,
+    whose taps pass the planes' first row and the frame's last, and smooth
+    flows up to 10 px; f32 and the bf16 pair."""
+    from superslomo_tpu_torch.parallel import halo
+    from superslomo_tpu_torch.parallel.mesh import row_blocks
+
+    B, C, H, W = 32, 3, 224, 224
+    blocks = row_blocks(H, 2)
+    y0, h = blocks[0], blocks[1]
+    hv = min(halo.HALO_ROWS, min(blocks))
+    window = halo.RowWindow(y0, y0 - hv, h + 2 * hv, H)
+    frame = _channels_last(rng, B, 6, H, W, dev)
+    pair = torch.zeros((B, window.p_rows, W, 6), device=dev).permute(0, 3, 1, 2)
+    pair[:, :, :H - window.p_base] = frame[:, :, window.p_base:]
+    flows = {"noise_150px": _flow_field(rng, B, h, W, 4.0, 150.0),
+             "smooth_10px": smooth_flows(rng, B, h, W, 10.0).transpose(0, 2, 3, 1)}
+    cases = []
+    for kind, f in flows.items():
+        head = np.concatenate([f, rng.normal(0, 4, (B, h, W, 2)).astype(np.float32)], -1)
+        flow = torch.from_numpy(np.ascontiguousarray(head)).to(dev).permute(0, 3, 1, 2)[:, 0:2]
+        g = torch.from_numpy(rng.standard_normal((B, C, h, W), dtype=np.float32)).to(dev)
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            cases.append((f"train224_rank1_of_2_{kind}", tag, pair.to(dt)[:, 3:6], flow, g.to(dt), window))
+    return cases
+
+
+def mf_grad_window_cases():
+    """(case, dtype tag, planes, u, v, output gradient, window) of the
+    multi-flow backward under a row window: the last of 2 spatial ranks'
+    cases of ``sharded_window_cases`` (rows [384, 736) of the 736-row pair at
+    B=2, n=7, against its 624-row halo planes: the step's flows and noise
+    with |v| up to 130 px, f32 and bf16), and f32 flows uniform within +-200
+    px, whose taps pass the planes' first row and the frame's last."""
+    cases = []
+    rng = np.random.default_rng(31)
+    for case, tag, p, u, v, window in sharded_window_cases():
+        if not case.startswith("rank1"):
+            continue
+        g = torch.from_numpy(rng.standard_normal(p.shape[:2] + u.shape[1:], dtype=np.float32)).to(p.device)
+        cases.append((case, tag, p, u, v, g.to(p.dtype), window))
+        if case.endswith("noise_130px") and tag == "f32":
+            far = tuple(torch.from_numpy(rng.uniform(-200.0, 200.0, u.shape).astype(np.float32)).to(p.device)
+                        for _ in range(2))
+            cases.append(("rank1_of_2_200px", tag, p, *far, g, window))
+    return cases
+
+
+def phase_windowed_grads():
+    """The gradient kernels under a row window against their plain versions
+    on the card: the single-flow image gradient (``img_grad_window_cases``;
+    with the flow gradient launched beside it) against autograd of
+    ``ops.warp_single_reference(..., rows=)``, and the multi-flow backward
+    (``mf_grad_window_cases``, all three gradients, through the wrapper and
+    through ``ops._WarpMultiflow``: one launch, 3 device operations, counted
+    as windowed) against ``ops.warp_multiflow_backward_reference(...,
+    rows=)``; each within GRAD_KERNEL_REL of the reference's max (bf16: plus
+    the planes' gradient's one rounding). Each timed (ms, device_ms,
+    host_ms) beside its bound with the planes' rows, the same kernel's
+    device ms over the whole frame (the block's flows and output gradient,
+    zeros elsewhere), and grid_sample's backward computing the image's (the
+    planes') gradient alone on the same rows."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda as mf_kernel
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+
+    dev = torch.device("cuda")
+    out = {"img_grad": {}, "mf_grad": {}}
+    for case, tag, img, flow, g, window in img_grad_window_cases(np.random.default_rng(41), dev):
+        B, C, Hp, W = img.shape
+        h = flow.shape[2]
+        im = img.detach().float().requires_grad_(True)
+        fl = flow.detach().clone().requires_grad_(True)
+        want_gi, want_gf = torch.autograd.grad(ops.warp_single_reference(im, fl, rows=window), (im, fl), g.float())
+        bwd.windowed_img_grad_launches = 0
+        got_gi, _ = bwd(img, flow, g, True, False, rows=window)
+        both_gi, both_gf = bwd(img, flow, g, True, True, rows=window)
+        torch.cuda.synchronize()
+        gi_bar = GRAD_KERNEL_REL * want_gi.abs().max().item()
+        gi_tol = gi_bar + (2.0**-8 * want_gi.abs() if img.dtype == torch.bfloat16 else 0.0)
+        gf_bar = GRAD_KERNEL_REL * want_gf.abs().max().item()
+        # the same work over the whole frame: the block's flow and output gradient, zeros elsewhere
+        frame_img = torch.zeros((B, C, window.frame_rows, W), device=dev, dtype=img.dtype)
+        top = max(0, window.p_base)
+        frame_img[:, :, top:] = img[:, :, top - window.p_base:window.frame_rows - window.p_base]
+        whole_flow = torch.zeros((B, 2, window.frame_rows, W), device=dev)
+        whole_flow[:, :, window.y_base:window.y_base + h] = flow
+        whole_g = torch.zeros((B, C, window.frame_rows, W), device=dev, dtype=img.dtype)
+        whole_g[:, :, window.y_base:window.y_base + h] = g
+        grid = _grid_rows(flow, window.y_base - window.p_base, Hp)  # over the planes' rows
+        img32, g32 = img.float(), g.float()
+        bound = single_bounds(B, C, h, W, img.element_size(), planes_rows=Hp)["img_grad"]
+        res = {
+            "shape": [B, C, h, W], "planes_rows": Hp, "window": list(window), "img_strides": list(img.stride()),
+            "flow_strides": list(flow.stride()), "max_abs_err": (got_gi.float() - want_gi).abs().max().item(),
+            "bar": gi_bar, "bf16_rounding_allowed": img.dtype == torch.bfloat16,
+            "flow_grad_beside_max_abs_err": (both_gf - want_gf).abs().max().item(), "flow_grad_bar": gf_bar,
+            "windowed_launches": bwd.windowed_img_grad_launches,
+            "max_abs_flow": flow.abs().max().item(),
+            **timings(lambda: bwd(img, flow, g, True, False, rows=window)),
+            "whole_frame_device_ms": cuda_ms(lambda: bwd(frame_img, whole_flow, whole_g, True, False), queued=True),
+            "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                ops.warp_single_reference(im, fl.detach(), rows=window), im, g.float()), reps=5, warmup=1),
+            "library_ms": cuda_ms(lambda: _library_grads(img32, grid, g32, [True, False])),
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
+        ok = (bool(((got_gi.float() - want_gi).abs() <= gi_tol).all())
+              and bool(((both_gi.float() - want_gi).abs() <= gi_tol).all())
+              and res["flow_grad_beside_max_abs_err"] <= gf_bar and got_gi.dtype == img.dtype
+              and got_gi.shape == img.shape and res["windowed_launches"] == 2)
+        out["img_grad"][(case, tag)] = res
+        emit({"phase": "single_grad_kernels_vs_plain", "case": f"rows_img_grad_{case}", "dtype": tag, **res})
+        if not ok:
+            raise AssertionError(f"the image gradient under a row window, {case} {tag}: {res}")
+    for case, tag, p, u, v, g, window in mf_grad_window_cases():
+        B, C, Hp, W = p.shape
+        n, h = u.shape[1], u.shape[2]
+        want = ops.warp_multiflow_backward_reference(p.float(), u, v, g.float(), True, True, rows=window)
+        leaves = [x.detach().requires_grad_(True) for x in (p, u, v)]
+        result = ops.warp_multiflow_planar(*leaves, rows=window)
+        mf_kernel.launches = mf_kernel.windowed = ops._WarpMultiflow.launches = 0
+        through = torch.autograd.grad(result, leaves, g)
+        launches = {"kernel": mf_kernel.launches, "windowed": mf_kernel.windowed,
+                    "multiflow_backward": ops._WarpMultiflow.launches}
+        got = mf_kernel(p, u, v, g, True, True, rows=window)
+        torch.cuda.synchronize()
+        errs, ok = check_mf_grads(got, want, p.dtype)
+        errs_through, ok_through = check_mf_grads(through, want, p.dtype)
+        ok &= ok_through and launches == {"kernel": 1, "windowed": 1, "multiflow_backward": 3}
+        ok &= got[0].shape == p.shape and got[1].shape == u.shape
+        whole_p = torch.zeros((B, C, window.frame_rows, W), device=dev, dtype=p.dtype)
+        top = max(0, window.p_base)
+        whole_p[:, :, top:] = p[:, :, top - window.p_base:window.frame_rows - window.p_base]
+        whole_uvg = []
+        for x in (u, v, g):
+            z = torch.zeros(x.shape[:-2] + (window.frame_rows, W), device=dev, dtype=x.dtype)
+            z[..., window.y_base:window.y_base + h, :] = x
+            whole_uvg.append(z)
+        xs = torch.arange(W, device=dev, dtype=torch.float32)
+        ys = torch.arange(h, device=dev, dtype=torch.float32)[:, None] + (window.y_base - window.p_base)
+        grid = torch.stack([2 * (xs + u) / (W - 1) - 1, 2 * (ys + v) / (Hp - 1) - 1], dim=-1).reshape(B * n, h, W, 2)
+        tiled = p.float()[:, None].expand(B, n, C, Hp, W).reshape(B * n, C, Hp, W)
+        g_lib = g.float().transpose(1, 2).reshape(B * n, C, h, W)
+        bound = multiflow_grad_bound(B, C, n, h, W, p.element_size(), planes_rows=Hp)
+        res = {
+            "shape": [B, C, n, h, W], "planes_rows": Hp, "window": list(window), "planes_strides": list(p.stride()),
+            "grads": errs, "grads_through_autograd": errs_through, "launches": launches,
+            "max_abs_err": max(e["max_abs_err"] for e in errs.values()),
+            "max_abs_flow": max(u.abs().max().item(), v.abs().max().item()),
+            **timings(lambda: mf_kernel(p, u, v, g, True, True, rows=window)),
+            "whole_frame_device_ms": cuda_ms(lambda: mf_kernel(whole_p, *whole_uvg, True, True), queued=True),
+            "plain_ms": cuda_ms(lambda: ops.warp_multiflow_backward_reference(p, u, v, g, True, True, rows=window),
+                                reps=5, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+                g_lib, tiled, grid, 0, 0, True, [True, True])),
+            "bound_ms": bound[0], "bound_by": bound[1],
+        }
+        out["mf_grad"][(case, tag)] = res
+        emit({"phase": "multiflow_grad_vs_plain", "case": f"rows_{case}", "dtype": tag, **res})
+        if not ok:
+            raise AssertionError(f"the multi-flow backward under a row window, {case} {tag}: {res}")
+        del result, through, got, want, whole_p, whole_uvg, tiled, grid, g_lib
+        torch.cuda.empty_cache()
+    return out
+
+
 def forward_layout(img, flow):
     """What a single-flow forward launch's plan and reads depend on: the
     image's dtype, shape, strides and address mod 16, the flow's strides and
@@ -1205,7 +1403,18 @@ def phase_upsample_slices():
     """The decoder's last upsample in SuperSloMo-R's fused 720p step at B=1
     (stage-2 batch 21, 128 channels, channels_last), an output beyond the
     CUDA kernel's 32-bit indexing that ops/resize.py writes a batch slice at
-    a time: f32 and bf16, bit for bit ``F.interpolate`` on the same slices."""
+    a time: f32 and bf16, bit for bit ``F.interpolate`` on the same slices.
+    Then under autograd in bf16 (a train step at that batch: one
+    ``F.interpolate`` a slice, joined by ``torch.cat``): the output bit for
+    bit each slice's own ``F.interpolate``, the graph a ``torch.cat`` of one
+    upsample a slice, and the input's gradient for a standard normal output
+    gradient against each slice's own backward. That backward is not
+    reproducible on the card (its atomic adds run in a varying order: on an
+    H100, two calls on 4 samples of this shape differed in 47 M elements, by
+    up to 0.109 at values up to 7.19), so the gradient is
+    gated within twice the largest difference between two of the library's
+    own calls on the same slices, measured here: bit for bit where they
+    agree."""
     from superslomo_tpu_torch.ops import resize
 
     N, C, H, W = 21, 128, 368, 640
@@ -1223,8 +1432,34 @@ def phase_upsample_slices():
         res[tag] = {"bit_identical": same, "channels_last": got.is_contiguous(memory_format=torch.channels_last)}
         del x, got
         torch.cuda.empty_cache()
+    x = torch.randn((N, H, W, C), generator=gen, device="cuda").bfloat16().permute(0, 3, 1, 2).requires_grad_(True)
+    got = resize.upsample_2x_bilinear(x)
+    g = torch.randn(got.shape, generator=gen, device="cuda").bfloat16()
+    grad, = torch.autograd.grad(got, x, g, retain_graph=True)
+    parts = got.grad_fn.next_functions
+    graph = (type(got.grad_fn).__name__ == "CatBackward0" and len(parts) == -(-N // step)
+             and all(type(f).__name__ == "UpsampleBilinear2DBackward0" for f, _ in parts))
+    same, grad_diff, spread = True, 0.0, 0.0
+    for i in range(0, N, step):
+        xs = x[i : i + step].detach().requires_grad_(True)
+        want = F.interpolate(xs, scale_factor=2, mode="bilinear", align_corners=False)
+        same &= torch.equal(got[i : i + step], want)
+        ref_a, ref_b = (torch.autograd.grad(want, xs, g[i : i + step], retain_graph=True)[0] for _ in range(2))
+        grad_diff = max(grad_diff, (grad[i : i + step].float() - ref_a.float()).abs().max().item())
+        spread = max(spread, (ref_a.float() - ref_b.float()).abs().max().item())
+        del want, ref_a, ref_b
+    res["bf16_autograd"] = {"bit_identical": same, "graph_cat_of_slice_upsamples": graph,
+                            "grad_max_abs_diff": grad_diff, "library_run_to_run_max_abs_diff": spread,
+                            "grad_max_abs": grad.float().abs().max().item(), "requires_grad": got.requires_grad,
+                            "channels_last": got.is_contiguous(memory_format=torch.channels_last),
+                            "output_elements": got.numel()}
+    del x, got, g, grad, parts
+    torch.cuda.empty_cache()
     emit(res)
-    if not all(res[tag]["bit_identical"] and res[tag]["channels_last"] for tag in ("f32", "bf16")):
+    auto = res["bf16_autograd"]
+    if not all(res[tag]["bit_identical"] and res[tag]["channels_last"] for tag in ("f32", "bf16", "bf16_autograd")) \
+            or not (auto["graph_cat_of_slice_upsamples"] and auto["requires_grad"]
+                    and auto["grad_max_abs_diff"] <= 2 * auto["library_run_to_run_max_abs_diff"]):
         raise AssertionError(f"the batch-sliced upsample differs from F.interpolate on its slices: {res}")
     return res
 
@@ -1438,8 +1673,7 @@ def sharded_warps(grid, blocks, reps=10):
     pair (the exchange or gather and 2 launches, synchronised) beside one
     process's 2 launches over the whole frame."""
     from superslomo_tpu_torch import ops
-    from superslomo_tpu_torch.models.superslomo import _halo_pair_warps
-    from superslomo_tpu_torch.parallel import halo
+    from superslomo_tpu_torch.parallel import halo, warp_spmd
 
     B, n, H, W = 2, 7, 736, 1280
     dev = torch.device("cuda")
@@ -1473,7 +1707,7 @@ def sharded_warps(grid, blocks, reps=10):
         local = [(u[:, :, rows], v[:, :, rows]) for u, v in flows]
         with halo.spatial(grid), halo.full_height_warps() if full else contextlib.nullcontext():
             def sharded():
-                return _halo_pair_warps(local_pair, blocks, *local)
+                return warp_spmd.warp_multiflow_sharded(local_pair, local, blocks, unguarded=True)
 
             got = sharded()
             ms = host_median(sharded)
@@ -1485,6 +1719,130 @@ def sharded_warps(grid, blocks, reps=10):
         err = max((g - w[:, :, :, rows]).abs().max().item() for g, w in zip(got, want))
         out[case] = {"max_abs_err": err, "pair_ms": ms, "one_process_pair_ms": host_median(whole),
                      "max_abs_v": max(v.abs().max().item() for _, v in flows)}
+    return out
+
+
+def fused_step_grads(model, frames, t_values):
+    """The fused step (``SuperSloMo._multi_t_planar``, TF32 off) differentiated:
+    the gradients of the sum of its prediction's squares by every parameter
+    and by the frames, on the CPU, with the host ms of the forward and
+    backward (synchronised); under ``halo.spatial``, this rank's."""
+    from superslomo_tpu_torch.models.superslomo import tf32_off
+
+    frames = frames.detach().requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tf32_off():
+        pred, _ = model._multi_t_planar(frames, t_values)
+        grads = torch.autograd.grad((pred ** 2).sum(), params + [frames])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"params": [g.cpu() for g in grads[:-1]], "frames": grads[-1].cpu(), "fwd_bwd_ms": ms,
+            "names": [n for n, _ in model.named_parameters()]}
+
+
+def fused_step_grad_reference(frames, t_values):
+    """One process's ``fused_step_grads`` on phase 5's first sample (f32
+    CONV, 720p, 7 t, the seeded weights of phase 5), on cuDNN's heuristics
+    as the ranks run, for phase 5b's sharded gradient; the peak GiB."""
+    from superslomo_tpu_torch import SuperSloMo, weights
+
+    spec = _serving_config("float32").model_spec()
+    model = SuperSloMo(spec).load_state(weights.seeded_state(spec, seed=0))
+    torch.backends.cudnn.benchmark = False
+    torch.cuda.reset_peak_memory_stats()
+    ref = fused_step_grads(model, torch.from_numpy(frames).cuda(), t_values.cuda())
+    ref["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.backends.cudnn.benchmark = True
+    del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def _grad_errs(got, want, bars):
+    """{name: max |err| and bar} of gradients against one process's (``bars``
+    as shares of each reference's max |g|), and whether all are within."""
+    errs = {}
+    for name, a, w, rel in zip(("img", "u", "v") if len(got) == 3 else ("img", "flow"), got, want, bars):
+        errs[name] = {"max_abs_err": (a.float() - w.float()).abs().max().item(),
+                      "bar": rel * w.float().abs().max().item()}
+    return errs, all(e["max_abs_err"] <= e["bar"] for e in errs.values())
+
+
+def sharded_grads(grid, blocks, model, frames, t_values):
+    """Phase 5b's gradients on this rank: ``warp_spmd.warp_sharded`` (B=2,
+    C=3) and ``warp_multiflow_sharded`` (B=2, n=7, f32 and bf16 planes) on
+    this rank's rows of 720p planes, through the halo (the step's flows,
+    within the reach) and the whole height (+-200 px, beyond it), their
+    image and flow gradients against one process's warp over the whole frame
+    cut to this rank's rows (GRAD_KERNEL_REL of each gradient's max; bf16
+    planes' gradient two bf16 roundings: the halo rows' part is rounded on
+    the rank that warps them, the owner's part on the owner, and their sum
+    again); then the f32 fused step differentiated on this rank's rows of
+    ``frames`` (``fused_step_grads``), with the halo counts and the windowed
+    gradient launches set to 0 just before it and read just after."""
+    from superslomo_tpu_torch import ops
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_backward_cuda as mf_bwd
+    from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_backward_cuda as bwd
+    from superslomo_tpu_torch.parallel import halo, warp_spmd
+
+    B, C, n, H, W = 2, 3, 7, 736, 1280
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    rows = _rows_of(blocks, grid.spatial_index)
+    img = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    g1 = torch.from_numpy(rng.standard_normal((B, C, H, W), dtype=np.float32)).to(dev)
+    g3 = torch.from_numpy(rng.standard_normal((B, C, n, H, W), dtype=np.float32)).to(dev)
+    flows = {"halo": step_flows(np.random.default_rng(24), B, n, H, W, dev),
+             "full": tuple(torch.from_numpy(rng.uniform(-200.0, 200.0, (B, n, H, W)).astype(np.float32)).to(dev)
+                           for _ in range(2))}
+    out = {}
+
+    def grads(fn, xs, g):
+        leaves = [x.detach().requires_grad_(True) for x in xs]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+    def reset():
+        halo.reset_counts()
+        bwd.launches = bwd.img_grad_launches = bwd.windowed_img_grad_launches = 0
+        mf_bwd.launches = mf_bwd.windowed = ops._WarpMultiflow.launches = 0
+
+    def launches():
+        return {"img_grad": bwd.img_grad_launches, "img_grad_windowed": bwd.windowed_img_grad_launches,
+                "multiflow_backward": mf_bwd.launches, "multiflow_backward_windowed": mf_bwd.windowed,
+                "multiflow_backward_operations": ops._WarpMultiflow.launches}
+
+    for case, (u, v) in flows.items():
+        flow = torch.stack([u[:, 0], v[:, 0]], 1)
+        # one process's warp over the whole frame (no grid in effect), cut to this rank's rows
+        want = [x[:, :, rows] for x in grads(ops.warp_auto, (img, flow), g1)]
+        reset()
+        with halo.spatial(grid):
+            got = grads(warp_spmd.warp_sharded, (img[:, :, rows], flow[:, :, rows]), g1[:, :, rows])
+        errs, ok = _grad_errs(got, want, (GRAD_KERNEL_REL, GRAD_KERNEL_REL))
+        out[f"single_{case}"] = {"grads": errs, "ok": ok, "halo": dict(halo.counts), "launches": launches(),
+                                 "max_abs_v": v[:, 0].abs().max().item()}
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            p, g = img.to(dt), g3.to(dt)
+            want = [x[..., rows, :] for x in grads(ops.warp_multiflow_planar, (p, u, v), g)]
+            reset()
+            with halo.spatial(grid):
+                got = grads(lambda *x: warp_spmd.warp_multiflow_sharded(x[0], [x[1:]], blocks)[0],
+                            (p[:, :, rows], u[:, :, rows], v[:, :, rows]), g[:, :, :, rows])
+            planes_bar = 2.0**-7 if dt == torch.bfloat16 else GRAD_KERNEL_REL
+            errs, ok = _grad_errs(got, want, (planes_bar, GRAD_KERNEL_REL, GRAD_KERNEL_REL))
+            out[f"multi_{case}_{tag}"] = {"grads": errs, "ok": ok, "halo": dict(halo.counts), "launches": launches(),
+                                          "max_abs_v": v.abs().max().item()}
+    with halo.spatial(grid):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        step = fused_step_grads(model, frames, t_values)
+        step["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        step["halo"] = dict(halo.counts)
+        step["launches"] = launches()
+        out["fused_step"] = step
     return out
 
 
@@ -1520,6 +1878,8 @@ def sharded_serving_rank(rank, world, port, backend, local_ranks, steps, four_k)
     del models["bfloat16"]
     torch.cuda.empty_cache()
     res["warps"] = sharded_warps(grid, blocks)
+    res["grads"] = sharded_grads(grid, blocks, models["float32"], frames[:1], t_values)
+    torch.cuda.empty_cache()
 
     counter.launches = ops._WarpMultiflow.launches = 0
     halo.reset_counts()
@@ -1564,10 +1924,28 @@ def phase_sharded_serving(world, reference, steps=3, four_k=False):
     every rank; the halo and full-height warp pairs within KERNEL_ATOL of
     the one-process kernel; the Evaluator's per-image scores within the
     serving bar of one process's, equal on every rank, 4 launches a fused
-    step a rank, no rerun (the bound within the reach of 135 px)."""
+    step a rank, no rerun (the bound within the reach of 135 px). Then the
+    gradients (``sharded_grads``, phase ``sharded_gradients``): the sharded
+    warps' within their bars in both branches, with one exchange (halo) or
+    one gather (whole height) forward and one back a call; and the f32 fused
+    step differentiated on the first sample, its parameters' gradients
+    summed over the ranks and its frames' put together, against one
+    process's (``fused_step_grad_reference``, computed here first and kept
+    in ``reference``): all parameters together and the frames within
+    GRAD_REL by the relative L2 distance, the gate of phase 14b's shipped
+    cases (the step's gradient is discontinuous; each tensor's max error is
+    reported), with 4 windowed multi-flow backward launches (12 device
+    operations), no image-gradient launch and an exchange's backward for
+    every exchange a rank."""
     backend, local_ranks = _ranks_layout(world)
-    print(f"chip_smoke: phase 5b runs {world} spatial ranks over {backend} on cards {local_ranks}", flush=True)
     t0 = time.perf_counter()
+    if "fused_step_grads" not in reference:
+        cfg = _serving_config("float32")
+        from superslomo_tpu_torch.data.augmentations import Normalize
+
+        frames = serving_batch(Normalize(cfg.pixel_mean(), cfg.pixel_std()))[0][:1]
+        reference["fused_step_grads"] = fused_step_grad_reference(frames, torch.arange(1, 8, dtype=torch.float32) / 8)
+    print(f"chip_smoke: phase 5b runs {world} spatial ranks over {backend} on cards {local_ranks}", flush=True)
     ranks = spawn_ranks(sharded_serving_rank, world, (world, _free_port(), backend, local_ranks, steps, four_k),
                         timeout=900)
     res = {"phase": "sharded_serving", "config": "configs/superslomo_eval.ini", "grid": [1, world],
@@ -1613,15 +1991,63 @@ def phase_sharded_serving(world, reference, steps=3, four_k=False):
     if any(n != 4 for n in res["eval"]["launches_per_fused_step_by_rank"]) or any(res["eval"]["multiflow_backward"]) \
             or any(res["eval"]["reruns"]):
         bad.append("evaluator launches or reruns")
+    grads = sharded_grads_summary(ranks, reference["fused_step_grads"])
+    bad += grads.pop("bad")
     if four_k:
         res["4k"] = {k: [r["4k"][k] for r in ranks] for k in ranks[0]["4k"]}
         if not all(res["4k"]["finite"]) or any(n != 4 for n in res["4k"]["launches_per_step"]):
             bad.append("4k step")
     res["phase_s"] = time.perf_counter() - t0
     emit(res)
+    emit({"phase": "sharded_gradients", "grid": [1, world], "backend": res["backend"], **grads})
+    res["grads"] = grads
     if bad:
         raise AssertionError(f"sharded serving at {world} ranks: {bad}")
     return res
+
+
+def _rel_l2(got, want):
+    return (sum(((a - w) ** 2).sum() for a, w in zip(got, want)) / sum((w ** 2).sum() for w in want)).sqrt().item()
+
+
+def sharded_grads_summary(ranks, ref):
+    """Phase 5b's gradient checks (see ``phase_sharded_serving``) from the
+    ranks' ``sharded_grads``, as one JSON-ready dict with the list of what
+    failed under ``bad``."""
+    bad = []
+    warps = {case: {k: [r["grads"][case][k] for r in ranks] for k in ("grads", "ok", "halo", "launches", "max_abs_v")}
+             for case in ranks[0]["grads"] if case != "fused_step"}
+    for case, w in warps.items():
+        want = (1, 1, 0, 0) if "halo" in case else (0, 0, 1, 1)
+        # one windowed backward launch a call: the image gradient's (single-flow) or the multi-flow backward's
+        kernel = "img_grad_windowed" if case.startswith("single") else "multiflow_backward_windowed"
+        if not all(w["ok"]) or any((c["exchanges"], c["backward_exchanges"], c["gathers"], c["backward_gathers"])
+                                   != want for c in w["halo"]) or any(n[kernel] != 1 for n in w["launches"]):
+            bad.append(f"sharded gradients {case}")
+    steps = [r["grads"].pop("fused_step") for r in ranks]
+    got = [sum(s["params"][i] for s in steps) for i in range(len(ref["params"]))]
+    frames = torch.cat([s["frames"] for s in steps], dim=2)
+    per_tensor = {n: ((a - w).abs().max() / w.abs().max()).item() for n, a, w in zip(ref["names"], got, ref["params"])}
+    worst = max(per_tensor, key=per_tensor.get)
+    step = {
+        "frame_hw": [736, 1280], "batch": 1, "n_t": 7, "compute_dtype": "float32", "loss": "sum of pred squared",
+        "params_rel_l2_diff": _rel_l2(got, ref["params"]), "frames_rel_l2_diff": _rel_l2([frames], [ref["frames"]]),
+        "frames_max_rel_diff": ((frames - ref["frames"]).abs().max() / ref["frames"].abs().max()).item(),
+        "params_max_rel_diff": per_tensor[worst], "params_worst_tensor": worst,
+        "params_tensors_over_grad_rel": {n: e for n, e in per_tensor.items() if e > GRAD_REL},
+        "fwd_bwd_ms_by_rank": [s["fwd_bwd_ms"] for s in steps], "single_process_fwd_bwd_ms": ref["fwd_bwd_ms"],
+        "peak_mem_gib_by_rank": [s["peak_mem_gib"] for s in steps], "single_process_peak_mem_gib": ref["peak_mem_gib"],
+        "halo_by_rank": [s["halo"] for s in steps], "launches_by_rank": [s["launches"] for s in steps],
+        "warp_launches_rank0": {k: sum(w["launches"][0][k] for w in warps.values()) for k in steps[0]["launches"]},
+    }
+    if not (step["params_rel_l2_diff"] <= GRAD_REL and step["frames_rel_l2_diff"] <= GRAD_REL):
+        bad.append("fused step gradients")
+    want_launches = {"img_grad": 0, "img_grad_windowed": 0, "multiflow_backward": 4, "multiflow_backward_windowed": 4,
+                     "multiflow_backward_operations": 12}
+    if any(s["launches"] != want_launches for s in steps) or any(
+            s["halo"]["backward_exchanges"] != s["halo"]["exchanges"] or s["halo"]["gathers"] for s in steps):
+        bad.append("fused step gradient launches or exchanges")
+    return {"warps": warps, "fused_step": step, "bad": bad}
 
 
 def spatial_only(norm, world):
@@ -3833,7 +4259,7 @@ def check_forward_layouts(cases, recorded, path="ssmr"):
 
 def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad, trains,
                  eval_cli, train_clis, render_fwd, renders, flow_eval, scaled, kern_rows, sharded, single_rows,
-                 sharded_train):
+                 sharded_train, win_grads):
     """Every kernel of the paths with its launches on the main paths (the
     SuperSloMo-R ones a step and a window as well, the single-flow kernels'
     a step of each train path in ``trains`` and of each train CLI run in
@@ -3853,7 +4279,13 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
     (``launches_by_main_path``: each train path's, each train CLI run's, each
     DDP rank's, the resumed step's and each rank's of each case of the
     sharded Trainer, ``sharded_train``, phase 14b) and the forward's and the
-    flow gradient's row-window cases (``single_rows``)."""
+    flow gradient's row-window cases (``single_rows``). The two gradient
+    kernels under a row window (``win_grads``) have entries of their own,
+    their launches those of phase 5b's differentiated sharded warps and
+    fused step on rank 0 (``sharded``'s gradients, each counted from 0 just
+    before it); the image gradient's and the multi-flow
+    backward's entries list those cases too. Raises unless every serving and
+    train main path launched no image gradient and no multi-flow backward."""
     def train_launches(key):
         paths = {r["phase"]: r["launches"][key] for r in trains}
         paths.update({f"train_cli_main_path_{r['tag']}": r["launches"][key] for r in train_clis})
@@ -3953,6 +4385,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
                                                         "bound_ms")}
                       for case, c in grad_cases.items()},
         }
+        if key == "img_grad":
+            entry["row_window_cases"] = window_grad_cases(win_grads, "img_grad")
         if key == "flow_grad":
             entry["row_window_cases"] = rows_cases("flow_grad")
             entry["cases"].update({f"720p_{tag}": {k: single[f"720p_{tag}"]["flow_grad"][k] for k in (
@@ -3992,8 +4426,49 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
         "cases": {f"{case}_{tag}": {k: r[k] for k in ("launches", "max_abs_err", "backward", "kernel", "fwd_bwd",
                                                       "plain_backward_ms", "library_backward_ms", "bound_ms")}
                   for (case, tag), r in mf_grad.items() if "kernel" in r and (case, tag) != ("step_flows", "f32")},
+        "row_window_cases": window_grad_cases(win_grads, "mf_grad"),
     }
-    return [mf, fwd, *grads, mf_bwd]
+    main_img_grads = grads[1]["launches_by_main_path"]
+    if any(bwd_by_path.values()) or any(main_img_grads.values()):
+        raise AssertionError(f"a main path launched the multi-flow backward {bwd_by_path} or the image gradient "
+                             f"{main_img_grads}")
+    return [mf, fwd, *grads, mf_bwd, *windowed_grad_entries(win_grads, sharded)]
+
+
+def window_grad_cases(win_grads, kind):
+    """The row-window cases of ``phase_windowed_grads``' ``kind`` (img_grad,
+    mf_grad) for the kernels line."""
+    return {f"{case}_{tag}": {k: r[k] for k in (
+        "max_abs_err", "ms", "device_ms", "host_ms", "whole_frame_device_ms", "plain_ms", "library_ms", "bound_ms",
+        "planes_rows")} for (case, tag), r in win_grads[kind].items()}
+
+
+def windowed_grad_entries(win_grads, sharded):
+    """The kernels line's entries of the two gradient kernels under a row
+    window (see ``kernels_line``)."""
+    step = sharded["grads"]["fused_step"]
+    windowed = []
+    for kind, name, replaces, key in (
+            ("img_grad", "warp_single_img_grad_rows", "superslomo_tpu/ops/warp_pallas.py:663", "img_grad_windowed"),
+            ("mf_grad", "warp_multiflow_grad_rows", "superslomo_tpu/ops/warp_pallas.py:428",
+             "multiflow_backward_windowed")):
+        case, tag = next(iter(win_grads[kind]))
+        r = win_grads[kind][(case, tag)]
+        windowed.append({
+            "name": name, "route": "cuda",
+            "source": f"superslomo_tpu_torch/csrc/{'warp_single' if kind == 'img_grad' else 'warp_multiflow'}.cu",
+            "replaces": replaces, "launches": step["warp_launches_rank0"][key] + step["launches_by_rank"][0][key],
+            "launches_by_main_path": {"sharded_warp_gradients_rank0": step["warp_launches_rank0"][key],
+                                      "sharded_fused_step_gradient_rank0": step["launches_by_rank"][0][key]},
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"], "host_ms": r["host_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "whole_frame_device_ms": r["whole_frame_device_ms"],
+            "shape": r["shape"], "planes_rows": r["planes_rows"], "case": f"{case}_{tag}",
+            "cases": window_grad_cases(win_grads, kind),
+            "library": "aten.grid_sampler_2d_backward on the same rows"
+                       + (", the planes tiled n times" if kind == "mf_grad" else ""),
+        })
+    return windowed
 
 
 def nvidia_smi(query):
@@ -4076,6 +4551,7 @@ def main() -> int:
     ssmr_fwd = phase_ssmr_forward_cases()
     render_fwd = phase_render_forward_cases()
     mf_grad = phase_multiflow_grad()
+    win_grads = phase_windowed_grads()
     emit({"phase": "sm_clock", "before_kernel_phases": clock_before, "after_kernel_phases": nvidia_smi(
         "clocks.sm,clocks.max.sm"), "query": "clocks.sm,clocks.max.sm"})
     if args.kernels_only:
@@ -4114,7 +4590,7 @@ def main() -> int:
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,
                            trains, eval_cli, train_clis, render_fwd, renders, flow_eval, {"native": native, **scaled},
-                           kern_rows, sharded, single_rows, sharded_train)
+                           kern_rows, sharded, single_rows, sharded_train, win_grads)
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

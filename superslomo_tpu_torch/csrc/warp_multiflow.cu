@@ -69,6 +69,16 @@
 // measured faster than two adjacent pixels a thread with their loads and
 // stores 2 wide, and than a buffer of each block's window summed by a second
 // pass (deterministic), at every tile and margin tried (PERF.md).
+//
+// The backward takes the forward's row window too (kRows): the flows, the
+// output gradient and the flows' gradients are the block's rows, and the
+// planes and their gradient the planes' p_rows rows. Each position is taken
+// in frame rows as in the forward, and its taps land in the planes' rows, so
+// a block's shared window sits y_base - p_base rows below its tile's output
+// rows; a tap outside the frame's rows or the planes' adds nothing; the
+// scratch, its zero fill and the store pass run over the planes' rows. The
+// gradients of the planes' halo rows then go back to the ranks that own them
+// (parallel/halo.py).
 
 #include "warp_tile.cuh"
 
@@ -130,8 +140,9 @@ struct Window {
   int x0, y0, w, h;
 };
 
-__device__ __forceinline__ Window window_of(int bx, int by, const MfGradPlan& p) {
-  return Window{bx * p.tile_w - p.margin, by * p.tile_h - p.margin, p.tile_w + 2 * p.margin + 1,
+// shift: the planes' row of the output's first row (0 without a window).
+__device__ __forceinline__ Window window_of(int bx, int by, const MfGradPlan& p, int shift) {
+  return Window{bx * p.tile_w - p.margin, by * p.tile_h - p.margin + shift, p.tile_w + 2 * p.margin + 1,
                 p.tile_h + 2 * p.margin + 1};
 }
 
@@ -140,7 +151,7 @@ __device__ __forceinline__ Window window_of(int bx, int by, const MfGradPlan& p)
 // (one 16-byte vector atomic for the group's channels).
 struct TapSink {
   float* win;    // [cg][w.h][w.w]
-  float4* acc;   // this image's and group's (H, W) plane of the scratch
+  float4* acc;   // this image's and group's (planes' rows, W) plane of the scratch
   Window w;
   int cg, W;
 
@@ -167,7 +178,8 @@ struct TapSink {
 };
 
 // After its n flows: the block adds its window's in-image pixels that any tap
-// reached to the scratch, one vector atomic each; a warp a window row.
+// reached to the scratch of H rows, one vector atomic each; a warp a window
+// row.
 __device__ __forceinline__ void flush_window(const float* win, float4* acc, const Window& w, int cg, int H,
                                              int W) {
   const int wsize = w.w * w.h;
@@ -215,14 +227,15 @@ __device__ __forceinline__ void flow_grad_taps(const Taps& t, const T* plane, in
 // lane's right column is that lane's left column: it goes to that lane by a
 // warp shuffle, and each lane adds only its left column (and its right one
 // when no neighbour takes it). An aligned run of lanes makes 3 atomics a
-// channel for 2 pixels, against 8 unmerged.
-template <typename T, bool kPlanes, bool kFlow>
+// channel for 2 pixels, against 8 unmerged. kRows: H is the output's rows,
+// the planes' (and the scratch's) lie in `rows`.
+template <typename T, bool kPlanes, bool kFlow, bool kRows>
 __global__ void __launch_bounds__(kMfGradThreads, 4)
 warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict__ u,
                            const float* __restrict__ v, const T* __restrict__ grad_out,
                            float* __restrict__ grad_u, float* __restrict__ grad_v, float4* __restrict__ acc,
                            int C, int groups, int n, int H, int W, Strides sp, Strides su, Strides sv,
-                           Strides sg, int64_t sgk, MfGradPlan plan) {
+                           Strides sg, int64_t sgk, MfGradPlan plan, RowWindow rows) {
   extern __shared__ float4 smem_f4[];
   float* win = reinterpret_cast<float*>(smem_f4);
   const int b = blockIdx.z / groups, q = blockIdx.z - b * groups;
@@ -231,8 +244,9 @@ warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict
   const int x = blockIdx.x * plan.tile_w + threadIdx.x % plan.tile_w;
   const int y = blockIdx.y * plan.tile_h + 2 * (threadIdx.x / plan.tile_w);
   const int valid = x < W ? max(0, min(2, H - y)) : 0;  // this thread's pixels inside the image
-  const Window w = window_of(blockIdx.x, blockIdx.y, plan);
-  const TapSink sink{win, acc + static_cast<int64_t>(b * groups + q) * H * W, w, cg, W};
+  const int hp = kRows ? rows.p_rows : H;  // the planes' rows
+  const Window w = window_of(blockIdx.x, blockIdx.y, plan, kRows ? rows.y_base - rows.p_base : 0);
+  const TapSink sink{win, acc + static_cast<int64_t>(b * groups + q) * hp * W, w, cg, W};
   if (kPlanes) {
     for (int i = threadIdx.x; i < cg * w.w * w.h; i += blockDim.x) win[i] = 0.0f;
     __syncthreads();
@@ -256,7 +270,8 @@ warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict
       }
       Taps t[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) t[i] = sample_taps(x, y + i, uu[i], vv[i], H, W);
+      for (int i = 0; i < 2; ++i)
+        t[i] = kRows ? sample_taps_rows(x, y + i, uu[i], vv[i], rows, W) : sample_taps(x, y + i, uu[i], vv[i], H, W);
       const bool al = valid == 2 && t[1].y0 == t[0].y0 + 1 && t[1].x0 == t[0].x0;
       const T* gk = gb + k * sgk;
       float gv[2][4];  // channels c0 .. c0+3 of each pixel, 0 past C
@@ -337,8 +352,11 @@ warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict
               if (take) left[j] += from_left;
             }
           }
+          // the row's taps inside the planes' rows, and under a window inside the frame's
           const int ty = a.y0 + row;
-          if (shape > 0 && (row < 2 || al) && ty >= 0 && ty < H) {
+          const bool row_in =
+              ty >= 0 && ty < hp && (!kRows || (ty + rows.p_base >= 0 && ty + rows.p_base < rows.frame_rows));
+          if (shape > 0 && (row < 2 || al) && row_in) {
             if (a.x0 >= 0 && a.x0 < W) sink.add(ty, a.x0, left);
             if (!give && a.x0 + 1 >= 0 && a.x0 + 1 < W) sink.add(ty, a.x0 + 1, right);
           }
@@ -354,7 +372,7 @@ warp_multiflow_grad_kernel(const T* __restrict__ planes, const float* __restrict
   }
   if (!kPlanes) return;
   __syncthreads();
-  flush_window(win, sink.acc, w, cg, H, W);
+  flush_window(win, sink.acc, w, cg, hp, W);
 }
 
 template <typename T>
@@ -376,45 +394,53 @@ cudaError_t launch(const void* planes, const float* u, const float* v, void* out
 template <typename T, bool kPlanes, bool kFlow>
 cudaError_t launch_grad_kernel(dim3 grid, int threads, cudaStream_t stream, const T* planes, const float* u,
                                const float* v, const T* g, float* gu, float* gv, float4* acc, int C, int groups,
-                               int n, int H, int W, const int64_t* s, const MfGradPlan& plan) {
-  warp_multiflow_grad_kernel<T, kPlanes, kFlow><<<grid, threads, kPlanes ? plan.smem : 0, stream>>>(
-      planes, u, v, g, gu, gv, acc, C, groups, n, H, W, Strides{s[0], s[1], s[2], s[3]},
-      Strides{s[4], s[5], s[6], s[7]}, Strides{s[8], s[9], s[10], s[11]}, Strides{s[12], s[13], s[15], s[16]},
-      s[14], plan);
+                               int n, int H, int W, const int64_t* s, const MfGradPlan& plan, const int* rows) {
+  const Strides sp{s[0], s[1], s[2], s[3]}, su{s[4], s[5], s[6], s[7]}, sv{s[8], s[9], s[10], s[11]};
+  const Strides sg{s[12], s[13], s[15], s[16]};
+  const int smem = kPlanes ? plan.smem : 0;
+  if (rows) {
+    warp_multiflow_grad_kernel<T, kPlanes, kFlow, true><<<grid, threads, smem, stream>>>(
+        planes, u, v, g, gu, gv, acc, C, groups, n, H, W, sp, su, sv, sg, s[14], plan,
+        RowWindow{rows[0], rows[1], rows[2], rows[3]});
+  } else {
+    warp_multiflow_grad_kernel<T, kPlanes, kFlow, false><<<grid, threads, smem, stream>>>(
+        planes, u, v, g, gu, gv, acc, C, groups, n, H, W, sp, su, sv, sg, s[14], plan, RowWindow{0, 0, H, H});
+  }
   return cudaGetLastError();
 }
 
 // Zero the scratch, run the kernel, finish the planes' gradient (without the
 // planes' gradient: the kernel alone). s: the 21 element strides of planes
 // (b, c, y, x), u, v (b, k, y, x), grad_out (b, c, k, y, x), grad_planes (b,
-// c, y, x).
+// c, y, x). H: the output's rows; the planes' are rows[2] under a window.
 template <typename T>
 cudaError_t launch_grad(const void* planes, const float* u, const float* v, const void* grad_out,
                         void* grad_planes, float* gu, float* gv, float4* acc, bool need_planes,
                         bool need_flow, int B, int C, int n, int H, int W, const int64_t* s,
-                        const MfGradPlan& plan, cudaStream_t stream) {
+                        const MfGradPlan& plan, const int* rows, cudaStream_t stream) {
   const T* p = static_cast<const T*>(planes);
   const T* g = static_cast<const T*>(grad_out);
   const int groups = need_planes ? (C + 3) / 4 : 1;
   const int nbx = (W + plan.tile_w - 1) / plan.tile_w, nby = (H + plan.tile_h - 1) / plan.tile_h;
   const dim3 grid(nbx, nby, B * groups);
   const int threads = plan.tile_w * plan.tile_h / 2;
+  const int hp = rows ? rows[2] : H;  // the planes' rows
   cudaError_t err;
   if (need_planes) {
-    err = cudaMemsetAsync(acc, 0, static_cast<size_t>(B) * groups * H * W * sizeof(float4), stream);
+    err = cudaMemsetAsync(acc, 0, static_cast<size_t>(B) * groups * hp * W * sizeof(float4), stream);
     if (err != cudaSuccess) return err;
     err = need_flow ? launch_grad_kernel<T, true, true>(grid, threads, stream, p, u, v, g, gu, gv, acc, C,
-                                                        groups, n, H, W, s, plan)
+                                                        groups, n, H, W, s, plan, rows)
                     : launch_grad_kernel<T, true, false>(grid, threads, stream, p, u, v, g, gu, gv, acc,
-                                                         C, groups, n, H, W, s, plan);
+                                                         C, groups, n, H, W, s, plan, rows);
     if (err != cudaSuccess) return err;
     const Strides so{s[17], s[18], s[19], s[20]};
-    const dim3 rows((W + 255) / 256, H, B);
-    grad_store_kernel<T><<<rows, 256, 0, stream>>>(acc, static_cast<T*>(grad_planes), C, H, W, so);
+    grad_store_kernel<T><<<dim3((W + 255) / 256, hp, B), 256, 0, stream>>>(
+        acc, static_cast<T*>(grad_planes), C, hp, W, so);
     return cudaGetLastError();
   }
   return launch_grad_kernel<T, false, true>(grid, threads, stream, p, u, v, g, gu, gv, acc, C, groups, n,
-                                            H, W, s, plan);
+                                            H, W, s, plan, rows);
 }
 
 }  // namespace
@@ -442,11 +468,14 @@ extern "C" int warp_multiflow_planar(const void* planes, const void* u, const vo
 // (need_flow). scratch: B * ceil(C/4) * H * W float4 (need_planes).
 // strides: 21 element strides, planes (b, c, y, x), u, v (b, k, y, x),
 // grad_out (b, c, k, y, x), grad_planes (b, c, y, x). plan: the 4 ints of
-// MfGradPlan (ops/warp_plan.py). Returns the first CUDA error (0: launched).
+// MfGradPlan (ops/warp_plan.py). rows: null, or the 4 ints of a RowWindow, as
+// for warp_multiflow_planar: then planes, grad_planes and the scratch hold
+// p_rows rows, and H is the rows of u, v, grad_out, grad_u and grad_v.
+// Returns the first CUDA error (0: launched).
 extern "C" int warp_multiflow_grad(const void* planes, const void* u, const void* v, const void* grad_out,
                                    void* grad_planes, void* grad_u, void* grad_v, void* scratch,
                                    int bf16, int need_planes, int need_flow, int B, int C, int n, int H, int W,
-                                   const int64_t* strides, const int* plan, void* stream) {
+                                   const int64_t* strides, const int* plan, const int* rows, void* stream) {
   const float* uf = static_cast<const float*>(u);
   const float* vf = static_cast<const float*>(v);
   float* gu = static_cast<float*>(grad_u);
@@ -456,7 +485,7 @@ extern "C" int warp_multiflow_grad(const void* planes, const void* u, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
     return static_cast<int>(launch_grad<__nv_bfloat16>(planes, uf, vf, grad_out, grad_planes, gu, gv, acc,
-                                                       need_planes, need_flow, B, C, n, H, W, strides, p, s));
+                                                       need_planes, need_flow, B, C, n, H, W, strides, p, rows, s));
   return static_cast<int>(launch_grad<float>(planes, uf, vf, grad_out, grad_planes, gu, gv, acc, need_planes,
-                                             need_flow, B, C, n, H, W, strides, p, s));
+                                             need_flow, B, C, n, H, W, strides, p, rows, s));
 }

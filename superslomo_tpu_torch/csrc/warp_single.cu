@@ -71,17 +71,19 @@
 // way. Offsets are 64-bit, except inside one image in the flow gradient
 // (32-bit; the wrapper checks that they fit).
 //
-// Row window (kRows; height sharding under training, models/superslomo.py):
-// the forward and the flow gradient take an optional RowWindow
-// (warp_tile.cuh). The flows, the output and its gradient are then h rows of
-// a taller frame, from frame row y_base, and the image holds p_rows frame
-// rows from p_base (in the train step, the whole frame gathered from the
-// spatial ranks). The grid covers the output's h rows; each position is taken
-// in frame rows, so a block's results are one process's rows of them, and
-// the image is read through its strides at its own rows. A template
-// parameter, so the whole-frame launch (a null window) is the same
-// instantiation as before. The image gradient has no window: no path
-// differentiates a warped image under one.
+// Row window (kRows; height sharding, parallel/halo.py): all three kernels
+// take an optional RowWindow (warp_tile.cuh). The flows, the output and its
+// gradient are then h rows of a taller frame, from frame row y_base, and the
+// image holds p_rows frame rows from p_base (the whole frame gathered from
+// the spatial ranks, or this rank's rows and the halo rows around them). The
+// grid covers the output's h rows; each position is taken in frame rows, so a
+// block's results are one process's rows of them, and the image is read
+// through its strides at its own rows. The image gradient scatters into a
+// scratch of the image's p_rows rows and stores grad_img of those rows; a tap
+// outside the frame's rows or the image's adds nothing (the top rank's halo
+// rows lie above frame row 0, the bottom rank's past its last row). A
+// template parameter, so the whole-frame launch (a null window) is the same
+// instantiation as before.
 
 #include "warp_tile.cuh"
 
@@ -257,12 +259,14 @@ __device__ __forceinline__ void scatter4(float4* acc, float w, const float* g) {
 // scratch acc, laid out (B, G, H, W, 4) with G = ceil(C / 4) groups of
 // channels, as one 16-byte vector atomic. Where a thread's second pixel
 // samples one column right of its first (smooth flows), their shared taps
-// are summed first: 6 atomics for the pair instead of 8.
-template <typename T>
+// are summed first: 6 atomics for the pair instead of 8. kRows: H is the
+// output's rows; the taps and the scratch lie in the image's rows of `rows`
+// (make_sample_rows masks a tap outside them, so the merge holds as is).
+template <typename T, bool kRows>
 __global__ void __launch_bounds__(Tile::kThreads)
 warp_single_img_grad_kernel(const float* __restrict__ flow, const T* __restrict__ grad_out,
                             float4* __restrict__ acc, int C, int H, int W, Strides sf, Strides sg,
-                            GradPlan plan) {
+                            GradPlan plan, RowWindow rows) {
   constexpr int kPX = Tile::kPX;
   static_assert(kPX == 2, "the shared-tap merge below pairs two pixels");
   const int b = blockIdx.z;
@@ -276,7 +280,9 @@ warp_single_img_grad_kernel(const float* __restrict__ flow, const T* __restrict_
   load_uv(f, sf.x, f + sf.c, sf.x, plan.flow_mode, valid, uu, vv);
   Sample s[kPX];
 #pragma unroll
-  for (int i = 0; i < kPX; ++i) s[i] = make_sample(x + i, y, uu[i], vv[i], H, W);
+  for (int i = 0; i < kPX; ++i)
+    s[i] = kRows ? make_sample_rows(x + i, y, uu[i], vv[i], rows, W) : make_sample(x + i, y, uu[i], vv[i], H, W);
+  const int hp = kRows ? rows.p_rows : H;  // the scratch's rows: the image's
   const bool merge = valid == kPX && s[1].y0 == s[0].y0 && s[1].x0 == s[0].x0 + 1;
   const T* g = grad_out + b * sg.b + static_cast<int64_t>(y) * sg.y + x * sg.x;
   const int groups = (C + 3) / 4;
@@ -289,7 +295,7 @@ warp_single_img_grad_kernel(const float* __restrict__ flow, const T* __restrict_
 #pragma unroll
       for (int i = 0; i < kPX; ++i) gv[i][k] = gc[i];
     }
-    float4* plane = acc + static_cast<int64_t>(b * groups + q) * H * W;
+    float4* plane = acc + static_cast<int64_t>(b * groups + q) * hp * W;
     const Sample& a = s[0];
     float4* p = plane + static_cast<int64_t>(a.y0) * W + a.x0;
     if (a.m00) scatter4(p, a.w00, gv[0]);
@@ -366,19 +372,29 @@ cudaError_t launch_flow_grad(const void* img, const float* flow, const void* gra
   return cudaGetLastError();
 }
 
+// H: the output's rows; the scratch and grad_img have the image's rows (H
+// without a window).
 template <typename T>
 cudaError_t launch_img_grad(const float* flow, const void* grad_out, float4* acc, void* grad_img,
                             int B, int C, int H, int W, const int64_t* s, const GradPlan& plan,
-                            cudaStream_t stream) {
-  const size_t acc_bytes = static_cast<size_t>(B) * ((C + 3) / 4) * H * W * sizeof(float4);
+                            const int* rows, cudaStream_t stream) {
+  const RowWindow r = window_at(rows, H);
+  const int hp = r.p_rows;
+  const size_t acc_bytes = static_cast<size_t>(B) * ((C + 3) / 4) * hp * W * sizeof(float4);
   cudaError_t err = cudaMemsetAsync(acc, 0, acc_bytes, stream);
   if (err != cudaSuccess) return err;
-  warp_single_img_grad_kernel<T><<<tile_grid(B, H, W), Tile::kThreads, 0, stream>>>(
-      flow, static_cast<const T*>(grad_out), acc, C, H, W, strides_at(s), strides_at(s + 4), plan);
+  const T* g = static_cast<const T*>(grad_out);
+  if (rows) {
+    warp_single_img_grad_kernel<T, true><<<tile_grid(B, H, W), Tile::kThreads, 0, stream>>>(
+        flow, g, acc, C, H, W, strides_at(s), strides_at(s + 4), plan, r);
+  } else {
+    warp_single_img_grad_kernel<T, false><<<tile_grid(B, H, W), Tile::kThreads, 0, stream>>>(
+        flow, g, acc, C, H, W, strides_at(s), strides_at(s + 4), plan, r);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  grad_store_kernel<T><<<dim3((W + 255) / 256, H, B), 256, 0, stream>>>(
-      acc, static_cast<T*>(grad_img), C, H, W, strides_at(s + 8));
+  grad_store_kernel<T><<<dim3((W + 255) / 256, hp, B), 256, 0, stream>>>(
+      acc, static_cast<T*>(grad_img), C, hp, W, strides_at(s + 8));
   return cudaGetLastError();
 }
 
@@ -422,16 +438,18 @@ extern "C" int warp_single_flow_grad(const void* img, const void* flow, const vo
 // store grad_img. grad_out (B, C, H, W) in the image's dtype; scratch: B *
 // ceil(C/4) * H * W float4, 16-byte aligned; grad_img (B, C, H, W) in the
 // image's dtype. strides: 12 element strides (b, c, y, x) of flow, grad_out,
-// grad_img. plan: the 3 ints of GradPlan. Returns the first CUDA error (0:
-// launched).
+// grad_img. plan: the 3 ints of GradPlan. rows: as for warp_single_forward;
+// then the scratch holds p_rows rows in place of H, and grad_img is (B, C,
+// p_rows, W). Returns the first CUDA error (0: launched).
 extern "C" int warp_single_img_grad(const void* flow, const void* grad_out, void* scratch,
                                     void* grad_img, int bf16, int B, int C, int H, int W,
-                                    const int64_t* strides, const int* plan, void* stream) {
+                                    const int64_t* strides, const int* plan, const int* rows, void* stream) {
   const float* f = static_cast<const float*>(flow);
   float4* acc = static_cast<float4*>(scratch);
   const GradPlan p{plan[0], plan[1], plan[2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return static_cast<int>(launch_img_grad<__nv_bfloat16>(f, grad_out, acc, grad_img, B, C, H, W, strides, p, s));
-  return static_cast<int>(launch_img_grad<float>(f, grad_out, acc, grad_img, B, C, H, W, strides, p, s));
+    return static_cast<int>(
+        launch_img_grad<__nv_bfloat16>(f, grad_out, acc, grad_img, B, C, H, W, strides, p, rows, s));
+  return static_cast<int>(launch_img_grad<float>(f, grad_out, acc, grad_img, B, C, H, W, strides, p, rows, s));
 }

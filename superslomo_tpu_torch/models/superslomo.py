@@ -22,15 +22,22 @@ max|Δflow|)``. A streamed-in ``rnn_carry`` starts stage 1 as given and
 stage 2 with each sample's state repeated over its t-grid; the step returns
 no state.
 
-Under a spatial grid (``parallel.halo.spatial``) the fused step serves with
+Under a spatial grid (``parallel.halo.spatial``) the fused step runs with
 each frame's rows split across the spatial ranks: the frames given are this
 rank's block of rows, every conv and upsample of the U-Nets exchanges halo
 rows (``models/layers.py``, ``ops/resize.py``), each of the step's two warp
 pairs exchanges its 6-channel pair's halo rows once and warps through a row
-window (``halo.warp_source``: the halo rows, or the whole height under
-``halo.full_height_warps()``), and the bound is reduced by MAX over the
-spatial ranks, so it is one process's bound. The step then returns this
-rank's rows of the predictions.
+window (``parallel.warp_spmd.warp_multiflow_sharded``, unguarded: the halo
+rows, or the whole height under ``halo.full_height_warps()``), and the bound
+is reduced by MAX over the spatial ranks, so it is one process's bound. The
+step then returns this rank's rows of the predictions.
+``interpolate_multi_t`` serves under ``torch.inference_mode``; the step
+itself (``_multi_t_planar``) is differentiable under the grid in its
+parameters and its frames, as JAX's fused step under a mesh is: the
+exchanges and the gather send the halo rows' and the gathered rows'
+gradients back to their owners, and the windowed warps give the planes' and
+the flows' gradients, so each rank holds one process's gradient of its rows
+and its share of the parameters'.
 
 ``SuperSloMo.forward`` (training) runs under a grid too, on this rank's
 block of each frame's rows. The convs and upsamples exchange halo rows as
@@ -86,7 +93,7 @@ from superslomo_tpu_torch.device import resolve_device
 from superslomo_tpu_torch.models import physics
 from superslomo_tpu_torch.models.unet import UNet
 from superslomo_tpu_torch.ops import warp_multiflow_planar
-from superslomo_tpu_torch.parallel import halo
+from superslomo_tpu_torch.parallel import halo, warp_spmd
 from superslomo_tpu_torch.parallel.mesh import block_start
 
 
@@ -356,7 +363,7 @@ class SuperSloMo(nn.Module):
             w1t = warp_multiflow_planar(pl1, u_t1, v_t1, out_dtype=cdt)  # (BW, 3, n_t, H, W)
             w0t = warp_multiflow_planar(pl0, u_t0, v_t0, out_dtype=cdt)
         else:
-            w0t, w1t = _halo_pair_warps(x6, blocks, (u_t0, v_t0), (u_t1, v_t1))
+            w0t, w1t = warp_spmd.warp_multiflow_sharded(x6, ((u_t0, v_t0), (u_t1, v_t1)), blocks, unguarded=True)
 
         def bc(x):  # (BW, c, H, W) → (BW, c, n_t, H, W)
             return x[:, :, None].expand(-1, -1, n_t, -1, -1)
@@ -398,7 +405,8 @@ class SuperSloMo(nn.Module):
             w0 = warp_multiflow_planar(mp[:, 0:3], u_p_t0, v_p_t0, out_dtype=f32)
             w1 = warp_multiflow_planar(mp[:, 3:6], u_p_t1, v_p_t1, out_dtype=f32)
         else:
-            w0, w1 = _halo_pair_warps(mp, blocks, (u_p_t0, v_p_t0), (u_p_t1, v_p_t1))
+            w0, w1 = warp_spmd.warp_multiflow_sharded(mp, ((u_p_t0, v_p_t0), (u_p_t1, v_p_t1)), blocks,
+                                                      unguarded=True)
         t_g = t_values.reshape(1, 1, n_t, 1, 1)
         pred = physics.blend(w0, w1, s2.v_0t[:, None], s2.v_1t[:, None], t_g)
         return pred.permute(0, 2, 3, 4, 1).contiguous(), bound  # (B, n_t, H, W, 3)
@@ -415,16 +423,6 @@ def _gathered_pairs(x1):
     blocks = halo.frame_blocks(x1.shape[2], grid)
     H = sum(blocks)
     return halo.gather_rows(x1, blocks, grid=grid), halo.RowWindow(block_start(blocks, grid.spatial_index), 0, H, H)
-
-
-def _halo_pair_warps(pair, blocks, flows0, flows1):
-    """Under a spatial grid: frame 0 and frame 1 of a 6-channel pair of this
-    rank's rows, each warped by its (u, v) flows (B, n, h, W), through one
-    exchange of the pair's halo rows (or its whole height, under
-    ``halo.full_height_warps()``); stored in the pair's dtype."""
-    planes, window = halo.warp_source(pair, blocks)
-    return tuple(warp_multiflow_planar(planes[:, 3 * i:3 * i + 3], u, v, rows=window)
-                 for i, (u, v) in enumerate((flows0, flows1)))
 
 
 def model_on(spec: ModelSpec, model_or_state, device: torch.device) -> SuperSloMo:

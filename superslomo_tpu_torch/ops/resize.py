@@ -35,10 +35,11 @@ _MAX_ELEMENTS = 2**31 - 1
 
 def upsample_2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     """Bilinear 2x upsample of an NCHW tensor (align_corners=False), in the
-    memory format ``F.interpolate`` gives a dense input. Without autograd the output is written a batch
-    slice at a time, each slice within the CUDA kernels' 32-bit indexing (one
-    slice where the whole output fits). ``out=`` has no autograd, so under
-    autograd (training) it is one call."""
+    memory format ``F.interpolate`` gives a dense input. The output is
+    computed a batch slice at a time, each slice within the CUDA kernels'
+    32-bit indexing (one slice where the whole output fits): without
+    autograd written into one output, under autograd (``out=`` has none)
+    one ``F.interpolate`` a slice, joined by ``torch.cat``."""
     if x.dim() != 4:
         raise ValueError(f"expected NCHW, got shape {tuple(x.shape)}")
     grid = halo.active()
@@ -51,13 +52,16 @@ def upsample_2x_bilinear(x: torch.Tensor) -> torch.Tensor:
 
 
 def _upsample(x: torch.Tensor) -> torch.Tensor:
-    if torch.is_grad_enabled() and x.requires_grad:
-        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
     N, C, H, W = x.shape
+    step = max(1, _MAX_ELEMENTS // max(1, C * 4 * H * W))  # samples a slice
+    if torch.is_grad_enabled() and x.requires_grad:
+        if step >= N:
+            return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        return torch.cat([F.interpolate(x[i : i + step], scale_factor=2, mode="bilinear", align_corners=False)
+                          for i in range(0, N, step)])
     channels_last = x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous()
     fmt = torch.channels_last if channels_last else torch.contiguous_format
     out = torch.empty((N, C, 2 * H, 2 * W), dtype=x.dtype, device=x.device, memory_format=fmt)
-    step = max(1, _MAX_ELEMENTS // (C * 4 * H * W))
     for i in range(0, N, step):  # the scales F.interpolate passes for scale_factor=2
         torch.ops.aten.upsample_bilinear2d.out(x[i : i + step], [2 * H, 2 * W], False, 2.0, 2.0,
                                                out=out[i : i + step])

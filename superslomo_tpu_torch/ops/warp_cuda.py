@@ -5,7 +5,9 @@ and nothing falls back to the plain version.
 
 The planes, u, v and the output gradient are read through their strides, so
 the channels_last slices of the step's 6-channel pairs are read in place,
-with no copy.
+with no copy. Both take a row window (``rows``, ``parallel.halo.RowWindow``):
+u, v, the output and its gradient are then a block of a taller frame's rows,
+and the planes and their gradient hold other rows of it.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                    ctypes.POINTER(i), p]
     fn.restype = i
     fn = lib.warp_multiflow_grad
-    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), p]
+    fn.argtypes = [p] * 8 + [i] * 8 + [ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(i), ctypes.POINTER(i), p]
     fn.restype = i
 
 
@@ -101,35 +103,38 @@ def warp_multiflow_planar_cuda(planes: torch.Tensor, u: torch.Tensor, v: torch.T
 warp_multiflow_planar_cuda.launches = 0  # kernel launches since the last reset
 
 
-def warp_multiflow_backward_cuda(planes, u, v, grad_out, need_planes: bool, need_flow: bool):
+def warp_multiflow_backward_cuda(planes, u, v, grad_out, need_planes: bool, need_flow: bool, rows=None):
     """The multi-flow warp's gradients for the output gradient ``grad_out``
     (B, C, n, H, W) in the planes' dtype, on the current stream: ``(grad_planes,
-    grad_u, grad_v)``, each None unless asked for. grad_planes is (B, C, H, W)
-    in the planes' dtype and memory format; grad_u and grad_v (B, n, H, W) f32
+    grad_u, grad_v)``, each None unless asked for. grad_planes is the planes'
+    shape, dtype and memory format; grad_u and grad_v (B, n, H, W) f32
     contiguous. Any strides. One call of the backward kernel, which sums the
     planes' gradient over the n flows in f32 (with atomics, so the order of
     the sum varies from run to run) and rounds it once; with the planes'
     gradient, 3 device operations (zero the scratch, the kernel, the store
-    pass), else 1, whatever n.
+    pass), else 1, whatever n. ``rows``, as for ``warp_multiflow_planar_cuda``:
+    u, v and grad_out hold the block's h rows and the planes p_rows; the
+    windowed calls count apart too (``windowed``).
 
     Raises on anything the kernel does not take: a tensor off the card,
     another dtype, a bad shape, or planes too large for 32-bit tap offsets."""
-    _check(planes, u, v, grad_out)
-    B, C, H, W = planes.shape
-    n = u.shape[1]
+    _check(planes, u, v, grad_out, rows=rows)
+    B, C, Hp, W = planes.shape
+    n, H = u.shape[1], u.shape[2]
     dev = planes.device
     grad_planes = None
     if need_planes:
         fmt = torch.channels_last if planes.stride(1) < planes.stride(3) else torch.contiguous_format
-        grad_planes = torch.empty((B, C, H, W), device=dev, dtype=planes.dtype, memory_format=fmt)
+        grad_planes = torch.empty((B, C, Hp, W), device=dev, dtype=planes.dtype, memory_format=fmt)
     grad_u = torch.empty((B, n, H, W), device=dev, dtype=torch.float32) if need_flow else None
     grad_v = torch.empty_like(grad_u) if need_flow else None
-    if planes.numel() == 0 or n == 0 or not (need_planes or need_flow):  # nothing to launch: no taps
+    if planes.numel() == 0 or u.numel() == 0 or not (need_planes or need_flow):  # nothing to launch: no taps
         return tuple(None if t is None else t.zero_() for t in (grad_planes, grad_u, grad_v))
-    if not warp_plan.offsets_fit_int32(planes.stride(), C, H, W):
+    if not warp_plan.offsets_fit_int32(planes.stride(), C, Hp, W):
         raise ValueError(f"planes of strides {planes.stride()} are too large for the backward kernel")
     plan = warp_plan.plan_multiflow_grad(C)
-    scratch = torch.empty((B, (C + 3) // 4, H, W, 4), device=dev, dtype=torch.float32) if need_planes else None
+    scratch = torch.empty((B, (C + 3) // 4, Hp, W, 4), device=dev, dtype=torch.float32) if need_planes else None
+    window = None if rows is None else (ctypes.c_int * 4)(*rows)
     dummy = (0, 0, 0, 0)
     strides = (ctypes.c_int64 * 21)(*planes.stride(), *u.stride(), *v.stride(), *grad_out.stride(),
                                     *(grad_planes.stride() if need_planes else dummy))
@@ -142,15 +147,18 @@ def warp_multiflow_backward_cuda(planes, u, v, grad_out, need_planes: bool, need
         err = lib.warp_multiflow_grad(
             planes.data_ptr(), u.data_ptr(), v.data_ptr(), grad_out.data_ptr(), ptr(grad_planes), ptr(grad_u),
             ptr(grad_v), ptr(scratch), int(planes.dtype == torch.bfloat16), int(need_planes),
-            int(need_flow), B, C, n, H, W, strides, warp_plan.as_ints(plan), torch.cuda.current_stream().cuda_stream,
+            int(need_flow), B, C, n, H, W, strides, warp_plan.as_ints(plan), window,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"warp_multiflow_grad launch failed: CUDA error {err}")
     warp_multiflow_backward_cuda.launches += 1
+    warp_multiflow_backward_cuda.windowed += window is not None
     warp_multiflow_backward_cuda.operations += 3 if need_planes else 1
     return grad_planes, grad_u, grad_v
 
 
 warp_multiflow_backward_cuda.launches = 0  # backward kernel launches since the last reset
+warp_multiflow_backward_cuda.windowed = 0  # of them, under a row window
 # device operations of those calls: the scratch's zero fill, the kernel and the store pass
 warp_multiflow_backward_cuda.operations = 0

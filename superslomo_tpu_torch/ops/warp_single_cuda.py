@@ -11,9 +11,10 @@ another dtype or a bad shape.
 Both take a row window (``rows``, ``parallel.halo.RowWindow``): the flows,
 the output and its gradient are a block of a taller frame's rows, and the
 image holds other rows of it (in the train step under a spatial grid, the
-whole frame). The windowed launches count with the rest, and apart in
-``windowed`` (the forward) and ``windowed_flow_grad_launches``. The image
-gradient takes no window.
+whole frame; in ``parallel.warp_spmd.warp_sharded``, the halo rows or the
+whole frame). The image gradient then has the image's rows. The windowed
+launches count with the rest, and apart in ``windowed`` (the forward),
+``windowed_flow_grad_launches`` and ``windowed_img_grad_launches``.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.warp_single_forward.restype = i
     lib.warp_single_flow_grad.argtypes = [p, p, p, p, i, i, i, i, i, strides, ints, ints, p]
     lib.warp_single_flow_grad.restype = i
-    lib.warp_single_img_grad.argtypes = [p, p, p, p, i, i, i, i, i, strides, ints, p]
+    lib.warp_single_img_grad.argtypes = [p, p, p, p, i, i, i, i, i, strides, ints, ints, p]
     lib.warp_single_img_grad.restype = i
 
 
@@ -121,23 +122,20 @@ def warp_single_cuda(img: torch.Tensor, flow: torch.Tensor, rows=None) -> torch.
 def warp_single_backward_cuda(img, flow, grad_out, need_img: bool, need_flow: bool, rows=None):
     """The warp's gradients for the output gradient ``grad_out`` (the
     output's shape, the image's dtype), on the current stream: ``(grad_img,
-    grad_flow)``, each None unless asked for. The flow gradient (B, 2, H, W)
-    f32, in the flow's memory format, comes from the flow-gradient kernel; the
-    image gradient, in the image's dtype and memory format, from the
+    grad_flow)``, each None unless asked for. The flow gradient (the flow's
+    shape, f32, in its memory format) comes from the flow-gradient kernel; the
+    image gradient (the image's shape, dtype and memory format) from the
     image-gradient kernel, which sums in f32 with atomics. Each kernel is
-    launched only when its gradient is asked for. Under a row window
-    (``rows``, as for ``warp_single_cuda``) only the flow gradient: asking for
-    the image's raises NotImplementedError."""
-    if rows is not None and need_img:
-        raise NotImplementedError("the single-flow warp's image gradient takes no row window: no path "
-                                  "differentiates a warped image under one")
+    launched only when its gradient is asked for. ``rows``, as for
+    ``warp_single_cuda``: both kernels take the window, and the image
+    gradient covers the image's p_rows rows."""
     _check(img, flow, grad_out, rows=rows)
     B, C, H, W = flow.shape[0], img.shape[1], flow.shape[2], img.shape[3]
     window = _window(rows, img, H)
     grad_flow = _like(flow, 2, torch.float32) if need_flow else None
     grad_img = _like(img, C, img.dtype) if need_img else None
-    if img.numel() == 0 or not (need_img or need_flow):  # an empty image: nothing to launch
-        return grad_img, None if grad_flow is None else grad_flow.zero_()
+    if img.numel() == 0 or flow.numel() == 0 or not (need_img or need_flow):  # no taps: nothing to launch
+        return tuple(None if t is None else t.zero_() for t in (grad_img, grad_flow))
     lib = load_library()
     bf16 = int(img.dtype == torch.bfloat16)
     with torch.cuda.device(img.device):
@@ -155,14 +153,15 @@ def warp_single_backward_cuda(img, flow, grad_out, need_img: bool, need_flow: bo
             warp_single_backward_cuda.windowed_flow_grad_launches += window is not None
             warp_single_backward_cuda.launches += 1
         if need_img:
-            scratch = torch.empty((B, (C + 3) // 4, H, W, 4), device=img.device, dtype=torch.float32)
+            scratch = torch.empty((B, (C + 3) // 4, img.shape[2], W, 4), device=img.device, dtype=torch.float32)
             plan = warp_plan.plan_img_grad(warp_plan.layout(flow), warp_plan.layout(grad_out), W)
             err = lib.warp_single_img_grad(
                 flow.data_ptr(), grad_out.data_ptr(), scratch.data_ptr(), grad_img.data_ptr(), bf16, B, C, H, W,
-                _strides(flow, grad_out, grad_img), warp_plan.as_ints(plan), stream)
+                _strides(flow, grad_out, grad_img), warp_plan.as_ints(plan), window, stream)
             if err != 0:
                 raise RuntimeError(f"warp_single_img_grad launch failed: CUDA error {err}")
             warp_single_backward_cuda.img_grad_launches += 1
+            warp_single_backward_cuda.windowed_img_grad_launches += window is not None
             warp_single_backward_cuda.launches += 1
     return grad_img, grad_flow
 
@@ -174,3 +173,4 @@ warp_single_backward_cuda.launches = 0  # kernel launches of both gradient kerne
 warp_single_backward_cuda.flow_grad_launches = 0  # launches of the flow-gradient kernel
 warp_single_backward_cuda.windowed_flow_grad_launches = 0  # of them, under a row window
 warp_single_backward_cuda.img_grad_launches = 0  # launches of the image-gradient kernel
+warp_single_backward_cuda.windowed_img_grad_launches = 0  # of them, under a row window

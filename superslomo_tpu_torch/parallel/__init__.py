@@ -1,7 +1,8 @@
 """Scale-out across processes, one a card: data parallelism (the
 counterpart of the JAX package's ``parallel/mesh.py`` data axis) and, on a
-(data, spatial) grid, height sharding for serving (its ``spatial`` axis:
-``parallel/mesh.py``, ``parallel/halo.py``)."""
+(data, spatial) grid, height sharding for serving and training (its
+``spatial`` axis: ``parallel/mesh.py``, ``parallel/halo.py``, and the sharded
+warps of ``parallel/warp_spmd.py``)."""
 
 from superslomo_tpu_torch.parallel.distributed import (  # noqa: F401
     barrier, init_data_parallel, is_main, launched, rank, world,

@@ -41,16 +41,20 @@ spatial group. Gloo's send and receive take host memory only, so over gloo
 staged through host copies; the compute stays on the card. Over NCCL they
 go card to card.
 
-Under autograd ``exchange_rows`` is differentiable: its backward keeps the
+Under autograd both transports are differentiable, each backward one
+point-to-point round the other way. ``exchange_rows``' backward keeps the
 gradient of this rank's own rows and adds to it the halo rows' gradients
-that the neighbours send back for the rows this rank sent them, in one
-point-to-point round as the forward's (at the frame's edges a replicated
-row's gradient is summed into the edge row, a zero row's dropped). So the
-convs and upsamples of a training step under a grid give one process's
-gradients. The train step's warps read whole frames (``gather_rows``, no
-gradient: frames are data; see ``models/superslomo.py``), so no warp
-gradient crosses ranks. ``gather_rows`` and the row-window multi-flow warp
-refuse a tensor that needs a gradient: no path differentiates them.
+that the neighbours send back for the rows this rank sent them (at the
+frame's edges a replicated row's gradient is summed into the edge row, a
+zero row's dropped). ``gather_rows``' backward (a gather to every rank; a
+gather to one rank serves inference only) sends each block of the whole
+height's gradient to the rank that owns it, and sums what every rank sends
+it into this rank's block. So the convs, the upsamples and the warps
+under a grid (the warps' image or planes' gradient covers the halo rows or
+the whole height they read: ``ops``, ``parallel/warp_spmd.py``) give one
+process's gradients, and the fused step under a grid is differentiable in
+its parameters and its frames. The train step's warps read whole frames
+gathered from data, which needs no gradient (``models/superslomo.py``).
 """
 
 from __future__ import annotations
@@ -70,8 +74,9 @@ _FULL_HEIGHT = False
 
 # since the last reset_counts(): exchanges made by exchange_rows and the bytes
 # this rank sent in them, in the forward and in the backward apart, and the
-# calls of gather_rows
-counts = {"exchanges": 0, "bytes_sent": 0, "backward_exchanges": 0, "backward_bytes_sent": 0, "gathers": 0}
+# calls of gather_rows and of its backward
+counts = {"exchanges": 0, "bytes_sent": 0, "backward_exchanges": 0, "backward_bytes_sent": 0, "gathers": 0,
+          "backward_gathers": 0}
 
 
 def reset_counts() -> None:
@@ -112,15 +117,6 @@ def halo_reach(blocks) -> int:
     rows is exact: one-hop halos of min(HALO_ROWS, the smallest block) rows,
     less the bilinear tap one row below."""
     return min(HALO_ROWS, min(blocks)) - 1
-
-
-def refuse_autograd(what: str, *tensors) -> None:
-    """Raise NotImplementedError where ``what`` would be differentiated:
-    under autograd, with a tensor that needs a gradient."""
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} has no gradient: no path differentiates it (the train step's warps read whole frames, "
-            "which are data)")
 
 
 def _p2p(sends, recvs, group) -> None:
@@ -254,13 +250,30 @@ class _ExchangeRows(torch.autograd.Function):
 def gather_rows(x: torch.Tensor, blocks, dst: Optional[int] = None, grid: Optional[Grid] = None):
     """Put the spatial ranks' blocks of rows (dim 2 of ``x``) together: the
     whole height on spatial rank ``dst`` (None elsewhere), or on every rank
-    when ``dst`` is None; in ``x``'s memory format for a 4-D ``x``."""
+    when ``dst`` is None; in ``x``'s memory format for a 4-D ``x``.
+
+    With ``dst`` None it is differentiable: the backward sends each block of
+    the whole height's gradient to the rank that owns it, which sums what
+    every rank sends it into its block's gradient, in f32, rounded once.
+    With ``dst`` it serves inference only (the Evaluator's predictions), and
+    raises where ``x`` needs a gradient under autograd: the ranks other than
+    ``dst`` would hold nothing to backpropagate through, and ``dst``'s
+    backward would wait for them."""
     grid = _grid(grid)
-    refuse_autograd("gather_rows", x)
-    s, ranks = grid.spatial_index, grid.spatial_ranks
+    s = grid.spatial_index
     if x.shape[2] != blocks[s]:
         raise ValueError(f"this rank holds {x.shape[2]} rows, its block is {blocks[s]}")
-    receivers = range(grid.n_spatial) if dst is None else (dst,)
+    if dst is None:
+        return _GatherRows.apply(x, tuple(blocks), grid)
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise ValueError("gather_rows to one rank (dst) has no gradient: gather to every rank (dst=None)")
+    return _gather(x, blocks, (dst,), grid)
+
+
+def _gather(x, blocks, receivers, grid):
+    """The forward of ``gather_rows`` to the spatial ranks ``receivers``:
+    the whole height on each of them, None elsewhere."""
+    s, ranks = grid.spatial_index, grid.spatial_ranks
     sends = [(x, ranks[r]) for r in receivers if r != s]
     out, recvs = None, []
     if s in receivers:
@@ -273,6 +286,33 @@ def gather_rows(x: torch.Tensor, blocks, dst: Optional[int] = None, grid: Option
     _p2p(sends, recvs, grid.spatial_group)
     counts["gathers"] += 1
     return out
+
+
+class _GatherRows(torch.autograd.Function):
+    """``gather_rows`` to every spatial rank: the forward puts the blocks
+    together; the backward is its transpose, one round the other way."""
+
+    @staticmethod
+    def forward(ctx, x, blocks, grid):
+        ctx.blocks, ctx.grid, ctx.fmt = blocks, grid, _format(x) if x.dim() == 4 else None
+        return _gather(x, blocks, range(grid.n_spatial), grid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        blocks, grid = ctx.blocks, ctx.grid
+        s, ranks = grid.spatial_index, grid.spatial_ranks
+        others = [r for r in range(grid.n_spatial) if r != s]
+        mine = grad_out.shape[:2] + (blocks[s],) + grad_out.shape[3:]
+        # this rank's gradient of each other rank's block goes back to it
+        sends = [(grad_out.narrow(2, block_start(blocks, r), blocks[r]), ranks[r]) for r in others]
+        recvs = [(torch.empty(mine, dtype=grad_out.dtype, device=grad_out.device), ranks[r]) for r in others]
+        _p2p(sends, recvs, grid.spatial_group)
+        acc = grad_out.narrow(2, block_start(blocks, s), blocks[s]).float()
+        for buf, _ in recvs:  # in rank order
+            acc += buf.float()
+        counts["backward_gathers"] += 1
+        grad = acc.to(grad_out.dtype)
+        return (grad.contiguous(memory_format=ctx.fmt) if ctx.fmt else grad), None, None
 
 
 def frame_blocks(rows: int, grid: Optional[Grid] = None):

@@ -1,12 +1,13 @@
-"""Height sharding for serving on the CPU: four gloo ranks on a (2 x 2)
-(data, spatial) grid, spawned once for the module, each on one torch thread,
-run the layers, the warps, the fused step and the Evaluator with each
-frame's rows split over the two spatial ranks of their data row; this
+"""Height sharding on the CPU: four gloo ranks on a (2 x 2) (data, spatial)
+grid, spawned once for the module, each on one torch thread, run the layers,
+the warps, the fused step and the Evaluator with each frame's rows split
+over the two spatial ranks of their data row, and differentiate the sharded
+warps (``parallel/warp_spmd.py``), ``gather_rows`` and the fused step; this
 process holds what they return against the one-process port on the same
-numpy inputs, and the warps and the f32 step against the JAX package. The
-grid's rules, ``row_blocks``, ``halo_reach`` and the autograd refusals that
-remain run here. JAX is imported only inside test functions, so the spawned ranks never
-import it.
+numpy inputs, and the warps, their gradients and the f32 step against the
+JAX package. The grid's rules, ``row_blocks``, ``halo_reach`` and the
+windowed warps' gradients over two blocks of one frame run here. JAX is
+imported only inside test functions, so the spawned ranks never import it.
 
 Bars, with what was measured here (oneDNN on this host's CPU):
 - the convs (k = 7, 5, 3) and the upsample: f32 CONV_RTOL of each output's
@@ -29,7 +30,41 @@ Bars, with what was measured here (oneDNN on this host's CPU):
   (5e-4 / 1e-3);
 - the Evaluator's per-image scores: rtol SCORE_RTOL of one process's
   (measured bit for bit; a prediction that rounds across a uint8 step moves
-  an image's PSNR by ~1.5e-6 of it).
+  an image's PSNR by ~1.5e-6 of it);
+- the windowed warps' gradients in one process, two blocks of a frame
+  against their halo planes or the whole height: the image's summed at
+  its planes' first row within WINDOW_GRAD_REL of the whole frame's max
+  (measured 1.0e-7 single-flow, 1.5e-7 multi-flow), the flows' bit for bit
+  its rows;
+- the sharded warps' gradients assembled from the ranks against one
+  process's: the outputs bit for bit; f32 within SHARD_GRAD_REL of each
+  gradient's max (measured 1.5e-7 for the image's and the planes', the
+  flows' bit for bit); the planes' gradient of bf16 planes within
+  BF16_SHARD_GRAD_REL, two bf16 roundings (2^-7) of its max: one process
+  rounds each row's sum once, the ranks round the halo rows' part on the
+  rank that warps them, the owner's own part on the owner, and their sum
+  again (``exchange_rows``' backward adds in the gradient's dtype), each
+  rounding up to 2^-9 of its value (measured 4.8e-3 halo, 5.4e-3 beyond
+  the reach); the flows' gradients of bf16 planes within SHARD_GRAD_REL
+  (measured bit for bit); within the reach within 1e-4 of JAX's
+  ``warp_sharded`` / ``warp_multiflow_sharded`` gradients (its ``g_bwd``;
+  measured 1.5e-5, JAX's halo path taking positions from the halo's first
+  row), beyond it of JAX's single-device ``backward_warp`` gradient
+  (measured 1.4e-6), the bar of ``tests/test_parallel.py``;
+- the fused step's gradient under the grid (f32 CONV, panning textures),
+  each parameter's summed over a data row's ranks and the frames' put
+  together, against one process's: all parameters' together and the
+  frames' within STEP_GRAD_REL by the relative L2 distance, the gradient
+  bar of ``chip_smoke.py``'s train phases over all parameters together
+  (measured 1.8e-4 for the parameters, 6.0e-5 for the frames; each
+  tensor's max error up to 5.8e-2). Not each tensor by its max, as
+  ``tests/test_torch_halo_train.py`` holds the train step: the fused step's
+  gradient is discontinuous (every conv's leaky ReLU, the warps' floor), and
+  at 64x96 the deep convs' weights sum over few positions, so frames
+  nudged by 1e-7 of their max moved one process's own gradients by up to
+  1.9e-2 of a tensor's max and 1.8e-4 by the L2 distance (one thread;
+  on 16 panning pairs tried, most moved a tensor by more than 1e-3), and the
+  one-process reference on one thread and on several lay 1e-3 apart.
 """
 
 import contextlib
@@ -43,9 +78,8 @@ import torch.multiprocessing as mp
 
 from superslomo_tpu_torch import Evaluator, ModelSpec, SuperSloMo, default_config, ops, parallel, weights
 from superslomo_tpu_torch.config import load_config
-from superslomo_tpu_torch.models import superslomo as port_model
 from superslomo_tpu_torch.models.layers import Conv2d
-from superslomo_tpu_torch.parallel import halo
+from superslomo_tpu_torch.parallel import halo, warp_spmd
 from superslomo_tpu_torch.parallel.mesh import Grid, make_grid, row_blocks
 from tests.test_torch_package import one_torch_thread  # noqa: F401
 
@@ -59,6 +93,11 @@ BF16_STEP_ATOL = 1e-2
 SCORE_RTOL = 1e-5
 BOUND_RTOL = 1e-6
 FLOW_AMP = {"halo": 20.0, "full": 40.0}  # |v| up to, px: within reach (31) and beyond it
+WINDOW_GRAD_REL = 1e-6
+SHARD_GRAD_REL = 1e-5
+BF16_SHARD_GRAD_REL = 2.0**-7
+JAX_GRAD_ATOL = 1e-4  # tests/test_parallel.py's bar
+STEP_GRAD_REL = 1e-3  # tests/test_torch_halo_train.py's GRAD_REL
 
 
 def _layer_inputs():
@@ -161,7 +200,8 @@ def _rank_layers(grid):
             pair, flows = _warp_inputs(case)
             local = [tuple(_mine(torch.from_numpy(f), grid) for f in uv) for uv in flows]
             with halo.full_height_warps() if case == "full" else contextlib.nullcontext():
-                out[f"warp_{case}"] = port_model._halo_pair_warps(_mine(_pair_view(pair), grid), blocks, *local)
+                out[f"warp_{case}"] = warp_spmd.warp_multiflow_sharded(_mine(_pair_view(pair), grid), local, blocks,
+                                                                         unguarded=True)
     out["blocks"] = blocks
     return out
 
@@ -187,6 +227,118 @@ def _rank_evaluator(grid, halo_rows=None):
             "threshold": ev.bound_threshold}
 
 
+def _grad_inputs(case):
+    """The sharded warps' inputs and output gradients, global: frame 0 of
+    ``_warp_inputs``' pair (4, 3, H, W) with the flow (4, 2, H, W) of its
+    first flow pair's first field, and frame 1 (4, 3, H, W) with the second
+    pair's three fields (4, 3, H, W) each; standard normal output gradients
+    (4, 3, H, W) and (4, 3, 3, H, W)."""
+    pair, flows = _warp_inputs(case)
+    rng = np.random.default_rng(61 if case == "halo" else 62)
+    planes = _pair_view(pair)
+    (u0, v0), (u1, v1) = ((torch.from_numpy(u), torch.from_numpy(v)) for u, v in flows)
+    return {"img": planes[:, 0:3], "flow": torch.stack([u0[:, 0], v0[:, 0]], 1),
+            "g1": torch.from_numpy(rng.standard_normal((4, 3, H, W)).astype(np.float32)),
+            "planes": planes[:, 3:6], "u": u1, "v": v1,
+            "g3": torch.from_numpy(rng.standard_normal((4, 3, 3, H, W)).astype(np.float32))}
+
+
+def _guard_flows():
+    """Flows within 5 px everywhere but one |v| of 40 px in data row 0's
+    second block (sample 0, frame row 50): only that rank's flows pass the
+    reach of 31."""
+    x = _grad_inputs("halo")
+    flow = x["flow"] / 4
+    flow[0, 1, 50, 10] = 40.0
+    return x["img"], flow, x["g1"]
+
+
+def _panning(n_frames, shift, seed):
+    """(n_frames, H, W, 3) f32: five seeded sinusoids panning ``shift`` px a
+    frame right and half that down."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    clip = np.zeros((n_frames, H, W, 3), np.float32)
+    for _ in range(5):
+        (fy, fx), phase, amp = rng.uniform(-0.3, 0.3, 2), rng.uniform(0, 6.3), rng.uniform(0.3, 1.0, 3)
+        for i in range(n_frames):
+            clip[i] += np.sin(fy * (yy - 0.5 * shift * i) + fx * (xx - shift * i) + phase)[..., None] * amp
+    return clip
+
+
+def _step_frames():
+    """(2, 2, H, W, 3): one panning pair a data row."""
+    return np.stack([_panning(2, 2.0 + d, 71 + d) for d in range(N_DATA)])
+
+
+def _step_grads(model, frames):
+    """The fused step (f32 CONV) differentiated: the gradients of the sum of
+    its prediction's squares by every parameter and by the frames, and its
+    bound."""
+    frames = frames.detach().requires_grad_(True)
+    params = [p for _, p in model.named_parameters()]
+    pred, bound = model._multi_t_planar(frames, torch.from_numpy(T3))
+    grads = torch.autograd.grad((pred ** 2).sum(), params + [frames])
+    return {"params": list(grads[:-1]), "frames": grads[-1], "bound": float(bound.detach())}
+
+
+def _rank_grads(grid):
+    """Every gradient of the sharded paths on this rank: the sharded warps
+    in both branches (and ``ops.warp_auto`` without rows, routed to
+    ``warp_sharded``), the guard with one rank's flows beyond the reach, the
+    unguarded multi-flow warp, ``gather_rows`` to every rank (and its
+    refusal to differentiate a gather to ``dst=0``), and the fused step;
+    with this rank's halo counts."""
+    def leaves(*ts, dtype=None):
+        return [_mine(t if dtype is None else t.to(dtype), grid).detach().requires_grad_(True) for t in ts]
+
+    def run(fn, xs, g):
+        halo.reset_counts()
+        out = fn(*xs)
+        grads = torch.autograd.grad(out, xs, g)
+        return {"out": out.detach(), "grads": [x.detach() for x in grads], "counts": dict(halo.counts)}
+
+    blocks = (32, 32)
+
+    def multi(unguarded=False):
+        return lambda p, u, v: warp_spmd.warp_multiflow_sharded(p, [(u, v)], blocks, unguarded=unguarded)[0]
+
+    out = {}
+    with halo.spatial(grid):
+        for case in FLOW_AMP:
+            x = _grad_inputs(case)
+            g1 = _mine(x["g1"], grid)
+            out[f"single_{case}"] = run(warp_spmd.warp_sharded, leaves(x["img"], x["flow"]), g1)
+            out[f"auto_{case}"] = run(ops.warp_auto, leaves(x["img"], x["flow"]), g1)
+            for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                xs = leaves(x["planes"], dtype=dt) + leaves(x["u"], x["v"])
+                out[f"multi_{case}_{tag}"] = run(multi(), xs, _mine(x["g3"], grid, rows_dim=3).to(dt))
+        img, flow, g1 = _guard_flows()
+        out["guard"] = run(warp_spmd.warp_sharded, leaves(img, flow), _mine(g1, grid))
+        for case in FLOW_AMP:
+            x = _grad_inputs(case)
+            out[f"unguarded_{case}"] = run(multi(unguarded=True), leaves(x["planes"], x["u"], x["v"]),
+                                           _mine(x["g3"], grid, rows_dim=3))
+        x = leaves(_grad_inputs("halo")["img"])[0]
+        halo.reset_counts()
+        whole = halo.gather_rows(x, blocks)
+        g = torch.full_like(whole, float(grid.rank + 1))  # each rank's gradient of the whole height
+        torch.autograd.backward(whole, g)
+        out["gather"] = {"rows": whole.shape[2], "grad": x.grad, "counts": dict(halo.counts)}
+        with pytest.raises(ValueError, match="no gradient"):
+            halo.gather_rows(x, blocks, dst=0)
+        with torch.no_grad():
+            one = halo.gather_rows(x, blocks, dst=0)
+        out["gather_dst"] = None if one is None else one.shape[2]
+        model = SuperSloMo(ModelSpec(), device="cpu").load_state(weights.seeded_state(ModelSpec(), seed=7))
+        frames = _mine(torch.from_numpy(_step_frames()), grid, rows_dim=2)
+        for branch in ("halo", "full"):
+            halo.reset_counts()
+            with halo.full_height_warps() if branch == "full" else contextlib.nullcontext():
+                out[f"step_{branch}"] = {**_step_grads(model, frames), "counts": dict(halo.counts)}
+    return out
+
+
 def _rank_main(rank, init_file, work):
     torch.set_num_threads(1)
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(WORLD), LOCAL_RANK=str(rank))
@@ -202,6 +354,8 @@ def _rank_main(rank, init_file, work):
     out["steps"] = _rank_steps(grid)
     out["eval"] = _rank_evaluator(grid)
     out["eval_rerun"] = _rank_evaluator(grid, halo_rows=2)
+    halo.HALO_ROWS = 136
+    out["grads"] = _rank_grads(grid)
     parallel.barrier()
     torch.distributed.destroy_process_group()
     torch.save(out, os.path.join(work, f"rank{rank}.pt"))
@@ -237,6 +391,12 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _rel_l2(got, want):
+    """The L2 distance of the tensors ``got`` from ``want``, all together,
+    over the L2 norm of ``want``."""
+    return (sum(((a - w) ** 2).sum() for a, w in zip(got, want)) / sum((w ** 2).sum() for w in want)).sqrt().item()
+
+
 # ----------------------------------------------------------------------------- in this process
 
 
@@ -265,24 +425,76 @@ def test_halo_reach_and_the_grid_refusals():
         assert halo.active() is None
 
 
-def test_halo_ops_refuse_autograd():
-    """What stays refused under autograd, with a tensor that needs a
-    gradient: ``gather_rows``, the row-window multi-flow warp and the
-    single-flow warp's image under a row window, which no path
-    differentiates; each raises before it talks to another rank (this grid
-    has no groups to talk over). The convs, the upsample, ``exchange_rows``
-    and the forward train under a grid (``tests/test_torch_halo_train.py``)."""
-    grid = Grid(1, 2, 0, None, None, (0,), (0, 1))
-    x = torch.zeros(1, 8, 32, 16, requires_grad=True)
-    with halo.spatial(grid), pytest.raises(NotImplementedError, match="no path differentiates"):
-        halo.gather_rows(x, (32, 32))
-    planes, flow = torch.zeros(1, 3, 8, 8, requires_grad=True), torch.zeros(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError, match="no path differentiates"):
-        ops.warp_multiflow_planar(planes, flow, flow, rows=halo.RowWindow(2, 0, 8, 8))
-    img, flow2 = torch.zeros(1, 3, 8, 8, requires_grad=True), torch.zeros(1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match="no path differentiates"):
-        ops.warp_auto(img, flow2, rows=halo.RowWindow(2, 0, 8, 8))
-    assert ops.warp_auto(img.detach(), flow2.requires_grad_(True), rows=halo.RowWindow(2, 0, 8, 8)).requires_grad
+def test_halo_ops_refuse_autograd(ranks):
+    """What no path differentiated before now carries gradients, on the CPU
+    as on the card: the row-window multi-flow warp (planes, u and v), the
+    single-flow warp's image under a row window, and ``gather_rows`` to
+    every rank, whose backward (four gloo ranks, a 2 x 2 grid) sends each
+    block of every rank's whole-height gradient (``rank + 1`` everywhere)
+    to its owner, so a rank's block takes the sum over its data row's ranks.
+    A gather to one rank (``dst=0``, the Evaluator's) serves inference only:
+    under autograd it raises on every rank before it sends anything (the
+    other ranks would hold nothing to backpropagate through); under
+    ``torch.no_grad`` spatial rank 0 gets the whole height, the other None."""
+    window = halo.RowWindow(2, 0, 8, 8)
+    ramp = torch.arange(3 * 8 * 8, dtype=torch.float32).reshape(1, 3, 8, 8) ** 2 / 100
+    planes, u = ramp.clone().requires_grad_(True), torch.full((1, 1, 4, 8), 0.25, requires_grad=True)
+    v = torch.full((1, 1, 4, 8), 0.5, requires_grad=True)
+    grads = torch.autograd.grad(ops.warp_multiflow_planar(planes, u, v, rows=window).sum(), (planes, u, v))
+    assert all(g is not None and g.abs().sum() > 0 for g in grads)
+    img, flow = ramp.clone().requires_grad_(True), torch.full((1, 2, 4, 8), 0.5, requires_grad=True)
+    gi, gf = torch.autograd.grad(ops.warp_auto(img, flow, rows=window).sum(), (img, flow))
+    assert gi.shape == img.shape and gi[:, :, 2:7].sum() > 0 and gi[:, :, :2].abs().sum() == 0 and gf.shape == flow.shape
+    for r in ranks:
+        grid_row = r["grid"][3]
+        every = r["grads"]["gather"]
+        assert every["rows"] == H and every["counts"]["gathers"] == every["counts"]["backward_gathers"] == 1
+        assert torch.equal(every["grad"], torch.full_like(every["grad"], float(sum(k + 1 for k in grid_row))))
+        assert r["grads"]["gather_dst"] == (H if r["grid"][1] == 0 else None)
+
+
+def _halo_planes(x, y0, h, hv):
+    """Frame rows [y0 - hv, y0 + h + hv) of x (dim 2), zeros past the frame."""
+    ext = x.new_zeros(x.shape[:2] + (h + 2 * hv,) + x.shape[3:])
+    lo, hi = max(0, y0 - hv), min(x.shape[2], y0 + h + hv)
+    ext[:, :, lo - (y0 - hv):hi - (y0 - hv)] = x[:, :, lo:hi]
+    return ext
+
+
+@pytest.mark.parametrize("kind", ["single", "multi"])
+@pytest.mark.parametrize("source", ["halo", "whole"])
+def test_windowed_warp_gradients_of_two_blocks_sum_to_one_process(kind, source):
+    """One process, no ranks: a 64-row frame split into two 32-row blocks,
+    each warped through a row window against its halo planes (31 rows each
+    side, zeros past the frame) or against the whole height, |v| up to 20
+    px; each block's image gradient, added into the frame at its planes'
+    first row, sums to the whole-frame warp's image gradient within
+    WINDOW_GRAD_REL of its max, and each block's flow gradient is the
+    whole-frame one's rows bit for bit."""
+    x = _grad_inputs("halo")
+    img, g = (x["img"], x["g1"][:, :, None]) if kind == "single" else (x["planes"], x["g3"])
+    flows = (x["flow"][:, 0:1], x["flow"][:, 1:2]) if kind == "single" else (x["u"], x["v"])
+
+    def grads(im, fl, g_, rows=None):
+        leaves = [im.detach().clone().requires_grad_(True)] + [f.detach().clone().requires_grad_(True) for f in fl]
+        if kind == "single":
+            out = ops.warp_auto(leaves[0], torch.cat(leaves[1:], 1), rows=rows)[:, :, None]
+        else:
+            out = ops.warp_multiflow_planar(*leaves, rows=rows)
+        return torch.autograd.grad(out, leaves, g_)
+
+    want = grads(img, flows, g)
+    total = torch.zeros_like(want[0])
+    for y0 in (0, 32):
+        hv = 31 if source == "halo" else None
+        planes = _halo_planes(img, y0, 32, hv) if hv else img
+        window = halo.RowWindow(y0, y0 - hv, 32 + 2 * hv, H) if hv else halo.RowWindow(y0, 0, H, H)
+        got = grads(planes, [f[:, :, y0:y0 + 32] for f in flows], g[:, :, :, y0:y0 + 32], window)
+        lo = max(0, window.p_base)
+        total[:, :, lo:window.p_base + window.p_rows] += got[0][:, :, lo - window.p_base:H - window.p_base]
+        for a, w in zip(got[1:], want[1:]):
+            assert torch.equal(a, w[:, :, y0:y0 + 32])
+    assert _rel(total, want[0]) <= WINDOW_GRAD_REL
 
 
 def test_row_window_warp_is_the_one_process_warp_on_its_rows():
@@ -432,3 +644,162 @@ def test_sharded_evaluator_scores_equal_one_process(ranks, key):
             assert got["threshold"] == 31 and got["reruns"] == 0 < 31 - got["results"]["max_flow_bound"]
         else:
             assert got["threshold"] == 1 and got["reruns"] == 1
+
+
+def _one_process_warp_grads(kind, case):
+    """One process's warp of the global inputs of ``_grad_inputs(case)`` and
+    its gradients (image or planes first, then the flows)."""
+    x = _grad_inputs(case)
+    if kind == "single":
+        leaves = [x["img"].detach().requires_grad_(True), x["flow"].detach().clone().requires_grad_(True)]
+        out = ops.warp_auto(*leaves)
+        g = x["g1"]
+    else:
+        dt = torch.float32 if kind == "multi_f32" else torch.bfloat16
+        leaves = [x["planes"].to(dt).detach().requires_grad_(True)] + [
+            x[k].detach().clone().requires_grad_(True) for k in ("u", "v")]
+        out = ops.warp_multiflow_planar(*leaves)
+        g = x["g3"].to(dt)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+@pytest.mark.parametrize("kind", ["single", "auto", "multi_f32", "multi_bf16"])
+@pytest.mark.parametrize("case", ["halo", "full"])
+def test_sharded_warp_gradients_equal_one_process(ranks, kind, case):
+    """``warp_spmd.warp_sharded`` (and ``ops.warp_auto`` without rows under
+    ``halo.spatial``, which routes to it) and ``warp_multiflow_sharded`` in
+    f32 and bf16, |v| up to 20 px (the halo branch: one exchange forward and
+    one back, no gather) and up to 40 px (beyond the reach of 31: one gather
+    forward and one back, no exchange): the output bit for bit one
+    process's, and the image's and the flows' gradients assembled from the
+    ranks within SHARD_GRAD_REL (f32) or one bf16 rounding (bf16 planes) of
+    each gradient's max."""
+    key = {"single": f"single_{case}", "auto": f"auto_{case}", "multi_f32": f"multi_{case}_f32",
+           "multi_bf16": f"multi_{case}_bf16"}[kind]
+    want_out, want = _one_process_warp_grads("single" if kind == "auto" else kind, case)
+    parts = [r["grads"][key] for r in ranks]
+    out_dim = 3 if kind.startswith("multi") else 2
+    assert torch.equal(_assemble([p["out"] for p in parts], rows_dim=out_dim), want_out.float())
+    for i, w in enumerate(want):
+        got = _assemble([p["grads"][i] for p in parts])
+        assert got.shape == w.shape
+        bar = BF16_SHARD_GRAD_REL if kind == "multi_bf16" and i == 0 else SHARD_GRAD_REL
+        assert _rel(got, w.float()) <= bar, (i, _rel(got, w.float()))
+    counts = [p["counts"] for p in parts]
+    halo_branch = case == "halo"
+    assert all((c["exchanges"], c["backward_exchanges"], c["gathers"], c["backward_gathers"])
+               == ((1, 1, 0, 0) if halo_branch else (0, 0, 1, 1)) for c in counts), counts
+
+
+def _jax_warp_grads(kind, case):
+    """JAX's gradients of the same warps: within the reach its sharded
+    warp's on a (2 x 2) mesh of the conftest's virtual CPU devices (the
+    guard takes the halo branch, whose VJP is ``g_bwd``), beyond it its
+    single-device ``backward_warp``'s; NCHW, image or planes first."""
+    import jax
+    import jax.numpy as jnp
+
+    from superslomo_tpu.ops.warp import backward_warp
+    from superslomo_tpu.parallel.mesh import make_mesh
+    from superslomo_tpu.parallel.warp_spmd import warp_multiflow_sharded, warp_sharded
+
+    x = _grad_inputs(case)
+    mesh = make_mesh(n_data=N_DATA, n_spatial=N_SPATIAL, devices=jax.devices()[:WORLD])
+
+    def nhwc(t):
+        return jnp.asarray(t.permute(0, 2, 3, 1).contiguous().numpy())
+
+    if kind == "single":
+        fn = (lambda im, fl: warp_sharded(im, fl, mesh)) if case == "halo" else backward_warp
+        _, vjp = jax.vjp(fn, nhwc(x["img"]), nhwc(x["flow"]))
+        gi, gf = vjp(nhwc(x["g1"]))
+        return [torch.from_numpy(np.asarray(t)).permute(0, 3, 1, 2) for t in (gi, gf)]
+
+    def tiled(im, fl):  # the single-device multi-flow warp: the image warped by each flow
+        B, n, h, w, _ = fl.shape
+        out = backward_warp(jnp.broadcast_to(im[:, None], (B, n) + im.shape[1:]).reshape((B * n,) + im.shape[1:]),
+                            fl.reshape(B * n, h, w, 2))
+        return out.reshape(B, n, h, w, -1)
+
+    fn = (lambda im, fl: warp_multiflow_sharded(im, fl, mesh)) if case == "halo" else tiled
+    flows = jnp.asarray(torch.stack([x["u"], x["v"]], -1).numpy())  # (B, n, H, W, 2)
+    _, vjp = jax.vjp(fn, nhwc(x["planes"]), flows)
+    gp, gfl = vjp(jnp.asarray(x["g3"].permute(0, 2, 3, 4, 1).contiguous().numpy()))
+    gfl = torch.from_numpy(np.asarray(gfl))
+    return [torch.from_numpy(np.asarray(gp)).permute(0, 3, 1, 2), gfl[..., 0], gfl[..., 1]]
+
+
+@pytest.mark.parametrize("kind", ["single", "multi"])
+@pytest.mark.parametrize("case", ["halo", "full"])
+def test_sharded_warp_gradients_equal_jax(ranks, kind, case):
+    """The f32 sharded warps' gradients assembled from the ranks against
+    JAX's: within the reach its ``warp_sharded`` / ``warp_multiflow_sharded``
+    gradients, beyond it its single-device ``backward_warp`` gradient (its
+    sharded backward there is still the halo path's, which drops the far
+    taps; the port's is the exact gradient of the path it ran); within
+    JAX_GRAD_ATOL, the bar of ``tests/test_parallel.py``."""
+    key = f"single_{case}" if kind == "single" else f"multi_{case}_f32"
+    got = [_assemble([r["grads"][key]["grads"][i] for r in ranks]) for i in range(2 if kind == "single" else 3)]
+    for i, (a, w) in enumerate(zip(got, _jax_warp_grads(kind, case))):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=JAX_GRAD_ATOL, rtol=JAX_GRAD_ATOL, err_msg=str(i))
+
+
+def test_sharded_warp_guard_is_coherent(ranks):
+    """The guard reduces |flow| by MAX over the spatial group: data row 0,
+    whose second block alone holds a |v| of 40 px (beyond the reach of 31),
+    takes the gathered branch on both its ranks; data row 1 (within 5 px)
+    the halo branch on both. Either way the warp and its gradients are one
+    process's."""
+    img, flow, g1 = _guard_flows()
+    leaves = [img.detach().requires_grad_(True), flow.detach().clone().requires_grad_(True)]
+    out = ops.warp_auto(*leaves)
+    want = torch.autograd.grad(out, leaves, g1)
+    branch = [(r["grads"]["guard"]["counts"]["gathers"], r["grads"]["guard"]["counts"]["exchanges"]) for r in ranks]
+    assert branch == [(1, 0), (1, 0), (0, 1), (0, 1)]
+    assert torch.equal(_assemble([r["grads"]["guard"]["out"] for r in ranks]), out.detach())
+    for i, w in enumerate(want):
+        assert _rel(_assemble([r["grads"]["guard"]["grads"][i] for r in ranks]), w) <= SHARD_GRAD_REL
+
+
+def test_unguarded_sharded_warp_takes_the_halo_branch(ranks):
+    """``warp_multiflow_sharded(..., unguarded=True)`` (the fused step's)
+    reduces no bound and reads the halo rows whatever the flows: within the
+    reach bit for bit the guarded warp and its gradients; beyond it (|v| up
+    to 40 px against a reach of 31) still one exchange and no gather, so a
+    caller checks the bound itself."""
+    for r in ranks:
+        halo_case, guarded = r["grads"]["unguarded_halo"], r["grads"]["multi_halo_f32"]
+        assert torch.equal(halo_case["out"], guarded["out"])
+        assert all(torch.equal(a, b) for a, b in zip(halo_case["grads"], guarded["grads"]))
+        for case in FLOW_AMP:
+            c = r["grads"][f"unguarded_{case}"]["counts"]
+            assert (c["exchanges"], c["backward_exchanges"], c["gathers"], c["backward_gathers"]) == (1, 1, 0, 0)
+
+
+@pytest.mark.parametrize("branch", ["halo", "full"])
+def test_sharded_fused_step_gradient_equals_one_process(ranks, branch):
+    """The f32 CONV fused step differentiated under the grid, each data row
+    on its panning pair: the sum of its prediction's squares by every
+    parameter (summed over the row's two ranks) and by the frames (the
+    rows put together) within STEP_GRAD_REL of one process's by the
+    relative L2 distance, all parameters together and the frames apart (why
+    not each tensor against its max: the module docstring's nudge
+    measurement); through the halo warps (the bound within the reach)
+    and under ``halo.full_height_warps()`` (the pairs gathered, their
+    gradient sent back: 2 gathers forward and back). Every exchange has its
+    backward."""
+    model = SuperSloMo(ModelSpec(), device="cpu").load_state(weights.seeded_state(ModelSpec(), seed=7))
+    frames = torch.from_numpy(_step_frames())
+    for d in range(N_DATA):
+        want = _step_grads(model, frames[d:d + 1])
+        row = [r["grads"][f"step_{branch}"] for r in ranks[d * N_SPATIAL:(d + 1) * N_SPATIAL]]
+        got = [sum(r["params"][i] for r in row) for i in range(len(want["params"]))]
+        assert _rel_l2(got, want["params"]) <= STEP_GRAD_REL
+        assert _rel_l2([torch.cat([r["frames"] for r in row], dim=2)], [want["frames"]]) <= STEP_GRAD_REL
+        assert all(r["bound"] == pytest.approx(want["bound"], rel=BOUND_RTOL) for r in row)
+        if branch == "halo":
+            assert want["bound"] <= halo.halo_reach((32, 32))
+        counts = [r["counts"] for r in row]
+        gathers = 2 if branch == "full" else 0
+        assert all(c["exchanges"] == c["backward_exchanges"] == 60 - gathers and
+                   c["gathers"] == c["backward_gathers"] == gathers for c in counts), counts

@@ -143,6 +143,31 @@ def test_upsample_under_autograd_matches_one_call():
     assert torch.equal(got, want) and torch.equal(got_grad, want_grad)
 
 
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_upsample_under_autograd_in_batch_slices_equals_one_call(monkeypatch, channels_last):
+    """Under autograd an output beyond the CUDA kernels' 32-bit indexing is
+    one ``F.interpolate`` a batch slice, joined (here the limit lowered so
+    that a (5, 8, 6, 10) input goes in slices of 2, 2 and 1): the output and
+    the input gradient bit for bit one unsliced call's, in the input's
+    memory format."""
+    from superslomo_tpu_torch.ops import resize
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal((5, 8, 6, 10)).astype(np.float32))
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    g = torch.from_numpy(rng.standard_normal((5, 8, 12, 20)).astype(np.float32))
+    want = torch.nn.functional.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+    (want_grad,) = torch.autograd.grad(want, x, g)
+    monkeypatch.setattr(resize, "_MAX_ELEMENTS", 2 * 8 * 12 * 20)
+    got = tops.upsample_2x_bilinear(x)
+    assert type(got.grad_fn).__name__ == "CatBackward0" and len(got.grad_fn.next_functions) == 3
+    (got_grad,) = torch.autograd.grad(got, x, g)
+    assert torch.equal(got, want) and torch.equal(got_grad, want_grad)
+    assert got.is_contiguous(memory_format=torch.channels_last) == channels_last
+
+
 def _single_inputs(seed, B=2, C=3, H=23, W=37):
     """NHWC image and flow at a small odd shape; the flow leaves the frame
     (std 6 px, and a patch shifted 40 px)."""
