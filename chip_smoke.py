@@ -166,11 +166,15 @@ Phases, each of which raises on failure:
       version on 720p frames that the script encodes itself (zlib and numpy),
       one file per filter type: both equal the written pixels bit for bit;
       the unfilter's and a whole decode's ms, compiled and plain, and a
-      decode's on 12 threads; then the JPEG decode (csrc/jpeg_decode.cpp,
-      host C++) against its plain version on a 720p frame that the script's
-      own baseline JPEG writer (numpy) writes at q95 in 4:2:0, 4:4:4, grey
-      and 4:2:0 with restart markers: bit for bit, the decode ms beside the
-      PNG decode's (``jpeg_decode_vs_plain``);
+      decode's on 12 threads, and the frame interlaced (Adam7): its decode
+      equals the non-interlaced one; then the JPEG decode
+      (csrc/jpeg_decode.cpp, host C++) against its plain version on a 720p
+      frame that the script's own JPEG writer (numpy) writes at q95:
+      baseline in 4:2:0, 4:4:4, grey and 4:2:0 with restart markers,
+      progressive 4:2:0 (libjpeg's 10-scan script, its own optimal Huffman
+      tables before each scan) with and without restarts, sequential in
+      three scans, Adobe CMYK and YCCK: bit for bit, the decode ms beside
+      the baseline's and the PNG decode's (``jpeg_decode_vs_plain``);
   16. the eval CLI's main path: ``cli.evaluate_interpolation`` at
       configs/superslomo_eval.ini as shipped (720p padded to 736, B=8, 12
       loader threads, f32) over a made-up dataset of 720p PNGs in a
@@ -199,8 +203,9 @@ Phases, each of which raises on failure:
       multi-flow and no single-flow launch a window; wall s, frames written
       a second, and the ms a window split into decode, fused step (CUDA
       events) and encode; then in f32 over 3 windows of the clip written as
-      JPEG frames, and over PNG copies of the port's decode of them: the two
-      runs' files equal byte for byte (``render_jpeg_vs_png_copy``);
+      JPEG frames of four kinds (baseline, progressive, sequential in three
+      scans, Adobe CMYK), and over PNG copies of the port's decode of them:
+      the two runs' files equal byte for byte (``render_jpeg_vs_png_copy``);
   19. the same at configs/superslomo_recurrent.ini's model (CLSTM,
       N_FRAMES=4, each window from a zero state) over 3 windows; then
       ``--dump-intermediates`` over 2 windows: the visibility (grey) and
@@ -249,6 +254,7 @@ wrappers take a row window.
 import argparse
 import configparser
 import contextlib
+import heapq
 import json
 import os
 import pickle
@@ -2635,10 +2641,11 @@ def phase_bf16_train_main(ckpt_dir, norm, f32_first_loss):
 FILTERS = ("none", "sub", "up", "average", "paeth")
 
 
-def png_bytes(rgb, ft, level=1):
-    """A (H, W, 3) uint8 image as an 8-bit RGB PNG, every row with filter type
-    ``ft`` (0-4), deflated at ``level``: the stdlib's zlib and numpy only (at
-    ``ft=1``, level 1, what cv2.imwrite writes)."""
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _filtered(rgb, ft):
+    """(h, w, 3) uint8 pixels → (h, 1 + 3 w) rows of filter type ``ft`` (0-4)."""
     h, w, _ = rgb.shape
     x = rgb.reshape(h, w * 3).astype(np.int32)
     up = np.vstack([np.zeros((1, w * 3), np.int32), x[:-1]])
@@ -2652,13 +2659,23 @@ def png_bytes(rgb, ft, level=1):
         pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, up, c))
     else:
         pred = (0, a, up, (a + up) >> 1)[ft]
-    rows = np.hstack([np.full((h, 1), ft, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)])
+    return np.hstack([np.full((h, 1), ft, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)])
+
+
+def png_bytes(rgb, ft, level=1, interlace=False):
+    """A (H, W, 3) uint8 image as an 8-bit RGB PNG, every row with filter type
+    ``ft`` (0-4), deflated at ``level``: the stdlib's zlib and numpy only (at
+    ``ft=1``, level 1, what cv2.imwrite writes); with ``interlace``, in
+    Adam7's seven passes, each filtered on its own."""
+    h, w, _ = rgb.shape
+    passes = [rgb[y0::dy, x0::dx] for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),))]
+    rows = b"".join(_filtered(p, ft).tobytes() for p in passes if p.size)
 
     def chunk(kind, body):
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, int(interlace)))
+            + chunk(b"IDAT", zlib.compress(rows, level)) + chunk(b"IEND", b""))
 
 
 def write_png(path, rgb, ft=1):
@@ -2674,10 +2691,13 @@ def write_clip(folder, frames, name="frame_{:05d}.png", start=0):
         write_png(os.path.join(folder, name.format(i)), img)
 
 
-# a baseline JPEG writer, numpy only (the card's machine has no cv2 or PIL): a
-# float forward DCT, Annex K's quantisation tables scaled by quality as libjpeg
-# scales them, and Annex K's Huffman tables. The CPU tests hold cv2's decode
-# of its files against the port's.
+# a JPEG writer, numpy only (the card's machine has no cv2 or PIL): a float
+# forward DCT, Annex K's quantisation tables scaled by quality as libjpeg
+# scales them; baseline files with Annex K's Huffman tables, or progressive
+# and multi-scan files whose scans are coded as libjpeg's encoder codes them
+# (jcphuff.c: successive approximation, EOB runs, refinement correction bits),
+# each with its own optimal Huffman tables; YCbCr, grey, CMYK and YCCK. The
+# CPU tests hold cv2's decode of its files against the port's.
 
 _ZIGZAG = np.array(sorted(range(64), key=lambda n: (n // 8 + n % 8, n // 8 if (n // 8 + n % 8) % 2 else -(n // 8))))
 # the quantisation tables of ITU T.81 Annex K.1 (luminance) and K.2 (chrominance), natural order
@@ -2825,6 +2845,279 @@ def _entropy_code(blocks, comps, restart):
     return out
 
 
+def progression(n):
+    """libjpeg's ``jpeg_simple_progression`` script for ``n`` components:
+    (component indices, Ss, Se, Ah, Al) per scan; 10 scans for YCbCr, 6 for
+    grey, 18 for 4 components."""
+    every = tuple(range(n))
+    if n == 3:
+        return [(every, 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1), (every, 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)]
+
+    def each(ss, se, ah, al):
+        return [((c,), ss, se, ah, al) for c in range(n)]
+
+    return [(every, 0, 0, 0, 1), *each(1, 5, 0, 2), *each(6, 63, 0, 2), *each(1, 63, 2, 1), (every, 0, 0, 1, 0),
+            *each(1, 63, 1, 0)]
+
+
+SCRIPTS = {  # name → (component count → scans)
+    "progressive": progression,
+    "components": lambda n: [((c,), 0, 63, 0, 0) for c in range(n)],  # sequential, one scan a component
+    "luma_chroma": lambda n: [((0,), 0, 63, 0, 0), (tuple(range(1, n)), 0, 63, 0, 0)],  # Y, then the rest interleaved
+}
+
+
+def optimal_huffman(freq):
+    """(counts, symbols) of a Huffman table for the symbol frequencies
+    ``freq`` (256 of them): codes of at most 16 bits with the all-ones code
+    left free, as libjpeg's ``jpeg_gen_optimal_table`` builds them (ITU T.81
+    Annex K.2: a reserved symbol takes the all-ones code, lengths past 16
+    are folded back)."""
+    freq = [int(f) for f in freq] + [1]
+    codesize, others = [0] * 257, [-1] * 257
+    heap = [(f, -s) for s, f in enumerate(freq) if f]
+    heapq.heapify(heap)
+    while len(heap) > 1:  # merge the two rarest trees; a tree's symbols are a chain through ``others``
+        f1, n1 = heapq.heappop(heap)
+        f2, n2 = heapq.heappop(heap)
+        c1, c2 = -n1, -n2
+        codesize[c1] += 1
+        while others[c1] >= 0:
+            c1 = others[c1]
+            codesize[c1] += 1
+        others[c1] = c2
+        codesize[c2] += 1
+        while others[c2] >= 0:
+            c2 = others[c2]
+            codesize[c2] += 1
+        heapq.heappush(heap, (f1 + f2, n1))
+    bits = [0] * 65
+    for size in codesize:
+        if size:
+            bits[size] += 1
+    for i in range(64, 16, -1):  # Annex K.3's adjustment of lengths past 16
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    i = 16
+    while bits[i] == 0:
+        i -= 1
+    bits[i] -= 1  # the reserved symbol
+    symbols = bytes(s for size in range(1, 65) for s in range(256) if codesize[s] == size)
+    return tuple(bits[1:17]), symbols
+
+
+def _own_blocks(comps, w, h):
+    """Each component's own (block rows, block columns), as libjpeg lays them out."""
+    if len(comps) == 1:
+        return [(-(-h // 8), -(-w // 8))]
+    hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
+    return [(-(-(-(-h * v // vmax)) // 8), -(-(-(-w * hh // hmax)) // 8)) for _, hh, v, _ in comps]
+
+
+def _scan_order(blocks, comps, scan_comps, w, h, restart):
+    """A scan's blocks in coding order: (n, 64) zigzag-order coefficients,
+    each block's index in the scan's components, and its restart segment."""
+    if len(scan_comps) == 1:
+        c = scan_comps[0]
+        rows, cols = _own_blocks(comps, w, h)[c]
+        coef = blocks[c][:rows, :cols].reshape(-1, 64)
+        ci, mcu = np.zeros(len(coef), np.int64), np.arange(len(coef))
+    else:
+        my, mx = blocks[0].shape[0] // comps[0][2], blocks[0].shape[1] // comps[0][1]
+        per = [blocks[c].reshape(my, comps[c][2], mx, comps[c][1], 64).transpose(0, 2, 1, 3, 4)
+               .reshape(my * mx, comps[c][1] * comps[c][2], 64) for c in scan_comps]
+        coef = np.concatenate(per, axis=1).reshape(-1, 64)
+        sizes = [comps[c][1] * comps[c][2] for c in scan_comps]
+        ci = np.tile(np.repeat(np.arange(len(scan_comps)), sizes), my * mx)
+        mcu = np.arange(len(coef)) // sum(sizes)
+    segment = mcu // restart if restart else np.zeros(len(coef), np.int64)
+    return np.asarray(coef, np.int64)[:, _ZIGZAG], ci, segment
+
+
+class _Events:
+    """A scan's coded items: Huffman symbols (class 0 DC, 1 AC) and raw bit
+    strings, each with a sort key (block, slot, position, phase, sub) that
+    puts them in the order of the stream."""
+
+    def __init__(self):
+        self.keys, self.cls, self.vals, self.nbits = [], [], [], []
+
+    def add(self, key, cls, vals, nbits=0):
+        vals = np.atleast_1d(np.asarray(vals, np.int64))
+        self.keys.append(np.stack([np.broadcast_to(np.asarray(k, np.int64), vals.shape) for k in key], axis=1))
+        self.cls.append(np.full(vals.shape, cls, np.int64))
+        self.vals.append(vals)
+        self.nbits.append(np.broadcast_to(np.asarray(nbits, np.int64), vals.shape))
+
+    def arrays(self):
+        if not self.keys:
+            return np.zeros((0, 5), np.int64), *(np.zeros(0, np.int64) for _ in range(3))
+        return (np.concatenate(self.keys), np.concatenate(self.cls), np.concatenate(self.vals),
+                np.concatenate(self.nbits))
+
+
+def _dc_events(ev, coef, ci, segment, al):
+    """DC values (shifted right by Al) coded as differences from each
+    component's predictor, reset at each restart."""
+    dc = coef[:, 0] >> al
+    diff = dc.copy()
+    for c in np.unique(ci):
+        idx = np.flatnonzero(ci == c)
+        d = np.diff(dc[idx], prepend=0)
+        first = np.r_[True, segment[idx][1:] != segment[idx][:-1]]
+        d[first] = dc[idx[first]]
+        diff[idx] = d
+    size, bits = _amplitude(diff)
+    b = np.arange(len(coef))
+    ev.add((b, 1, -1, 0, 0), 0, size)
+    ev.add((b, 1, -1, 1, 0), 2, bits, size)
+
+
+def _eob_runs(ev, trailing, active, segment, max_run, tail_bits=None):
+    """The EOB runs over the blocks with ``trailing`` zeros (or correction
+    bits) in their band, flushed as libjpeg's encoder flushes them: before
+    the next ``active`` block (one with a coefficient to code), at a
+    restart, at the scan's end, at ``max_run`` blocks, and past 937 buffered
+    correction bits (``tail_bits``: each block's count). Returns per block
+    the (block, slot) key of the flush that codes its run (-1 outside runs)."""
+    n = len(trailing)
+    owner = np.full((n, 2), -1)
+    flushes, run, buffered, first = [], 0, 0, 0
+    trailing, active, segment = trailing.tolist(), active.tolist(), segment.tolist()
+    tail_bits = [0] * n if tail_bits is None else tail_bits.tolist()
+
+    def flush(b, slot):
+        nonlocal run, buffered
+        flushes.append((b, slot, run))
+        owner[first : b + 1] = np.where(owner[first : b + 1, :1] == -2, (b, slot), owner[first : b + 1])
+        run, buffered = 0, 0
+
+    for b in range(n):
+        if run and active[b]:
+            flush(b - 1, 2)
+        if trailing[b]:
+            if not run:
+                first = b
+            owner[b] = -2  # a member of the run being counted
+            run += 1
+            buffered += tail_bits[b]
+            if run == max_run or buffered > 937:
+                flush(b, 2)
+        if run and (b == n - 1 or segment[b + 1] != segment[b]):
+            flush(b, 2)
+    if flushes:
+        fb, fs, runs = np.array(flushes).T
+        r = np.array([int(x).bit_length() - 1 for x in runs])
+        ev.add((fb, fs, -2, 0, 0), 1, r << 4)
+        ev.add((fb[r > 0], fs[r > 0], -1, 0, 0), 2, (runs - (1 << r))[r > 0], r[r > 0])
+    return owner
+
+
+def _ac_first_events(ev, coef, segment, ss, se, al, max_run):
+    """The band Ss..Se of each block, each coefficient's magnitude shifted
+    right by Al: runs of zeros and sizes as Huffman symbols (a ZRL for each
+    16 zeros before a coefficient), the magnitude bits, and EOB runs of at
+    most ``max_run`` blocks (1 in a sequential scan: a block's EOB)."""
+    band = coef[:, ss : se + 1]
+    t = np.sign(band) * (np.abs(band) >> al)
+    b, i = np.nonzero(t)
+    prev = np.full(len(i), -1)
+    prev[1:] = np.where(b[1:] == b[:-1], i[:-1], -1)
+    run = i - prev - 1
+    size, bits = _amplitude(t[b, i])
+    zrl = run // 16
+    zb, zi = np.repeat(b, zrl), np.repeat(i, zrl)
+    ev.add((zb, 1, zi, 0, np.arange(len(zb)) - np.repeat(np.cumsum(zrl) - zrl, zrl)), 1, np.full(len(zb), 0xF0))
+    ev.add((b, 1, i, 1, 0), 1, (run % 16) * 16 + size)
+    ev.add((b, 1, i, 2, 0), 2, bits, size)
+    last = np.full(len(coef), -1)
+    last[b] = i
+    _eob_runs(ev, last < band.shape[1] - 1, last >= 0, segment, max_run)
+
+
+def _ac_refine_events(ev, coef, segment, ss, se, al):
+    """The next bit (Al) of the band Ss..Se, as libjpeg's
+    ``encode_mcu_AC_refine`` codes it: coefficients that become +-1 as
+    run/size symbols and a sign bit, the correction bits of the coefficients
+    already nonzero buffered until the next symbol, ZRLs only before a
+    coefficient that comes before the block's last new one, and EOB runs
+    carrying the correction bits of their blocks' tails."""
+    a = np.abs(coef[:, ss : se + 1]) >> al
+    n, length = a.shape
+    new = a == 1
+    eob = np.where(new.any(axis=1), length - 1 - np.argmax(new[:, ::-1], axis=1), -1)
+    r = np.zeros(n, np.int64)
+    pending = np.zeros((n, length), bool)  # correction bits buffered since the block's last symbol
+    for i in range(length):
+        nonzero = a[:, i] != 0
+        r += ~nonzero
+        zb = np.flatnonzero(nonzero & (i <= eob) & (r > 15))  # ZRLs, the buffered bits after the first
+        count = r[zb] // 16
+        ev.add((zb, 1, i, 0, 0), 1, np.full(len(zb), 0xF0))
+        pb, pp = np.nonzero(pending[zb])
+        ev.add((zb[pb], 1, i, 0, 1 + pp), 2, a[zb[pb], pp] & 1, 1)
+        more = np.repeat(zb, count - 1)
+        ev.add((more, 1, i, 0, 100 + np.arange(len(more))), 1, np.full(len(more), 0xF0))
+        pending[zb] = False
+        r[zb] %= 16
+        pending[:, i] = a[:, i] > 1
+        nb = np.flatnonzero(new[:, i])
+        ev.add((nb, 1, i, 1, 0), 1, r[nb] * 16 + 1)
+        ev.add((nb, 1, i, 2, 0), 2, (coef[nb, ss + i] > 0).astype(np.int64), 1)
+        pb, pp = np.nonzero(pending[nb])
+        ev.add((nb[pb], 1, i, 3, pp), 2, a[nb[pb], pp] & 1, 1)
+        pending[nb] = False
+        r[nb] = 0
+    owner = _eob_runs(ev, (r > 0) | pending.any(axis=1), eob >= 0, segment, 0x7FFF, pending.sum(axis=1))
+    pb, pp = np.nonzero(pending)  # the tails' bits, after their run's EOB symbol
+    ev.add((owner[pb, 0], owner[pb, 1], pb, pp, 0), 2, a[pb, pp] & 1, 1)
+
+
+def _scan_code(blocks, comps, scan, w, h, restart, progressive):
+    """One scan's DHT segment (its own tables, optimal for it: DC table 0,
+    AC table 0) and its entropy-coded segment with its RST markers."""
+    scan_comps, ss, se, ah, al = scan
+    coef, ci, segment = _scan_order(blocks, comps, scan_comps, w, h, restart)
+    ev = _Events()
+    if not progressive:
+        _dc_events(ev, coef, ci, segment, 0)
+        _ac_first_events(ev, coef, segment, 1, 63, 0, max_run=1)
+    elif ss == 0 and ah == 0:
+        _dc_events(ev, coef, ci, segment, al)
+    elif ss == 0:
+        ev.add((np.arange(len(coef)), 1, -1, 0, 0), 2, (coef[:, 0] >> al) & 1, 1)
+    elif ah == 0:
+        _ac_first_events(ev, coef, segment, ss, se, al, max_run=0x7FFF)
+    else:
+        _ac_refine_events(ev, coef, segment, ss, se, al)
+    keys, cls, vals, nbits = ev.arrays()
+    dht, codes, sizes = b"", vals.copy(), nbits.copy()
+    for c in (0, 1):
+        m = cls == c
+        if m.any():
+            counts, symbols = optimal_huffman(np.bincount(vals[m], minlength=256))
+            dht += bytes([c * 16, *counts]) + symbols
+            code_of, size_of = _huffman_codes(counts, symbols)
+            codes[m], sizes[m] = code_of[vals[m]], size_of[vals[m]]
+    order = np.lexsort(keys.T[::-1])
+    codes, sizes, seg_of = codes[order], sizes[order], segment[keys[order, 0]]
+    out = b""
+    bounds = np.searchsorted(seg_of, np.arange(segment[-1] + 2))
+    for s in range(len(bounds) - 1):
+        if s:
+            out += bytes([0xFF, 0xD0 + (s - 1) % 8])
+        out += _pack_bits(codes[bounds[s] : bounds[s + 1]], sizes[bounds[s] : bounds[s + 1]])
+    return (_segment(0xC4, dht) if dht else b""), out
+
+
 def _segment(marker, body):
     return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
 
@@ -2837,46 +3130,89 @@ def exif_block(orientation, big_endian=False):
             + struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(e + "I", 0))
 
 
-def jpeg_from_coefficients(w, h, comps, blocks, qtables, restart=0, orientation=None):
-    """A baseline JPEG of quantised DCT ``blocks``: ``comps`` (id, h, v,
-    table) per component (table 0 luma, 1 chroma), ``blocks`` their (by, bx,
-    64) natural-order arrays covering the MCUs, ``qtables`` the tables they
-    were quantised by; a restart every ``restart`` MCUs; an APP1 EXIF block
-    with ``orientation``."""
-    out = b"\xff\xd8" + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+def jpeg_from_coefficients(w, h, comps, blocks, qtables, restart=0, orientation=None, scans=None, adobe=None):
+    """A JPEG of quantised DCT ``blocks``: ``comps`` (id, h, v, table) per
+    component (table 0 luma, 1 chroma), ``blocks`` their (by, bx, 64)
+    natural-order arrays covering the MCUs, ``qtables`` the tables they were
+    quantised by; an APP1 EXIF block with ``orientation``. ``scans``: None
+    for one baseline scan of every component with Annex K's Huffman tables,
+    else (component indices, Ss, Se, Ah, Al) per scan: a progressive file
+    (SOF2) where some scan codes a band or a bit, else a sequential one in
+    those scans; each of them with its own Huffman tables, optimal for it, in
+    a DHT before it. ``restart``: MCUs between restarts, one number or one a
+    scan (a DRI before each scan where it changes). ``adobe``: an APP14 Adobe
+    marker with this transform in place of the JFIF APP0 (0: RGB or CMYK,
+    2: YCCK)."""
+    app = (_segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, adobe)) if adobe is not None
+           else _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"))
+    out = b"\xff\xd8" + app
     if orientation is not None:
         out += _segment(0xE1, b"Exif\x00\x00" + exif_block(orientation))
     for t, q in enumerate(qtables[: 1 + max(c[3] for c in comps)]):
         out += _segment(0xDB, bytes([t]) + bytes(np.asarray(q)[_ZIGZAG].astype(np.uint8)))
-    out += _segment(0xC0, struct.pack(">BHHB", 8, h, w, len(comps))
-                    + b"".join(bytes([i, hh * 16 + vv, t]) for i, hh, vv, t in comps))
-    for t in range(1 + max(c[3] for c in comps)):
-        for c in (0, 1):
-            counts, symbols = STD_HUFFMAN[(c, t)]
-            out += _segment(0xC4, bytes([c * 16 + t, *counts]) + symbols)
-    if restart:
-        out += _segment(0xDD, struct.pack(">H", restart))
-    out += _segment(0xDA, bytes([len(comps)]) + b"".join(bytes([i, t * 17]) for i, _, _, t in comps) + b"\x00\x3f\x00")
-    return out + _entropy_code(blocks, comps, restart) + b"\xff\xd9"
+    frame = struct.pack(">BHHB", 8, h, w, len(comps)) + b"".join(bytes([i, hh * 16 + vv, t]) for i, hh, vv, t in comps)
+    if scans is None:
+        out += _segment(0xC0, frame)
+        for t in range(1 + max(c[3] for c in comps)):
+            for c in (0, 1):
+                counts, symbols = STD_HUFFMAN[(c, t)]
+                out += _segment(0xC4, bytes([c * 16 + t, *counts]) + symbols)
+        if restart:
+            out += _segment(0xDD, struct.pack(">H", restart))
+        out += _segment(0xDA, bytes([len(comps)]) + b"".join(bytes([i, t * 17]) for i, _, _, t in comps)
+                        + b"\x00\x3f\x00")
+        return out + _entropy_code(blocks, comps, restart) + b"\xff\xd9"
+    progressive = any(tuple(s[1:]) != (0, 63, 0, 0) for s in scans)
+    out += _segment(0xC2 if progressive else 0xC0, frame)
+    in_force = 0
+    for scan, interval in zip(scans, restart if isinstance(restart, (list, tuple)) else [restart] * len(scans)):
+        if interval != in_force:
+            out += _segment(0xDD, struct.pack(">H", interval))
+            in_force = interval
+        dht, data = _scan_code(blocks, comps, scan, w, h, interval, progressive)
+        sc, ss, se, ah, al = scan
+        out += dht + _segment(0xDA, bytes([len(sc)]) + b"".join(bytes([comps[c][0], 0]) for c in sc)
+                              + bytes([ss, se, ah * 16 + al])) + data
+    return out + b"\xff\xd9"
 
 
-def jpeg_bytes(img, quality=95, sampling="420", restart=0, orientation=None):
-    """A baseline JPEG of ``img``: (H, W, 3) uint8 RGB as YCbCr at
-    ``sampling`` (one of JPEG_SAMPLING; chroma averaged over each sample's
-    pixels), or (H, W) uint8 grey; quantised by Annex K's tables at
-    ``quality``, Huffman-coded with Annex K's tables; a restart interval of
+def _ycbcr(rgb):
+    """JFIF's YCbCr planes of (H, W, 3) float RGB."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    return [0.299 * r + 0.587 * g + 0.114 * b, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b,
+            128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
+
+
+def jpeg_bytes(img, quality=95, sampling="420", restart=0, orientation=None, colour="ycbcr", scans=None):
+    """A JPEG of ``img``: (H, W, 3) uint8 RGB as YCbCr at ``sampling`` (one
+    of JPEG_SAMPLING; chroma averaged over each sample's pixels), as CMYK
+    (``colour="cmyk"``: 4:4:4:4, Adobe transform 0) or YCCK (``"ycck"``: Y
+    and K at ``sampling``, Adobe transform 2), the CMYK samples stored
+    inverted as Adobe writes them (K the largest of R, G and B), or (H, W)
+    uint8 grey; quantised by Annex K's tables at ``quality``; in one baseline
+    scan with Annex K's Huffman tables, or in ``scans`` (a SCRIPTS name, or
+    a list as ``jpeg_from_coefficients`` takes it); a restart interval of
     ``restart`` MCUs and an EXIF ``orientation`` when given."""
     img = np.asarray(img, np.float64)
     H, W = img.shape[:2]
+    adobe = None
     if img.ndim == 2:
         planes, comps = [img], [(1, 1, 1, 0)]
         hmax = vmax = 1
     else:
-        r, g, b = img[..., 0], img[..., 1], img[..., 2]
-        y = 0.299 * r + 0.587 * g + 0.114 * b
-        planes = [y, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b, 128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
         hmax, vmax = JPEG_SAMPLING[sampling]
-        comps = [(1, hmax, vmax, 0), (2, 1, 1, 1), (3, 1, 1, 1)]
+        if colour == "ycbcr":
+            planes, comps = _ycbcr(img), [(1, hmax, vmax, 0), (2, 1, 1, 1), (3, 1, 1, 1)]
+        else:
+            k = img.max(axis=2)
+            cmy = 255 - (k[..., None] - img) * 255 / np.maximum(k, 1)[..., None]
+            if colour == "cmyk":
+                hmax = vmax = 1
+                planes, comps, adobe = [*np.moveaxis(cmy, 2, 0), k], [(67, 1, 1, 0), (77, 1, 1, 0), (89, 1, 1, 0),
+                                                                      (75, 1, 1, 0)], 0
+            else:
+                planes, comps, adobe = [*_ycbcr(255 - cmy), k], [(1, hmax, vmax, 0), (2, 1, 1, 1), (3, 1, 1, 1),
+                                                                 (4, hmax, vmax, 0)], 2
     mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
     q = quant_tables(quality)
     blocks = []
@@ -2889,7 +3225,9 @@ def jpeg_bytes(img, quality=95, sampling="420", restart=0, orientation=None):
         plane = np.pad(plane, ((0, by * 8 - ph), (0, bx * 8 - pw)), mode="edge") - 128
         coef = _DCT @ _blocks(plane, by, bx) @ _DCT.T
         blocks.append(np.round(coef.reshape(by, bx, 64) / q[t]).astype(np.int64))
-    return jpeg_from_coefficients(W, H, comps, blocks, q, restart, orientation)
+    if isinstance(scans, str):
+        scans = SCRIPTS[scans](len(comps))
+    return jpeg_from_coefficients(W, H, comps, blocks, q, restart, orientation, scans, adobe)
 
 
 def write_jpeg(path, img, **kwargs):
@@ -2904,7 +3242,8 @@ def phase_png_unfilter(H=720, W=1280, reps=5):
     unfilter alone, compiled (median of ``reps``) and plain (one call); a whole
     decode (``png.imread``, median of ``reps``) and a plain one (inflate +
     plain unfilter); and 24 decodes of the Sub frame on 12 threads (the
-    unfilter and zlib release the GIL)."""
+    unfilter and zlib release the GIL). Then the frame interlaced (Adam7, Sub
+    rows): its decode equals the non-interlaced one, timed beside it."""
     from concurrent.futures import ThreadPoolExecutor
 
     from superslomo_tpu_torch.data import png
@@ -2948,48 +3287,90 @@ def phase_png_unfilter(H=720, W=1280, reps=5):
             t0 = time.perf_counter()
             list(pool.map(png.imread, [sub] * 24))
             out["sub_decode_12_threads_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / 24
+        adam7 = os.path.join(d, "adam7.png")
+        with open(adam7, "wb") as f:
+            f.write(png_bytes(frame, 1, interlace=True))
+        times, img = [], None
+        for _ in range(reps):  # beside the Sub frame's decode: the same pixels, the same filter
+            t0 = time.perf_counter()
+            img = png.imread(adam7)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["adam7"] = {"file_mib": os.path.getsize(adam7) / 2**20, "decode_ms": statistics.median(times),
+                        "decode_ms_each": times, "sub_decode_ms": out["filters"]["sub"]["decode_ms"],
+                        "equals_non_interlaced": bool(np.array_equal(img, png.imread(sub)))}
     emit(out)
     bad = [k for k, v in out["filters"].items() if not (v["compiled_equals_plain"] and v["equals_written"])]
-    if bad:
-        raise AssertionError(f"the PNG unfilter differs from its plain version or the written pixels: {bad}")
+    if bad or not out["adam7"]["equals_non_interlaced"]:
+        raise AssertionError(f"the PNG unfilter differs from its plain version or the written pixels: {bad}, "
+                             f"or the Adam7 decode from the non-interlaced one: {out['adam7']}")
     return out
 
 
 JPEG_CASES = {  # name → the writer's arguments (q95, a 720p panning-texture frame)
     "420": {"sampling": "420"}, "444": {"sampling": "444"}, "grey": {"grey": True},
     "420_restart": {"sampling": "420", "restart": 8},
+    "progressive_420": {"sampling": "420", "scans": "progressive"},
+    "progressive_420_rst": {"sampling": "420", "scans": "progressive", "restart": 8},
+    "multiscan_420": {"sampling": "420", "scans": "components"},
+    "cmyk": {"colour": "cmyk"}, "ycck": {"colour": "ycck", "sampling": "420"},
 }
 
 
-def phase_jpeg_decode(png_res, H=720, W=1280, reps=5):
+def jpeg_decode_times(cases, H=720, W=1280, reps=15):
+    """Each case of ``cases`` (name → the writer's arguments, as JPEG_CASES)
+    written at q95 from the 720p panning-texture frame into a temporary
+    directory and decoded whole (``jpeg.imread``: read, markers, the routine)
+    ``reps`` times after one untimed decode (the file in the page cache):
+    name → (the decode ms of each rep, the file's MiB). Uses only the writer
+    and ``jpeg.imread``, so an earlier tree's package can be timed too."""
+    from superslomo_tpu_torch.data import jpeg
+
+    frame = panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, kw in cases.items():
+            kw = dict(kw)
+            path = os.path.join(d, f"{name}.jpg")
+            write_jpeg(path, frame[..., 1] if kw.pop("grey", False) else frame, quality=95, **kw)
+            jpeg.imread(path)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                jpeg.imread(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            out[name] = (times, os.path.getsize(path) / 2**20)
+    return out
+
+
+def phase_jpeg_decode(png_res, H=720, W=1280, reps=15):
     """The compiled JPEG decode (csrc/jpeg_decode.cpp: entropy decode, IDCT,
     upsampling and colour conversion) against its plain version
-    (``jpeg.decode_plain``) on a 720p panning-texture frame written at q95 in
-    4:2:0, 4:4:4, grey, and 4:2:0 with a restart every 8 MCUs: bit for bit,
-    and within 30 dB PSNR of the written frame (the writer's own loss).
-    Times: a whole decode (``jpeg.imread``: read, markers, the routine;
-    median of ``reps``) beside the PNG decode of phase 15 on the same frame
-    kind; the plain decode (one call); 24 decodes of the 4:2:0 frame on 12
-    threads (the routine releases the GIL)."""
+    (``jpeg.decode_plain``) on a 720p panning-texture frame written at q95:
+    baseline in 4:2:0, 4:4:4, grey, and 4:2:0 with a restart every 8 MCUs (the
+    one-pass routine); progressive 4:2:0 (libjpeg's 10-scan script) with and
+    without restarts, sequential 4:2:0 in three scans, Adobe CMYK (4:4:4:4)
+    and YCCK (4:2:0:4) (the scans' coefficient buffers and the output pass):
+    bit for bit, and within 30 dB PSNR of the written frame (the writer's own
+    loss). The plain decode runs at 720p for every case. Times: a whole
+    decode (``jpeg_decode_times``: median of ``reps``) beside the baseline
+    4:2:0's and the PNG decode of phase 15 on the same frame kind; the plain
+    decode (one call); 24 decodes of the baseline and of the progressive
+    4:2:0 frame on 12 threads (the routines release the GIL)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from superslomo_tpu_torch.data import jpeg
 
     frame = panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
-    out = {"phase": "jpeg_decode_vs_plain", "frame_hw": [H, W], "quality": 95, "cases": {},
+    out = {"phase": "jpeg_decode_vs_plain", "frame_hw": [H, W], "quality": 95, "reps": reps, "cases": {},
            "png_sub_decode_ms": png_res["filters"]["sub"]["decode_ms"]}
+    times = jpeg_decode_times(JPEG_CASES, H, W, reps)
     with tempfile.TemporaryDirectory() as d:
         for name, kw in JPEG_CASES.items():
             kw = dict(kw)
             img = frame[..., 1] if kw.pop("grey", False) else frame
             path = os.path.join(d, f"{name}.jpg")
             write_jpeg(path, img, quality=95, **kw)
-            jpeg.imread(path)  # untimed: the file in the page cache
-            times, got = [], None
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                got = jpeg.imread(path)
-                times.append((time.perf_counter() - t0) * 1e3)
+            got = jpeg.imread(path)
             with open(path, "rb") as f:
                 data = f.read()
             header = jpeg.read_header(data, path)
@@ -2999,17 +3380,21 @@ def phase_jpeg_decode(png_res, H=720, W=1280, reps=5):
             ref = np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img
             mse = float(np.mean((got.astype(np.float64) - ref) ** 2))
             out["cases"][name] = {
-                "file_mib": os.path.getsize(path) / 2**20, "decode_ms": statistics.median(times),
-                "decode_ms_each": times, "plain_ms": plain_ms, "shape": list(got.shape),
+                "file_mib": times[name][1], "scans": len(header.scans), "progressive": header.progressive,
+                "colour": header.colour, "decode_ms": statistics.median(times[name][0]),
+                "decode_ms_each": times[name][0], "plain_ms": plain_ms, "plain_hw": [H, W], "shape": list(got.shape),
                 "compiled_equals_plain": bool(np.array_equal(got, plain)),
                 "psnr_db": 10 * np.log10(255**2 / mse) if mse else float("inf"),
             }
-        path = os.path.join(d, "420.jpg")
         with ThreadPoolExecutor(12) as pool:
-            list(pool.map(jpeg.imread, [path] * 12))
-            t0 = time.perf_counter()
-            list(pool.map(jpeg.imread, [path] * 24))
-            out["420_decode_12_threads_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / 24
+            for name in ("420", "progressive_420"):
+                path = os.path.join(d, f"{name}.jpg")
+                list(pool.map(jpeg.imread, [path] * 12))
+                t0 = time.perf_counter()
+                list(pool.map(jpeg.imread, [path] * 24))
+                out[f"{name}_decode_12_threads_ms_per_frame"] = (time.perf_counter() - t0) * 1e3 / 24
+    base = out["cases"]["420"]["decode_ms"]
+    out["decode_ms_over_baseline_420"] = {k: v["decode_ms"] / base for k, v in out["cases"].items()}
     emit(out)
     bad = {k: v for k, v in out["cases"].items()
            if not (v["compiled_equals_plain"] and v["shape"] == [H, W, 3] and v["psnr_db"] > 30)}
@@ -3482,17 +3867,22 @@ def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False,
     return res
 
 
+RENDER_JPEG_KINDS = ({}, {"scans": "progressive"}, {"scans": "components"}, {"colour": "cmyk"})  # a frame each
+
+
 def phase_render_jpeg(root, frames, n_windows=3):
     """The render CLI over a JPEG clip: the first ``n_windows + 1`` frames
-    of the 720p clip written as q95 4:2:0 JPEG files (CONV, f32, as phase
-    18), then over PNG copies of the port's decode of those files; every
-    file the two runs write is the same, byte for byte (the same pixels in,
-    the same renders out)."""
+    of the 720p clip written as q95 JPEG files of four kinds in turn
+    (baseline 4:2:0, progressive 4:2:0, sequential 4:2:0 in three scans,
+    Adobe CMYK; CONV, f32, as phase 18), then over PNG copies of the port's
+    decode of those files; every file the two runs write is the same, byte
+    for byte (the same pixels in, the same renders out)."""
     from superslomo_tpu_torch.data import jpeg
 
     os.makedirs(os.path.join(root, "clip_jpg"))
-    for i, img in enumerate(frames[: n_windows + 1]):
-        write_jpeg(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"), img, quality=95)
+    kinds = [RENDER_JPEG_KINDS[i % len(RENDER_JPEG_KINDS)] for i in range(n_windows + 1)]
+    for i, (img, kind) in enumerate(zip(frames[: n_windows + 1], kinds)):
+        write_jpeg(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"), img, quality=95, **kind)
     decoded = np.stack([jpeg.imread(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"))
                         for i in range(n_windows + 1)])
     write_clip(os.path.join(root, "clip_jpg_png"), decoded)
@@ -3508,6 +3898,7 @@ def phase_render_jpeg(root, frames, n_windows=3):
             if a.read() != b.read():
                 differ.append(name)
     res = {"phase": "render_jpeg_vs_png_copy", "windows": n_windows, "files": len(names), "files_differing": differ,
+           "frame_kinds": [k.get("scans", k.get("colour", "baseline")) for k in kinds],
            "decode_ms_jpeg": runs[0]["median_ms_per_window"]["decode_ms"],
            "decode_ms_png_copy": runs[1]["median_ms_per_window"]["decode_ms"]}
     emit(res)

@@ -1,16 +1,26 @@
-// The scan of a baseline or extended sequential Huffman JPEG (8-bit, one
-// interleaved scan), decoded to an RGB image as cv2.imread decodes it through
-// its bundled libjpeg-turbo at its defaults: the Huffman decode with the DC
-// predictors and the restart markers; dequantisation and the slow-integer
-// IDCT in the arithmetic of libjpeg-turbo's x86 SIMD version of jidctint.c
-// (16-bit dequantised coefficients and sums, a saturating 16-bit workspace,
-// the output clamped), which cv2 takes on x86-64; the chroma upsampling of
-// jdsample.c (fancy h2v1, h2v2 and h1v2; box replication where a component is
-// 2 samples wide or less, or the factors are other integers); the
-// fixed-point YCbCr to RGB of jdcolor.c.
+// The scans of a sequential or progressive Huffman JPEG (8-bit), decoded to
+// an RGB image as cv2.imread decodes it through its bundled libjpeg-turbo at
+// its defaults: the Huffman decode with the DC predictors and the restart
+// markers; dequantisation and the slow-integer IDCT in the arithmetic of
+// libjpeg-turbo's x86 SIMD version of jidctint.c (16-bit dequantised
+// coefficients and sums, a saturating 16-bit workspace, the output clamped),
+// which cv2 takes on x86-64; the chroma upsampling of jdsample.c (fancy h2v1,
+// h2v2 and h1v2; box replication where a component is 2 samples wide or less,
+// or the factors are other integers); the fixed-point YCbCr to RGB of
+// jdcolor.c, its YCCK to CMYK, and OpenCV's CMYK to BGR.
+//
+// A file of one sequential scan of every component is decoded MCU by MCU
+// straight into sample planes (jpeg_decode). Any other file, progressive or
+// sequential in several scans, is decoded scan by scan into per-component
+// buffers of quantised coefficients (jpeg_decode_scans: jdphuff.c's DC and
+// AC first and refinement scans with their EOB runs, jdhuff.c's sequential
+// blocks), then one output pass dequantises, transforms, upsamples and
+// converts them (jdcoefct.c's decompress_data). A progressive file whose scans
+// leave one of the first ten coefficients unrefined is refused: libjpeg
+// smooths its blocks (decompress_smooth_data), which is not ported.
 //
 // Host code: the frame decoder (data/jpeg.py) parses the markers and calls
-// jpeg_decode through ctypes, which releases the interpreter lock, so the
+// these routines through ctypes, which releases the interpreter lock, so the
 // Loader's threads decode frames in parallel. ops/cuda_build.py compiles this
 // file with the host C++ compiler at first use.
 
@@ -35,6 +45,9 @@ enum Error : int64_t {
   kBadRestart = 3,    // a missing or misnumbered RSTn marker
   kBadTable = 4,      // a Huffman table that libjpeg refuses (see build_huffman)
   kMissingTable = 5,  // a scan component names an undefined Huffman table
+  kBadProgression = 6,  // scan parameters libjpeg refuses (JERR_BAD_PROGRESSION)
+  kBlockSmoothing = 7,  // a progressive file that libjpeg would block-smooth
+  kScanEndsEarly = 8,   // a scan's data ends at a marker before its last block
 };
 
 constexpr int kFastBits = 9;
@@ -323,13 +336,225 @@ void upsample(const uint8_t* src, int64_t sstride, int dh, int dw, int hexp, int
 
 inline uint8_t clamp255(int32_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
+enum Colour { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
+
+// jdcolor.c's YCbCr to RGB: SCALEBITS 16, the four tables, ONE_HALF rounding
+struct YccTables {
+  int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+  YccTables() {
+    const int64_t one_half = int64_t{1} << 15;
+    for (int i = 0; i < 256; ++i) {
+      const int64_t x = i - 128;
+      cr_r[i] = static_cast<int32_t>((91881 * x + one_half) >> 16);   // FIX(1.40200)
+      cb_b[i] = static_cast<int32_t>((116130 * x + one_half) >> 16);  // FIX(1.77200)
+      cr_g[i] = static_cast<int32_t>(-46802 * x);                     // -FIX(0.71414)
+      cb_g[i] = static_cast<int32_t>(-22554 * x + one_half);          // -FIX(0.34414), + ONE_HALF
+    }
+  }
+};
+
+// A frame component's samples for the output: at least its own (height,
+// width) samples, `stride` apart, to be upsampled hexp x vexp.
+struct Samples {
+  const uint8_t* px;
+  int64_t stride;
+  int width, height, hexp, vexp;
+};
+
+// Every component at full size (upsampled where it is subsampled; the
+// upsampling replicates a component's last row and column, and reads nothing
+// past them), then converted to `out`, (H, W, 3) RGB: grey replicated, YCbCr
+// through jdcolor.c's tables, RGB copied, CMYK (YCCK first turned to CMYK as
+// jdcolor.c's ycck_cmyk_convert does) through OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+// on the stored samples: R = K - ((255 - C) K >> 8), G from M, B from Y alike.
+void finish(int W, int H, int nc, int colour, const Samples* comp, uint8_t* out) {
+  std::vector<uint8_t> full[4];
+  const uint8_t* rows[4];
+  int64_t strides[4];
+  for (int c = 0; c < nc; ++c) {
+    const Samples& s = comp[c];
+    if (s.hexp == 1 && s.vexp == 1) {
+      rows[c] = s.px;
+      strides[c] = s.stride;
+      continue;
+    }
+    const int64_t fw = static_cast<int64_t>(s.width) * s.hexp;
+    full[c].resize(fw * s.height * s.vexp);
+    upsample(s.px, s.stride, s.height, s.width, s.hexp, s.vexp, full[c].data(), fw);
+    rows[c] = full[c].data();
+    strides[c] = fw;
+  }
+
+  if (colour == kYCbCr) {
+    const YccTables t;
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* py = rows[0] + y * strides[0];
+      const uint8_t* pb = rows[1] + y * strides[1];
+      const uint8_t* pr = rows[2] + y * strides[2];
+      uint8_t* o = out + static_cast<int64_t>(y) * W * 3;
+      for (int x = 0; x < W; ++x) {
+        const int32_t yy = py[x], cb = pb[x], cr = pr[x];
+        o[3 * x] = clamp255(yy + t.cr_r[cr]);
+        o[3 * x + 1] = clamp255(yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+        o[3 * x + 2] = clamp255(yy + t.cb_b[cb]);
+      }
+    }
+  } else if (colour == kCMYK || colour == kYCCK) {
+    const YccTables t;
+    for (int y = 0; y < H; ++y) {
+      const uint8_t* p[4];
+      for (int c = 0; c < 4; ++c) p[c] = rows[c] + y * strides[c];
+      uint8_t* o = out + static_cast<int64_t>(y) * W * 3;
+      for (int x = 0; x < W; ++x) {
+        int32_t cmy[3] = {p[0][x], p[1][x], p[2][x]};
+        const int32_t k = p[3][x];
+        if (colour == kYCCK) {
+          const int32_t yy = cmy[0], cb = cmy[1], cr = cmy[2];
+          cmy[0] = 255 - clamp255(yy + t.cr_r[cr]);
+          cmy[1] = 255 - clamp255(yy + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
+          cmy[2] = 255 - clamp255(yy + t.cb_b[cb]);
+        }
+        for (int ch = 0; ch < 3; ++ch) o[3 * x + ch] = static_cast<uint8_t>(k - (((255 - cmy[ch]) * k) >> 8));
+      }
+    }
+  } else {
+    for (int y = 0; y < H; ++y) {
+      uint8_t* o = out + static_cast<int64_t>(y) * W * 3;
+      for (int x = 0; x < W; ++x)
+        for (int ch = 0; ch < 3; ++ch) o[3 * x + ch] = rows[nc == 1 ? 0 : ch][y * strides[nc == 1 ? 0 : ch] + x];
+    }
+  }
+}
+
+// --- progressive scans (jdphuff.c) ------------------------------------------
+
+// a coefficient scaled by the point transform and stored as a 16-bit JCOEF
+inline int16_t shifted(int32_t v, int al) { return static_cast<int16_t>(static_cast<uint32_t>(v) << al); }
+
+// DC first: the difference from the component's predictor, shifted left by Al
+int64_t decode_dc_first(Bits& b, const Huffman& dc, int al, int32_t& pred, int16_t* blk) {
+  const int s = decode(b, dc);
+  if (s < 0 || s > 15) return kBadCode;
+  pred += receive_extend(b, s);
+  blk[0] = shifted(pred, al);
+  return kOk;
+}
+
+// DC refinement: one raw bit, OR-ed in at 1 << Al
+void decode_dc_refine(Bits& b, int al, int16_t* blk) {
+  if (b.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+}
+
+// AC first: the band Ss..Se of one block, or one block of an EOB run
+int64_t decode_ac_first(Bits& b, const Huffman& ac, int ss, int se, int al, uint32_t& eobrun, int16_t* blk) {
+  if (eobrun) {
+    --eobrun;
+    return kOk;
+  }
+  for (int k = ss; k <= se; ++k) {
+    if (b.n < 16) b.fill();
+    const int32_t f = ac.fast_ac[b.buf >> (64 - kFastBits)];
+    if (f) {
+      b.skip(f & 15);
+      k += (f >> 4) & 15;
+      blk[kNatural[k]] = shifted(f >> 8, al);
+      continue;
+    }
+    const int rs = decode(b, ac);
+    if (rs < 0) return kBadCode;
+    const int r = rs >> 4, size = rs & 15;
+    if (size) {
+      k += r;
+      blk[kNatural[k]] = shifted(receive_extend(b, size), al);
+    } else if (r == 15) {
+      k += 15;
+    } else {  // EOBr: this band and the next (1 << r) + (r bits) - 1 bands are zero
+      eobrun = (1u << r) + (r ? b.get(r) : 0) - 1;
+      break;
+    }
+  }
+  return kOk;
+}
+
+// a correction bit for a coefficient already nonzero: adds 1 << Al to its
+// magnitude where the bit is set (once: a bit already there is left)
+inline void correct(Bits& b, int p1, int16_t* coef) {
+  if (b.get(1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : -p1));
+}
+
+// AC refinement, as decode_mcu_AC_refine: the next bit of every coefficient
+// of the band already nonzero, interleaved with the coefficients that become
+// +-(1 << Al) and the zero runs before them, which skip nonzero positions
+int64_t decode_ac_refine(Bits& b, const Huffman& ac, int ss, int se, int al, uint32_t& eobrun, int16_t* blk) {
+  const int p1 = 1 << al;
+  int k = ss;
+  if (eobrun == 0) {
+    for (; k <= se; ++k) {
+      const int rs = decode(b, ac);
+      if (rs < 0) return kBadCode;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {  // a newly nonzero coefficient (its size should be 1), its sign in the next bit
+        s = b.get(1) ? p1 : -p1;
+      } else if (r != 15) {  // EOBr: the rest of this band and of the next (1 << r) + (r bits) - 1
+        eobrun = (1u << r) + (r ? b.get(r) : 0);
+        break;
+      }
+      do {  // past r zero coefficients, correcting each nonzero one on the way
+        int16_t* coef = blk + kNatural[k];
+        if (*coef != 0) {
+          correct(b, p1, coef);
+        } else if (--r < 0) {
+          break;
+        }
+        ++k;
+      } while (k <= se);
+      if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+    }
+  }
+  if (eobrun > 0) {  // the band's remaining nonzero coefficients take their correction bits
+    for (; k <= se; ++k)
+      if (blk[kNatural[k]] != 0) correct(b, p1, blk + kNatural[k]);
+    --eobrun;
+  }
+  return kOk;
+}
+
+// One frame component of a multi-scan decode: its layout (see _Geometry in
+// data/jpeg.py), its coefficient buffer over the MCU-padded block grid, and
+// libjpeg's coef_bits (per zigzag position, the Al of the last scan that
+// held it, -1 before any).
+struct Component {
+  int h, v, width, height, block_cols, block_rows, grid_cols;
+  std::vector<int16_t> coef;
+  int coef_bits[64];
+};
+
+enum Kind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
+
+constexpr int kScanFields = 21;
+
+// libjpeg's smoothing_ok after the last scan: every quantisation table latched
+// with its first ten values (zigzag) nonzero, every DC known, and one of the
+// first ten coefficients of some component not refined to its last bit
+bool needs_smoothing(const std::vector<Component>& comps, const uint16_t* quant) {
+  constexpr int kSmoothed[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // natural positions of zigzag 0-9
+  bool useful = false;
+  for (size_t c = 0; c < comps.size(); ++c) {
+    for (const int p : kSmoothed)
+      if (quant[64 * c + p] == 0) return false;
+    if (comps[c].coef_bits[0] < 0) return false;
+    for (int k = 1; k < 10; ++k) useful |= comps[c].coef_bits[k] != 0;
+  }
+  return useful;
+}
+
 }  // namespace
 
 // Decodes the scan whose entropy-coded data starts at `scan` (its first
 // `scan_len` bytes hold it, and may run on past it) into `out`, a (height,
 // width, 3) RGB uint8 array.
-//   frame: width, height, the number of frame components (1 or 3), the
-//          restart interval in MCUs (0: none), colour (0 grey, 1 YCbCr, 2 RGB);
+//   frame: width, height, the number of frame components (1, 3 or 4), the
+//          restart interval in MCUs (0: none), colour (0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK);
 //   comps: per scan component, in scan order: its frame index, h, v, DC table, AC table;
 //   quant: per frame component, in frame order, its 64 quantisation values, natural order;
 //   huff:  the 4 DC then the 4 AC tables, each 16 code counts then 256 symbols (all counts 0: absent).
@@ -408,55 +633,146 @@ extern "C" int64_t jpeg_decode(const uint8_t* scan, int64_t scan_len, const int3
   }
   if (err != kOk) return err;
 
-  // every component at full size: upsampled where it is subsampled
-  const int64_t fw = static_cast<int64_t>(mcux) * hmax * 8;
-  std::vector<uint8_t> full[3];
-  const uint8_t* rows[3];
-  int64_t strides[3];
-  for (int c = 0; c < nc; ++c) {
-    const Plane& p = planes[c];
-    const int fi = p.frame_index;
+  Samples samples[4];
+  for (const Plane& p : planes) {
     const int hexp = hmax / p.h, vexp = vmax / p.v;
-    if (hexp == 1 && vexp == 1) {
-      rows[fi] = p.px.data();
-      strides[fi] = p.stride;
-      continue;
-    }
-    const int dw = (W + hexp - 1) / hexp, dh = (H + vexp - 1) / vexp;  // the component's own size
-    full[fi].resize(fw * dh * vexp);
-    upsample(p.px.data(), p.stride, dh, dw, hexp, vexp, full[fi].data(), fw);
-    rows[fi] = full[fi].data();
-    strides[fi] = fw;
+    // the component's own size
+    samples[p.frame_index] = {p.px.data(), p.stride, (W + hexp - 1) / hexp, (H + vexp - 1) / vexp, hexp, vexp};
   }
+  finish(W, H, nc, colour, samples, out);
+  return kOk;
+}
 
-  if (colour == 1) {  // jdcolor.c: SCALEBITS 16, the four tables, ONE_HALF rounding
-    int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
-    const int64_t one_half = int64_t{1} << 15;
-    for (int i = 0; i < 256; ++i) {
-      const int64_t x = i - 128;
-      cr_r[i] = static_cast<int32_t>((91881 * x + one_half) >> 16);   // FIX(1.40200)
-      cb_b[i] = static_cast<int32_t>((116130 * x + one_half) >> 16);  // FIX(1.77200)
-      cr_g[i] = static_cast<int32_t>(-46802 * x);                     // -FIX(0.71414)
-      cb_g[i] = static_cast<int32_t>(-22554 * x + one_half);          // -FIX(0.34414), + ONE_HALF
+// Decodes a progressive file, or a sequential one in several scans, into
+// `out`, a (height, width, 3) RGB uint8 array: each scan into the components'
+// coefficient buffers, then the output pass over them.
+//   data:     the file;
+//   frame:    width, height, the number of frame components (1, 3 or 4), colour (as jpeg_decode's), progressive;
+//   sampling: per frame component, h and v (1 and 1 in a grey frame);
+//   quant:    per frame component, its 64 quantisation values as latched at its first scan (zeros if none);
+//   scans:    per scan, kScanFields values: the offset and length of its entropy-coded data, whether that data
+//             runs to the file's end, its restart interval, its component count, Ss, Se, Ah, Al, then per
+//             scan component its frame index and the slots of its DC and AC tables (-1: not decoded with one);
+//   classes:  per table slot, 0 DC or 1 AC; huff: per slot, 16 code counts then 256 symbols.
+// Returns 0, an Error, or a scan's Error | (the scan's index << 8).
+extern "C" int64_t jpeg_decode_scans(const uint8_t* data, const int32_t* frame, const int32_t* sampling,
+                                     const uint16_t* quant, int64_t n_scans, const int64_t* scans, int64_t n_tables,
+                                     const uint8_t* classes, const uint8_t* huff, uint8_t* out) {
+  const int W = frame[0], H = frame[1], nc = frame[2], colour = frame[3];
+  const bool progressive = frame[4] != 0;
+  int hmax = 1, vmax = 1;
+  for (int c = 0; c < nc; ++c) {
+    hmax = sampling[2 * c] > hmax ? sampling[2 * c] : hmax;
+    vmax = sampling[2 * c + 1] > vmax ? sampling[2 * c + 1] : vmax;
+  }
+  const int mcux = (W + 8 * hmax - 1) / (8 * hmax), mcuy = (H + 8 * vmax - 1) / (8 * vmax);
+  std::vector<Component> comps(nc);
+  for (int c = 0; c < nc; ++c) {
+    Component& p = comps[c];
+    p.h = sampling[2 * c];
+    p.v = sampling[2 * c + 1];
+    p.width = (W * p.h + hmax - 1) / hmax;
+    p.height = (H * p.v + vmax - 1) / vmax;
+    p.block_cols = (p.width + 7) / 8;
+    p.block_rows = (p.height + 7) / 8;
+    p.grid_cols = mcux * p.h;
+    p.coef.assign(static_cast<size_t>(p.grid_cols) * mcuy * p.v * 64, 0);
+    for (int& bits : p.coef_bits) bits = -1;
+  }
+  std::vector<Huffman> tables(n_tables);
+  std::vector<char> built(n_tables, 0);
+  auto table = [&](int64_t slot, const Huffman*& t) -> int64_t {  // built at first use, as libjpeg builds them
+    if (slot < 0 || slot >= n_tables) return kMissingTable;
+    if (!built[slot]) {
+      if (!build_huffman(huff + slot * 272, huff + slot * 272 + 16, classes[slot] == 0, tables[slot])) return kBadTable;
+      built[slot] = 1;
     }
-    for (int y = 0; y < H; ++y) {
-      const uint8_t* py = rows[0] + y * strides[0];
-      const uint8_t* pb = rows[1] + y * strides[1];
-      const uint8_t* pr = rows[2] + y * strides[2];
-      uint8_t* o = out + static_cast<int64_t>(y) * W * 3;
-      for (int x = 0; x < W; ++x) {
-        const int32_t yy = py[x], cb = pb[x], cr = pr[x];
-        o[3 * x] = clamp255(yy + cr_r[cr]);
-        o[3 * x + 1] = clamp255(yy + ((cb_g[cb] + cr_g[cr]) >> 16));
-        o[3 * x + 2] = clamp255(yy + cb_b[cb]);
+    t = &tables[slot];
+    return t->present ? kOk : kMissingTable;
+  };
+
+  for (int64_t i = 0; i < n_scans; ++i) {
+    const int64_t* rec = scans + i * kScanFields;
+    const int restart = static_cast<int>(rec[3]), ns = static_cast<int>(rec[4]);
+    const int ss = static_cast<int>(rec[5]), se = static_cast<int>(rec[6]);
+    const int ah = static_cast<int>(rec[7]), al = static_cast<int>(rec[8]);
+    const int64_t truncated = rec[2] ? kTruncated : kScanEndsEarly;
+    Kind kind = kSequential;
+    if (progressive) {
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      bad |= (ah != 0 && al != ah - 1) || al > 13;
+      if (bad) return kBadProgression | (i << 8);
+      kind = ss == 0 ? (ah ? kDcRefine : kDcFirst) : (ah ? kAcRefine : kAcFirst);
+    }
+    const Huffman* dc[4] = {};
+    const Huffman* ac[4] = {};
+    Component* unit[4];
+    for (int j = 0; j < ns; ++j) {
+      const int64_t* c = rec + 9 + 3 * j;
+      unit[j] = &comps[c[0]];
+      if (progressive)
+        for (int k = ss; k <= se; ++k) unit[j]->coef_bits[k] = al;
+      if (kind == kSequential || kind == kDcFirst) {
+        const int64_t err = table(c[1], dc[j]);
+        if (err) return err | (i << 8);
+      }
+      if (kind == kSequential || kind == kAcFirst || kind == kAcRefine) {
+        const int64_t err = table(c[2], ac[j]);
+        if (err) return err | (i << 8);
       }
     }
-  } else {
-    for (int y = 0; y < H; ++y) {
-      uint8_t* o = out + static_cast<int64_t>(y) * W * 3;
-      for (int x = 0; x < W; ++x)
-        for (int ch = 0; ch < 3; ++ch) o[3 * x + ch] = rows[nc == 1 ? 0 : ch][y * strides[nc == 1 ? 0 : ch] + x];
+    // an interleaved scan runs over the frame's MCUs; a one-component scan
+    // over that component's own blocks, an MCU each
+    const int cols = ns == 1 ? unit[0]->block_cols : mcux;
+    const int64_t n_mcu = static_cast<int64_t>(cols) * (ns == 1 ? unit[0]->block_rows : mcuy);
+    Bits bits{data + rec[0], data + rec[0] + rec[1]};
+    int32_t pred[4] = {};
+    uint32_t eobrun = 0;
+    for (int64_t m = 0; m < n_mcu; ++m) {
+      if (restart && m && m % restart == 0) {
+        if (!bits.restart(static_cast<int>((m / restart - 1) % 8)))
+          return (bits.real < 0 ? truncated : kBadRestart) | (i << 8);
+        for (int32_t& p : pred) p = 0;
+        eobrun = 0;
+      }
+      const int64_t my = m / cols, mx = m % cols;
+      for (int j = 0; j < ns; ++j) {
+        Component& p = *unit[j];
+        const int h = ns == 1 ? 1 : p.h, v = ns == 1 ? 1 : p.v;
+        for (int dy = 0; dy < v; ++dy) {
+          for (int dx = 0; dx < h; ++dx) {
+            int16_t* blk = p.coef.data() + ((my * v + dy) * p.grid_cols + mx * h + dx) * 64;
+            int64_t err = kOk;
+            switch (kind) {
+              case kSequential: err = decode_block(bits, *dc[j], *ac[j], pred[j], blk); break;
+              case kDcFirst: err = decode_dc_first(bits, *dc[j], al, pred[j], blk); break;
+              case kDcRefine: decode_dc_refine(bits, al, blk); break;
+              case kAcFirst: err = decode_ac_first(bits, *ac[j], ss, se, al, eobrun, blk); break;
+              case kAcRefine: err = decode_ac_refine(bits, *ac[j], ss, se, al, eobrun, blk); break;
+            }
+            if (err == kOk && bits.real < 0) err = truncated;
+            if (err == kTruncated) err = truncated;
+            if (err) return err | (i << 8);
+          }
+        }
+      }
     }
   }
+  if (progressive && needs_smoothing(comps, quant)) return kBlockSmoothing;
+
+  // the output pass: each component's own blocks dequantised and transformed
+  std::vector<uint8_t> planes[4];
+  Samples samples[4];
+  for (int c = 0; c < nc; ++c) {
+    const Component& p = comps[c];
+    const int64_t stride = static_cast<int64_t>(p.block_cols) * 8;
+    planes[c].resize(stride * p.block_rows * 8);
+    for (int by = 0; by < p.block_rows; ++by)
+      for (int bx = 0; bx < p.block_cols; ++bx)
+        idct_islow(p.coef.data() + (static_cast<int64_t>(by) * p.grid_cols + bx) * 64, quant + 64 * c,
+                   planes[c].data() + by * 8 * stride + bx * 8, stride);
+    samples[c] = {planes[c].data(), stride, p.width, p.height, hmax / p.h, vmax / p.v};
+  }
+  finish(W, H, nc, colour, samples, out);
   return kOk;
 }

@@ -5,14 +5,19 @@ It parses the chunks itself (``IHDR``, the ``IDAT``s joined, ``PLTE``, ``eXIf``;
 are not checked), inflates with ``zlib`` and undoes the row filters with the
 host C++ routine of ``csrc/png_unfilter.cpp`` (built at first use by
 ``ops/cuda_build.py``, called through ctypes with the GIL released, so the
-Loader's threads decode in parallel). ``unfilter_plain`` is the same function
-in numpy and Python, for the tests.
+Loader's threads decode in parallel): once over the image, or, in an
+interlaced (Adam7) file, once over each of the seven passes, each a filtered
+image of its own size whose pixels are then scattered into the frame.
+``unfilter_plain`` is the same function in numpy and Python, for the tests.
 
 ``imread`` returns a (H, W, 3) uint8 array in RGB order, equal to
-``cv2.imread(path)[..., ::-1]`` bit for bit: an alpha channel is dropped (not
-composited), grey is replicated to three channels, a palette is expanded
-through ``PLTE``, and a 16-bit sample keeps its high byte. It reads bit depths
-8 and 16 (8 for a palette); interlaced files and other depths raise
+``cv2.imread(path)[..., ::-1]`` bit for bit, for every PNG colour type and bit
+depth, interlaced or not: an alpha channel is dropped (not composited) and a
+``tRNS`` chunk ignored, grey is replicated to three channels (at 1, 2 and 4
+bits scaled to 8 as libpng's ``png_set_expand_gray_1_2_4_to_8`` scales it), a
+palette is expanded through ``PLTE`` (an index past it reads black, as in
+libpng's zeroed 256-entry palette), and a 16-bit sample keeps its high byte.
+A bit depth that the colour type does not allow (a 16-bit palette) raises
 NotImplementedError. The EXIF orientation of an ``eXIf`` chunk (the first,
 before or after the ``IDAT``s, as cv2 reads it) is applied as cv2 applies it
 (``data/exif.py``).
@@ -37,6 +42,8 @@ from superslomo_tpu_torch.ops import cuda_build
 SOURCE = cuda_build.CSRC / "png_unfilter.cpp"
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples a pixel
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}  # colour type → bit depths
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))  # x0, y0, dx, dy
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -152,30 +159,57 @@ def read_chunks(path: str, data: bytes | None = None) -> tuple:
     return header, b"".join(idat), palette, exif
 
 
+def _samples(rows: np.ndarray, w: int, channels: int, depth: int) -> np.ndarray:
+    """(h, stride) unfiltered bytes → (h, w, channels) uint8 samples: a
+    16-bit sample's high byte, 1-, 2- and 4-bit samples unpacked (MSB first)."""
+    h = rows.shape[0]
+    if depth >= 8:
+        return rows.reshape(h, w, channels, depth // 8)[..., 0]
+    shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+    unpacked = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return unpacked.reshape(h, -1)[:, : w * channels].reshape(h, w, channels)
+
+
 def imread(path: str, data: bytes | None = None) -> np.ndarray:
     """Decode the PNG at ``path`` (or its bytes ``data``) to a (H, W, 3)
     uint8 RGB array, as ``cv2.imread(path)[..., ::-1]`` does, its EXIF
     orientation applied."""
     (w, h, depth, ctype, interlace), stream, palette, exif = read_chunks(path, data)
-    if interlace:
-        raise NotImplementedError(f"{path}: interlaced (Adam7) PNG files are not read")
     if ctype not in _CHANNELS:
         raise ValueError(f"{path}: colour type {ctype} is not a PNG colour type")
-    if depth not in (8, 16) or (ctype == 3 and depth != 8):
+    if depth not in _DEPTHS[ctype]:
         raise NotImplementedError(f"{path}: bit depth {depth} of colour type {ctype} is not read")
-    channels, nbytes = _CHANNELS[ctype], depth // 8
-    bpp = channels * nbytes
-    stride = w * bpp
+    if interlace > 1:
+        raise ValueError(f"{path}: interlace method {interlace} is not a PNG interlace method")
+    channels = _CHANNELS[ctype]
+    bits = channels * depth  # a pixel's
+    passes = [(x0, y0, dx, dy, -(-(w - x0) // dx), -(-(h - y0) // dy)) for x0, y0, dx, dy in
+              (_ADAM7 if interlace else ((0, 0, 1, 1),))]
+    passes = [p for p in passes if p[4] and p[5]]  # a pass of no pixels has no rows at all
     raw = np.frombuffer(bytearray(zlib.decompress(stream)), np.uint8)
-    if raw.size != h * (stride + 1):
-        raise ValueError(f"{path}: {raw.size} bytes inflated, expected {h * (stride + 1)}")
-    img = unfilter(raw, h, stride, bpp).reshape(h, w, channels, nbytes)[..., 0]  # 16-bit: the high byte
+    expected = sum(ph * (1 + -(-pw * bits // 8)) for *_, pw, ph in passes)
+    if raw.size != expected:
+        raise ValueError(f"{path}: {raw.size} bytes inflated, expected {expected}")
+    img = np.empty((h, w, channels), np.uint8) if interlace else None
+    pos = 0
+    for x0, y0, dx, dy, pw, ph in passes:
+        stride = -(-pw * bits // 8)
+        rows = unfilter(raw[pos : pos + ph * (stride + 1)], ph, stride, max(1, bits // 8))
+        pos += ph * (stride + 1)
+        if interlace:
+            img[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+        else:
+            img = _samples(rows, pw, channels, depth)
     if ctype == 3:
         if palette is None:
             raise ValueError(f"{path}: a palette image without PLTE")
-        img = np.frombuffer(palette, np.uint8).reshape(-1, 3)[img[..., 0]]
+        colours = np.zeros((256, 3), np.uint8)  # libpng's palette: 256 entries, zero past PLTE's
+        entries = np.frombuffer(palette, np.uint8)[: len(palette) // 3 * 3].reshape(-1, 3)[:256]
+        colours[: len(entries)] = entries
+        img = colours[img[..., 0]]
     elif channels < 3:  # grey, grey + alpha
-        img = np.repeat(img[..., :1], 3, axis=2)
+        grey = img[..., :1] * np.uint8(255 // ((1 << min(depth, 8)) - 1))  # 1, 2, 4 bits to 8
+        img = np.repeat(grey, 3, axis=2)
     else:
         img = img[..., :3]
     return apply_orientation(img, orientation(exif) if exif is not None else 1)

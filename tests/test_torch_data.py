@@ -1,6 +1,7 @@
 """The port's data path on the CPU against the JAX package's: the PNG decoder
 against ``cv2.imread`` bit for bit (cv2's, PIL's and a stdlib encoder's files,
-each filter type alone, colour types 0, 2, 3, 4 and 6 at 8 bits and 16-bit),
+each filter type alone, colour types 0, 2, 3, 4 and 6 at every bit depth,
+1, 2 and 4 bits included, interlaced (Adam7) and not, with a tRNS chunk),
 the compiled unfilter against its plain version and its host build, the
 readers' index tables and samples, the Loader's batches over two epochs at 1
 and 4 threads, the validators, and the CPU device feed."""
@@ -59,15 +60,38 @@ def filter_rows(px: np.ndarray, bpp: int, ft: int) -> np.ndarray:
     return np.hstack([np.full((h, 1), ft, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)])
 
 
-def encode(samples: np.ndarray, ctype: int, depth: int = 8, ft: int = 1, palette=None, interlace: int = 0) -> bytes:
-    """(h, w, channels) uint8 (depth 8) or uint16 (depth 16) samples → PNG bytes."""
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def pack(samples: np.ndarray, depth: int) -> np.ndarray:
+    """(h, w, channels) samples → (h, stride) bytes at ``depth`` bits a
+    sample: 16 big-endian, 1, 2 and 4 packed MSB first, each row padded to a byte."""
     h, w, ch = samples.shape
-    px = samples.astype(">u2").view(np.uint8) if depth == 16 else samples.astype(np.uint8)
-    px = px.reshape(h, -1)
+    if depth == 16:
+        return samples.astype(">u2").view(np.uint8).reshape(h, -1)
+    flat = samples.reshape(h, w * ch).astype(np.int32)
+    if depth == 8:
+        return flat.astype(np.uint8)
+    per = 8 // depth
+    groups = np.pad(flat, ((0, 0), (0, -flat.shape[1] % per))).reshape(h, -1, per)
+    return (groups << np.arange(8 - depth, -1, -depth)).sum(axis=2).astype(np.uint8)
+
+
+def encode(samples: np.ndarray, ctype: int, depth: int = 8, ft: int = 1, palette=None, interlace: int = 0,
+           chunks=()) -> bytes:
+    """(h, w, channels) samples (uint16 at depth 16) → PNG bytes, every row
+    of every pass with filter ``ft``; interlaced (Adam7) at ``interlace=1``;
+    ``chunks``: (type, body) pairs written after PLTE (a tRNS)."""
+    h, w, ch = samples.shape
     out = b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, interlace))
     if palette is not None:
         out += _chunk(b"PLTE", palette.astype(np.uint8).tobytes())
-    raw = filter_rows(px, max(1, ch * depth // 8), ft).tobytes()
+    out += b"".join(_chunk(kind, body) for kind, body in chunks)
+    raw = b""
+    for x0, y0, dx, dy in (ADAM7 if interlace else ((0, 0, 1, 1),)):
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            raw += filter_rows(pack(sub, depth), max(1, ch * depth // 8), ft).tobytes()
     return out + _chunk(b"IDAT", zlib.compress(raw)) + _chunk(b"IEND", b"")
 
 
@@ -123,6 +147,84 @@ def test_imread_equals_cv2_on_cv2_and_pil_files(tmp_path):
         np.testing.assert_array_equal(png.imread(path), cv2.imread(path)[..., ::-1], err_msg=name)
 
 
+DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+DEPTH_CASES = [(ctype, depth) for ctype, depths in DEPTHS.items() for depth in depths]
+
+
+def _samples(rng, h, w, ctype, depth):
+    """Random samples of colour type ``ctype`` at ``depth`` bits, and a
+    palette of 2^depth (at most 40) colours for type 3."""
+    colours = min(1 << depth, 40)
+    high = colours if ctype == 3 else 1 << depth
+    samples = rng.integers(0, high, (h, w, CHANNELS[ctype])).astype(np.uint16 if depth == 16 else np.uint8)
+    return samples, (rng.integers(0, 256, (colours, 3)) if ctype == 3 else None)
+
+
+@pytest.mark.parametrize("ctype,depth", DEPTH_CASES, ids=[f"type{c}_{d}bit" for c, d in DEPTH_CASES])
+def test_adam7_equals_cv2_and_the_non_interlaced_decode(tmp_path, ctype, depth):
+    """Interlaced (Adam7) files of every colour type and bit depth, each
+    pass filtered on its own (every filter type), at sizes where passes are
+    empty (1x1: all but the first; 5x3: the second; 3x9: the third) and
+    not: equal to cv2's decode and to the non-interlaced file of the same
+    pixels."""
+    rng = np.random.default_rng(10 * ctype + depth)
+    for h, w in ((1, 1), (5, 3), (3, 9), (13, 17), (16, 24)):
+        samples, palette = _samples(rng, h, w, ctype, depth)
+        for ft in range(5):
+            path = str(tmp_path / f"i{ft}.png")
+            with open(path, "wb") as f:
+                f.write(encode(samples, ctype, depth, ft, palette, interlace=1))
+            got = png.imread(path)
+            assert got.dtype == np.uint8 and got.shape == (h, w, 3)
+            np.testing.assert_array_equal(got, cv2.imread(path)[..., ::-1], err_msg=f"{h}x{w} filter {ft}")
+            plain = encode(samples, ctype, depth, ft, palette)
+            np.testing.assert_array_equal(got, png.imread("plain.png", plain))
+
+
+SUB_BYTE_CASES = [(ctype, depth) for ctype in (0, 3) for depth in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("ctype,depth", SUB_BYTE_CASES, ids=[f"type{c}_{d}bit" for c, d in SUB_BYTE_CASES])
+def test_sub_byte_depths_equal_cv2(tmp_path, ctype, depth):
+    """Grey at 1, 2 and 4 bits (scaled to 8 bits by 255, 85 and 17, as
+    libpng's ``png_set_expand_gray_1_2_4_to_8``) and palette indices at 1, 2
+    and 4 bits (an index past a short PLTE reads black), each filter type,
+    rows of widths that do and do not fill their last byte: equal to cv2's
+    decode."""
+    rng = np.random.default_rng(100 + 10 * ctype + depth)
+    for h, w in ((7, 1), (6, 13), (11, 16), (9, 31)):
+        samples, palette = _samples(rng, h, w, ctype, depth)
+        if ctype == 3 and w == 31:
+            palette = palette[: max(1, len(palette) // 2)]
+        for ft in range(5):
+            path = str(tmp_path / "f.png")
+            with open(path, "wb") as f:
+                f.write(encode(samples, ctype, depth, ft, palette))
+            got = png.imread(path)
+            np.testing.assert_array_equal(got, cv2.imread(path)[..., ::-1], err_msg=f"{h}x{w} filter {ft}")
+    if ctype == 0:
+        assert set(np.unique(got)) <= set(range(0, 256, 255 // ((1 << depth) - 1)))
+
+
+@pytest.mark.parametrize("ctype", [0, 2, 3])
+def test_transparency_chunk_is_ignored_as_cv2_ignores_it(tmp_path, ctype):
+    """A tRNS chunk (a palette's alphas, a grey or RGB colour key), in plain
+    and interlaced files at 8 bits and at 4 for grey and palette: cv2's
+    IMREAD_COLOR drops the alpha it would give, and so does the port."""
+    rng = np.random.default_rng(200 + ctype)
+    for depth in (4, 8) if ctype != 2 else (8, 16):
+        samples, palette = _samples(rng, 13, 17, ctype, depth)
+        if ctype == 3:
+            trns = rng.integers(0, 256, len(palette)).astype(np.uint8).tobytes()
+        else:
+            trns = struct.pack(">" + "H" * CHANNELS[ctype], *samples[0, 0].tolist())
+        for interlace in (0, 1):
+            path = str(tmp_path / "t.png")
+            with open(path, "wb") as f:
+                f.write(encode(samples, ctype, depth, 4, palette, interlace, chunks=[(b"tRNS", trns)]))
+            np.testing.assert_array_equal(png.imread(path), cv2.imread(path)[..., ::-1])
+
+
 def test_compiled_unfilter_equals_plain_on_mixed_rows():
     rng = np.random.default_rng(3)
     for h, w, bpp in ((9, 11, 3), (7, 5, 4), (6, 13, 1), (5, 8, 6), (4, 3, 8)):
@@ -147,16 +249,13 @@ def test_unfilter_rejects_a_bad_filter_byte():
         png.unfilter_plain(raw, 3, 6, 3)
 
 
-@pytest.mark.parametrize("what", ["interlaced", "4-bit", "16-bit palette"])
+@pytest.mark.parametrize("what", ["16-bit palette"])
 def test_imread_raises_on_what_it_does_not_read(tmp_path, what):
+    """A bit depth that the colour type does not allow (a 16-bit palette
+    is not a PNG) raises NotImplementedError naming the file."""
     path = str(tmp_path / "x.png")
-    samples = np.zeros((4, 4, 1 if what != "interlaced" else 3), np.uint8)
-    if what == "interlaced":
-        data = encode(samples, 2, interlace=1)
-    else:
-        depth = 4 if what == "4-bit" else 16
-        head = _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, depth, 3 if depth == 16 else 0, 0, 0, 0))
-        data = b"\x89PNG\r\n\x1a\n" + head + _chunk(b"IDAT", zlib.compress(bytes(20))) + _chunk(b"IEND", b"")
+    head = _chunk(b"IHDR", struct.pack(">IIBBBBB", 4, 4, 16, 3, 0, 0, 0))
+    data = b"\x89PNG\r\n\x1a\n" + head + _chunk(b"IDAT", zlib.compress(bytes(20))) + _chunk(b"IEND", b"")
     with open(path, "wb") as f:
         f.write(data)
     with pytest.raises(NotImplementedError, match=re.escape(path)):

@@ -1,13 +1,15 @@
 """The port's JPEG frames on the CPU against cv2 (the JAX package's decoder)
 and PIL: the JPEG decoder against ``cv2.imread`` bit for bit (cv2's files at
 four qualities, each sampling, with and without restart intervals, at odd
-sizes, on noise and smooth textures; PIL's optimised and grey files;
-coefficients past the IDCT's range), the compiled routine against its plain
-version, the files of ``chip_smoke.py``'s writer, the eight EXIF
-orientations of JPEG and PNG files and malformed EXIF blocks, the refusals,
-the frame reader's choice by signature, the Adobe reader over a clip list of
-JPEG frames against the JAX reader, and the three cv2 transforms against the
-JAX package's classes."""
+sizes, on noise and smooth textures; PIL's optimised, grey, CMYK and
+progressive files; cv2's progressive files; coefficients past the IDCT's
+range), the compiled routine against its plain version, the files of
+``chip_smoke.py``'s writer (baseline, progressive, sequential in several
+scans, CMYK and YCCK, with restarts), the eight EXIF orientations of JPEG and
+PNG files and malformed EXIF blocks, the refusals, the frame reader's choice
+by signature, the Adobe reader over a clip list of baseline, progressive and
+CMYK JPEG frames against the JAX reader, and the three cv2 transforms against
+the JAX package's classes."""
 
 import io
 import os
@@ -95,14 +97,18 @@ OTHER_FILES = {
     "pil_grey_optimize": lambda img: _pil(img[..., 0], quality=70, optimize=True),
     "pil_rgb_adobe": lambda img: _pil(img, quality=90, keep_rgb=True),
     "cv2_grey_restart": lambda img: cv2.imencode(".jpg", img[..., 1], [cv2.IMWRITE_JPEG_RST_INTERVAL, 2])[1].tobytes(),
+    "pil_cmyk": lambda img: _pil(Image.fromarray(img).convert("CMYK"), quality=90),
+    "pil_cmyk_progressive": lambda img: _pil(Image.fromarray(img).convert("CMYK"), quality=80, progressive=True),
+    "pil_progressive_optimize": lambda img: _pil(img, quality=85, progressive=True, optimize=True),
 }
 
 
 @pytest.mark.parametrize("source", sorted(OTHER_FILES))
 def test_decoder_equals_cv2_on_pil_and_grey_files(source):
     """PIL's optimised Huffman tables and grey files, an RGB (Adobe
-    transform 0) file, and cv2's grey file with restarts: equal to cv2's
-    decode (grey comes back as three equal channels)."""
+    transform 0) file, CMYK files (Adobe transform 0, baseline and
+    progressive), and cv2's grey file with restarts: equal to cv2's decode
+    (grey comes back as three equal channels)."""
     rng = np.random.default_rng(3)
     for h, w in SIZES[1:]:
         for kind in ("noise", "smooth"):
@@ -172,6 +178,127 @@ def test_compiled_decode_equals_plain_at_a_larger_size():
     rng = np.random.default_rng(11)
     img = np.clip(_texture(rng, 200, 328, "smooth").astype(int) + rng.integers(-20, 20, (200, 328, 3)), 0, 255)
     data = chip_smoke.jpeg_bytes(img.astype(np.uint8), quality=97, sampling="420", restart=7)
+    np.testing.assert_array_equal(_decode_both(data), _cv2_rgb(data))
+
+
+PROGRESSIVE_CASES = [(q, s) for q in (50, 75, 95) for s in ("444", "422", "420")] + [(90, "grey")]
+PIL_SUBSAMPLING = {"444": 0, "422": 1, "420": 2}
+
+
+@pytest.mark.parametrize("quality,sampling", PROGRESSIVE_CASES, ids=[f"q{q}_{s}" for q, s in PROGRESSIVE_CASES])
+def test_pil_progressive_equals_cv2(quality, sampling):
+    """PIL's progressive files (libjpeg's simple progression: 10 scans, 6 in
+    grey, with optimal Huffman tables defined before each scan but the DC
+    refinement; successive approximation of DC and AC; EOB runs across
+    blocks): equal to cv2's decode, compiled and plain, at each odd size."""
+    rng = np.random.default_rng([quality, len(sampling)])
+    for h, w in SIZES:
+        for kind in ("noise", "smooth"):
+            img = _texture(rng, h, w, kind)
+            if sampling == "grey":
+                data = _pil(img[..., 0], quality=quality, progressive=True)
+            else:
+                data = _pil(img, quality=quality, progressive=True, subsampling=PIL_SUBSAMPLING[sampling])
+            header = jpeg.read_header(data)
+            assert header.progressive and len(header.scans) == (6 if sampling == "grey" else 10)
+            np.testing.assert_array_equal(_decode_both(data), _cv2_rgb(data), err_msg=f"{h}x{w} {kind}")
+
+
+@pytest.mark.parametrize("restart", [0, 1, 5])
+def test_cv2_progressive_equals_cv2(restart):
+    """cv2.imencode's IMWRITE_JPEG_PROGRESSIVE files, with a restart interval
+    of 1 and 5 MCUs (a DC scan's MCU interleaves the components, an AC
+    scan's is one block: EOB runs end at each restart) and without."""
+    rng = np.random.default_rng(30 + restart)
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 90]
+    if restart:
+        params += [cv2.IMWRITE_JPEG_RST_INTERVAL, restart]
+    for h, w in SIZES[1:]:
+        for kind in ("noise", "smooth"):
+            img = _texture(rng, h, w, kind)
+            for src in (img, img[..., 0]):
+                data = cv2.imencode(".jpg", src, params)[1].tobytes()
+                assert {s.restart for s in jpeg.read_header(data).scans} == {restart}
+                np.testing.assert_array_equal(_decode_both(data), _cv2_rgb(data), err_msg=f"{h}x{w} {kind}")
+
+
+MULTISCAN_WRITER_CASES = {  # name → jpeg_bytes' arguments
+    "progressive_420": {"scans": "progressive"},
+    "progressive_420_rst": {"scans": "progressive", "restart": 3},
+    "progressive_444_rst1": {"scans": "progressive", "sampling": "444", "restart": 1},
+    "progressive_422_q50": {"scans": "progressive", "sampling": "422", "quality": 50},
+    "progressive_grey_rst": {"scans": "progressive", "grey": True, "restart": 2},
+    "progressive_dri_between_scans": {"scans": "progressive", "restart": [0, 2, 0, 5, 1, 0, 3, 0, 2, 7]},
+    "components_420_rst": {"scans": "components", "restart": 2},
+    "luma_chroma_420": {"scans": "luma_chroma"},
+    "luma_chroma_411_rst": {"scans": "luma_chroma", "sampling": "411", "restart": 4},
+    "cmyk": {"colour": "cmyk"},
+    "cmyk_rst": {"colour": "cmyk", "restart": 3},
+    "cmyk_progressive": {"colour": "cmyk", "scans": "progressive", "restart": 2},
+    "ycck": {"colour": "ycck"},
+    "ycck_444_rst": {"colour": "ycck", "sampling": "444", "restart": 2},
+    "ycck_progressive": {"colour": "ycck", "scans": "progressive", "restart": 3},
+    "ycck_components": {"colour": "ycck", "scans": "components"},
+}
+
+
+@pytest.mark.parametrize("name", sorted(MULTISCAN_WRITER_CASES))
+def test_chip_smoke_multiscan_writer_files_decode_as_cv2(name):
+    """``chip_smoke.py``'s progressive, multi-scan, CMYK and YCCK files (its
+    own optimal tables before each scan, libjpeg's progression script,
+    restarts, a DRI between scans): cv2 and the port decode them to the same
+    pixels, compiled and plain, and to the pixels of the baseline file of the
+    same coefficients; close to what was written."""
+    kw = dict(MULTISCAN_WRITER_CASES[name])
+    grey = kw.pop("grey", False)
+    rng = np.random.default_rng(len(name))
+    baseline = {k: v for k, v in kw.items() if k not in ("scans", "restart")}
+    for h, w in ((1, 1), (9, 17), (37, 53), (64, 96)):
+        pan = chip_smoke.panning_clips(rng, 1, h, w, n=1)[0, 0]
+        for img in (pan, _texture(rng, h, w, "noise")):
+            src = img[..., 1] if grey else img
+            data = chip_smoke.jpeg_bytes(src, **kw)
+            header = jpeg.read_header(data)
+            assert header.one_pass == ("scans" not in kw) and header.colour == kw.get("colour", "grey" if grey else "ycbcr")
+            got = _decode_both(data)
+            np.testing.assert_array_equal(got, _cv2_rgb(data), err_msg=f"{h}x{w}")
+            np.testing.assert_array_equal(got, jpeg.imread("baseline", chip_smoke.jpeg_bytes(src, **baseline)))
+            if img is pan and h > 8:
+                ref = np.repeat(src[..., None], 3, axis=2) if grey else src
+                assert np.abs(got.astype(int) - ref).mean() < 2
+
+
+def _dqt(table: int, value: int) -> bytes:
+    return chip_smoke._segment(0xDB, bytes([table]) + bytes([value]) * 64)
+
+
+def test_quantisation_tables_latch_at_the_first_scan():
+    """A DQT between scans: a table that a component's first scan already
+    latched keeps its values for that component (libjpeg's
+    ``latch_quant_tables``); a table first defined after the frame header,
+    just before the first scan of the components that use it, is read."""
+    rng = np.random.default_rng(8)
+    img = _texture(rng, 37, 53, "smooth")
+    data = chip_smoke.jpeg_bytes(img, quality=80, scans="progressive")
+    at = [m for m in range(len(data)) if data[m : m + 2] == b"\xff\xda"]
+    late = data[: at[4]] + _dqt(0, 1) + _dqt(1, 3) + data[at[4] :]  # luma and chroma latched at scan 0
+    first_dqt = data.index(b"\xff\xdb")
+    chroma = data.index(b"\xff\xdb", first_dqt + 2)
+    moved = data[:chroma] + data[chroma + 69 : at[0]] + data[chroma : chroma + 69] + data[at[0] :]
+    assert moved.index(b"\xff\xc2") < moved.index(b"\xff\xdb\x00\x43\x01") < at[0]
+    want = _decode_both(data)
+    for edited in (late, moved):
+        np.testing.assert_array_equal(_decode_both(edited), _cv2_rgb(edited))
+        np.testing.assert_array_equal(_decode_both(edited), want)
+    np.testing.assert_array_equal(jpeg.read_header(late).components[0][2], jpeg.read_header(data).components[0][2])
+
+
+def test_compiled_progressive_decode_equals_plain_at_a_larger_size():
+    """A 200x328 noisy 4:2:0 frame in the progression script with a restart
+    every 7 MCUs: compiled and plain bit for bit and equal to cv2."""
+    rng = np.random.default_rng(12)
+    img = np.clip(_texture(rng, 200, 328, "smooth").astype(int) + rng.integers(-20, 20, (200, 328, 3)), 0, 255)
+    data = chip_smoke.jpeg_bytes(img.astype(np.uint8), quality=97, sampling="420", restart=7, scans="progressive")
     np.testing.assert_array_equal(_decode_both(data), _cv2_rgb(data))
 
 
@@ -279,12 +406,6 @@ def _patched(data: bytes, marker: int, offset: int, value: int) -> bytes:
     return data[:at] + bytes([value]) + data[at + 1 :]
 
 
-def _one_component_scan(data: bytes) -> bytes:
-    """A 3-component file whose (first) scan names only its first component."""
-    at = data.index(b"\xff\xda")
-    return data[:at] + b"\xff\xda\x00\x08\x01\x01\x00\x00\x3f\x00" + data[at + 14 :]
-
-
 def _huffman_patched(data: bytes, table: int, counts=None, symbol0=None) -> bytes:
     """``data`` with the ``table``-th DHT segment's code counts (of the same
     total) or first symbol replaced; cv2 writes DC 0, AC 0, DC 1, AC 1, one a
@@ -310,15 +431,29 @@ CORRUPT_TABLES = {
     "dc_symbol_past_15": lambda d, img: _huffman_patched(d, 0, symbol0=16),
 }
 
+def _first_scans(data: bytes, n: int) -> bytes:
+    """``data`` cut after its ``n``-th scan's entropy-coded data, with an EOI."""
+    return data[: jpeg.read_header(data).scans[n - 1].end] + b"\xff\xd9"
+
+
+def _progression_patched(data: bytes) -> bytes:
+    """``data`` with its second scan's Ss set past its Se (1-5 → 6-5)."""
+    at = data.index(b"\xff\xda", data.index(b"\xff\xda") + 1)
+    return data[: at + 5 + 2 * data[at + 4]] + b"\x06" + data[at + 6 + 2 * data[at + 4] :]
+
+
 REFUSALS = {
     **{name: (make, ValueError, "bad Huffman table") for name, make in CORRUPT_TABLES.items()},
-    "progressive": (lambda d, img: _pil(img, quality=90, progressive=True), NotImplementedError, "progressive"),
-    "cmyk": (lambda d, img: _pil(Image.fromarray(img).convert("CMYK"), quality=90), NotImplementedError,
-             "4 components"),
     "lossless": (lambda d, img: _patched(d, 0xC0, 1, 0xC3), NotImplementedError, "lossless"),
     "arithmetic": (lambda d, img: _patched(d, 0xC0, 1, 0xC9), NotImplementedError, "arithmetic"),
+    "progressive_arithmetic": (lambda d, img: _patched(_pil(img, quality=90, progressive=True), 0xC2, 1, 0xCA),
+                               NotImplementedError, "arithmetic-coded JPEG .SOF10"),
     "12_bit": (lambda d, img: _patched(d, 0xC0, 4, 12), NotImplementedError, "12-bit"),
-    "several_scans": (lambda d, img: _one_component_scan(d), NotImplementedError, "several scans"),
+    "block_smoothing": (lambda d, img: _first_scans(_pil(img, quality=90, progressive=True), 3), NotImplementedError,
+                        "block smoothing"),
+    "bad_progression": (lambda d, img: _progression_patched(_pil(img, quality=90, progressive=True)), ValueError,
+                        "bad progression"),
+    "truncated_progressive": (lambda d, img: _pil(img, quality=90, progressive=True)[:1500], ValueError, "truncated"),
     "truncated_scan": (lambda d, img: d[: len(d) // 2], ValueError, "truncated"),
     "truncated_header": (lambda d, img: d[:100], ValueError, "truncated"),
     "not_jpeg": (lambda d, img: b"\xff\xd8\x00" + d[3:], ValueError, "not a JPEG"),
@@ -328,8 +463,10 @@ REFUSALS = {
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_refusals_name_the_file(tmp_path, name):
     """What the decoder does not read raises NotImplementedError naming the
-    file and the feature; a truncated or corrupt file raises ValueError
-    naming the file; the plain decode raises as the compiled one does."""
+    file and the feature (a progressive file cut after its third scan, which
+    libjpeg block-smooths); a truncated or corrupt file, or a scan of bad
+    progression parameters, raises ValueError naming the file; the plain
+    decode raises as the compiled one does."""
     make, kind, words = REFUSALS[name]
     img = _texture(np.random.default_rng(2), 37, 53, "noise")
     data = make(cv2.imencode(".jpg", img)[1].tobytes(), img)
@@ -338,11 +475,14 @@ def test_refusals_name_the_file(tmp_path, name):
         f.write(data)
     with pytest.raises(kind, match=rf"{name}\.jpg.*{words}"):
         jpeg.imread(path)
-    if name == "truncated_scan" or name in CORRUPT_TABLES:
-        with pytest.raises(ValueError, match=rf"{name}\.jpg.*{words}"):
+    if name in ("truncated_scan", "truncated_progressive", "bad_progression", "block_smoothing") \
+            or name in CORRUPT_TABLES:
+        with pytest.raises(kind, match=rf"{name}\.jpg.*{words}"):
             jpeg.decode_plain(data, jpeg.read_header(data, path), path)
-    if name in CORRUPT_TABLES:  # the tables refused are those that libjpeg refuses
+    if name in CORRUPT_TABLES or name == "bad_progression":  # refused as libjpeg refuses them
         assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+    if name == "block_smoothing":  # cv2 reads it, smoothing the blocks of the first scans' coefficients
+        assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR).shape == (37, 53, 3)
 
 
 def test_frame_reader_picks_the_decoder_by_signature(tmp_path):
@@ -368,13 +508,37 @@ def test_frame_reader_picks_the_decoder_by_signature(tmp_path):
 JPEG_H, JPEG_W = 16, 24
 
 
-@pytest.fixture(scope="module")
-def jpeg_dataset(tmp_path_factory):
+def _write_frame(path, img, kind, name):
+    """One frame of the clip list: cv2's (or PIL's) and the writer's files."""
+    if kind == "baseline":
+        if name == "exif6":
+            data = chip_smoke.jpeg_bytes(img, quality=90, sampling="420", orientation=6)
+        else:
+            cv2.imwrite(path, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90])
+            return
+    elif kind == "progressive":
+        data = {"landscape": lambda: _pil(img, quality=90, progressive=True),
+                "portrait": lambda: cv2.imencode(".jpg", img[..., ::-1], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes(),
+                "exif6": lambda: chip_smoke.jpeg_bytes(img, quality=90, orientation=6, scans="progressive",
+                                                       restart=2)}[name]()
+    else:
+        data = {"landscape": lambda: _pil(Image.fromarray(img).convert("CMYK"), quality=90),
+                "portrait": lambda: chip_smoke.jpeg_bytes(img, quality=90, colour="ycck"),
+                "exif6": lambda: chip_smoke.jpeg_bytes(img, quality=90, colour="cmyk", orientation=6,
+                                                       scans="progressive")}[name]()
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+@pytest.fixture(scope="module", params=["baseline", "progressive", "cmyk"])
+def jpeg_dataset(request, tmp_path_factory):
     """``make_clips``' list of three directories of 12 JPEG frames: landscape
-    frames from cv2, portrait frames (stored flipped, swapped back by both
-    readers), and landscape-stored frames with EXIF orientation 6 (turned
-    portrait on decode, then swapped back)."""
-    root = tmp_path_factory.mktemp("jpeg_data")
+    frames, portrait frames (stored flipped, swapped back by both readers),
+    and landscape-stored frames with EXIF orientation 6 (turned portrait on
+    decode, then swapped back); baseline (cv2's and the writer's), progressive
+    (PIL's, cv2's and the writer's), or four-component (PIL's CMYK, the
+    writer's YCCK and progressive CMYK)."""
+    root = tmp_path_factory.mktemp(f"jpeg_data_{request.param}")
     h, w = JPEG_H, JPEG_W
     rng = np.random.default_rng(21)
     clips = []
@@ -383,12 +547,7 @@ def jpeg_dataset(tmp_path_factory):
         os.makedirs(folder)
         for i in range(12):
             img = _texture(rng, *((w, h) if name == "portrait" else (h, w)), "smooth" if i % 2 else "noise")
-            path = str(folder / f"frame_{i:05d}.jpg")
-            if name == "exif6":
-                with open(path, "wb") as f:
-                    f.write(chip_smoke.jpeg_bytes(img, quality=90, sampling="420", orientation=6))
-            else:
-                cv2.imwrite(path, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, 90])
+            _write_frame(str(folder / f"frame_{i:05d}.jpg"), img, request.param, name)
         clips += make_clips.process_single_dir(str(folder), clip_length=12, step=12)
     assert len(clips) == 3 and all(p.endswith(".jpg") for c in clips for p in c)
     assert cv2.imread(clips[2][0]).shape == (w, h, 3)  # the EXIF turn makes it portrait before the swap
@@ -397,8 +556,9 @@ def jpeg_dataset(tmp_path_factory):
 
 
 def test_adobe_reader_over_jpeg_clip_list_equals_jax(jpeg_dataset):
-    """The port's Adobe reader over the JPEG clip list equals the JAX
-    reader's samples and ``read_sample``, float64 for float64."""
+    """The port's Adobe reader over the JPEG clip list (baseline,
+    progressive or four-component frames) equals the JAX reader's samples
+    and ``read_sample``, float64 for float64."""
     cfg, jcfg = _configs(jpeg_dataset, "ADOBE", eval_mode=False)
     ours, theirs = readers.build_reader(cfg, "TRAIN"), jax_readers.build_reader(jcfg, "TRAIN")
     assert ours.clips == theirs.clips and len(ours) == 3
@@ -415,8 +575,8 @@ def test_adobe_reader_over_jpeg_clip_list_equals_jax(jpeg_dataset):
 
 def test_loader_over_jpeg_clip_list_equals_jax_on_threads(jpeg_dataset):
     """``get_dataset`` over the JPEG list, 4 loader threads decoding at once
-    through the compiled routine, equals the JAX package's batches over two
-    epochs."""
+    through the compiled routines (one pass, or the scans' coefficient
+    buffers), equals the JAX package's batches over two epochs."""
     cfg, jcfg = _configs(jpeg_dataset, "ADOBE", eval_mode=False, workers=4, batch=1)
     ours, theirs = get_dataset(cfg, "TRAIN"), jax_readers.get_dataset(jcfg, "TRAIN")
     assert len(ours) == len(theirs) == 3
