@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # phases 1-3: build, kernels against plain
-    python3 chip_smoke.py --data-only      # phases 1 and 15-17: build, the PNG and JPEG data path and the CLIs
+    python3 chip_smoke.py --data-only      # phases 1 and 15-17: build, the image decoders, the data path, the CLIs
     python3 chip_smoke.py --render-only    # phases 1 and 18-21: build, the renderer (PNG and JPEG) and flow-EPE CLIs
     python3 chip_smoke.py --scale-only     # phases 1 and 22-23: build, native checkpoints, data parallel
     python3 chip_smoke.py --ddp-ranks 4    # phases 1 and 23b-c at 4 ranks (a card a rank on 4 cards)
@@ -83,6 +83,10 @@ Phases, each of which raises on failure:
      a synthetic batch (two until the script neared its time limit), in f32
      and bf16, with the step's time, frames/s
      and peak memory, and the multi-flow kernel's launches counted per step;
+     and the shipped eval batch, B=8, in one ``interpolate_multi_t`` call
+     (``main_path_b8``, four slices of 2): its ms, frames/s, peak GiB (below
+     the card's 80), 16 multi-flow launches, and its predictions and bound
+     equal to four B=2 calls' on the same frames;
   5b. height sharding for serving (``sharded_serving``): 2 ranks on a
      (1 x 2) grid (NCCL, a card a rank, where there are two cards, else both
      on the one card over gloo, staging the halo rows through host memory),
@@ -174,21 +178,32 @@ Phases, each of which raises on failure:
       progressive 4:2:0 (libjpeg's 10-scan script, its own optimal Huffman
       tables before each scan) with and without restarts, sequential in
       three scans, Adobe CMYK and YCCK: bit for bit, the decode ms beside
-      the baseline's and the PNG decode's (``jpeg_decode_vs_plain``);
+      the baseline's and the PNG decode's (``jpeg_decode_vs_plain``); then
+      the raster readers (``raster_decode_vs_plain``) on the 720p frame as
+      the script writes it in BMP (24-bit and RLE8), PPM, PGM, PAM, PFM,
+      TIFF (none, LZW with the predictor, PackBits, Deflate in tiles,
+      16-bit), Sun raster and HDR (run-length scanlines): each decode equals
+      what cv2 reads from the file, the compiled routines of
+      csrc/raster_decode.cpp equal their plain twins, and a progressive
+      4:2:0 JPEG cut after its third scan (block-smoothed) decodes as its
+      plain twin; the decode ms beside PNG's and baseline JPEG's; and the
+      Loader (12 threads) over an ADOBE list naming the 57-frame clip's
+      frames in turn as BMP, PPM and LZW TIFF: its batches equal the PNG
+      list's bit for bit, each decoder run (``raster_loader_vs_png``);
   16. the eval CLI's main path: ``cli.evaluate_interpolation`` at
       configs/superslomo_eval.ini as shipped (720p padded to 736, B=8, 12
       loader threads, f32) over a made-up dataset of 720p PNGs in a
-      temporary directory (one 57-frame clip: 7 sliding windows, one
-      batch, fused steps of 2, 2, 2 and 1 samples): its metrics equal
+      temporary directory (a 33-frame val clip: 4 sliding windows, one
+      batch, fused-step slices of 2 and 2 samples): its metrics equal
       Evaluator.run on the same batches given explicitly, 4 multi-flow
-      launches a fused step, the wall time a batch
+      launches a slice, the wall time a batch
       beside the prepared run's and the Loader's; the CLI on the card
       against the CLI on the CPU over a 48x96 clip within the serving bar;
   17. the train CLI's main path: ``cli.train`` at
       configs/superslomo_original.ini as shipped (ALL: ADOBE and NFS clip
       lists naming the 57 frames 280 times each, 80 Vimeo septuplets: 20
       batches, so the Loader keeps decoding through every step; B=32,
-      224x224 crops, 12 loader threads), in f32 and bf16, 10 steps through
+      224x224 crops, 12 loader threads), in f32 and bf16, 6 steps through
       the pinned side-stream feed: step ms, the wait for the feed before each
       step, the same Trainer's step on in-memory batches, the Loader's ms a
       batch, 8 single-flow forward and 8 flow-gradient launches a step;
@@ -202,9 +217,10 @@ Phases, each of which raises on failure:
       720x1280, the originals equal to the input frames bit for bit, 4
       multi-flow and no single-flow launch a window; wall s, frames written
       a second, and the ms a window split into decode, fused step (CUDA
-      events) and encode; then in f32 over 3 windows of the clip written as
-      JPEG frames of four kinds (baseline, progressive, sequential in three
-      scans, Adobe CMYK), and over PNG copies of the port's decode of them:
+      events) and encode; then in f32 over 4 windows of the clip written as
+      JPEG frames of five kinds (baseline, progressive, sequential in three
+      scans, Adobe CMYK, progressive cut after its third scan), and over PNG
+      copies of the port's decode of them:
       the two runs' files equal byte for byte (``render_jpeg_vs_png_copy``);
   19. the same at configs/superslomo_recurrent.ini's model (CLSTM,
       N_FRAMES=4, each window from a zero state) over 3 windows; then
@@ -254,6 +270,7 @@ wrappers take a row window.
 import argparse
 import configparser
 import contextlib
+import functools
 import heapq
 import json
 import os
@@ -1539,7 +1556,7 @@ def synthetic_train_batches(norm, n_batches, B, H, W, seed, n_frames=2):
     return out
 
 
-def phase_main_path(dtype, batches, steps=8):
+def phase_main_path(dtype, batches, steps=6):
     """The Evaluator at 720p 8x over ``batches``, after timing the step."""
     from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config, ops, weights
     from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
@@ -1563,6 +1580,7 @@ def phase_main_path(dtype, batches, steps=8):
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated()
     B, n_t = frames.shape[0], t_values.shape[0]
+    big = big_batch_call(model, frames, t_values, dtype)
 
     counter.launches = ops._WarpMultiflow.launches = 0
     t0 = time.perf_counter()
@@ -1576,6 +1594,7 @@ def phase_main_path(dtype, batches, steps=8):
         "step_ms": times, "frames_per_s": B * n_t / (statistics.median(times) / 1e3),
         "peak_mem_gib": peak / 2**30, "eval_batches": len(batches), "eval_wall_s": wall,
         "warp_launches": launches, "warp_multiflow_backward_launches": bwd_launches, **results,
+        "b8": {k: v for k, v in big.items() if k != "phase"},
     }
     emit(res)
     if launches != 4 * len(batches) or bwd_launches != 0:
@@ -1587,6 +1606,49 @@ def phase_main_path(dtype, batches, steps=8):
     n = B * n_t
     res["reference"] = {"pred": pred.cpu(), "bound": float(bound), "scores": [ev.psnr[:n], ev.ssim[:n], ev.ie[:n]],
                         "eval_bound": ev.bounds[0]}
+    return res
+
+
+def big_batch_call(model, frames, t_values, dtype, B=8, reps=2):
+    """The shipped eval batch in one ``interpolate_multi_t`` call: ``B``
+    samples at 720p 8x (phase 5's two, mirrored left-right, upside down and
+    both), which the model runs as slices of its ``step_samples`` (2 here,
+    the B=2 step's shapes); the host ms of a call (synchronised, median of
+    ``reps``), its peak GiB and multi-flow launches (4 a slice), and the max
+    abs difference of its predictions from B / 2 calls of 2 samples on the
+    same frames (the same shapes and cuDNN algorithms: 0.0 expected) and of
+    its bound from theirs."""
+    from superslomo_tpu_torch.models.superslomo import step_samples
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
+
+    frames = torch.cat([frames, frames.flip(3), frames.flip(2), frames.flip(2).flip(3)])[:B]
+    per = step_samples(frames.shape[2], frames.shape[3], t_values.shape[0], frames.shape[1] - 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter.launches = 0
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pred, bound = model.interpolate_multi_t(frames, t_values, with_bounds=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = counter.launches / reps
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    parts = [model.interpolate_multi_t(frames[i:i + 2], t_values, with_bounds=True) for i in range(0, B, 2)]
+    diff = (pred - torch.cat([p for p, _ in parts])).abs().max().item()
+    ms = statistics.median(times)
+    res = {"phase": "main_path_b8", "compute_dtype": dtype, "batch": B, "step_samples": per, "call_ms": ms,
+           "call_ms_each": times, "frames_per_s": B * t_values.shape[0] / (ms / 1e3), "peak_mem_gib": peak,
+           "warp_launches_per_call": launches, "max_abs_diff_vs_b2_calls": diff,
+           "bound": float(bound), "bound_of_b2_calls": max(float(b) for _, b in parts),
+           "finite": bool(torch.isfinite(pred).all()), "shape": list(pred.shape)}
+    emit(res)
+    del pred, parts
+    torch.cuda.empty_cache()
+    if not (res["finite"] and res["shape"] == [B, t_values.shape[0], *frames.shape[2:4], 3] and per == 2
+            and launches == 4 * B // per and diff == 0.0 and res["bound"] == res["bound_of_b2_calls"]
+            and peak < 80):
+        raise AssertionError(f"the B={B} call differs from {B // 2} B=2 calls or passes the card: {res}")
     return res
 
 
@@ -2202,15 +2264,18 @@ def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
     return res
 
 
-def phase_ssmr_main_path(batches, steps=8, eval_batches=1):
+def phase_ssmr_main_path(batches, steps=6, eval_batches=1):
     """The fused 8x step of SuperSloMo-R at 720p with a streamed-in state
     (from ``forward_inference`` of the window before): f32 at B=1, bf16 at
     B=1 and B=2; each step's ms (median of ``steps`` after 2 warm-up
     steps), frames/s, peak memory and the multi-flow kernel's launches, 4 a
-    step. Then the Evaluator with the f32 model over the first
+    slice of the model's ``step_samples`` (1 here: a sample's 3 windows
+    bring 21 stage-2 images, past the budget of 14, so B=2 runs as two
+    slices with their samples' states). Then the Evaluator with the f32 model over the first
     ``eval_batches`` of ``batches`` at B=1 (two until the script neared its
     time limit), and bf16 against f32 on the same input."""
     from superslomo_tpu_torch import Evaluator, SuperSloMo, ops, weights
+    from superslomo_tpu_torch.models.superslomo import step_samples
     from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
     from superslomo_tpu_torch.ops.warp_single_cuda import warp_single_cuda as single
 
@@ -2242,17 +2307,19 @@ def phase_ssmr_main_path(batches, steps=8, eval_batches=1):
                     "warp_multiflow_backward": ops._WarpMultiflow.launches}
         peak = torch.cuda.max_memory_allocated()
         med = statistics.median(times)
+        slices = -(-B // step_samples(frames.shape[2], frames.shape[3], 7, frames.shape[1] - 1))
         res = {
             "phase": "ssmr_main_path", "config": "configs/superslomo_recurrent.ini", "compute_dtype": dtype,
             "batch": B, "n_t": 7, "frame_hw": list(frames.shape[2:4]), "streamed_state": True,
             "step_ms_median": med, "step_ms": times, "frames_per_s": B * 7 / (med / 1e3),
-            "peak_mem_gib": peak / 2**30, "launches": launches, "bound": float(bound),
+            "peak_mem_gib": peak / 2**30, "launches": launches, "slices_per_step": slices, "bound": float(bound),
             "finite": bool(torch.isfinite(pred).all()),
         }
         if not res["finite"]:
             raise AssertionError(f"non-finite SSM-R step output: {res}")
-        if launches != {"warp_multiflow": 4 * steps, "warp_single": 0, "warp_multiflow_backward": 0}:
-            raise AssertionError(f"kernel launches {launches} over {steps} steps, expected 4 multi-flow a step")
+        if launches != {"warp_multiflow": 4 * slices * steps, "warp_single": 0, "warp_multiflow_backward": 0}:
+            raise AssertionError(f"kernel launches {launches} over {steps} steps of {slices} slices, expected 4 "
+                                 "multi-flow a slice")
         if B == 1:
             preds[dtype] = pred
         if dtype == "float32":  # the shipped config's model under the Evaluator
@@ -3342,7 +3409,7 @@ def jpeg_decode_times(cases, H=720, W=1280, reps=15):
     return out
 
 
-def phase_jpeg_decode(png_res, H=720, W=1280, reps=15):
+def phase_jpeg_decode(png_res, H=720, W=1280, reps=9):
     """The compiled JPEG decode (csrc/jpeg_decode.cpp: entropy decode, IDCT,
     upsampling and colour conversion) against its plain version
     (``jpeg.decode_plain``) on a 720p panning-texture frame written at q95:
@@ -3403,15 +3470,379 @@ def phase_jpeg_decode(png_res, H=720, W=1280, reps=15):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the uncompressed and lossless raster formats (phase 15c): writers in numpy
+# and the stdlib, as the card's machine has no cv2 or PIL
+
+
+def _runs(row, cap):
+    """(values, lengths) of the runs of equal values along ``row``, each
+    at most ``cap`` long."""
+    edges = np.flatnonzero(np.diff(row)) + 1
+    starts, ends = np.concatenate([[0], edges]), np.concatenate([edges, [row.size]])
+    n = -(-(ends - starts) // cap)
+    first = np.repeat(starts, n) + cap * (np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n))
+    return row[first], np.minimum(np.repeat(ends, n) - first, cap)
+
+
+def _run_packets(row, repeat, literal, min_run, cap):
+    """``row`` as runs of ``min_run`` or more equal bytes (``repeat(n, v)``)
+    and literal spans of at most ``cap`` bytes between them (``literal(b)``)."""
+    vals, lens = _runs(row, cap)
+    ends = np.cumsum(lens)
+    out, lit = [], 0
+    for j in np.flatnonzero(lens >= min_run):
+        start = ends[j] - lens[j]
+        out += [literal(row[a:min(a + cap, start)].tobytes()) for a in range(lit, start, cap)]
+        out.append(repeat(int(lens[j]), int(vals[j])))
+        lit = ends[j]
+    out += [literal(row[a:min(a + cap, row.size)].tobytes()) for a in range(lit, row.size, cap)]
+    return b"".join(out)
+
+
+def bmp_bytes(img, rle8=False):
+    """A BMP of the (H, W, 3) RGB frame (BITMAPINFOHEADER, bottom-up rows):
+    24 bits, or with ``rle8`` the frame in a 3-3-2 palette (``palette_332``)
+    RLE8-coded as runs of up to 255 pixels, an end of line after each row and
+    an end of bitmap."""
+    h, w = img.shape[:2]
+    if rle8:
+        idx = palette_332_index(img)[::-1]
+        pixels = b"".join(np.stack(_runs(row, 255)[::-1], axis=1).astype(np.uint8).tobytes() + b"\0\0"
+                          for row in idx) + b"\0\1"
+        pal = np.concatenate([palette_332()[:, ::-1], np.zeros((256, 1), np.uint8)], axis=1).tobytes()
+        bpp, comp, used = 8, 1, 256
+    else:
+        pixels = np.pad(img[::-1, :, ::-1].reshape(h, -1), ((0, 0), (0, -3 * w % 4))).tobytes()
+        pal, bpp, comp, used = b"", 24, 0, 0
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, bpp, comp, len(pixels), 2835, 2835, used, 0)
+    offset = 14 + len(info) + len(pal)
+    return b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + info + pal + pixels
+
+
+def palette_332():
+    i = np.arange(256)
+    return np.stack([(i >> 5) * 255 // 7, (i >> 2 & 7) * 255 // 7, (i & 3) * 255 // 3], axis=1).astype(np.uint8)
+
+
+def palette_332_index(img):
+    return (img[..., 0] & 0xE0) | (img[..., 1] >> 3 & 0x1C) | img[..., 2] >> 6
+
+
+def pnm_bytes(img, kind):
+    """The (H, W, 3) RGB frame as a binary PPM, its green as a PGM, a PAM
+    (its samples BGR, as cv2 reads a PAM of depth 3), or a little-endian PFM
+    of the same values (bottom-up rows)."""
+    h, w = img.shape[:2]
+    if kind == "ppm":
+        return f"P6\n{w} {h}\n255\n".encode() + img.tobytes()
+    if kind == "pgm":
+        return f"P5\n{w} {h}\n255\n".encode() + img[..., 1].tobytes()
+    if kind == "pam":
+        return f"P7\nWIDTH {w}\nHEIGHT {h}\nDEPTH 3\nMAXVAL 255\nTUPLTYPE RGB\nENDHDR\n".encode() + \
+            img[..., ::-1].tobytes()
+    return f"PF\n{w} {h}\n-1.0\n".encode() + img[::-1].astype("<f4").tobytes()
+
+
+def sun_bytes(img):
+    """A standard-type 24-bit Sun raster (BGR, rows padded to 16 bits)."""
+    h, w = img.shape[:2]
+    rows = np.pad(img[..., ::-1].reshape(h, -1), ((0, 0), (0, 3 * w % 2))).tobytes()
+    return struct.pack(">8I", 0x59A66A95, w, h, 24, len(rows), 1, 0, 0) + rows
+
+
+def hdr_bytes(img):
+    """A Radiance HDR of the frame with exponent 128 (each value m / 256), in
+    new-style run-length scanlines."""
+    h, w = img.shape[:2]
+    rgbe = np.concatenate([img, np.full((h, w, 1), 128, np.uint8)], axis=2)
+    lines = [f"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y {h} +X {w}\n".encode()]
+    for row in rgbe:
+        lines.append(bytes([2, 2, w >> 8, w & 255]))
+        lines += [_run_packets(row[:, c], lambda n, v: bytes([128 + n, v]), lambda b: bytes([len(b)]) + b, 3, 127)
+                  for c in range(4)]
+    return b"".join(lines)
+
+
+def hdr_expected(img):
+    """What cv2 reads from ``hdr_bytes(img)``: m / 256 * 255, half to even."""
+    return np.rint(img.astype(np.float32) * np.float32(2.0**-8) * np.float32(255)).astype(np.uint8)
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF's LZW of ``data``, as libtiff's encoder codes it (a clear code
+    first and when the table fills, the code width growing one code early)."""
+    codes, widths = [256], [9]
+    table, free, nbits = {}, 258, 9
+    ent = data[0]
+    for c in data[1:]:
+        code = table.get(ent << 8 | c)
+        if code is not None:
+            ent = code
+            continue
+        codes.append(ent)
+        widths.append(nbits)
+        ent = c
+        table[codes[-1] << 8 | c] = free
+        free += 1
+        if free == 4094:
+            codes.append(256)
+            widths.append(nbits)
+            table, free, nbits = {}, 258, 9
+        elif free > (1 << nbits) - 1:
+            nbits += 1
+    codes += [ent]
+    widths += [nbits]
+    if free + 1 > (1 << nbits) - 1 and nbits < 12:
+        nbits += 1
+    codes.append(257)
+    widths.append(nbits)
+    return _pack_codes(np.array(codes, np.int64), np.array(widths, np.int64))
+
+
+def lzw_literal(data: bytes) -> bytes:
+    """A valid TIFF LZW stream of ``data`` that numpy writes fast: every byte
+    a 9-bit literal code, a clear code before each 253 (so the width never
+    grows)."""
+    raw = np.frombuffer(data, np.uint8).astype(np.int64)
+    pad = -raw.size % 253
+    body = np.concatenate([np.full((raw.size + pad) // 253, 256)[:, None],
+                           np.pad(raw, (0, pad), constant_values=-1).reshape(-1, 253)], axis=1).reshape(-1)
+    codes = np.concatenate([body[body >= 0], [257]]).astype(np.int32)
+    return np.packbits((codes[:, None] >> np.arange(8, -1, -1, dtype=np.int32) & 1).astype(np.uint8)).tobytes()
+
+
+def _pack_codes(codes, widths):
+    """Codes of the given widths (9-12 bits), MSB first, packed into bytes."""
+    k = np.arange(12, dtype=np.int32)
+    bits = (codes.astype(np.int32)[:, None] >> np.maximum(widths.astype(np.int32)[:, None] - 1 - k, 0)) & 1
+    return np.packbits(bits[k < widths[:, None]].astype(np.uint8)).tobytes()
+
+
+def packbits_encode(rows) -> bytes:
+    """PackBits of each row: runs of 3 or more equal bytes as repeats, the
+    rest as literals of up to 128."""
+    return b"".join(_run_packets(row, lambda n, v: bytes([257 - n, v]), lambda b: bytes([len(b) - 1]) + b, 3, 128)
+                    for row in rows)
+
+
+def tiff_bytes(img, compression="none", predictor=False, tile=None, bits=8, rows_per_strip=16):
+    """A little-endian RGB TIFF of the frame in strips of ``rows_per_strip``
+    or ``tile`` (w, h) tiles; 8 bits, or 16 (each value v * 257);
+    ``compression`` none, lzw, lzw_literal (``lzw_literal``), packbits or
+    deflate, with the horizontal predictor if asked."""
+    h, w = img.shape[:2]
+    samples = img.astype(np.uint16) * 257 if bits == 16 else img
+    cw, ch = tile or (w, rows_per_strip)
+    chunks = []
+    for y in range(0, h, ch):
+        for x in range(0, w, cw) if tile else [0]:
+            block = samples[y:y + ch, x:x + cw]
+            if tile:
+                block = np.pad(block, ((0, ch - block.shape[0]), (0, cw - block.shape[1]), (0, 0)))
+            if predictor:
+                block = np.concatenate([block[:, :1], block[:, 1:] - block[:, :-1]], axis=1)
+            raw = block.astype("<u2" if bits == 16 else np.uint8)
+            data = raw.tobytes()
+            chunks.append({"none": lambda: data, "lzw": lambda: lzw_encode(data),
+                           "lzw_literal": lambda: lzw_literal(data), "deflate": lambda: zlib.compress(data, 6),
+                           "packbits": lambda: packbits_encode(raw.reshape(raw.shape[0], -1))}[compression]())
+    code = {"none": 1, "lzw": 5, "lzw_literal": 5, "deflate": 8, "packbits": 32773}[compression]
+    body = bytearray(b"II*\x00\0\0\0\0")
+    offsets = []
+    for c in chunks:
+        offsets.append(len(body))
+        body += c + bytes(len(c) % 2)
+    counts = [len(c) for c in chunks]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * 3), 259: (3, [code]), 262: (3, [2]), 277: (3, [3]),
+            284: (3, [1])}
+    if predictor:
+        tags[317] = (3, [2])
+    if tile:
+        tags.update({322: (4, [cw]), 323: (4, [ch]), 324: (4, offsets), 325: (4, counts)})
+    else:
+        tags.update({273: (4, offsets), 278: (4, [ch]), 279: (4, counts)})
+    ifd = len(body)
+    struct.pack_into("<I", body, 4, ifd)
+    blobs, entries = bytearray(), []
+    blob_at = ifd + 2 + 12 * len(tags) + 4
+    for tag in sorted(tags):
+        kind, values = tags[tag]
+        packed = struct.pack("<" + ("H" if kind == 3 else "I") * len(values), *values)
+        if len(packed) <= 4:
+            entries.append(struct.pack("<HHI", tag, kind, len(values)) + packed.ljust(4, b"\0"))
+        else:
+            entries.append(struct.pack("<HHII", tag, kind, len(values), blob_at + len(blobs)))
+            blobs += packed
+    return bytes(body + struct.pack("<H", len(tags)) + b"".join(entries) + bytes(4) + blobs)
+
+
+RASTER_CASES = {  # name → (the writer of a 720p frame, what cv2 reads from it, whether a compiled routine runs)
+    "bmp_24": (bmp_bytes, lambda f: f, False),
+    "bmp_rle8": (lambda f: bmp_bytes(f, rle8=True), lambda f: palette_332()[palette_332_index(f)], True),
+    "ppm": (lambda f: pnm_bytes(f, "ppm"), lambda f: f, False),
+    "pgm": (lambda f: pnm_bytes(f, "pgm"), lambda f: np.repeat(f[..., 1:2], 3, axis=2), False),
+    "pam": (lambda f: pnm_bytes(f, "pam"), lambda f: f, False),
+    "pfm": (lambda f: pnm_bytes(f, "pfm"), lambda f: f, False),
+    "tiff_none": (tiff_bytes, lambda f: f, False),
+    "tiff_lzw_predictor": (lambda f: tiff_bytes(f, "lzw", predictor=True), lambda f: f, True),
+    "tiff_packbits": (lambda f: tiff_bytes(f, "packbits"), lambda f: f, True),
+    "tiff_deflate_tiled": (lambda f: tiff_bytes(f, "deflate", tile=(256, 256)), lambda f: f, False),
+    "tiff_16bit": (lambda f: tiff_bytes(f, bits=16), lambda f: f, False),
+    "sun_24": (sun_bytes, lambda f: f, False),
+    "hdr_rle": (hdr_bytes, hdr_expected, True),
+}
+
+
+def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=5):
+    """The raster readers (``data/bmp.py``, ``pnm.py``, ``tiff.py``,
+    ``sunras.py``, ``hdr.py`` through ``data/image.py``) on the 720p
+    panning-texture frame written by this script's writers in each case of
+    RASTER_CASES: each decode equals what cv2 reads from the file (the frame,
+    or its palette or HDR rounding), and where a routine of
+    csrc/raster_decode.cpp runs (RLE8, LZW, PackBits, HDR scanlines) the
+    plain decode equals the compiled one. Then a q95 progressive 4:2:0 JPEG
+    cut after its third scan (block smoothing): the compiled decode equals
+    the plain one. Times: a whole decode (median of ``reps``, the file in the
+    page cache), the plain decode (one call), beside phase 15's PNG and
+    baseline JPEG decodes of the same frame kind."""
+    from superslomo_tpu_torch.data import bmp, hdr, image, jpeg, tiff
+
+    plains = {"bmp": bmp.decode, "tiff": tiff.decode, "hdr": hdr.decode}  # by the case's prefix
+    frame = panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
+    out = {"phase": "raster_decode_vs_plain", "frame_hw": [H, W], "reps": reps, "cases": {},
+           "png_sub_decode_ms": png_res["filters"]["sub"]["decode_ms"],
+           "jpeg_baseline_420_decode_ms": jpeg_res["cases"]["420"]["decode_ms"]}
+    with tempfile.TemporaryDirectory() as d:
+        for name, (write, expected, compiled) in RASTER_CASES.items():
+            t0 = time.perf_counter()
+            data = write(frame)
+            path = os.path.join(d, name)
+            with open(path, "wb") as f:
+                f.write(data)
+            write_s = time.perf_counter() - t0
+            got = image.imread(path)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                image.imread(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec = {"file_mib": len(data) / 2**20, "write_s": write_s, "decode_ms": statistics.median(times),
+                   "decode_ms_each": times, "equals_written": bool(np.array_equal(got, expected(frame)))}
+            if compiled:
+                t0 = time.perf_counter()
+                plain = plains[name.split("_")[0]](data, path, plain=True)
+                rec.update(plain_ms=(time.perf_counter() - t0) * 1e3, compiled_equals_plain=bool(np.array_equal(
+                    plain, got)))
+            out["cases"][name] = rec
+        data = jpeg_bytes(frame, quality=95, scans="progressive")
+        cut = data[: jpeg.read_header(data).scans[2].end] + b"\xff\xd9"
+        rec = {}
+        for tag, blob in (("whole", data), ("cut_after_3_scans", cut)):
+            path = os.path.join(d, f"{tag}.jpg")
+            with open(path, "wb") as f:
+                f.write(blob)
+            image.imread(path)
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                got = image.imread(path)
+                times.append((time.perf_counter() - t0) * 1e3)
+            rec[f"{tag}_decode_ms"] = statistics.median(times)
+        t0 = time.perf_counter()
+        plain = jpeg.decode_plain(cut, jpeg.read_header(cut))
+        rec.update(plain_ms=(time.perf_counter() - t0) * 1e3, compiled_equals_plain=bool(np.array_equal(plain, got)),
+                   scans=len(jpeg.read_header(data).scans),
+                   psnr_db=float(10 * np.log10(255**2 / np.mean((got.astype(np.float64) - frame) ** 2))))
+        out["progressive_cut_after_3_scans"] = rec
+    emit(out)
+    bad = {k: v for k, v in out["cases"].items() if not (v["equals_written"] and v.get("compiled_equals_plain", True))}
+    if bad or not rec["compiled_equals_plain"]:
+        raise AssertionError(f"a raster decode differs from what cv2 reads or from its plain version: {bad} {rec}")
+    return out
+
+
+LOADER_FORMATS = {"bmp": bmp_bytes, "ppm": lambda f: pnm_bytes(f, "ppm"),
+                  "tif": lambda f: tiff_bytes(f, "lzw_literal", predictor=True)}
+
+
+def _tagged_decode(decode, tag, ext, data, path):
+    tag(ext)
+    return decode(data, path)
+
+
+def phase_raster_loader(root, sections, H=720, W=1280, n_batches=2):
+    """The Loader alone (configs/superslomo_original.ini's ADOBE train list,
+    12 threads, B=32, 224x224 crops) over an ADOBE list naming the 57-frame
+    720p clip of ``write_dataset`` (the same seed) written again with its
+    frames in turn as 24-bit BMP, binary PPM and LZW TIFF (predictor 2;
+    9-bit literal codes, ``lzw_literal``): the first ``n_batches`` batches
+    equal, bit for bit, those of the list over the PNG copies, and each
+    format's decoder ran; ms a batch of each list (each format's decode ms
+    is ``raster_decode_vs_plain``'s)."""
+    from superslomo_tpu_torch import load_config
+    from superslomo_tpu_torch.data import bmp, pnm, tiff
+
+    frames = panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]
+    lists = {"png": sections["ADOBE_DATA"]["TRAINPATHS"]}
+    with open(lists["png"]) as f:
+        text = f.read()
+    png_dir = os.path.join(root, "adobe", "clip_000")
+    clip_dir = os.path.join(root, "adobe_raster", "clip_000")
+    os.makedirs(clip_dir)
+    kinds = list(LOADER_FORMATS.items())
+    decoders = {"bmp": bmp, "ppm": pnm, "tif": tiff}
+    t0 = time.perf_counter()
+    for i, img in enumerate(frames):
+        ext, write = kinds[i % len(kinds)]
+        path = os.path.join(clip_dir, f"frame_{i:05d}.{ext}")
+        with open(path, "wb") as f:
+            f.write(write(img))
+        text = text.replace(os.path.join(png_dir, f"frame_{i:05d}.png"), path)
+    lists["raster"] = os.path.join(root, "adobe_raster_train.txt")
+    with open(lists["raster"], "w") as f:
+        f.write(text)  # the PNG list's entries, each frame in its format
+    res = {"phase": "raster_loader_vs_png", "batches": n_batches, "frames_by_format": {
+        ext: len(range(k, len(frames), len(kinds))) for k, (ext, _) in enumerate(kinds)},
+        "write_s": time.perf_counter() - t0, "lists": {}}
+    ref = None
+    for name, path in lists.items():
+        ini = write_config(os.path.join(root, f"loader_{name}.ini"), "superslomo_original.ini", sections,
+                           {"DATA": {"DATASET": "ADOBE"}, "ADOBE_DATA": {"TRAINPATHS": path}})
+        cfg = load_config(ini)
+        decoded = []  # the format of each raster decode (appends are atomic across the Loader's threads)
+        inner = {ext: module.decode for ext, module in decoders.items()}
+        for ext, module in decoders.items():
+            module.decode = functools.partial(_tagged_decode, inner[ext], decoded.append, ext)
+        try:
+            timing, batches = loader_ms(cfg, "TRAIN", n_batches)
+        finally:
+            for ext, module in decoders.items():
+                module.decode = inner[ext]
+        if ref is None:
+            ref = batches
+        same = len(batches) == len(ref) and all(
+            all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(x, y)) for x, y in zip(batches, ref))
+        res["lists"][name] = {**timing, "equals_png": same, "threads": cfg.getint("DATALOADER", "N_WORKERS"),
+                              "batch": cfg.getint("TRAIN", "BATCH_SIZE"),
+                              "decodes": {ext: decoded.count(ext) for ext in decoders}}
+    emit(res)
+    if not (res["lists"]["raster"]["equals_png"] and all(res["lists"]["raster"]["decodes"].values())):
+        raise AssertionError(f"the Loader's batches over BMP / PPM / TIFF frames differ from the PNG list's: {res}")
+    return res
+
+
 def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, nfs_entries=280, vimeo_seqs=8,
-                  vimeo_repeats=10, val_repeats=2):
+                  vimeo_repeats=10, val_repeats=2, val_frames=57):
     """A made-up dataset in the layouts the readers read: one 57-frame clip
     of panning-texture PNGs at H x W (Sub rows, zlib level 1, as cv2.imwrite
     writes them); the ADOBE and NFS train lists naming that clip's frames
     ``adobe_entries`` / ``nfs_entries`` times; ``vimeo_seqs`` Vimeo
     septuplets at ``vimeo_hw``, listed ``vimeo_repeats`` times; and a
-    VAL_CLIPS pickle naming the clip ``val_repeats`` times (7 sliding windows
-    each). Returns the config sections that point at it."""
+    VAL_CLIPS pickle naming ``val_repeats`` times the clip or, with fewer
+    ``val_frames``, a clip of hard links to its first frames ((val_frames -
+    1) / 8 sliding windows each: 7 for the whole clip). Returns the config
+    sections that point at it."""
     rng = np.random.default_rng(31)
     clip_dir = os.path.join(root, "adobe", "clip_000")
     os.makedirs(clip_dir)
@@ -3431,8 +3862,14 @@ def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, n
             write_png(os.path.join(d, f"im{i}.png"), img)
     with open(os.path.join(root, "vimeo", "list.txt"), "w") as f:
         f.write("\n".join(seqs * vimeo_repeats) + "\n")
+    val_clip = "clip_000"
+    if val_frames < len(paths):
+        val_clip = "val_000"
+        os.makedirs(os.path.join(root, "adobe", val_clip))
+        for path in paths[:val_frames]:
+            os.link(path, os.path.join(root, "adobe", val_clip, os.path.basename(path)))
     with open(os.path.join(root, "val_clips.pkl"), "wb") as f:
-        pickle.dump(["clip_000"] * val_repeats, f)
+        pickle.dump([val_clip] * val_repeats, f)
     return {
         "ADOBE_DATA": {"ROOTDIR": os.path.join(root, "adobe"), "VAL_CLIPS": os.path.join(root, "val_clips.pkl"),
                        "TRAINPATHS": os.path.join(root, "adobe_train.txt"), "H_IN": H, "W_IN": W},
@@ -3474,17 +3911,20 @@ def write_small_eval_dataset(root, H=48, W=96, n=17):
 
 def data_phases(norm, scale=False):
     """Phases 15-17 over a made-up dataset in a temporary directory: the PNG
-    unfilter, the JPEG decode, the eval CLI, the train CLI in f32 and bf16,
+    unfilter, the JPEG decode, the raster formats' decodes and the Loader over
+    a clip list of BMP, PPM and TIFF frames, the eval CLI, the train CLI in f32 and bf16,
     and in f32 over clip lists naming JPEG frames; with ``scale``, then phase
     23 over the same datasets (else None)."""
     png = phase_png_unfilter()
     jpeg = phase_jpeg_decode(png)
+    phase_raster_decode(png, jpeg)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        sections = write_dataset(root, val_repeats=1)
+        sections = write_dataset(root, val_repeats=1, val_frames=33)
         small = write_small_eval_dataset(root)
         emit({"phase": "dataset_written", "seconds": time.perf_counter() - t0})
-        eval_cli = phase_eval_cli(root, sections, small, n_windows=7)  # the clip's 7 windows: one batch
+        phase_raster_loader(root, sections)
+        eval_cli = phase_eval_cli(root, sections, small, n_windows=4)  # 33 frames' 4 windows: one batch
         train_clis = [phase_train_cli(root, sections, norm, dtype) for dtype in ("float32", "bfloat16")]
         t0 = time.perf_counter()
         jpeg_sections = write_jpeg_train_lists(root, sections)
@@ -3571,12 +4011,12 @@ def phase_eval_cli(root, sections, small_sections, n_windows):
     """The eval CLI (``python -m superslomo_tpu_torch.cli.evaluate_interpolation``,
     on the card by default) at configs/superslomo_eval.ini as shipped (ADOBE,
     720p padded to 736, B=8, 12 loader threads, f32, seeded weights) over the
-    made-up dataset (``n_windows`` sliding windows: 7, one batch; the
-    host's scoring takes ~0.6 s an image, so more batches cost minutes). The
-    Evaluator runs each batch as fused steps of ``step_samples`` samples (2
-    at 720p: the shapes of phase 5; the batch's last step has 1). Its metrics equal Evaluator.run on the same
-    batches given explicitly (read by the Loader alone, timed); 4 multi-flow
-    launches a fused step, counted; the wall time of the CLI's Evaluator.run
+    made-up dataset (``n_windows`` sliding windows: 4, one batch; the
+    host's scoring takes 0.6-0.9 s an image, so more windows cost minutes).
+    The model's fused step takes each batch as slices of ``step_samples``
+    samples (2 at 720p: the shapes of phase 5). Its metrics equal Evaluator.run on the same batches given explicitly
+    (read by the Loader alone, timed); 4 multi-flow launches a slice
+    (``_multi_t_planar`` call), counted; the wall time of the CLI's Evaluator.run
     per batch against the prepared run's, and the prepared run's time in
     the host's scoring (waiting for a batch's copy included). Then the CLI on the card against
     the CLI on the CPU (``--device cpu``) over a 17-frame 48x96 clip (padded
@@ -3590,7 +4030,7 @@ def phase_eval_cli(root, sections, small_sections, n_windows):
     args = ["-c", ini, "--expt", "chip_smoke", "--log", os.path.join(root, "eval.log")]
     counter.launches = ops._WarpMultiflow.launches = 0
     t0 = time.perf_counter()
-    with _Recorder(Evaluator, "run") as run, _Recorder(SuperSloMo, "interpolate_multi_t") as steps:
+    with _Recorder(Evaluator, "run") as run, _Recorder(SuperSloMo, "_multi_t_planar") as steps:
         cli = eval_cli.main(args)  # default --device cuda
     cli_wall = time.perf_counter() - t0
     launches, bwd_launches, n_steps = counter.launches, ops._WarpMultiflow.launches, len(steps.calls)
@@ -3662,7 +4102,7 @@ def list_frame_kind(sections):
         return "jpeg" if f.read(3) == jpeg.SIGNATURE else "png"
 
 
-def phase_train_cli(root, sections, norm, dtype, steps=10, warmup=2, synthetic_steps=5, loader_batches=6,
+def phase_train_cli(root, sections, norm, dtype, steps=6, warmup=2, synthetic_steps=3, loader_batches=4,
                     **overrides):
     """The train CLI (``python -m superslomo_tpu_torch.cli.train``, on the
     card by default) at configs/superslomo_original.ini as shipped (ALL:
@@ -3867,22 +4307,30 @@ def phase_render_cli(root, frames, tag, base, n_windows, dtype=None, dump=False,
     return res
 
 
-RENDER_JPEG_KINDS = ({}, {"scans": "progressive"}, {"scans": "components"}, {"colour": "cmyk"})  # a frame each
+RENDER_JPEG_KINDS = ({}, {"scans": "progressive"}, {"scans": "components"}, {"colour": "cmyk"},
+                     {"scans": "progressive", "cut_after": 3})  # a frame each; the last block-smoothed
 
 
-def phase_render_jpeg(root, frames, n_windows=3):
+def phase_render_jpeg(root, frames, n_windows=4):
     """The render CLI over a JPEG clip: the first ``n_windows + 1`` frames
-    of the 720p clip written as q95 JPEG files of four kinds in turn
+    of the 720p clip written as q95 JPEG files of five kinds in turn
     (baseline 4:2:0, progressive 4:2:0, sequential 4:2:0 in three scans,
-    Adobe CMYK; CONV, f32, as phase 18), then over PNG copies of the port's
-    decode of those files; every file the two runs write is the same, byte
-    for byte (the same pixels in, the same renders out)."""
+    Adobe CMYK, progressive 4:2:0 cut after its third scan, which the reader
+    block-smooths; CONV, f32, as phase 18), then over PNG copies of the
+    port's decode of those files; every file the two runs write is the same,
+    byte for byte (the same pixels in, the same renders out)."""
     from superslomo_tpu_torch.data import jpeg
 
     os.makedirs(os.path.join(root, "clip_jpg"))
     kinds = [RENDER_JPEG_KINDS[i % len(RENDER_JPEG_KINDS)] for i in range(n_windows + 1)]
     for i, (img, kind) in enumerate(zip(frames[: n_windows + 1], kinds)):
-        write_jpeg(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"), img, quality=95, **kind)
+        kind = dict(kind)
+        cut = kind.pop("cut_after", None)
+        data = jpeg_bytes(img, quality=95, **kind)
+        if cut:
+            data = data[: jpeg.read_header(data).scans[cut - 1].end] + b"\xff\xd9"
+        with open(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"), "wb") as f:
+            f.write(data)
     decoded = np.stack([jpeg.imread(os.path.join(root, "clip_jpg", f"frame_{i:05d}.jpg"))
                         for i in range(n_windows + 1)])
     write_clip(os.path.join(root, "clip_jpg_png"), decoded)
@@ -3898,7 +4346,8 @@ def phase_render_jpeg(root, frames, n_windows=3):
             if a.read() != b.read():
                 differ.append(name)
     res = {"phase": "render_jpeg_vs_png_copy", "windows": n_windows, "files": len(names), "files_differing": differ,
-           "frame_kinds": [k.get("scans", k.get("colour", "baseline")) for k in kinds],
+           "frame_kinds": [("cut " if "cut_after" in k else "") + k.get("scans", k.get("colour", "baseline"))
+                           for k in kinds],
            "decode_ms_jpeg": runs[0]["median_ms_per_window"]["decode_ms"],
            "decode_ms_png_copy": runs[1]["median_ms_per_window"]["decode_ms"]}
     emit(res)
@@ -4018,7 +4467,7 @@ def phase_render_flow_card_vs_cpu(root):
 
 def render_phases(render_fwd):
     """Phases 18-21 in a temporary directory: the render CLI (CONV f32 over
-    8 windows, CONV bf16 over 4, SSM-R over 3, CONV f32 over 3 windows of
+    8 windows, CONV bf16 over 4, SSM-R over 3, CONV f32 over 4 windows of
     JPEG frames and of their PNG copy, the intermediates dump over 2) over a
     9-frame 720p panning clip, the flow-EPE CLI, and both CLIs on
     the card against the CPU; every single-flow launch of the dump and the
@@ -4243,7 +4692,7 @@ def ddp_eval_rank(rank, world, port, backend, local_ranks, args):
 
     torchrun_env(rank, world, local_ranks[rank], port)
     counter.launches = ops._WarpMultiflow.launches = 0
-    with _Recorder(SuperSloMo, "interpolate_multi_t") as rec:
+    with _Recorder(SuperSloMo, "_multi_t_planar") as rec:  # a call a fused-step slice
         metrics = eval_cli.main([*args, "--dist-backend", backend])
     return {"rank": rank, "metrics": metrics, "preds": torch.cat([c[3][0].cpu() for c in rec.calls]),
             "fused_steps": len(rec.calls), "launches": counter.launches,
@@ -4553,7 +5002,7 @@ def phase_ddp_eval_cli(root, world=2):
     backend, local_ranks = _ranks_layout(world)
     print(f"chip_smoke: phase 23c runs {world} ranks over {backend} on cards {local_ranks}", flush=True)
     ranks = spawn_ranks(ddp_eval_rank, world, (world, _free_port(), backend, local_ranks, args))
-    with _Recorder(SuperSloMo, "interpolate_multi_t") as rec:
+    with _Recorder(SuperSloMo, "_multi_t_planar") as rec:
         single = eval_cli.main(args)
     want = torch.cat([c[3][0].cpu() for c in rec.calls])
     got = torch.cat([r["preds"] for r in ranks])[:len(want)]
@@ -4663,7 +5112,10 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
     times, bound, plain and library times; and the multi-flow warp's backward, its
     launches counted on every main path (none expected: serving runs without
     autograd, training uses the single-flow warp) and a backward in its own
-    phase. The multi-flow kernel's entry also has its launches a step and a
+    phase. The multi-flow kernel's entry also has its launches a B=8 call,
+    its SuperSloMo-R launches a step beside the slices of that step (4
+    launches a slice: the bf16 B=2 step runs as two slices of 1), its
+    launches a step and a
     fused step of the Evaluator on each rank of the sharded serving path
     (``sharded``, phase 5b) and its row-window cases (``kern_rows``). The
     single-flow kernels' entries have their launches by main path
@@ -4707,8 +5159,10 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             "library_ms": bf16["library_ms"],
             "bit_identical_to_f32_cast": bf16["bit_identical_to_f32_cast"],
         },
+        "launches_per_b8_call": {r["compute_dtype"]: r["b8"]["warp_launches_per_call"] for r in (main_f32, main_bf16)},
         "ssmr_launches_per_step": {f"{r['compute_dtype']}_b{r['batch']}": r["launches"]["warp_multiflow"] / len(
             r["step_ms"]) for r in ssmr_main},
+        "ssmr_slices_per_step": {f"{r['compute_dtype']}_b{r['batch']}": r["slices_per_step"] for r in ssmr_main},
         "eval_cli_launches": eval_cli["warp_launches"], "eval_cli_launches_per_step": eval_cli["warp_launches_per_step"],
         "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_multiflow"] for r in renders},
         "ddp_eval_cli_launches_per_step_by_rank": scaled["ddp_eval"]["launches_per_step_by_rank"],

@@ -15,9 +15,9 @@
 // buffers of quantised coefficients (jpeg_decode_scans: jdphuff.c's DC and
 // AC first and refinement scans with their EOB runs, jdhuff.c's sequential
 // blocks), then one output pass dequantises, transforms, upsamples and
-// converts them (jdcoefct.c's decompress_data). A progressive file whose scans
-// leave one of the first ten coefficients unrefined is refused: libjpeg
-// smooths its blocks (decompress_smooth_data), which is not ported.
+// converts them (jdcoefct.c's decompress_data; for a progressive file whose
+// scans leave one of the first ten coefficients unrefined, as one cut off
+// after its first scans, decompress_smooth_data's block smoothing).
 //
 // Host code: the frame decoder (data/jpeg.py) parses the markers and calls
 // these routines through ctypes, which releases the interpreter lock, so the
@@ -46,7 +46,6 @@ enum Error : int64_t {
   kBadTable = 4,      // a Huffman table that libjpeg refuses (see build_huffman)
   kMissingTable = 5,  // a scan component names an undefined Huffman table
   kBadProgression = 6,  // scan parameters libjpeg refuses (JERR_BAD_PROGRESSION)
-  kBlockSmoothing = 7,  // a progressive file that libjpeg would block-smooth
   kScanEndsEarly = 8,   // a scan's data ends at a marker before its last block
 };
 
@@ -533,11 +532,16 @@ enum Kind { kSequential, kDcFirst, kDcRefine, kAcFirst, kAcRefine };
 
 constexpr int kScanFields = 21;
 
-// libjpeg's smoothing_ok after the last scan: every quantisation table latched
-// with its first ten values (zigzag) nonzero, every DC known, and one of the
-// first ten coefficients of some component not refined to its last bit
+// the natural positions of zigzag 0-9, the coefficients block smoothing
+// estimates: Q00, Q01, Q10, Q20, Q11, Q02, Q03, Q12, Q21, Q30
+constexpr int kSmoothed[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+// libjpeg's smoothing_ok after the last scan (jdcoefct.c): every quantisation
+// table latched with its first ten values (zigzag) nonzero, every DC known,
+// and one of the first ten coefficients of some component not refined to its
+// last bit. Its coef_bits latch is each component's coef_bits as the last
+// scan left them: a scan cut short raises, so no scan is still in progress.
 bool needs_smoothing(const std::vector<Component>& comps, const uint16_t* quant) {
-  constexpr int kSmoothed[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};  // natural positions of zigzag 0-9
   bool useful = false;
   for (size_t c = 0; c < comps.size(); ++c) {
     for (const int p : kSmoothed)
@@ -546,6 +550,90 @@ bool needs_smoothing(const std::vector<Component>& comps, const uint16_t* quant)
     for (int k = 1; k < 10; ++k) useful |= comps[c].coef_bits[k] != 0;
   }
   return useful;
+}
+
+// a coefficient estimate num / (q * 256), rounded half away from zero, its
+// magnitude kept below 2^al where the coefficient's last scan had al > 0
+inline int16_t estimate(int64_t num, int64_t q, int al) {
+  int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+  if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+  return static_cast<int16_t>(num >= 0 ? pred : -pred);
+}
+
+// jdcoefct.c's decompress_smooth_data for block (by, bx) of component p, whose
+// frame has T iMCU rows: its coefficients copied into ws, with each of zigzag
+// 1-9 that is zero and not known to its last bit estimated from the DC values
+// of the 5x5 blocks around it; where no AC coefficient of the component is
+// known at all (change_dc), the DC too, by a Gaussian-like kernel. The
+// neighbours' columns clamp at the component's edges; their rows clamp by
+// libjpeg's own rule, which counts the image's block rows with this iMCU
+// row's count (so in the last iMCU row of a component with v > 1 the clamp
+// may fall a row early), and may read a row of the MCU padding below the
+// image, which holds the DC that an interleaved scan decoded there.
+void smooth_block(const Component& p, const uint16_t* q, int T, int by, int bx, int16_t* ws) {
+  const int16_t* coef = p.coef.data();
+  std::memcpy(ws, coef + (static_cast<int64_t>(by) * p.grid_cols + bx) * 64, 64 * sizeof(int16_t));
+  const int r = by / p.v;
+  int block_rows = p.v;
+  if (r == T - 1) {
+    block_rows = p.block_rows % p.v;
+    if (block_rows == 0) block_rows = p.v;
+  }
+  const int ibr = r * block_rows + by % p.v, ibrs = block_rows * T;
+  int rows[5];
+  rows[2] = by;
+  rows[1] = ibr > 0 ? by - 1 : by;
+  rows[0] = ibr > 1 ? by - 2 : rows[1];
+  rows[3] = ibr < ibrs - 1 ? by + 1 : by;
+  rows[4] = ibr < ibrs - 2 ? by + 2 : rows[3];
+  int dc[26];  // DC01-DC25 as libjpeg names them: row-major over the 5x5 neighbourhood
+  for (int i = 0; i < 5; ++i) {
+    for (int j = 0; j < 5; ++j) {
+      int x = bx + j - 2;
+      x = x < 0 ? 0 : (x > p.block_cols - 1 ? p.block_cols - 1 : x);
+      dc[1 + 5 * i + j] = coef[(static_cast<int64_t>(rows[i]) * p.grid_cols + x) * 64];
+    }
+  }
+  const int* bits = p.coef_bits;
+  bool change_dc = true;
+  for (int k = 1; k < 10; ++k) change_dc &= bits[k] == -1;
+  int64_t Q[10];
+  for (int k = 0; k < 10; ++k) Q[k] = q[kSmoothed[k]];
+  const int* D = dc;
+  int64_t num[10];
+  if (change_dc) {
+    num[1] = -D[1] - D[2] + D[4] + D[5] - 3 * D[6] + 13 * D[7] - 13 * D[9] + 3 * D[10] - 3 * D[11] + 38 * D[12] -
+             38 * D[14] + 3 * D[15] - 3 * D[16] + 13 * D[17] - 13 * D[19] + 3 * D[20] - D[21] - D[22] + D[24] + D[25];
+    num[2] = -D[1] - 3 * D[2] - 3 * D[3] - 3 * D[4] - D[5] - D[6] + 13 * D[7] + 38 * D[8] + 13 * D[9] - D[10] +
+             D[16] - 13 * D[17] - 38 * D[18] - 13 * D[19] + D[20] + D[21] + 3 * D[22] + 3 * D[23] + 3 * D[24] + D[25];
+    num[3] = D[3] + 2 * D[7] + 7 * D[8] + 2 * D[9] - 5 * D[12] - 14 * D[13] - 5 * D[14] + 2 * D[17] + 7 * D[18] +
+             2 * D[19] + D[23];
+    num[4] = -D[1] + D[5] + 9 * D[7] - 9 * D[9] - 9 * D[17] + 9 * D[19] + D[21] - D[25];
+    num[5] = 2 * D[7] - 5 * D[8] + 2 * D[9] + D[11] + 7 * D[12] - 14 * D[13] + 7 * D[14] + D[15] + 2 * D[17] -
+             5 * D[18] + 2 * D[19];
+    num[6] = D[7] - D[9] + 2 * D[12] - 2 * D[14] + D[17] - D[19];
+    num[7] = D[7] - 3 * D[8] + D[9] - D[17] + 3 * D[18] - D[19];
+    num[8] = D[7] - D[9] - 3 * D[12] + 3 * D[14] + D[17] - D[19];
+    num[9] = D[7] + 2 * D[8] + D[9] - D[17] - 2 * D[18] - D[19];
+  } else {
+    num[1] = -7 * D[11] + 50 * D[12] - 50 * D[14] + 7 * D[15];
+    num[2] = -7 * D[3] + 50 * D[8] - 50 * D[18] + 7 * D[23];
+    num[3] = -D[3] + 13 * D[8] - 24 * D[13] + 13 * D[18] - D[23];
+    num[4] = D[10] + D[16] - 10 * D[17] + 10 * D[19] - D[2] - D[20] + D[22] - D[24] + D[4] - D[6] + 10 * D[7] -
+             10 * D[9];
+    num[5] = -D[11] + 13 * D[12] - 24 * D[13] + 13 * D[14] - D[15];
+  }
+  for (int k = 1; k < (change_dc ? 10 : 6); ++k) {
+    const int pos = kSmoothed[k];
+    if (bits[k] != 0 && ws[pos] == 0) ws[pos] = estimate(Q[0] * num[k], Q[k], bits[k]);
+  }
+  if (change_dc) {
+    const int64_t n0 = -2 * D[1] - 6 * D[2] - 8 * D[3] - 6 * D[4] - 2 * D[5] - 6 * D[6] + 6 * D[7] + 42 * D[8] +
+                       6 * D[9] - 6 * D[10] - 8 * D[11] + 42 * D[12] + 152 * D[13] + 42 * D[14] - 8 * D[15] -
+                       6 * D[16] + 6 * D[17] + 42 * D[18] + 6 * D[19] - 6 * D[20] - 2 * D[21] - 6 * D[22] -
+                       8 * D[23] - 6 * D[24] - 2 * D[25];
+    ws[0] = estimate(Q[0] * n0, Q[0], 0);
+  }
 }
 
 }  // namespace
@@ -758,19 +846,27 @@ extern "C" int64_t jpeg_decode_scans(const uint8_t* data, const int32_t* frame, 
       }
     }
   }
-  if (progressive && needs_smoothing(comps, quant)) return kBlockSmoothing;
+  const bool smooth = progressive && needs_smoothing(comps, quant);
 
-  // the output pass: each component's own blocks dequantised and transformed
+  // the output pass: each component's own blocks (block-smoothed where
+  // libjpeg smooths them) dequantised and transformed
   std::vector<uint8_t> planes[4];
   Samples samples[4];
+  int16_t ws[64];
   for (int c = 0; c < nc; ++c) {
     const Component& p = comps[c];
     const int64_t stride = static_cast<int64_t>(p.block_cols) * 8;
     planes[c].resize(stride * p.block_rows * 8);
-    for (int by = 0; by < p.block_rows; ++by)
-      for (int bx = 0; bx < p.block_cols; ++bx)
-        idct_islow(p.coef.data() + (static_cast<int64_t>(by) * p.grid_cols + bx) * 64, quant + 64 * c,
-                   planes[c].data() + by * 8 * stride + bx * 8, stride);
+    for (int by = 0; by < p.block_rows; ++by) {
+      for (int bx = 0; bx < p.block_cols; ++bx) {
+        const int16_t* blk = p.coef.data() + (static_cast<int64_t>(by) * p.grid_cols + bx) * 64;
+        if (smooth) {
+          smooth_block(p, quant + 64 * c, mcuy, by, bx, ws);
+          blk = ws;
+        }
+        idct_islow(blk, quant + 64 * c, planes[c].data() + by * 8 * stride + bx * 8, stride);
+      }
+    }
     samples[c] = {planes[c].data(), stride, p.width, p.height, hmax / p.h, vmax / p.v};
   }
   finish(W, H, nc, colour, samples, out);

@@ -1,4 +1,4 @@
-"""Data pipeline: the PNG and JPEG decoders, dataset readers, transforms,
+"""Data pipeline: the image decoders (``image.imread``), dataset readers, transforms,
 the threaded batch loader and the pinned, side-stream device feed."""
 
 from superslomo_tpu_torch.data.pipeline import Loader, prefetch_to_device  # noqa: F401

@@ -12,14 +12,18 @@ sampled 4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1 or at other integer factors, with
 or without restart intervals, which may change between scans; the APP1 EXIF
 orientation is applied as cv2 applies it (``data/exif.py``).
 
+A progressive file whose scans leave any of the first ten coefficients
+unrefined, as one cut off after its first scans (with or without its EOI),
+is block-smoothed as libjpeg smooths it (``jdcoefct.c::decompress_smooth_data``:
+the coefficients still zero estimated from the 5x5 blocks' DC values, and the
+DC too where no AC coefficient of a component is known).
+
 It refuses, with NotImplementedError naming the file and the feature,
 lossless, hierarchical and arithmetic-coded files, other precisions than 8
-bits (12-bit), other component counts than 1, 3 and 4, and a progressive file
-whose scans leave any of the first ten coefficients unrefined: libjpeg
-smooths such a file's blocks (``jdcoefct.c::decompress_smooth_data``), which
-is not ported. A truncated or corrupt file, or a scan whose parameters libjpeg
-refuses (``JERR_BAD_PROGRESSION``), raises ValueError naming the file
-(libjpeg would warn and fill in grey where the data runs out).
+bits (12-bit) and other component counts than 1, 3 and 4. A scan cut off
+inside its data, a corrupt file, or a scan whose parameters libjpeg refuses
+(``JERR_BAD_PROGRESSION``), raises ValueError naming the file (libjpeg would
+warn and fill in grey where the data runs out).
 
 The markers are parsed here (SOI, APPn, DQT, DHT, SOFn, DRI, SOS, EOI), with
 each scan's tables, restart interval and entropy-coded bytes; a component's
@@ -64,10 +68,10 @@ _ERRORS = {1: "the scan ends before its last block (truncated)", 2: "a Huffman c
            4: "a bad Huffman table (more codes than their lengths hold, or a DC symbol past 15)",
            5: "a scan component names an undefined Huffman table", 6: "a bad progression",
            8: "the scan ends at a marker before its last block"}
-_BAD_PROGRESSION, _BLOCK_SMOOTHING = 6, 7
+_BAD_PROGRESSION = 6
 _PAST_END_BITS = 2048  # more than one block's codes can take: a truncated scan ends inside its zero bits
 _NATURAL = np.array(sorted(range(64), key=lambda n: (n // 8 + n % 8, n // 8 if (n // 8 + n % 8) % 2 else -(n // 8))))
-_SMOOTHED = _NATURAL[:10]  # the coefficients libjpeg's block smoothing estimates: zigzag 0-9
+_SMOOTHED = _NATURAL[:10].tolist()  # the coefficients libjpeg's block smoothing estimates: zigzag 0-9
 _END_OF_SCAN = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")  # the marker after a scan's entropy-coded data
 _SCAN_FIELDS = 21  # the compiled routine's scan record: 9 fields, then 4 x (frame index, DC slot, AC slot)
 
@@ -345,11 +349,67 @@ def _needs_smoothing(header: Header, coef_bits: np.ndarray) -> bool:
     return bool((coef_bits[:, 0] >= 0).all() and (coef_bits[:, 1:10] != 0).any())
 
 
+# libjpeg-turbo's estimates of zigzag 1-9 (and of the DC, where no AC is known)
+# from the 5x5 DC neighbourhood, as (zigzag, {DC number 1-25: weight}): where
+# some AC coefficient of the component is known, then where none is (change_dc)
+_AC_KNOWN = {1: {11: -7, 12: 50, 14: -50, 15: 7}, 2: {3: -7, 8: 50, 18: -50, 23: 7},
+             3: {3: -1, 8: 13, 13: -24, 18: 13, 23: -1},
+             4: {10: 1, 16: 1, 17: -10, 19: 10, 2: -1, 20: -1, 22: 1, 24: -1, 4: 1, 6: -1, 7: 10, 9: -10},
+             5: {11: -1, 12: 13, 13: -24, 14: 13, 15: -1}}
+_AC_NONE = {
+    1: {1: -1, 2: -1, 4: 1, 5: 1, 6: -3, 7: 13, 9: -13, 10: 3, 11: -3, 12: 38, 14: -38, 15: 3, 16: -3, 17: 13,
+        19: -13, 20: 3, 21: -1, 22: -1, 24: 1, 25: 1},
+    2: {1: -1, 2: -3, 3: -3, 4: -3, 5: -1, 6: -1, 7: 13, 8: 38, 9: 13, 10: -1, 16: 1, 17: -13, 18: -38, 19: -13,
+        20: 1, 21: 1, 22: 3, 23: 3, 24: 3, 25: 1},
+    3: {3: 1, 7: 2, 8: 7, 9: 2, 12: -5, 13: -14, 14: -5, 17: 2, 18: 7, 19: 2, 23: 1},
+    4: {1: -1, 5: 1, 7: 9, 9: -9, 17: -9, 19: 9, 21: 1, 25: -1},
+    5: {7: 2, 8: -5, 9: 2, 11: 1, 12: 7, 13: -14, 14: 7, 15: 1, 17: 2, 18: -5, 19: 2},
+    6: {7: 1, 9: -1, 12: 2, 14: -2, 17: 1, 19: -1}, 7: {7: 1, 8: -3, 9: 1, 17: -1, 18: 3, 19: -1},
+    8: {7: 1, 9: -1, 12: -3, 14: 3, 17: 1, 19: -1}, 9: {7: 1, 8: 2, 9: 1, 17: -1, 18: -2, 19: -1},
+    0: {1: -2, 2: -6, 3: -8, 4: -6, 5: -2, 6: -6, 7: 6, 8: 42, 9: 6, 10: -6, 11: -8, 12: 42, 13: 152, 14: 42,
+        15: -8, 16: -6, 17: 6, 18: 42, 19: 6, 20: -6, 21: -2, 22: -6, 23: -8, 24: -6, 25: -2},
+}
+
+
+def _estimate_plain(num, q: int, al: int):
+    """The compiled routine's ``estimate`` over arrays: num / (q * 256)
+    rounded half away from zero, below 2^al in magnitude where al > 0."""
+    pred = ((q << 7) + np.abs(num)) // (q << 8)
+    if al > 0:
+        pred = np.minimum(pred, (1 << al) - 1)
+    return np.where(num >= 0, pred, -pred)
+
+
+def _smooth_plain(coef: np.ndarray, g: _Geometry, q: np.ndarray, T: int, bits) -> np.ndarray:
+    """The compiled routine's ``smooth_block`` over a component's (grid_rows,
+    grid_cols, 64) coefficients: its (block_rows, block_cols, 64) blocks
+    smoothed as libjpeg's ``decompress_smooth_data`` smooths them."""
+    by = np.arange(g.block_rows)
+    r = by // g.v
+    last = g.block_rows % g.v or g.v
+    block_rows = np.where(r == T - 1, last, g.v)
+    ibr, ibrs = r * block_rows + by % g.v, block_rows * T
+    rows = [None, np.where(ibr > 0, by - 1, by), by, np.where(ibr < ibrs - 1, by + 1, by)]
+    rows[0] = np.where(ibr > 1, by - 2, rows[1])
+    rows.append(np.where(ibr < ibrs - 2, by + 2, rows[3]))
+    dc = coef[..., 0]
+    bx = np.arange(g.block_cols)
+    D = {1 + 5 * i + j: dc[rows[i]][:, np.clip(bx + j - 2, 0, g.block_cols - 1)] for i in range(5) for j in range(5)}
+    out = coef[: g.block_rows, : g.block_cols].copy()
+    change_dc = all(b == -1 for b in bits[1:10])
+    weights = _AC_NONE if change_dc else _AC_KNOWN
+    for k in range(1, 10 if change_dc else 6):
+        pos = _SMOOTHED[k]
+        if bits[k] != 0:
+            num = int(q[0]) * sum(w * D[n] for n, w in weights[k].items())
+            out[..., pos] = np.where(out[..., pos] == 0, _estimate_plain(num, int(q[pos]), bits[k]), out[..., pos])
+    if change_dc:
+        out[..., 0] = _estimate_plain(int(q[0]) * sum(w * D[n] for n, w in weights[0].items()), int(q[0]), 0)
+    return out.astype(np.int16)
+
+
 def _raise(err: int, header: Header, path: str):
     code, index = err & 255, err >> 8
-    if code == _BLOCK_SMOOTHING:
-        raise NotImplementedError(f"{path}: a progressive JPEG whose scans leave coefficients unrefined needs "
-                                  "libjpeg's block smoothing, which is not read")
     if code == _BAD_PROGRESSION:
         s = header.scans[index]
         raise ValueError(f"{path}: scan {index}: {_ERRORS[code]} (Ss {s.ss}, Se {s.se}, Ah {s.ah}, Al {s.al})")
@@ -723,12 +783,13 @@ def decode_plain(data: bytes, header: Header, path: str = "<bytes>") -> np.ndarr
             _scan_plain(data, header, scan, coefs, geometry)
         except _ScanError as e:
             _raise(e.code | index << 8, header, path)
-    if _needs_smoothing(header, coef_bits):
-        _raise(_BLOCK_SMOOTHING, header, path)
+    smooth = _needs_smoothing(header, coef_bits)
     planes = []
-    for (_, _, q), g, flat in zip(header.components, geo, coefs):
+    for (_, _, q), g, flat, bits in zip(header.components, geo, coefs, coef_bits.tolist()):
         coef = np.array(flat, np.int64).astype(np.int16).reshape(g.grid_rows, g.grid_cols, 64)
-        plane = _idct_plain(coef[: g.block_rows, : g.block_cols], q)[: g.height, : g.width]
+        coef = _smooth_plain(coef.astype(np.int64), g, q, geometry[3], bits) if smooth else \
+            coef[: g.block_rows, : g.block_cols]
+        plane = _idct_plain(coef, q)[: g.height, : g.width]
         hexp, vexp = hmax // g.h, vmax // g.v
         planes.append((_upsample_plain(plane, hexp, vexp) if (hexp, vexp) != (1, 1) else plane)
                       [: header.height, : header.width])

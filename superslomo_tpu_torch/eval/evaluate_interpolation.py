@@ -51,21 +51,13 @@ from superslomo_tpu_torch.config import Config
 from superslomo_tpu_torch.data.augmentations import Normalize
 from superslomo_tpu_torch.data.readers import get_dataset
 from superslomo_tpu_torch.device import resolve_device
-from superslomo_tpu_torch.models.superslomo import model_on
+from superslomo_tpu_torch.models.superslomo import model_on, step_samples
 from superslomo_tpu_torch.parallel import halo
 from superslomo_tpu_torch.parallel.mesh import block_start, row_blocks
 from superslomo_tpu_torch.utils.metrics import score_image
 from superslomo_tpu_torch.utils.validators import check_eval_result_count, check_t_interp
 
 log = logging.getLogger(__name__)
-
-# The most stage-2 pixels (B·n_t·W_n images of H_REF x W_REF) one fused step
-# takes: 14 images of 736x1280, the serving step at B=2, which keeps the H100
-# busy 0.998 of the step and peaks at 22.92 GiB in f32 (PERF.md §5). A larger
-# batch runs as several steps: the shipped B=8 at 720p in one step needs more
-# than the card's 80 GB in f32, and every other step shape costs minutes of
-# cuDNN's autotuning there.
-STEP_PIXELS = 14 * 736 * 1280
 
 
 class Evaluator:
@@ -109,11 +101,9 @@ class Evaluator:
             t_values = np.arange(1, self.interp_factor, dtype=np.float32) / self.interp_factor
         check_t_interp(t_values)
         self.t_values = torch.from_numpy(t_values).to(self.device)
-        # the most samples one fused step takes: its stage-2 batch within
-        # STEP_PIXELS (at 720p, B=8 runs as four steps of 2; the flow bound of
-        # a batch is the max of its steps')
-        n_windows = self.model.spec.n_frames - 1
-        self.step_samples = max(1, STEP_PIXELS // (len(t_values) * n_windows * rows * self.W_REF))
+        # the most samples the model's fused step takes at once, for reports
+        # (at 720p, B=8 runs as four steps of 2)
+        self.step_samples = step_samples(rows, self.W_REF, len(t_values), self.model.spec.n_frames - 1)
 
     def get_dims(self):
         """/32-aligned dims, input dims and crop offsets."""
@@ -151,13 +141,11 @@ class Evaluator:
         return frames[lo:lo + per], targets[lo:lo + per], np.asarray(n_avail)[lo:lo + per]
 
     def _steps(self, frames):
-        """The fused steps over a batch's frames on the device, ``step_samples``
-        samples each: (predictions, flow bound), under the grid if any."""
+        """The fused steps over a batch's frames on the device (the model runs
+        them ``step_samples`` samples at a time): (predictions, flow bound),
+        under the grid if any."""
         with halo.spatial(self.grid) if self.grid else contextlib.nullcontext():
-            steps = [self.model.interpolate_multi_t(f, self.t_values, with_bounds=True)
-                     for f in frames.split(self.step_samples)]
-        out = steps[0][0] if len(steps) == 1 else torch.cat([o for o, _ in steps])
-        return out, torch.stack([b for _, b in steps]).amax()
+            return self.model.interpolate_multi_t(frames, self.t_values, with_bounds=True)
 
     def _submit(self, frames, targets, n_avail):
         """Launch one batch's fused steps (this rank's share across ranks, its
@@ -175,8 +163,9 @@ class Evaluator:
             frames = frames.pin_memory()
         frames = frames.to(self.device, non_blocking=True)
         out, bound = self._steps(frames)
-        if self.grid is not None:  # every rank's bound, so that all decide alike on a rerun
-            return out, halo.all_reduce(bound, dist.ReduceOp.MAX), None, targets, n_avail, frames
+        if self.grid is not None:  # every rank's bound, so that all decide alike on a rerun (reduced in a
+            # copy: the step's bound is an inference tensor, which gloo's host staging may not write)
+            return out, halo.all_reduce(bound.clone(), dist.ReduceOp.MAX), None, targets, n_avail, frames
         if not cuda:
             return out, bound, None, targets, n_avail, None
         host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in (out, bound)]

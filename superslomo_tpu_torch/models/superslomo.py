@@ -20,7 +20,10 @@ multi-flow warps of the frames feed the visibility blend. The step also
 returns a bound on every flow it warped with, ``max(boundC, boundC +
 max|Δflow|)``. A streamed-in ``rnn_carry`` starts stage 1 as given and
 stage 2 with each sample's state repeated over its t-grid; the step returns
-no state.
+no state. A batch whose stage-2 batch would pass ``STEP_PIXELS`` runs as
+consecutive slices of ``step_samples`` samples (the frames and the carry cut
+alike), their predictions joined and their bounds' max returned: every op of
+the step is per sample, so a slice computes what the whole batch would.
 
 Under a spatial grid (``parallel.halo.spatial``) the fused step runs with
 each frame's rows split across the spatial ranks: the frames given are this
@@ -95,6 +98,21 @@ from superslomo_tpu_torch.models.unet import UNet
 from superslomo_tpu_torch.ops import warp_multiflow_planar
 from superslomo_tpu_torch.parallel import halo, warp_spmd
 from superslomo_tpu_torch.parallel.mesh import block_start
+
+# The most stage-2 pixels (B·n_t·W_n images) one fused step computes at once:
+# 14 images of 736x1280, the serving step at B=2, which keeps the H100 busy
+# 0.998 of the step and peaks at 22.92 GiB in f32 (PERF.md §5). A larger batch
+# runs as slices of that size: the shipped B=8 at 720p in one step needs more
+# than the card's 80 GB in f32, and every other step shape costs minutes of
+# cuDNN's autotuning there.
+STEP_PIXELS = 14 * 736 * 1280
+
+
+def step_samples(rows: int, width: int, n_t: int, n_windows: int) -> int:
+    """The most samples one fused step takes within ``STEP_PIXELS``: each
+    brings ``n_t * n_windows`` stage-2 images of ``rows`` x ``width`` (at
+    720p 8x, 2; at least 1)."""
+    return max(1, STEP_PIXELS // (n_t * n_windows * rows * width))
 
 
 def stage_unets(spec: ModelSpec):
@@ -220,6 +238,14 @@ def _stage_carry(rnn_carry, stage: str):
     return rnn_carry.get(stage) if rnn_carry else None
 
 
+def _carry_samples(rnn_carry, lo: int, hi: int):
+    """A streamed-in state's samples ``lo:hi`` (each leaf cut along its batch)."""
+    if not rnn_carry:
+        return rnn_carry
+    return {stage: None if c is None else {k: tuple(x[lo:hi] for x in v) for k, v in c.items()}
+            for stage, c in rnn_carry.items()}
+
+
 class SuperSloMo(nn.Module):
     """Two-stage Super SloMo, with the CONV bottleneck or the recurrent
     ConvLSTM / ConvGRU bottleneck of SuperSloMo-R in either stage.
@@ -328,24 +354,39 @@ class SuperSloMo(nn.Module):
             halo warps are exact within ``halo.halo_reach`` of it.
         :returns: (B, n_t, H, W, 3) f32 predictions of the mid window, one per
             t (this rank's rows under a grid); with ``with_bounds``, ``(pred,
-            bound)``.
+            bound)``. Any batch: past ``step_samples`` samples (by the largest
+            block's rows under a grid, so every rank runs as many slices) it
+            runs as slices of that many.
         """
         frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
-        t_values = torch.as_tensor(t_values, dtype=torch.float32, device=self.device)
+        t_values = torch.as_tensor(t_values, dtype=torch.float32, device=self.device).reshape(-1)
         if frames.dim() != 5 or frames.shape[-1] != 3 or frames.shape[1] < 2:
             raise ValueError(f"frames must be (B, T>=2, H, W, 3), got {tuple(frames.shape)}")
+        B, T, H, W, _ = frames.shape
+        grid = halo.active()
+        blocks = None if grid is None else halo.frame_blocks(H, grid)  # every rank's rows
+        per = step_samples(H if blocks is None else max(blocks), W, t_values.shape[0], T - 1)
         with torch.inference_mode(), tf32_off():
-            pred, bound = self._multi_t_planar(frames, t_values.reshape(-1), rnn_carry)
+            steps = [self._multi_t_planar(frames[i:i + per], t_values, _carry_samples(rnn_carry, i, i + per), blocks)
+                     for i in range(0, B, per)]
+            if len(steps) == 1:
+                pred, bound = steps[0]
+            else:
+                pred, bound = torch.cat([p for p, _ in steps]), torch.stack([b for _, b in steps]).amax()
         return (pred, bound) if with_bounds else pred
 
-    def _multi_t_planar(self, frames, t_values, rnn_carry=None):
+    def _multi_t_planar(self, frames, t_values, rnn_carry=None, blocks=None):
+        """The fused step over the whole batch ``frames`` in one go; under a
+        grid, ``blocks`` are every spatial rank's rows (gathered here if
+        None)."""
         f32, cdt = torch.float32, self.compute_dtype
         pairs = make_pairs(frames)  # (B, W_n, H, W, 6) f32
         B, W_n, H, W, _ = pairs.shape
         BW, n_t = B * W_n, t_values.shape[0]
         planes6 = pairs.reshape(BW, H, W, 6).permute(0, 3, 1, 2)  # channels-last view
         grid = halo.active()
-        blocks = None if grid is None else halo.frame_blocks(H, grid)  # every rank's rows
+        if grid is not None and blocks is None:
+            blocks = halo.frame_blocks(H, grid)  # every rank's rows
 
         x6 = planes6.to(cdt)  # the pairs in the compute dtype, channels-last
         head1, encoding, _ = self.stage1(

@@ -10,6 +10,7 @@ from superslomo_tpu.data.augmentations import Normalize as JaxNormalize
 from superslomo_tpu.utils.metrics import score_image as jax_score_image
 from superslomo_tpu_torch import Evaluator, SuperSloMo, default_config, weights
 from superslomo_tpu_torch.data.augmentations import Normalize, eval_padding_for
+from superslomo_tpu_torch.models import superslomo
 from tests.test_torch_package import one_torch_thread  # noqa: F401
 
 H_IN, W_IN = 30, 60  # padded to 32x64: exercises the /32 pad and crop
@@ -88,7 +89,7 @@ def test_run_equals_sequential_eval_batch(state):
     assert all(np.isfinite([results["PSNR"], results["SSIM"], results["IE"]]))
 
 
-def test_batch_run_as_several_fused_steps_equals_one_step(state):
+def test_batch_run_as_several_fused_steps_equals_one_step(state, monkeypatch):
     """A batch larger than ``step_samples`` (2 at 720p, 920 at 32x64) runs as
     several fused steps: the predictions within the model's f32 bar of one
     step's, the bound the max of the steps' bounds (each bounds its own
@@ -101,11 +102,97 @@ def test_batch_run_as_several_fused_steps_equals_one_step(state):
     big.set("ADOBE_DATA", "H_IN", 720)
     big.set("ADOBE_DATA", "W_IN", 1280)
     assert Evaluator(big, whole.model, device="cpu").step_samples == 2
-    split = Evaluator(cfg, whole.model, device="cpu")
-    split.step_samples = 2
     out, bound, *_ = whole._submit(frames, targets, n_avail)
+    monkeypatch.setattr(superslomo, "STEP_PIXELS", 2 * 7 * 32 * 64)
+    split = Evaluator(cfg, whole.model, device="cpu")
+    assert split.step_samples == 2
     out_split, bound_split, *_ = split._submit(frames, targets, n_avail)
     assert out_split.shape == out.shape == (3, 7, 32, 64, 3)
     np.testing.assert_allclose(out_split.numpy(), out.numpy(), atol=5e-4, rtol=1e-3)
     steps = [whole.model.interpolate_multi_t(f, whole.t_values, with_bounds=True)[1] for f in (frames[:2], frames[2:])]
     assert float(bound_split) == max(float(b) for b in steps) <= float(bound)
+
+
+# sliced fused step against one call: oneDNN picks its conv algorithm by
+# batch (conv3a at 8x16 already sums a sample in another order at batch 1
+# than at batch 3), so one call differs from the slices by the f32 step bar
+# of tests/test_torch_halo.py (measured 2.2e-5 abs at |pred| ~2.5, CONV and
+# SSM-R alike); the slices equal the per-sample calls bit for bit.
+SLICE_ATOL, SLICE_RTOL = 1e-4, 1e-4
+
+
+def _sliced_and_whole(monkeypatch, model, frames, t_values, rnn_carry=None):
+    """``interpolate_multi_t`` with the budget at one sample a step, then at
+    the whole batch: ((pred, bound) sliced, (pred, bound) in one go, the
+    batch of each call of the one-go step)."""
+    calls = []
+    one_go = model._multi_t_planar
+
+    def counted(f, *args):
+        calls.append(f.shape[0])
+        return one_go(f, *args)
+
+    B, T, H, W, _ = frames.shape
+    monkeypatch.setattr(superslomo, "STEP_PIXELS", len(t_values) * (T - 1) * H * W)
+    assert superslomo.step_samples(H, W, len(t_values), T - 1) == 1
+    monkeypatch.setattr(model, "_multi_t_planar", counted)
+    sliced = model.interpolate_multi_t(frames, t_values, rnn_carry=rnn_carry, with_bounds=True)
+    slices = list(calls)
+    monkeypatch.setattr(superslomo, "STEP_PIXELS", B * len(t_values) * (T - 1) * H * W)
+    whole = model.interpolate_multi_t(frames, t_values, rnn_carry=rnn_carry, with_bounds=True)
+    assert calls[len(slices):] == [B]
+    return sliced, whole, slices
+
+
+def test_fused_step_slices_a_batch_past_its_budget(state, monkeypatch):
+    """``interpolate_multi_t`` over a batch past ``step_samples`` (the budget
+    patched to one sample at 32x64) runs one slice a sample: the predictions
+    and the bound equal the per-sample calls' (joined, and their max) bit for
+    bit, and one call over the whole batch within SLICE_ATOL / SLICE_RTOL.
+    The bound is at most the one call's, which adds the batch's largest
+    stage-1 flow to its largest residual, maybe of another sample."""
+    model = SuperSloMo(_cfg().model_spec(), device="cpu").load_state(state)
+    frames = _batches(_cfg(), n_batches=1, B=3, seed=5)[0][0]
+    t_values = np.arange(1, 8, dtype=np.float32) / 8
+    (pred, bound), (want, want_bound), slices = _sliced_and_whole(monkeypatch, model, frames, t_values)
+    assert slices == [1, 1, 1] and pred.shape == want.shape == (3, 7, 32, 64, 3)
+    each = [model.interpolate_multi_t(frames[i:i + 1], t_values, with_bounds=True) for i in range(3)]
+    assert torch.equal(pred, torch.cat([p for p, _ in each]))
+    assert float(bound) == max(float(b) for _, b in each)
+    np.testing.assert_allclose(pred.numpy(), want.numpy(), atol=SLICE_ATOL, rtol=SLICE_RTOL)
+    assert float(bound) <= float(want_bound) * (1 + 1e-6)
+
+
+def test_recurrent_fused_step_slices_its_streamed_state(monkeypatch):
+    """SuperSloMo-R (configs/superslomo_recurrent.ini) at 32x64 B=3 from a
+    streamed-in state: each slice takes its samples' state (the sliced step
+    equals the per-sample calls on their own states bit for bit), and the
+    sliced step equals one call within SLICE_ATOL / SLICE_RTOL."""
+    import os
+
+    from superslomo_tpu_torch import load_config
+    spec = load_config(os.path.join(os.path.dirname(os.path.dirname(__file__)), "configs",
+                                    "superslomo_recurrent.ini")).model_spec()
+    model = SuperSloMo(spec, device="cpu").load_state(weights.seeded_state(spec, seed=3))
+    rng = np.random.default_rng(6)
+    windows = rng.standard_normal((2, 3, spec.n_frames, 32, 64, 3)).astype(np.float32)
+    with torch.inference_mode():
+        carry = model(windows[0], np.full((3, spec.n_frames - 1), 0.5, np.float32)).rnn_carry
+    t_values = np.arange(1, 8, dtype=np.float32) / 8
+    (pred, bound), (want, want_bound), slices = _sliced_and_whole(monkeypatch, model, windows[1], t_values, carry)
+    assert slices == [1, 1, 1] and pred.shape == want.shape == (3, 7, 32, 64, 3)
+    each = [model.interpolate_multi_t(windows[1][i:i + 1], t_values, with_bounds=True,
+                                      rnn_carry=superslomo._carry_samples(carry, i, i + 1)) for i in range(3)]
+    assert torch.equal(pred, torch.cat([p for p, _ in each]))
+    assert float(bound) == max(float(b) for _, b in each)
+    np.testing.assert_allclose(pred.numpy(), want.numpy(), atol=SLICE_ATOL, rtol=SLICE_RTOL)
+    assert float(bound) <= float(want_bound) * (1 + 1e-6)
+
+
+def test_evaluator_takes_the_models_budget(state, monkeypatch):
+    """The Evaluator's ``step_samples`` is the model's ``step_samples`` of
+    its rows, width, t-grid and windows: patching the model's budget moves it."""
+    ev = Evaluator(_cfg(), state, device="cpu")
+    assert ev.step_samples == superslomo.step_samples(32, 64, 7, 1) == 920
+    monkeypatch.setattr(superslomo, "STEP_PIXELS", 2 * 7 * 32 * 64)
+    assert Evaluator(_cfg(), ev.model, device="cpu").step_samples == 2

@@ -78,6 +78,7 @@ import torch.multiprocessing as mp
 
 from superslomo_tpu_torch import Evaluator, ModelSpec, SuperSloMo, default_config, ops, parallel, weights
 from superslomo_tpu_torch.config import load_config
+from superslomo_tpu_torch.models import superslomo
 from superslomo_tpu_torch.models.layers import Conv2d
 from superslomo_tpu_torch.parallel import halo, warp_spmd
 from superslomo_tpu_torch.parallel.mesh import Grid, make_grid, row_blocks
@@ -215,7 +216,30 @@ def _rank_steps(grid):
         with halo.spatial(grid):
             pred, bound = model.interpolate_multi_t(_mine(frames(), grid), T3, with_bounds=True)
         out[name] = {"pred": pred, "bound": float(bound), "exchanges": halo.counts["exchanges"]}
+    out["sliced"] = _sliced_step(lambda f: _mine(f, grid), grid)
     return out
+
+
+def _sliced_frames():
+    """Four samples: two a data row."""
+    return np.random.default_rng(54).standard_normal((4, 2, H, W, 3)).astype(np.float32)
+
+
+def _sliced_step(cut, grid=None):
+    """The CONV f32 fused step over ``cut`` of ``_sliced_frames()`` with the
+    budget at one sample of the largest block's rows (every rank's alike):
+    the predictions, the bound, and each slice's batch."""
+    spec = ModelSpec()
+    model = SuperSloMo(spec, device="cpu").load_state(weights.seeded_state(spec, seed=7))
+    calls, one_go = [], model._multi_t_planar
+    model._multi_t_planar = lambda f, *args: calls.append(f.shape[0]) or one_go(f, *args)
+    budget, superslomo.STEP_PIXELS = superslomo.STEP_PIXELS, len(T3) * max(row_blocks(H, N_SPATIAL)) * W
+    try:
+        with halo.spatial(grid) if grid else contextlib.nullcontext():
+            pred, bound = model.interpolate_multi_t(cut(_sliced_frames()), T3, with_bounds=True)
+    finally:
+        superslomo.STEP_PIXELS = budget
+    return {"pred": pred, "bound": float(bound), "slices": calls}
 
 
 def _rank_evaluator(grid, halo_rows=None):
@@ -599,6 +623,22 @@ def test_sharded_fused_step_equals_one_process(ranks, name):
         assert [r["steps"][name]["bound"] for r in row] == [pytest.approx(want_bound, rel=BOUND_RTOL)] * N_SPATIAL
     if name.startswith("conv"):
         assert all(r["steps"][name]["exchanges"] == 60 for r in ranks)
+
+
+def test_sharded_fused_step_slices_alike_on_every_rank(ranks):
+    """Past its budget (one sample of the largest block's 32 rows) the fused
+    step under the grid runs a data row's two samples as two slices on each
+    of its ranks, so every rank makes the same halo exchanges; the row's
+    predictions, its blocks put together, equal one process's sliced step on
+    its samples within STEP_ATOL / STEP_RTOL, and its bound one process's."""
+    for d in range(N_DATA):
+        want = _sliced_step(lambda f: f[2 * d:2 * d + 2])
+        row = ranks[d * N_SPATIAL:(d + 1) * N_SPATIAL]
+        assert want["slices"] == [1, 1] and all(r["steps"]["sliced"]["slices"] == [1, 1] for r in row)
+        got = torch.cat([r["steps"]["sliced"]["pred"] for r in row], dim=2)
+        assert got.shape == want["pred"].shape == (2, 3, H, W, 3)
+        np.testing.assert_allclose(got.numpy(), want["pred"].numpy(), atol=STEP_ATOL, rtol=STEP_RTOL)
+        assert [r["steps"]["sliced"]["bound"] for r in row] == [pytest.approx(want["bound"], rel=BOUND_RTOL)] * 2
 
 
 def test_sharded_f32_step_equals_jax(ranks):

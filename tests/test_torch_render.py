@@ -483,3 +483,26 @@ def test_multi_t_bf16_matches_jax(params, jax_f32, jax_bf16, monkeypatch):
     bf16, f32 = torch.bfloat16, torch.float32
     assert calls == [(bf16, f32, bf16)] * 2 + [(f32, f32, f32)] * 2
     assert pred.dtype == f32 and bound.dtype == f32
+
+
+def test_multi_t_f32_sliced_matches_jax(params, jax_f32, monkeypatch):
+    """The fused step with its budget patched to one sample (B=2 runs as two
+    slices of 1) against JAX's one call over the batch, at the full-model bar.
+    Each slice bounds only its own sample's flows, so the bound is at most
+    JAX's, which adds the batch's largest stage-1 flow to its largest
+    residual, maybe of the other sample."""
+    monkeypatch.setattr(port_model, "STEP_PIXELS", len(T_VALUES) * 32 * 32)
+    model = SuperSloMo(ModelSpec(), device="cpu")
+    model.load_state(weights.torch_state_from_jax(params))
+    slices, one_go = [], model._multi_t_planar
+
+    def counted(f, *args):
+        slices.append(f.shape[0])
+        return one_go(f, *args)
+
+    monkeypatch.setattr(model, "_multi_t_planar", counted)
+    want, want_bound = jax_f32
+    pred, bound = model.interpolate_multi_t(torch.from_numpy(FRAMES), torch.from_numpy(T_VALUES), with_bounds=True)
+    assert slices == [1, 1] and pred.shape == (2, 3, 32, 32, 3)
+    np.testing.assert_allclose(pred.numpy(), want, atol=5e-4, rtol=1e-3)
+    assert float(bound) <= want_bound * (1 + 1e-4)

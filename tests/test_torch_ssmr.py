@@ -22,6 +22,7 @@ from superslomo_tpu.models import superslomo as jax_model
 from superslomo_tpu.training import checkpoint as jckpt
 from superslomo_tpu_torch import Trainer, default_config, weights
 from superslomo_tpu_torch.config import ModelSpec
+from superslomo_tpu_torch.models import superslomo as port_model
 from superslomo_tpu_torch.models.superslomo import SuperSloMo
 from tests.test_torch_package import one_torch_thread  # noqa: F401
 
@@ -130,6 +131,27 @@ def test_fused_step_with_streamed_state_matches_jax(jax_run, port):
     # the state matters: from zeros the step gives other frames
     other = model.interpolate_multi_t(WINDOWS[1], T_VALUES)
     assert (other - pred).abs().max() > 10 * ATOL
+
+
+def test_sliced_fused_step_with_streamed_state_matches_jax(jax_run, port, monkeypatch):
+    """The fused step from the streamed state with its budget patched to one
+    sample (B=2 runs as two slices of 1, each with its sample's state)
+    against JAX's one call over the batch, at the full-model bar; each slice
+    bounds only its own sample's flows, so the bound is at most JAX's."""
+    _, _, want, want_bound = jax_run
+    model, out0, _ = port
+    monkeypatch.setattr(port_model, "STEP_PIXELS", len(T_VALUES) * (SPEC["n_frames"] - 1) * H * W)
+    slices, one_go = [], model._multi_t_planar
+
+    def counted(f, *args):
+        slices.append(f.shape[0])
+        return one_go(f, *args)
+
+    monkeypatch.setattr(model, "_multi_t_planar", counted)
+    pred, bound = model.interpolate_multi_t(WINDOWS[1], T_VALUES, rnn_carry=out0.rnn_carry, with_bounds=True)
+    assert slices == [1, 1] and pred.shape == (B, 3, H, W, 3)
+    np.testing.assert_allclose(pred.numpy(), want, atol=ATOL, rtol=RTOL)
+    assert float(bound) <= want_bound * (1 + 1e-4)
 
 
 def test_forward_inference_matches_jax(jax_run, port):
