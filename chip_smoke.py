@@ -182,14 +182,19 @@ Phases, each of which raises on failure:
       the raster readers (``raster_decode_vs_plain``) on the 720p frame as
       the script writes it in BMP (24-bit and RLE8), PPM, PGM, PAM, PFM,
       TIFF (none, LZW with the predictor, PackBits, Deflate in tiles,
-      16-bit), Sun raster and HDR (run-length scanlines): each decode equals
-      what cv2 reads from the file, the compiled routines of
-      csrc/raster_decode.cpp equal their plain twins, and a progressive
-      4:2:0 JPEG cut after its third scan (block-smoothed) decodes as its
-      plain twin; the decode ms beside PNG's and baseline JPEG's; and the
-      Loader (12 threads) over an ADOBE list naming the 57-frame clip's
-      frames in turn as BMP, PPM and LZW TIFF: its batches equal the PNG
-      list's bit for bit, each decoder run (``raster_loader_vs_png``);
+      16-bit), Sun raster, HDR (run-length scanlines), GIF (the frame in a
+      256-colour palette, and an interlaced sub-rectangle with a
+      transparent index) and lossless WebP (the writer's transforms case:
+      subtract-green, predictor, cross-colour, LZ77 copies and a colour
+      cache; and its colour-indexing case at 16 colours): each decode
+      equals what cv2 reads from the file, the compiled routines of
+      csrc/raster_decode.cpp and csrc/webp_decode.cpp equal their plain
+      twins (WebP's on a 180x320 frame), and a progressive 4:2:0 JPEG cut
+      after its third scan (block-smoothed) decodes as its plain twin; the
+      decode ms and its ratio to PNG's; and the Loader (12 threads) over an
+      ADOBE list naming the 57-frame clip's frames in turn as BMP, PPM, LZW
+      TIFF and lossless WebP: its batches equal the PNG list's bit for bit,
+      each decoder's calls counted (``raster_loader_vs_png``);
   16. the eval CLI's main path: ``cli.evaluate_interpolation`` at
       configs/superslomo_eval.ini as shipped (720p padded to 736, B=8, 12
       loader threads, f32) over a made-up dataset of 720p PNGs in a
@@ -203,13 +208,14 @@ Phases, each of which raises on failure:
       configs/superslomo_original.ini as shipped (ALL: ADOBE and NFS clip
       lists naming the 57 frames 280 times each, 80 Vimeo septuplets: 20
       batches, so the Loader keeps decoding through every step; B=32,
-      224x224 crops, 12 loader threads), in f32 and bf16, 6 steps through
+      224x224 crops, 12 loader threads), in f32 and bf16, 5 steps through
       the pinned side-stream feed: step ms, the wait for the feed before each
       step, the same Trainer's step on in-memory batches, the Loader's ms a
       batch, 8 single-flow forward and 8 flow-gradient launches a step;
-      then in f32 for 4 steps over ADOBE and NFS clip lists that
-      ``utils.make_clips`` writes from the clip written again as JPEG frames
-      (``train_cli_main_path`` with ``frames`` "jpeg").
+      then in f32 for 4 steps over ADOBE and NFS clip lists naming the
+      clip written again with its frames in turn as JPEG, GIF and lossless
+      WebP (``train_cli_main_path`` with ``frames`` "gif+jpg+webp"), each
+      decoder's calls counted.
   18. the render CLI's main path: ``cli.visualize`` at
       configs/superslomo_eval.ini's model (CONV, f32, TF32 off) over a
       9-frame 720p panning clip at 8x (8 windows, 65 frames written), and in
@@ -2745,6 +2751,11 @@ def png_bytes(rgb, ft, level=1, interlace=False):
             + chunk(b"IDAT", zlib.compress(rows, level)) + chunk(b"IEND", b""))
 
 
+def write_png_bytes(rgb):
+    """The frame as cv2.imwrite writes a PNG: Sub rows, zlib level 1."""
+    return png_bytes(rgb, 1)
+
+
 def write_png(path, rgb, ft=1):
     with open(path, "wb") as f:
         f.write(png_bytes(rgb, ft))
@@ -3677,6 +3688,357 @@ def tiff_bytes(img, compression="none", predictor=False, tile=None, bits=8, rows
     return bytes(body + struct.pack("<H", len(tags)) + b"".join(entries) + bytes(4) + blobs)
 
 
+# --------------------------------------------------------------------------- #
+# GIF and lossless WebP (phase 15c): writers in numpy and the stdlib
+
+
+def gif_lzw(idx: bytes, min_size: int, defer_clear=False) -> bytes:
+    """GIF's LZW of the palette indices ``idx`` (codes LSB first, from
+    min_size + 1 to 12 bits, no early change): a clear code first, another
+    when the table fills, or with ``defer_clear`` none (the table stays
+    frozen at 4096 entries: a deferred clear); an end code last."""
+    clear = 1 << min_size
+    codes, widths = [clear], [min_size + 1]
+    table, free, nbits = {}, clear + 2, min_size + 1
+    ent = idx[0]
+    for c in idx[1:]:
+        key = ent << 8 | c
+        code = table.get(key)
+        if code is not None:
+            ent = code
+            continue
+        codes.append(ent)
+        widths.append(nbits)
+        ent = c
+        if free < 4096:
+            table[key] = free
+            free += 1
+            if free > 1 << nbits and nbits < 12:
+                nbits += 1
+        elif not defer_clear:
+            codes.append(clear)
+            widths.append(nbits)
+            table, free, nbits = {}, clear + 2, min_size + 1
+    codes += [ent, clear + 1]
+    widths += [nbits, nbits]
+    return pack_lsb(np.array(codes, np.int64), np.array(widths, np.int64))
+
+
+def pack_lsb(values, nbits):
+    """Fields of ``nbits`` (at most 25) bits each, LSB first, packed into bytes."""
+    values, nbits = np.asarray(values, np.int64), np.asarray(nbits, np.int64)
+    at = np.concatenate([[0], np.cumsum(nbits)[:-1]])
+    shifted = (values & ((1 << nbits) - 1)) << (at & 7)
+    size = -(-int(nbits.sum()) // 8) + 4
+    out = np.zeros(size, np.int64)
+    for k in range(4):  # the fields' bits do not overlap, so their byte sums are their ORs
+        out += np.bincount((at >> 3) + k, weights=(shifted >> (8 * k)) & 255, minlength=size).astype(np.int64)
+    return out[:size - 4].astype(np.uint8).tobytes()
+
+
+def _sub_blocks(data: bytes) -> bytes:
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255] for i in range(0, len(data), 255)) + b"\0"
+
+
+def _colour_table(palette):
+    bits = max(1, int(np.ceil(np.log2(max(len(palette), 2)))))
+    table = np.zeros((1 << bits, 3), np.uint8)
+    table[:len(palette)] = palette
+    return bits - 1, table.tobytes()
+
+
+def gif_bytes(idx, palette, local=None, screen=None, at=(0, 0), background=0, transparent=None, interlace=False,
+              version=b"GIF89a", defer_clear=False, lzw=None, min_size=None):
+    """A GIF of the (h, w) palette indices ``idx``: the global colour table
+    ``palette`` ((n, 3) RGB, or None for none), a ``local`` table (or none),
+    a logical ``screen`` (w, h) with the image at ``at`` (x, y) and the
+    ``background`` index, a Graphic Control Extension with the
+    ``transparent`` index, interlaced rows, and real LZW codes (``gif_lzw``)
+    of the smallest minimum code size that holds the tables, or the LZW data
+    ``lzw``."""
+    h, w = idx.shape
+    sw, sh = screen or (w, h)
+    tables = [t for t in (palette, local) if t is not None]
+    flags, out = 0, []
+    if palette is not None:
+        size, table = _colour_table(palette)
+        flags, out = 0x80 | size << 4 | size, [table]
+    out.insert(0, version + struct.pack("<HHBBB", sw, sh, flags, background, 0))
+    if transparent is not None:
+        out.append(b"\x21\xf9\x04" + bytes([1, 0, 0, transparent, 0]))
+    if interlace:
+        idx = idx[np.concatenate([np.arange(start, h, step) for start, step in ((0, 8), (4, 8), (2, 4), (1, 2))])]
+    flags = 0x40 if interlace else 0
+    if local is not None:
+        size, table = _colour_table(local)
+        flags |= 0x80 | size
+    out.append(b"\x2c" + struct.pack("<HHHHB", at[0], at[1], w, h, flags))
+    if local is not None:
+        out.append(table)
+    min_size = min_size or max(2, int(np.ceil(np.log2(max([len(t) for t in tables] + [2])))))
+    data = lzw if lzw is not None else gif_lzw(idx.astype(np.uint8).tobytes(), min_size, defer_clear)
+    return b"".join(out) + bytes([min_size]) + _sub_blocks(data) + b"\x3b"
+
+
+def gif_frame(img):
+    """(the GIF of the frame in the 3-3-2 palette, what cv2 reads from it)."""
+    return gif_bytes(palette_332_index(img), palette_332()), palette_332()[palette_332_index(img)]
+
+
+def gif_window(img):
+    """(an interlaced GIF whose 3-3-2 image covers the frame but for a border
+    of 8 pixels, with a transparent index, on a screen of the frame's size
+    whose background is index 0x25; what cv2 reads from it: the background
+    around the image and under its transparent pixels)."""
+    idx = palette_332_index(img)[8:-8, 8:-8]
+    pal = palette_332()
+    hidden = int(np.bincount(idx.reshape(-1), minlength=256).argmax())  # the commonest index is transparent
+    data = gif_bytes(idx, pal, screen=img.shape[1::-1], at=(8, 8), background=0x25, transparent=hidden,
+                     interlace=True)
+    want = np.empty_like(img)
+    want[:] = pal[0x25]
+    want[8:-8, 8:-8] = np.where((idx == hidden)[..., None], pal[0x25], pal[idx])
+    return data, want
+
+
+def huffman_lengths(freq, limit):
+    """Code lengths (at most ``limit``) of a complete prefix code for the
+    symbol frequencies ``freq``; a lone used symbol (or symbol 0 when none is
+    used) gets length 1, which VP8L reads as a code of no bits."""
+    freq = np.asarray(freq, np.int64)
+    lengths = np.zeros(freq.size, np.int64)
+    used = np.flatnonzero(freq)
+    if used.size <= 1:
+        lengths[used[0] if used.size else 0] = 1
+        return lengths
+    heap = [(int(freq[s]), int(s), [int(s)]) for s in used]
+    heapq.heapify(heap)
+    depth = np.zeros(freq.size, np.int64)
+    while len(heap) > 1:
+        f1, k1, s1 = heapq.heappop(heap)
+        f2, k2, s2 = heapq.heappop(heap)
+        depth[s1 + s2] += 1
+        heapq.heappush(heap, (f1 + f2, min(k1, k2), s1 + s2))
+    bits = np.bincount(depth[used], minlength=64)
+    for i in range(63, limit, -1):  # fold lengths past the limit back, keeping the code complete (T.81 K.3)
+        while bits[i] > 0:
+            j = i - 2
+            while bits[j] == 0:
+                j -= 1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+    order = used[np.lexsort((used, -freq[used]))]  # the most frequent symbols get the shortest codes
+    lengths[order] = np.repeat(np.arange(64), bits)
+    return lengths
+
+
+def _canonical(lengths):
+    """Each symbol's canonical code, bit-reversed for an LSB-first stream."""
+    lengths = np.asarray(lengths, np.int64)
+    codes = np.zeros(lengths.size, np.int64)
+    code = 0
+    for n in range(1, 16):
+        for s in np.flatnonzero(lengths == n):
+            codes[s] = int(f"{code:0{n}b}"[::-1], 2)
+            code += 1
+        code <<= 1
+    if np.count_nonzero(lengths) == 1:
+        lengths = np.zeros_like(lengths)  # one symbol: no bits
+    return codes, lengths
+
+
+_CL_ORDER = (17, 18, 0, 1, 2, 3, 4, 5, 16, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15)
+
+
+def _vp8l_code(fields, freq):
+    """Append the normal prefix code of ``freq`` (its lengths through the
+    code-length code) to ``fields``; returns (codes, lengths) to write symbols."""
+    lengths = huffman_lengths(freq, 15)
+    cl = huffman_lengths(np.bincount(lengths, minlength=19), 7)
+    n = 19
+    while n > 4 and cl[_CL_ORDER[n - 1]] == 0:
+        n -= 1
+    fields += [(0, 1), (n - 4, 4)] + [(int(cl[_CL_ORDER[i]]), 3) for i in range(n)] + [(0, 1)]
+    cl_codes, cl_bits = _canonical(cl)
+    fields.append((cl_codes[lengths], cl_bits[lengths]))
+    return _canonical(lengths)
+
+
+def _length_prefix(v):
+    """VP8L's prefix coding of values >= 1: (symbol, extra bits, extra value)."""
+    v = np.asarray(v, np.int64) - 1
+    hb = np.maximum(np.frexp(np.maximum(v, 1))[1] - 1, 0)
+    second = (v >> np.maximum(hb - 1, 0)) & 1
+    small = v < 4
+    return (np.where(small, v, 2 * hb + second), np.where(small, 0, hb - 1),
+            np.where(small, 0, v & ((1 << np.maximum(hb - 1, 0)) - 1)))
+
+
+def _vp8l_image(fields, argb, xsize, cache_bits=0, main=False):
+    """Append one entropy-coded image of the ARGB pixels ``argb`` (the
+    ``main`` image, with its bit for no meta prefix codes, or a sub-image):
+    with ``cache_bits``, LZ77 copies of runs of 3 or more pixels equal to the
+    pixel to their left (distance code 2) or above (code 1), and colour
+    cache hits for the other pixels where the cache holds them; else
+    literals alone."""
+    p = np.asarray(argb, np.int64).reshape(-1)
+    n = p.size
+    fields += [(1, 1), (cache_bits, 4)] if cache_bits else [(0, 1)]
+    if main:
+        fields.append((0, 1))  # no meta prefix codes
+    kind = np.zeros(n, np.int8)  # 0 literal, 1 cache hit, 2 copy start, 3 copied
+    copy_len = np.zeros(n, np.int64)
+    copy_dist = np.zeros(n, np.int8)  # distance code 2 (left) or 1 (above)
+    if cache_bits:
+        for code, dist in ((2, 1), (1, xsize)):
+            same = np.zeros(n, bool)
+            same[dist:] = (p[dist:] == p[:-dist]) & (kind[dist:] == 0)
+            edges = np.flatnonzero(np.diff(np.concatenate([[0], same.astype(np.int8), [0]])))
+            s, e = edges[::2], edges[1::2]
+            s, e = s[e - s >= 3], e[e - s >= 3]
+            cover = np.zeros(n + 1, np.int64)
+            cover[s] += 1
+            cover[e] -= 1
+            kind[np.cumsum(cover[:-1]) > 0] = 3
+            chunks = -(-(e - s) // 4096)  # copies of at most 4096 pixels
+            first = np.repeat(s, chunks) + 4096 * (np.arange(chunks.sum()) - np.repeat(np.cumsum(chunks) - chunks, chunks))
+            kind[first] = 2
+            copy_len[first] = np.minimum(np.repeat(e, chunks) - first, 4096)
+            copy_dist[first] = code
+        h = ((0x1E35A7BD * p) & 0xFFFFFFFF) >> (32 - cache_bits)
+        order = np.lexsort((np.arange(n), h))
+        prev = np.full(n, -1)
+        same_h = h[order[1:]] == h[order[:-1]]
+        prev[order[1:][same_h]] = order[:-1][same_h]  # the last earlier pixel of the same hash: what the cache holds
+        kind[(kind == 0) & (prev >= 0) & (p[np.maximum(prev, 0)] == p)] = 1
+    lit, hit, start = np.flatnonzero(kind == 0), np.flatnonzero(kind == 1), np.flatnonzero(kind == 2)
+    len_sym, len_extra_bits, len_extra = _length_prefix(copy_len[start])
+    green = np.zeros(n, np.int64)
+    green[lit] = (p[lit] >> 8) & 255
+    if cache_bits:
+        green[hit] = 280 + h[hit]
+    green[start] = 256 + len_sym
+    shown = np.sort(np.concatenate([lit, hit, start]))
+    channels = [(p[lit] >> 16) & 255, p[lit] & 255, (p[lit] >> 24) & 255]
+    codes = [_vp8l_code(fields, np.bincount(green[shown], minlength=280 + (1 << cache_bits if cache_bits else 0)))]
+    codes += [_vp8l_code(fields, np.bincount(c, minlength=256)) for c in channels]
+    dist_sym = copy_dist[start].astype(np.int64) - 1  # codes 1 and 2: symbols 0 and 1, no extra bits
+    codes.append(_vp8l_code(fields, np.bincount(dist_sym, minlength=40)))
+    # each shown position's fields, in the stream's order: up to four (value, bits) pairs
+    val = np.zeros((n, 4), np.int64)
+    nb = np.zeros((n, 4), np.int64)
+    gc, gl = codes[0]
+    val[shown, 0], nb[shown, 0] = gc[green[shown]], gl[green[shown]]
+    for k, c in enumerate(channels, start=1):
+        val[lit, k], nb[lit, k] = codes[k][0][c], codes[k][1][c]
+    val[start, 1], nb[start, 1] = len_extra, len_extra_bits
+    val[start, 2], nb[start, 2] = codes[4][0][dist_sym], codes[4][1][dist_sym]
+    fields.append((val[shown].reshape(-1), nb[shown].reshape(-1)))
+
+
+def _argb(planes):
+    a, r, g, b = (np.asarray(x, np.int64) for x in planes)
+    return (a << 24) | (r << 16) | (g << 8) | b
+
+
+def _predictions(X, mode):
+    """Each pixel's VP8L prediction (H, W, 4) int64 (ARGB channel order) for
+    the (H, W) predictor ``mode`` of its tile, from the pixels (H, W, 4)."""
+    L = np.zeros_like(X)
+    L[:, 1:] = X[:, :-1]
+    T = np.zeros_like(X)
+    T[1:] = X[:-1]
+    TL = np.zeros_like(X)
+    TL[1:, 1:] = X[:-1, :-1]
+    TR = np.zeros_like(X)
+    TR[1:, :-1] = X[:-1, 1:]
+    TR[1:, -1] = X[1:, 0]  # the last column's top-right: the current row's first pixel
+    pred = np.zeros_like(X)
+    pred[..., 0] = 255  # modes 0, 14, 15: opaque black
+    avg = lambda a, b: (a + b) >> 1  # noqa: E731
+    half = lambda a, b: a + np.where(a < b, -((b - a) >> 1), (a - b) >> 1)  # a + (a - b) / 2, C's rounding  # noqa: E731
+    formulas = {1: lambda l, t, tl, tr: l, 2: lambda l, t, tl, tr: t, 3: lambda l, t, tl, tr: tr,
+                4: lambda l, t, tl, tr: tl, 5: lambda l, t, tl, tr: avg(avg(l, tr), t),
+                6: lambda l, t, tl, tr: avg(l, tl), 7: lambda l, t, tl, tr: avg(l, t),
+                8: lambda l, t, tl, tr: avg(tl, t), 9: lambda l, t, tl, tr: avg(t, tr),
+                10: lambda l, t, tl, tr: avg(avg(l, tl), avg(t, tr)),
+                11: lambda l, t, tl, tr: np.where((np.abs(l - tl) - np.abs(t - tl)).sum(-1, keepdims=True) <= 0,
+                                                  t, l),
+                12: lambda l, t, tl, tr: np.clip(l + t - tl, 0, 255),
+                13: lambda l, t, tl, tr: np.clip(half(avg(l, t), tl), 0, 255)}
+    for m, f in formulas.items():
+        sel = mode == m
+        pred[sel] = f(L[sel], T[sel], TL[sel], TR[sel])
+    pred[0, 0] = (255, 0, 0, 0)
+    pred[0, 1:] = L[0, 1:]
+    pred[1:, 0] = T[1:, 0]
+    return pred
+
+
+def _int8(v):
+    return ((np.asarray(v, np.int64) + 128) & 255) - 128
+
+
+def vp8l_bytes(img, kind="transforms", pred_bits=5, cache_bits=6):
+    """A lossless WebP (RIFF + VP8L) of the (H, W, 3) RGB frame, which cv2
+    reads back bit for bit. ``transforms``: subtract-green, then the
+    predictor in tiles of 2^pred_bits with modes 0-15 in turn across the
+    tiles, then cross-colour with multipliers in turn across the tiles; the
+    residuals with LZ77 copies (the pixel to the left, and above) and a
+    colour cache. ``palette``: colour indexing of a frame of at most 16
+    colours, 2 to 8 pixels bundled a byte, the packed image with copies and
+    the cache."""
+    H, W, _ = img.shape
+    fields = [(0x2F, 8), (W - 1, 14), (H - 1, 14), (0, 1), (0, 3)]
+    X = np.concatenate([np.full((H, W, 1), 255, np.int64), img.astype(np.int64)], axis=2)  # A, R, G, B
+    if kind == "palette":
+        colours, idx = np.unique(_argb(np.moveaxis(X, 2, 0)).reshape(-1), return_inverse=True)
+        assert colours.size <= 16, "the palette case takes a frame of at most 16 colours"
+        bits = 0 if colours.size > 16 else 1 if colours.size > 4 else 2 if colours.size > 2 else 3
+        fields += [(1, 1), (3, 2), (colours.size - 1, 8)]
+        delta = np.stack([(colours >> s) & 255 for s in (0, 8, 16, 24)], -1)
+        delta[1:] = (delta[1:] - delta[:-1]) & 255
+        _vp8l_image(fields, (delta << np.array([0, 8, 16, 24])).sum(-1), colours.size)
+        per = 1 << bits
+        idx = np.pad(idx.reshape(H, W), ((0, 0), (0, -W % per)))
+        packed = (idx.reshape(H, -1, per) << ((8 >> bits) * np.arange(per))).sum(-1)
+        fields.append((0, 1))
+        _vp8l_image(fields, 0xFF000000 | packed << 8, packed.shape[1], cache_bits, main=True)
+    else:
+        X[..., 1] = (X[..., 1] - X[..., 2]) & 255  # subtract green
+        X[..., 3] = (X[..., 3] - X[..., 2]) & 255
+        th, tw = -(-H // (1 << pred_bits)), -(-W // (1 << pred_bits))
+        ty, tx = np.mgrid[0:th, 0:tw]
+        modes = (3 * tx + 5 * ty) % 16
+        mode = np.repeat(np.repeat(modes, 1 << pred_bits, 0), 1 << pred_bits, 1)[:H, :W]
+        R = (X - _predictions(X, mode)) & 255
+        mult = np.stack([(7 * tx + 3 * ty) % 64 - 32, (5 * tx + 11 * ty) % 64 - 32, (3 * tx + 7 * ty) % 64 - 32])
+        m = np.repeat(np.repeat(mult, 1 << pred_bits, 1), 1 << pred_bits, 2)[:, :H, :W]
+        g, r = _int8(R[..., 2]), R[..., 1].copy()
+        R[..., 1] = (r - ((m[0] * g) >> 5)) & 255
+        R[..., 3] = (R[..., 3] - ((m[1] * g) >> 5) - ((m[2] * _int8(r)) >> 5)) & 255
+        fields += [(1, 1), (2, 2), (1, 1), (0, 2), (pred_bits - 2, 3)]
+        _vp8l_image(fields, 0xFF000000 | modes << 8, tw)
+        fields += [(1, 1), (1, 2), (pred_bits - 2, 3)]
+        _vp8l_image(fields, _argb([np.full_like(tx, 255), mult[2] & 255, mult[1] & 255, mult[0] & 255]), tw)
+        fields.append((0, 1))
+        _vp8l_image(fields, _argb(np.moveaxis(R, 2, 0)), W, cache_bits, main=True)
+    values = np.concatenate([np.atleast_1d(v) for v, _ in fields])
+    nbits = np.concatenate([np.broadcast_to(np.atleast_1d(b), np.atleast_1d(v).shape) for v, b in fields])
+    data = pack_lsb(values, nbits)
+    body = b"VP8L" + struct.pack("<I", len(data)) + data + bytes(len(data) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+def palette_16(img):
+    """The frame in 16 colours: its channels' sum cut into 16 levels, each
+    level a colour of its own."""
+    level = (img.astype(np.int64).sum(2) * 16 // 766)
+    return np.stack([level * 17, 255 - level * 17, (level * 53) & 255], -1).astype(np.uint8)
+
+
 RASTER_CASES = {  # name → (the writer of a 720p frame, what cv2 reads from it, whether a compiled routine runs)
     "bmp_24": (bmp_bytes, lambda f: f, False),
     "bmp_rle8": (lambda f: bmp_bytes(f, rle8=True), lambda f: palette_332()[palette_332_index(f)], True),
@@ -3694,29 +4056,44 @@ RASTER_CASES = {  # name → (the writer of a 720p frame, what cv2 reads from it
 }
 
 
-def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=5):
-    """The raster readers (``data/bmp.py``, ``pnm.py``, ``tiff.py``,
-    ``sunras.py``, ``hdr.py`` through ``data/image.py``) on the 720p
-    panning-texture frame written by this script's writers in each case of
-    RASTER_CASES: each decode equals what cv2 reads from the file (the frame,
-    or its palette or HDR rounding), and where a routine of
-    csrc/raster_decode.cpp runs (RLE8, LZW, PackBits, HDR scanlines) the
-    plain decode equals the compiled one. Then a q95 progressive 4:2:0 JPEG
-    cut after its third scan (block smoothing): the compiled decode equals
-    the plain one. Times: a whole decode (median of ``reps``, the file in the
-    page cache), the plain decode (one call), beside phase 15's PNG and
-    baseline JPEG decodes of the same frame kind."""
-    from superslomo_tpu_torch.data import bmp, hdr, image, jpeg, tiff
+PALETTE_CASES = {  # name → the writer of (the file, what cv2 reads from it) for a 720p frame
+    "gif_332": gif_frame,
+    "gif_interlaced_transparent_window": gif_window,
+    "webp_transforms": lambda f: (vp8l_bytes(f), f),
+    "webp_colour_indexing": lambda f: (vp8l_bytes(palette_16(f), "palette"), palette_16(f)),
+}
+PLAIN_HW = {"gif": (720, 1280), "webp": (180, 320)}  # where the plain twin is compared: its decode stays under 5 s
 
-    plains = {"bmp": bmp.decode, "tiff": tiff.decode, "hdr": hdr.decode}  # by the case's prefix
+
+def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4):
+    """The raster readers (``data/bmp.py``, ``pnm.py``, ``tiff.py``,
+    ``sunras.py``, ``hdr.py``, ``gif.py`` and ``webp.py``,
+    through ``data/image.py``) on the 720p panning-texture frame written by
+    this script's writers in each case of RASTER_CASES and PALETTE_CASES:
+    each decode equals what cv2 reads from the file (the frame, or its
+    palette or HDR rounding), and where a routine of csrc/raster_decode.cpp
+    or csrc/webp_decode.cpp runs (RLE8, LZW, PackBits, HDR scanlines, GIF's
+    LZW, VP8L) the plain decode equals the compiled one: on the 720p file, or
+    for WebP, whose plain decode takes longer than 5 s there, on the same
+    case written from the frame's top-left 180x320 (``plain_hw``). Then a
+    q95 progressive 4:2:0 JPEG cut after its third scan (block smoothing):
+    the compiled decode equals the plain one. Times: a whole decode (median
+    of ``reps``, the file in the page cache) and its ratio to phase 15's PNG
+    Sub decode of the same frame kind, the plain decode (one call)."""
+    from superslomo_tpu_torch.data import bmp, gif, hdr, image, jpeg, tiff, webp
+
+    plains = {"bmp": bmp.decode, "tiff": tiff.decode, "hdr": hdr.decode, "gif": gif.decode, "webp": webp.decode}
     frame = panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
+    png_ms = png_res["filters"]["sub"]["decode_ms"]
     out = {"phase": "raster_decode_vs_plain", "frame_hw": [H, W], "reps": reps, "cases": {},
-           "png_sub_decode_ms": png_res["filters"]["sub"]["decode_ms"],
-           "jpeg_baseline_420_decode_ms": jpeg_res["cases"]["420"]["decode_ms"]}
+           "png_sub_decode_ms": png_ms, "jpeg_baseline_420_decode_ms": jpeg_res["cases"]["420"]["decode_ms"]}
+    cases = [(name, lambda f, w=write, e=expected: (w(f), e(f)), compiled)
+             for name, (write, expected, compiled) in RASTER_CASES.items()]
+    cases += [(name, make, True) for name, make in PALETTE_CASES.items()]
     with tempfile.TemporaryDirectory() as d:
-        for name, (write, expected, compiled) in RASTER_CASES.items():
+        for name, make, compiled in cases:
             t0 = time.perf_counter()
-            data = write(frame)
+            data, want = make(frame)
             path = os.path.join(d, name)
             with open(path, "wb") as f:
                 f.write(data)
@@ -3728,12 +4105,18 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=5):
                 image.imread(path)
                 times.append((time.perf_counter() - t0) * 1e3)
             rec = {"file_mib": len(data) / 2**20, "write_s": write_s, "decode_ms": statistics.median(times),
-                   "decode_ms_each": times, "equals_written": bool(np.array_equal(got, expected(frame)))}
+                   "decode_ms_each": times, "ratio_to_png": statistics.median(times) / png_ms,
+                   "equals_written": bool(np.array_equal(got, want))}
             if compiled:
+                kind = name.split("_")[0]
+                ph, pw = (min(a, b) for a, b in zip(PLAIN_HW.get(kind, (H, W)), (H, W)))
+                if (ph, pw) != (H, W):
+                    data, _ = make(frame[:ph, :pw])
+                    got = image.decode(data, path)
                 t0 = time.perf_counter()
-                plain = plains[name.split("_")[0]](data, path, plain=True)
-                rec.update(plain_ms=(time.perf_counter() - t0) * 1e3, compiled_equals_plain=bool(np.array_equal(
-                    plain, got)))
+                plain = plains[kind](data, path, plain=True)
+                rec.update(plain_ms=(time.perf_counter() - t0) * 1e3, plain_hw=[ph, pw],
+                           compiled_equals_plain=bool(np.array_equal(plain, got)))
             out["cases"][name] = rec
         data = jpeg_bytes(frame, quality=95, scans="progressive")
         cut = data[: jpeg.read_header(data).scans[2].end] + b"\xff\xd9"
@@ -3763,25 +4146,64 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=5):
 
 
 LOADER_FORMATS = {"bmp": bmp_bytes, "ppm": lambda f: pnm_bytes(f, "ppm"),
-                  "tif": lambda f: tiff_bytes(f, "lzw_literal", predictor=True)}
+                  "tif": lambda f: tiff_bytes(f, "lzw_literal", predictor=True), "webp": vp8l_bytes}
+DECODERS = {"png": ("png", "imread"), "jpg": ("jpeg", "imread"), "bmp": ("bmp", "decode"), "ppm": ("pnm", "decode"),
+            "tif": ("tiff", "decode"), "gif": ("gif", "decode"), "webp": ("webp", "decode")}  # ext → the reader's call
 
 
-def _tagged_decode(decode, tag, ext, data, path):
+def _tagged_decode(decode, tag, ext, *args):
     tag(ext)
-    return decode(data, path)
+    return decode(*args)
+
+
+@contextlib.contextmanager
+def counted_decodes(exts):
+    """Counts each format's decodes (``DECODERS``: the call ``data/image.py``
+    makes) while the block runs; yields a dict ext → count, filled at the
+    end (appends from the Loader's threads are atomic)."""
+    import importlib
+
+    decoded, counts = [], {}
+    patched = []
+    for ext in exts:
+        module = importlib.import_module(f"superslomo_tpu_torch.data.{DECODERS[ext][0]}")
+        inner = getattr(module, DECODERS[ext][1])
+        setattr(module, DECODERS[ext][1], functools.partial(_tagged_decode, inner, decoded.append, ext))
+        patched.append((module, DECODERS[ext][1], inner))
+    try:
+        yield counts
+    finally:
+        for module, attr, inner in patched:
+            setattr(module, attr, inner)
+        counts.update({ext: decoded.count(ext) for ext in exts})
+
+
+def write_frames(paths, frames, writers):
+    """Each frame written to its path by its writer (bytes of the frame), in
+    8 threads: numpy releases the interpreter lock in the writers' array
+    work."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(job):
+        path, img, write = job
+        with open(path, "wb") as f:
+            f.write(write(img))
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, zip(paths, frames, writers)))
 
 
 def phase_raster_loader(root, sections, H=720, W=1280, n_batches=2):
     """The Loader alone (configs/superslomo_original.ini's ADOBE train list,
     12 threads, B=32, 224x224 crops) over an ADOBE list naming the 57-frame
     720p clip of ``write_dataset`` (the same seed) written again with its
-    frames in turn as 24-bit BMP, binary PPM and LZW TIFF (predictor 2;
-    9-bit literal codes, ``lzw_literal``): the first ``n_batches`` batches
-    equal, bit for bit, those of the list over the PNG copies, and each
-    format's decoder ran; ms a batch of each list (each format's decode ms
-    is ``raster_decode_vs_plain``'s)."""
+    frames in turn as 24-bit BMP, binary PPM, LZW TIFF (predictor 2; 9-bit
+    literal codes, ``lzw_literal``) and lossless WebP (``vp8l_bytes``'
+    transforms case): the first ``n_batches`` batches equal, bit for bit,
+    those of the list over the PNG copies, and each format's decoder ran; ms
+    a batch of each list (each format's decode ms is
+    ``raster_decode_vs_plain``'s)."""
     from superslomo_tpu_torch import load_config
-    from superslomo_tpu_torch.data import bmp, pnm, tiff
 
     frames = panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]
     lists = {"png": sections["ADOBE_DATA"]["TRAINPATHS"]}
@@ -3791,13 +4213,10 @@ def phase_raster_loader(root, sections, H=720, W=1280, n_batches=2):
     clip_dir = os.path.join(root, "adobe_raster", "clip_000")
     os.makedirs(clip_dir)
     kinds = list(LOADER_FORMATS.items())
-    decoders = {"bmp": bmp, "ppm": pnm, "tif": tiff}
     t0 = time.perf_counter()
-    for i, img in enumerate(frames):
-        ext, write = kinds[i % len(kinds)]
-        path = os.path.join(clip_dir, f"frame_{i:05d}.{ext}")
-        with open(path, "wb") as f:
-            f.write(write(img))
+    paths = [os.path.join(clip_dir, f"frame_{i:05d}.{kinds[i % len(kinds)][0]}") for i in range(len(frames))]
+    write_frames(paths, frames, [kinds[i % len(kinds)][1] for i in range(len(frames))])
+    for i, path in enumerate(paths):
         text = text.replace(os.path.join(png_dir, f"frame_{i:05d}.png"), path)
     lists["raster"] = os.path.join(root, "adobe_raster_train.txt")
     with open(lists["raster"], "w") as f:
@@ -3810,25 +4229,18 @@ def phase_raster_loader(root, sections, H=720, W=1280, n_batches=2):
         ini = write_config(os.path.join(root, f"loader_{name}.ini"), "superslomo_original.ini", sections,
                            {"DATA": {"DATASET": "ADOBE"}, "ADOBE_DATA": {"TRAINPATHS": path}})
         cfg = load_config(ini)
-        decoded = []  # the format of each raster decode (appends are atomic across the Loader's threads)
-        inner = {ext: module.decode for ext, module in decoders.items()}
-        for ext, module in decoders.items():
-            module.decode = functools.partial(_tagged_decode, inner[ext], decoded.append, ext)
-        try:
+        with counted_decodes(LOADER_FORMATS) as decodes:
             timing, batches = loader_ms(cfg, "TRAIN", n_batches)
-        finally:
-            for ext, module in decoders.items():
-                module.decode = inner[ext]
         if ref is None:
             ref = batches
         same = len(batches) == len(ref) and all(
             all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(x, y)) for x, y in zip(batches, ref))
         res["lists"][name] = {**timing, "equals_png": same, "threads": cfg.getint("DATALOADER", "N_WORKERS"),
-                              "batch": cfg.getint("TRAIN", "BATCH_SIZE"),
-                              "decodes": {ext: decoded.count(ext) for ext in decoders}}
+                              "batch": cfg.getint("TRAIN", "BATCH_SIZE"), "decodes": decodes}
     emit(res)
     if not (res["lists"]["raster"]["equals_png"] and all(res["lists"]["raster"]["decodes"].values())):
-        raise AssertionError(f"the Loader's batches over BMP / PPM / TIFF frames differ from the PNG list's: {res}")
+        raise AssertionError(f"the Loader's batches over BMP / PPM / TIFF / WebP frames differ from the PNG list's: "
+                             f"{res}")
     return res
 
 
@@ -3846,20 +4258,21 @@ def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, n
     rng = np.random.default_rng(31)
     clip_dir = os.path.join(root, "adobe", "clip_000")
     os.makedirs(clip_dir)
-    paths = []
-    for i, img in enumerate(panning_clips(rng, 1, H, W, n=57)[0]):
-        paths.append(os.path.join(clip_dir, f"frame_{i:05d}.png"))
-        write_png(paths[-1], img)
+    frames = panning_clips(rng, 1, H, W, n=57)[0]
+    paths = [os.path.join(clip_dir, f"frame_{i:05d}.png") for i in range(len(frames))]
+    write_frames(paths, frames, [write_png_bytes] * len(frames))
     listing = f"{len(paths)}\n" + "".join(p + "\n" for p in paths)
     for name, entries in (("adobe_train.txt", adobe_entries), ("nfs_train.txt", nfs_entries)):
         with open(os.path.join(root, name), "w") as f:
             f.write(listing * entries)
     seqs = [f"{i:05d}/0001" for i in range(vimeo_seqs)]
+    jobs = []
     for seq in seqs:
         d = os.path.join(root, "vimeo", "sequences", seq)
         os.makedirs(d)
-        for i, img in enumerate(panning_clips(rng, 1, *vimeo_hw, n=7)[0], start=1):
-            write_png(os.path.join(d, f"im{i}.png"), img)
+        jobs += [(os.path.join(d, f"im{i}.png"), img)
+                 for i, img in enumerate(panning_clips(rng, 1, *vimeo_hw, n=7)[0], start=1)]
+    write_frames([p for p, _ in jobs], [img for _, img in jobs], [write_png_bytes] * len(jobs))
     with open(os.path.join(root, "vimeo", "list.txt"), "w") as f:
         f.write("\n".join(seqs * vimeo_repeats) + "\n")
     val_clip = "clip_000"
@@ -3878,23 +4291,28 @@ def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, n
     }
 
 
-def write_jpeg_train_lists(root, sections, H=720, W=1280, entries=280):
+MIXED_FORMATS = {"jpg": lambda f: jpeg_bytes(f, quality=95), "gif": lambda f: gif_frame(f)[0], "webp": vp8l_bytes}
+
+
+def write_mixed_train_lists(root, sections, H=720, W=1280, entries=280):
     """The 57-frame 720p clip of ``write_dataset`` (the same seed) written
-    again as q95 4:2:0 JPEG frames, and ADOBE and NFS train lists that
-    ``utils.make_clips`` writes from that directory, naming the clip
-    ``entries`` times each; returns ``sections`` with those lists (Vimeo's
-    septuplets stay PNG, as the readers name them)."""
+    again with its frames in turn as q95 4:2:0 JPEG, GIF (``gif_frame``: the
+    3-3-2 palette) and lossless WebP (``vp8l_bytes``' transforms case), and
+    ADOBE and NFS train lists, written by ``utils.make_clips``, naming the
+    clip ``entries`` times each; returns ``sections`` with those lists
+    (Vimeo's septuplets stay PNG, as the readers name them)."""
     from superslomo_tpu_torch.utils import make_clips
 
-    clip_dir = os.path.join(root, "adobe_jpeg", "clip_000")
+    clip_dir = os.path.join(root, "adobe_mixed", "clip_000")
     os.makedirs(clip_dir)
-    for i, img in enumerate(panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]):
-        write_jpeg(os.path.join(clip_dir, f"frame_{i:05d}.jpg"), img, quality=95)
-    clips = make_clips.process_single_dir(clip_dir, clip_length=57, step=65)
+    kinds = list(MIXED_FORMATS.items())
+    frames = panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]
+    paths = [os.path.join(clip_dir, f"frame_{i:05d}.{kinds[i % len(kinds)][0]}") for i in range(len(frames))]
+    write_frames(paths, frames, [kinds[i % len(kinds)][1] for i in range(len(frames))])
     lists = {}
     for name in ("ADOBE_DATA", "NFS_DATA"):
-        lists[name] = os.path.join(root, f"{name.lower()}_jpeg_train.txt")
-        make_clips.write_clip_list(clips * entries, lists[name])
+        lists[name] = os.path.join(root, f"{name.lower()}_mixed_train.txt")
+        make_clips.write_clip_list([paths] * entries, lists[name])
     return {**sections, **{name: {**sections[name], "TRAINPATHS": path} for name, path in lists.items()}}
 
 
@@ -3911,10 +4329,11 @@ def write_small_eval_dataset(root, H=48, W=96, n=17):
 
 def data_phases(norm, scale=False):
     """Phases 15-17 over a made-up dataset in a temporary directory: the PNG
-    unfilter, the JPEG decode, the raster formats' decodes and the Loader over
-    a clip list of BMP, PPM and TIFF frames, the eval CLI, the train CLI in f32 and bf16,
-    and in f32 over clip lists naming JPEG frames; with ``scale``, then phase
-    23 over the same datasets (else None)."""
+    unfilter, the JPEG decode, the raster, GIF and WebP decodes and the Loader
+    over a clip list of BMP, PPM, TIFF and WebP frames, the eval CLI, the
+    train CLI in f32 and bf16, and in f32 over clip lists naming JPEG, GIF and
+    WebP frames in turn; with ``scale``, then phase 23 over the same datasets
+    (else None)."""
     png = phase_png_unfilter()
     jpeg = phase_jpeg_decode(png)
     phase_raster_decode(png, jpeg)
@@ -3927,10 +4346,10 @@ def data_phases(norm, scale=False):
         eval_cli = phase_eval_cli(root, sections, small, n_windows=4)  # 33 frames' 4 windows: one batch
         train_clis = [phase_train_cli(root, sections, norm, dtype) for dtype in ("float32", "bfloat16")]
         t0 = time.perf_counter()
-        jpeg_sections = write_jpeg_train_lists(root, sections)
-        emit({"phase": "jpeg_dataset_written", "seconds": time.perf_counter() - t0})
-        train_clis.append(phase_train_cli(root, jpeg_sections, norm, "float32", steps=4, warmup=2, synthetic_steps=0,
-                                          loader_batches=3))
+        mixed_sections = write_mixed_train_lists(root, sections)
+        emit({"phase": "mixed_dataset_written", "seconds": time.perf_counter() - t0})
+        train_clis.append(phase_train_cli(root, mixed_sections, norm, "float32", steps=4, warmup=2, synthetic_steps=0,
+                                          loader_batches=2))
         scaled = scale_phase(root, sections, norm) if scale else None
     return png, jpeg, eval_cli, train_clis, scaled
 
@@ -4089,20 +4508,17 @@ def phase_eval_cli(root, sections, small_sections, n_windows):
     return res
 
 
-def list_frame_kind(sections):
-    """"jpeg" or "png": the kind of the first frame that the ADOBE train list
-    of ``sections`` names, by the file's signature, as the frame reader picks
-    its decoder."""
-    from superslomo_tpu_torch.data import jpeg
-
+def list_frame_kinds(sections):
+    """The extensions, sorted and joined by "+", of the frames that the first
+    clip of the ADOBE train list of ``sections`` names: "png", or "jpg",
+    "gif+jpg+webp", ... (each a format whose decoder ``DECODERS`` names)."""
     with open(sections["ADOBE_DATA"]["TRAINPATHS"]) as f:
-        f.readline()  # the clip's frame count
-        first = f.readline().strip()
-    with open(first, "rb") as f:
-        return "jpeg" if f.read(3) == jpeg.SIGNATURE else "png"
+        n = int(f.readline())
+        paths = [f.readline().strip() for _ in range(n)]
+    return "+".join(sorted({os.path.splitext(p)[1][1:] for p in paths}))
 
 
-def phase_train_cli(root, sections, norm, dtype, steps=6, warmup=2, synthetic_steps=3, loader_batches=4,
+def phase_train_cli(root, sections, norm, dtype, steps=5, warmup=2, synthetic_steps=2, loader_batches=3,
                     **overrides):
     """The train CLI (``python -m superslomo_tpu_torch.cli.train``, on the
     card by default) at configs/superslomo_original.ini as shipped (ALL:
@@ -4113,13 +4529,15 @@ def phase_train_cli(root, sections, norm, dtype, steps=6, warmup=2, synthetic_st
     then ``synthetic_steps`` steps of the same Trainer on synthetic
     in-memory batches (the step with its pageable H2D copy, no Loader
     running), and the Loader alone over ``loader_batches``. The single-flow
-    kernels' launches a step counted. The record names the kind of frames
-    the clip lists name (``list_frame_kind``)."""
+    kernels' launches a step counted, and each frame format's decodes in
+    the CLI's run (``counted_decodes``): every format that the clip lists
+    name must be decoded. The record names those formats
+    (``list_frame_kinds``)."""
     from superslomo_tpu_torch import Trainer, load_config
     from superslomo_tpu_torch.cli import train as train_cli
 
-    frames = list_frame_kind(sections)
-    tag = dtype if frames == "png" else f"{dtype}_{frames}"
+    frames = list_frame_kinds(sections)
+    tag = dtype if frames == "png" else f"{dtype}_{frames.replace('+', '_')}"
     ini = write_config(os.path.join(root, f"train_{tag}.ini"), "superslomo_original.ini", sections, {
         "TRAIN": {"ALLOW_RANDOM_VGG": "TRUE", "CKPT_DIR": os.path.join(root, "ckpt")},
         "PROJECT": {"LOGDIR": os.path.join(root, "logs")}, "TPU": {"COMPUTE_DTYPE": dtype}}, overrides)
@@ -4133,7 +4551,7 @@ def phase_train_cli(root, sections, norm, dtype, steps=6, warmup=2, synthetic_st
 
     reset_single_counts()
     t_start = time.perf_counter()
-    with _Recorder(Trainer, "train_step", after=synced) as rec:
+    with _Recorder(Trainer, "train_step", after=synced) as rec, counted_decodes(frames.split("+")) as decodes:
         trainer = train_cli.main(["-c", ini, "--expt", f"chip_smoke_{tag}", "--log", os.path.join(root, "train.log"),
                                   "--max-steps", str(steps)])
     cli_wall = time.perf_counter() - t_start
@@ -4170,6 +4588,7 @@ def phase_train_cli(root, sections, norm, dtype, steps=6, warmup=2, synthetic_st
         "train_loader": loader, "batches_on_card": on_card, "loss_first": losses[0].tolist(),
         "loss_last": losses[-1].tolist(), "checkpoint_saved": os.path.exists(checkpoint),
         "launches": launches, "launches_per_step": {k: v / len(calls) for k, v in launches.items()},
+        "decodes": decodes,
     }
     if os.path.exists(checkpoint):
         os.remove(checkpoint)
@@ -4177,7 +4596,7 @@ def phase_train_cli(root, sections, norm, dtype, steps=6, warmup=2, synthetic_st
     if len(calls) != steps or launches != train_step_launches(steps):
         raise AssertionError(f"train CLI: {len(calls)} steps, single-flow launches {launches}, expected "
                              f"{train_step_launches(steps)}")
-    if not (on_card and res["checkpoint_saved"] and np.isfinite(losses).all()):
+    if not (on_card and res["checkpoint_saved"] and np.isfinite(losses).all() and all(decodes.values())):
         raise AssertionError(f"train CLI: {res}")
     return res
 

@@ -2,6 +2,10 @@
 // cv2.imread reads, each as the library inside cv2 decodes it:
 //   lzw_decode       TIFF's LZW (MSB-first codes of 9-12 bits, the code width
 //                    growing one code early, as libtiff's LZWDecode reads it);
+//   gif_lzw_decode   GIF's LZW (LSB-first codes of the minimum code size + 1
+//                    to 12 bits, no early change, a table that freezes at 4096
+//                    entries until the next clear), as OpenCV's grfmt_gif.cpp
+//                    reads it;
 //   packbits_decode  TIFF's PackBits (libtiff's PackBitsDecode);
 //   bmp_rle_decode   BMP's RLE8 and RLE4 to palette indices, with OpenCV's
 //                    grfmt_bmp.cpp rules for the end-of-line, end-of-bitmap
@@ -12,7 +16,7 @@
 // (cv2 5.0 reads no byte-encoded Sun raster: its header check compares the
 // image type, not the encoding, with it; so there is no Sun routine here.)
 //
-// Host code: the frame readers (data/tiff.py, data/bmp.py, data/hdr.py) call
+// Host code: the frame readers (data/tiff.py, data/gif.py, data/bmp.py, data/hdr.py) call
 // these routines through ctypes, which releases the
 // interpreter lock, so the Loader's threads decode frames in parallel. Each
 // has a plain Python twin beside its caller. ops/cuda_build.py compiles this
@@ -27,7 +31,8 @@ namespace {
 enum Error : int64_t {
   kBadCode = -1,    // an LZW code past the table, or a bad escape
   kTruncated = -2,  // the data ends before the image does
-  kOverrun = -3,    // a run past the end of its row
+  kOverrun = -3,    // a run past the end of its row (GIF: a string, or data,
+                    // past the image's end)
 };
 
 }  // namespace
@@ -87,6 +92,71 @@ extern "C" int64_t lzw_decode(const uint8_t* src, int64_t n, uint8_t* dst, int64
     prev = code;
   }
   return out;
+}
+
+// src: the n bytes of a GIF image's LZW data (its sub-blocks joined); dst: the
+// image's cap palette indices, in the file's row order. min_size: the LZW
+// minimum code size, 2-11. As OpenCV's decoder: an end code resets the table as
+// a clear code does, and decoding goes on; a string past the image's end is
+// kOverrun; once the image is full, the first code that is neither a clear nor
+// an end code ends the decode, and must end in the data's last byte (kOverrun
+// otherwise). Returns cap, kBadCode (a code past the table, or a first code
+// after a clear that is not a literal) or kTruncated (fewer indices than cap).
+extern "C" int64_t gif_lzw_decode(const uint8_t* src, int64_t n, int64_t min_size, uint8_t* dst, int64_t cap) {
+  std::vector<int32_t> prefix(4096), length(4096);
+  std::vector<uint8_t> suffix(4096), first(4096);
+  const int clear = 1 << min_size, end = clear + 1;
+  for (int c = 0; c < clear; ++c) {
+    prefix[c] = -1;
+    length[c] = 1;
+    suffix[c] = first[c] = static_cast<uint8_t>(c);
+  }
+  int nbits = static_cast<int>(min_size) + 1, free_code = end + 1, prev = -1;
+  uint64_t buf = 0;
+  int have = 0;
+  int64_t pos = 0, out = 0;
+  while (true) {
+    while (have < nbits && pos < n) {
+      buf |= static_cast<uint64_t>(src[pos++]) << have;
+      have += 8;
+    }
+    if (have < nbits) break;  // the data's end
+    const int code = static_cast<int>(buf & ((1u << nbits) - 1));
+    buf >>= nbits;
+    have -= nbits;
+    if (code == clear || code == end) {
+      nbits = static_cast<int>(min_size) + 1;
+      free_code = end + 1;
+      prev = -1;
+      continue;
+    }
+    if (out == cap) return pos == n ? cap : kOverrun;  // the image is full
+    if (prev < 0) {  // the first code after a clear: a literal
+      if (code > clear) return kBadCode;
+      dst[out++] = static_cast<uint8_t>(code);
+      prev = code;
+      continue;
+    }
+    if (code > free_code || (code == free_code && free_code == 4096)) return kBadCode;
+    const int c0 = code < free_code ? code : prev;  // the string whose first byte the new entry ends with
+    const int len = code < free_code ? length[code] : length[prev] + 1;
+    if (out + len > cap) return kOverrun;
+    if (free_code < 4096) {
+      prefix[free_code] = prev;
+      suffix[free_code] = first[c0];
+      first[free_code] = first[prev];
+      length[free_code] = length[prev] + 1;
+    }
+    int c = code;
+    for (int64_t i = out + len - 1; i >= out; --i) {
+      dst[i] = suffix[c];
+      c = prefix[c];
+    }
+    out += len;
+    if (free_code < 4096 && ++free_code == (1 << nbits) && nbits < 12) ++nbits;
+    prev = code;
+  }
+  return out == cap ? cap : kTruncated;
 }
 
 // src: n bytes of PackBits; dst: cap bytes. Returns the bytes written (a run

@@ -1,25 +1,25 @@
 """The frame reader: ``imread`` decodes an image file to the (H, W, 3) uint8
 RGB array that ``cv2.imread(path)[..., ::-1]`` returns, choosing the decoder
 by the file's first bytes and not by its extension, in the order cv2's
-``findDecoder`` tries its decoders: BMP (``data/bmp.py``), Radiance HDR
-(``data/hdr.py``), JPEG (``data/jpeg.py``), Sun raster (``data/sunras.py``),
-PBM / PGM / PPM, PAM and PFM (``data/pnm.py``), TIFF (``data/tiff.py``), PNG
-(``data/png.py``). A JPEG's or PNG's EXIF orientation is applied as cv2
+``findDecoder`` tries its decoders: BMP (``data/bmp.py``), GIF
+(``data/gif.py``), Radiance HDR (``data/hdr.py``), JPEG (``data/jpeg.py``),
+WebP (``data/webp.py``), Sun raster (``data/sunras.py``), PBM / PGM / PPM, PAM
+and PFM (``data/pnm.py``), TIFF (``data/tiff.py``), PNG (``data/png.py``); no
+two of these signatures overlap, so the order picks the same decoder as any
+other would. A JPEG's, PNG's or WebP's EXIF orientation is applied as cv2
 applies it, a TIFF's Orientation tag likewise.
 
-A format that cv2's build reads and the port does not (GIF, WebP, AVIF, JPEG
-2000, BigTIFF) raises NotImplementedError naming the file and the format;
-any other file raises ValueError naming it."""
+A format that cv2's build reads and the port does not (lossy WebP, refused
+by ``data/webp.py``; AVIF, JPEG 2000, BigTIFF) raises NotImplementedError
+naming the file and the format; any other file raises ValueError naming it."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from superslomo_tpu_torch.data import bmp, hdr, jpeg, png, pnm, sunras, tiff
+from superslomo_tpu_torch.data import bmp, gif, hdr, jpeg, png, pnm, sunras, tiff, webp
 
 _NOT_READ = (  # (signature test, format): what cv2 reads and the port does not
-    (lambda d: d[:6] in (b"GIF87a", b"GIF89a"), "GIF"),
-    (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP"),
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis"), "AVIF"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
     (lambda d: d[:4] in tiff.BIGTIFF, "BigTIFF"),
@@ -30,10 +30,14 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """The image file ``data`` as (H, W, 3) uint8 RGB, as cv2 reads it."""
     if data[:2] == bmp.SIGNATURE:
         return bmp.decode(data, path)
+    if data[:6] in gif.SIGNATURES:
+        return gif.decode(data, path)
     if data.startswith(hdr.SIGNATURES):
         return hdr.decode(data, path)
     if data[:3] == jpeg.SIGNATURE:
         return jpeg.imread(path, data)
+    if webp.is_webp(data):
+        return webp.decode(data, path)
     if data[:4] == sunras.SIGNATURE:
         return sunras.decode(data, path)
     if pnm.is_pxm(data) or pnm.is_pam(data) or pnm.is_pfm(data):
@@ -44,8 +48,8 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
         return png.imread(path, data)
     for test, name in _NOT_READ:
         if test(data):
-            raise NotImplementedError(f"{path}: {name} is not read; only BMP, HDR, JPEG, Sun raster, PBM, PGM, PPM, "
-                                      "PAM, PFM, TIFF and PNG")
+            raise NotImplementedError(f"{path}: {name} is not read; only BMP, GIF, HDR, JPEG, lossless WebP, Sun "
+                                      "raster, PBM, PGM, PPM, PAM, PFM, TIFF and PNG")
     raise ValueError(f"{path}: not an image file that cv2 reads")
 
 

@@ -1,9 +1,9 @@
 """The compiled codecs of the uncompressed and lossless raster formats
-(``csrc/raster_decode.cpp``: TIFF's LZW and PackBits, BMP's RLE8 / RLE4,
-Radiance HDR scanlines), built at first use by ``ops/cuda_build.py`` and
+(``csrc/raster_decode.cpp``: TIFF's and GIF's LZW, TIFF's PackBits, BMP's
+RLE8 / RLE4, Radiance HDR scanlines), built at first use by ``ops/cuda_build.py`` and
 called through ctypes with the GIL released, so the Loader's threads decode
-frames in parallel. Each format's reader (``data/tiff.py``, ``data/bmp.py``,
-``data/hdr.py``) keeps the plain Python twin of the routines it calls beside
+frames in parallel. Each format's reader (``data/tiff.py``, ``data/gif.py``,
+``data/bmp.py``, ``data/hdr.py``) keeps the plain Python twin of the routines it calls beside
 its caller."""
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ _I = ctypes.c_int64
 
 def _declare(lib: ctypes.CDLL) -> None:
     for name, args in (("lzw_decode", [_P, _I, _P, _I]), ("packbits_decode", [_P, _I, _P, _I]),
+                       ("gif_lzw_decode", [_P, _I, _I, _P, _I]),
                        ("bmp_rle_decode", [_P, _I, _I, _I, _I, _P]),
                        ("hdr_decode", [_P, _I, _I, _I, _P])):
         getattr(lib, name).argtypes = args

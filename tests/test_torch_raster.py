@@ -717,7 +717,6 @@ def _refusal_files():
         "tiff_cmyk": (_tiff(np.dstack([img, img[..., :1]]), 8, 5), NotImplementedError, "CMYK"),
         "tiff_lab": (_tiff(img, 8, 8), NotImplementedError, "CIELab"),
         "bigtiff": (b"II+\x00" + tif[4:], NotImplementedError, "BigTIFF"),
-        "gif": (_pil(img, "GIF"), NotImplementedError, "GIF"),
         "webp": (_pil(img, "WEBP"), NotImplementedError, "WebP"),
         "avif": (b"\x00\x00\x00\x1cftypavif" + bytes(40), NotImplementedError, "AVIF"),
         "jpeg_2000": (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40), NotImplementedError, "JPEG 2000"),
