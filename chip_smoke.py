@@ -186,24 +186,33 @@ Phases, each of which raises on failure:
       256-colour palette, and an interlaced sub-rectangle with a
       transparent index) and lossless WebP (the writer's transforms case:
       subtract-green, predictor, cross-colour, LZ77 copies and a colour
-      cache; and its colour-indexing case at 16 colours): each decode
-      equals what cv2 reads from the file, the compiled routines of
-      csrc/raster_decode.cpp and csrc/webp_decode.cpp equal their plain
-      twins (WebP's on a 180x320 frame), and a progressive 4:2:0 JPEG cut
-      after its third scan (block-smoothed) decodes as its plain twin; the
-      decode ms and its ratio to PNG's; and the Loader (12 threads) over an
-      ADOBE list naming the 57-frame clip's frames in turn as BMP, PPM, LZW
-      TIFF and lossless WebP: its batches equal the PNG list's bit for bit,
-      each decoder's calls counted (``raster_loader_vs_png``);
+      cache; and its colour-indexing case at 16 colours), and lossy WebP
+      (the script's own VP8 writer, ``vp8_bytes``: a B_PRED-heavy frame and
+      one with the simple loop filter, their bytes and PSNR): each lossless
+      decode equals what cv2 reads from the file, the compiled routines of
+      csrc/raster_decode.cpp, csrc/webp_decode.cpp and csrc/vp8_decode.cpp
+      equal their plain twins (WebP's on a 180x320 frame), and a
+      progressive 4:2:0 JPEG cut after its third scan (block-smoothed)
+      decodes as its plain twin; the decode ms and its ratio to PNG's; and
+      the Loader (12 threads) over an ADOBE list naming the 57-frame clip's
+      frames in turn as BMP, PPM, LZW TIFF, lossless and lossy WebP: its
+      batches equal, bit for bit, those of the PNG list (PNG copies of the
+      lossy frames' decode), each decoder's calls counted
+      (``raster_loader_vs_png``);
   16. the eval CLI's main path: ``cli.evaluate_interpolation`` at
       configs/superslomo_eval.ini as shipped (720p padded to 736, B=8, 12
       loader threads, f32) over a made-up dataset of 720p PNGs in a
-      temporary directory (a 33-frame val clip: 4 sliding windows, one
-      batch, fused-step slices of 2 and 2 samples): its metrics equal
+      temporary directory (a 17-frame val clip: 2 sliding windows, one
+      batch, one fused-step slice of 2 samples): its metrics equal
       Evaluator.run on the same batches given explicitly, 4 multi-flow
       launches a slice, the wall time a batch
       beside the prepared run's and the Loader's; the CLI on the card
       against the CLI on the CPU over a 48x96 clip within the serving bar;
+      then this slice's main path, the same CLI over those 17 frames as
+      lossy WebP and over PNG copies of their decode: PSNR, SSIM and IE
+      equal, 4 multi-flow launches a fused step counted from 0 just before
+      the lossy run, the VP8 decoder's calls counted
+      (``eval_cli_vp8_vs_png_copy``);
   17. the train CLI's main path: ``cli.train`` at
       configs/superslomo_original.ini as shipped (ALL: ADOBE and NFS clip
       lists naming the 57 frames 280 times each, 80 Vimeo septuplets: 20
@@ -213,9 +222,9 @@ Phases, each of which raises on failure:
       step, the same Trainer's step on in-memory batches, the Loader's ms a
       batch, 8 single-flow forward and 8 flow-gradient launches a step;
       then in f32 for 4 steps over ADOBE and NFS clip lists naming the
-      clip written again with its frames in turn as JPEG, GIF and lossless
-      WebP (``train_cli_main_path`` with ``frames`` "gif+jpg+webp"), each
-      decoder's calls counted.
+      clip written again with its frames in turn as JPEG, GIF, lossless and
+      lossy WebP (``train_cli_main_path`` with ``frames``
+      "gif+jpg+vp8+webp"), each decoder's calls counted.
   18. the render CLI's main path: ``cli.visualize`` at
       configs/superslomo_eval.ini's model (CONV, f32, TF32 off) over a
       9-frame 720p panning clip at 8x (8 windows, 65 frames written), and in
@@ -2270,7 +2279,7 @@ def phase_ssmr_stream(dtype, n_clip=30, warmup=2):
     return res
 
 
-def phase_ssmr_main_path(batches, steps=6, eval_batches=1):
+def phase_ssmr_main_path(batches, steps=6, eval_batches=1, during_autotune=None):
     """The fused 8x step of SuperSloMo-R at 720p with a streamed-in state
     (from ``forward_inference`` of the window before): f32 at B=1, bf16 at
     B=1 and B=2; each step's ms (median of ``steps`` after 2 warm-up
@@ -2279,7 +2288,11 @@ def phase_ssmr_main_path(batches, steps=6, eval_batches=1):
     bring 21 stage-2 images, past the budget of 14, so B=2 runs as two
     slices with their samples' states). Then the Evaluator with the f32 model over the first
     ``eval_batches`` of ``batches`` at B=1 (two until the script neared its
-    time limit), and bf16 against f32 on the same input."""
+    time limit), and bf16 against f32 on the same input. ``during_autotune``
+    (a VP8Files, or None) is started before the first configuration's
+    warm-up, while cuDNN's autotuning keeps the device busy (~2 min), and
+    joined before its first timed step, so no timed step shares the host
+    with it."""
     from superslomo_tpu_torch import Evaluator, SuperSloMo, ops, weights
     from superslomo_tpu_torch.models.superslomo import step_samples
     from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as mf
@@ -2298,9 +2311,13 @@ def phase_ssmr_main_path(batches, steps=6, eval_batches=1):
         def step():
             return model.interpolate_multi_t(frames, t_values, rnn_carry=carry, with_bounds=True)
 
+        if during_autotune is not None and dtype == "float32":
+            during_autotune.start()
         for _ in range(2):  # cuDNN autotuning happens here
             step()
         torch.cuda.synchronize()
+        if during_autotune is not None and dtype == "float32":
+            during_autotune.join()
         torch.cuda.reset_peak_memory_stats()
         mf.launches = single.launches = ops._WarpMultiflow.launches = 0
         times = []
@@ -4039,6 +4056,446 @@ def palette_16(img):
     return np.stack([level * 17, 255 - level * 17, (level * 53) & 255], -1).astype(np.uint8)
 
 
+# A small VP8 key-frame writer: numpy for the transforms, a boolean encoder in Python.
+_VP8_M1, _VP8_M2 = 20091 / 65536 + 1, 35468 / 65536
+_VP8_IDCT = np.array([[1, _VP8_M1, 1, _VP8_M2], [1, _VP8_M2, -1, -_VP8_M1], [1, -_VP8_M2, -1, _VP8_M1],
+                      [1, -_VP8_M1, 1, -_VP8_M2]])  # the decoder's 1-D inverse transform, 8 x the residual
+_VP8_FDCT = np.linalg.inv(_VP8_IDCT)
+_VP8_WHT = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
+VP8_SUB_MODES = 10  # B_DC, B_TM, B_VE, B_HE, B_RD, B_VR, B_LD, B_VL, B_HD, B_HU in libwebp's order
+_VP8_SUB_TREE = {0: "0", 1: "10", 2: "110", 3: "11100", 4: "111010", 5: "111011", 6: "11110", 7: "111110",
+                 8: "1111110", 9: "1111111"}  # each sub-mode's bits, read with probabilities 0-8 in tree order
+_VP8_SUB_NODES = {0: (0,), 1: (0, 1), 2: (0, 1, 2), 3: (0, 1, 2, 3, 4), 4: (0, 1, 2, 3, 4, 5), 5: (0, 1, 2, 3, 4, 5),
+                  6: (0, 1, 2, 3, 6), 7: (0, 1, 2, 3, 6, 7), 8: (0, 1, 2, 3, 6, 7, 8), 9: (0, 1, 2, 3, 6, 7, 8)}
+
+
+class BoolWriter:
+    """The VP8 boolean encoder (RFC 6386, section 7.3); ``fixed`` events
+    carry their probability, ``put`` codes one."""
+
+    def __init__(self):
+        self.out, self.range, self.bottom, self.count = bytearray(), 255, 0, 24
+
+    def put(self, bit, prob):
+        split = 1 + (((self.range - 1) * prob) >> 8)
+        if bit:
+            self.bottom += split
+            self.range -= split
+        else:
+            self.range = split
+        while self.range < 128:
+            self.range <<= 1
+            if self.bottom & 0x80000000:  # carry into the bytes written
+                i = len(self.out) - 1
+                while self.out[i] == 255:
+                    self.out[i] = 0
+                    i -= 1
+                self.out[i] += 1
+            self.bottom = (self.bottom << 1) & 0xFFFFFFFF
+            self.count -= 1
+            if not self.count:
+                self.out.append(self.bottom >> 24)
+                self.bottom &= 0xFFFFFF
+                self.count = 8
+
+    def literal(self, v, n):
+        for i in range(n - 1, -1, -1):
+            self.put((v >> i) & 1, 128)
+
+    def signed(self, v, n):
+        self.literal(abs(v), n)
+        self.put(int(v < 0), 128)
+
+    def flag(self, v, n):
+        """An optional signed field: a flag, then the value when it is not 0."""
+        self.put(int(v != 0), 128)
+        if v:
+            self.signed(v, n)
+
+    def finish(self) -> bytes:
+        c, v = self.count, self.bottom
+        if v & (1 << (32 - c)):
+            i = len(self.out) - 1
+            while self.out[i] == 255:
+                self.out[i] = 0
+                i -= 1
+            self.out[i] += 1
+        v = (v << (c & 7)) & 0xFFFFFFFF
+        for _ in range(c >> 3):
+            v = (v << 8) & 0xFFFFFFFF
+        for _ in range(4):
+            self.out.append(v >> 24)
+            v = (v << 8) & 0xFFFFFFFF
+        return bytes(self.out)
+
+
+def _vp8_yuv(img):
+    """(H, W, 3) RGB → BT.601 studio-range Y (H, W) and 2x2-averaged U, V."""
+    rgb = img.astype(np.int64)
+    R, G, B = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    Y = ((66 * R + 129 * G + 25 * B + 128) >> 8) + 16
+    U = ((-38 * R - 74 * G + 112 * B + 128) >> 8) + 128
+    V = ((112 * R - 94 * G - 18 * B + 128) >> 8) + 128
+    H, W = Y.shape
+    pad = ((0, H & 1), (0, W & 1))
+    U, V = (np.pad(P, pad, mode="edge") for P in (U, V))
+    U, V = ((P[0::2, 0::2] + P[1::2, 0::2] + P[0::2, 1::2] + P[1::2, 1::2] + 2) >> 2 for P in (U, V))
+    return Y, U, V
+
+
+def _quantise(coeffs, dq, first=0):
+    """Round (..., 16) raster-order coefficients to levels (at most DCT_CAT6's
+    2114) with (DC, AC) factors dq; returns (levels, dequantised)."""
+    step = np.full(16, dq[1], np.float64)
+    step[0] = dq[0]
+    lev = np.clip(np.round(coeffs / step), -2114, 2114).astype(np.int64)
+    lev[..., :first] = 0
+    return lev, lev * step.astype(np.int64)
+
+
+def _vp8_residual(res):
+    """(..., 4, 4) residual → (..., 16) coefficients, the inverse of the decoder's DCT."""
+    return np.einsum("ij,...jk,lk->...il", _VP8_FDCT, 8.0 * res, _VP8_FDCT).reshape(*res.shape[:-2], 16)
+
+
+def _vp8_blocks(plane):
+    """(4n, 4m) → (n * m, 4, 4) in raster order of the 4x4 blocks."""
+    n, m = plane.shape[0] // 4, plane.shape[1] // 4
+    return plane.reshape(n, 4, m, 4).transpose(0, 2, 1, 3).reshape(n * m, 4, 4)
+
+
+def _vp8_unblocks(blocks, n, m):
+    return blocks.reshape(n, m, 4, 4).transpose(0, 2, 1, 3).reshape(4 * n, 4 * m)
+
+
+def _vp8_macroblock(Y, U, V, R, mb_x, mb_y, mb_w, mode, sub_modes, uv_mode, dq):
+    """Choose nothing: code the macroblock in the given modes against its
+    prediction from the reconstruction R (Y, U, V planes, updated in place);
+    returns the levels (lists): Y2 (or None), 16 Y and 8 chroma blocks,
+    zigzag order. A residual that rounds to no level adds nothing."""
+    from superslomo_tpu_torch.data import vp8
+
+    RY, RU, RV = R
+    y0, x0 = 16 * mb_y, 16 * mb_x
+    zz = np.array(vp8.ZIGZAG)
+    y2 = None
+    if mode is not None:  # 16x16
+        pred = vp8.predict_16(mode, *vp8.edges(RY, y0, x0, 16, mb_x, mb_y), mb_x, mb_y)
+        coeffs = _vp8_residual(_vp8_blocks(Y[y0:y0 + 16, x0:x0 + 16] - pred))
+        dc = coeffs[:, 0].reshape(4, 4)
+        y2_lev, y2_deq = _quantise((_VP8_WHT.T @ dc @ _VP8_WHT / 2).reshape(1, 16), dq[1])
+        y_lev, y_deq = _quantise(coeffs, dq[0], first=1)
+        y_deq[:, 0] = vp8.inverse_wht(y2_deq[0])
+        recon = np.clip(pred + _vp8_unblocks(vp8.inverse_dct(y_deq), 4, 4), 0, 255) if y_deq.any() else pred
+        y2 = y2_lev[0, zz].tolist()
+    else:
+        work = vp8.luma4_work(RY, mb_x, mb_y, mb_w)
+        y_lev = np.zeros((16, 16), np.int64)
+        for k in range(16):
+            by, bx = 4 * (k // 4), 4 * (k % 4)
+            pred = vp8.predict_luma4(sub_modes[k], work[by, bx + 1:bx + 9], work[by + 1:by + 5, bx], work[by, bx])
+            lev, deq = _quantise(_vp8_residual(Y[y0 + by:y0 + by + 4, x0 + bx:x0 + bx + 4] - pred), dq[0])
+            y_lev[k] = lev
+            work[by + 1:by + 5, bx + 1:bx + 5] = np.clip(pred + vp8.inverse_dct(deq), 0, 255)
+        recon = work[1:, 1:17]
+    RY[y0:y0 + 16, x0:x0 + 16] = recon
+    uv = []
+    for P, RP in ((U, RU), (V, RV)):
+        pred = vp8.predict_16(uv_mode, *vp8.edges(RP, y0 // 2, x0 // 2, 8, mb_x, mb_y), mb_x, mb_y)
+        lev, deq = _quantise(_vp8_residual(_vp8_blocks(P[y0 // 2:y0 // 2 + 8, x0 // 2:x0 // 2 + 8] - pred)), dq[2])
+        if deq.any():
+            pred = np.clip(pred + _vp8_unblocks(vp8.inverse_dct(deq), 2, 2), 0, 255)
+        RP[y0 // 2:y0 // 2 + 8, x0 // 2:x0 // 2 + 8] = pred
+        uv.append(lev)
+    return y2, y_lev[:, zz].tolist(), np.concatenate(uv)[:, zz].tolist()
+
+
+def _vp8_tokens(events, lev, first, ctx, t):
+    """Append the token events (context id or -prob, bit) of one block's
+    levels (zigzag order) from index ``first`` in context ``ctx`` of type t;
+    returns whether it coded a non-zero level."""
+    from superslomo_tpu_torch.data.vp8 import BANDS, CAT_PROBAS
+
+    def node(n, c, k):
+        return ((t * 8 + BANDS[n]) * 3 + c) * 11 + k
+
+    last = 15
+    while last >= first and not lev[last]:
+        last -= 1
+    if last < first:  # an empty block: its end at once
+        events.append((node(first, ctx, 0), 0))
+        return False
+    n, c = first, ctx
+    while n < 16:
+        events.append((node(n, c, 0), int(n <= last)))
+        if n > last:
+            return last >= first
+        while lev[n] == 0:
+            events.append((node(n, c, 1), 0))
+            n, c = n + 1, 0
+        v = abs(lev[n])
+        events.append((node(n, c, 1), 1))
+        events.append((node(n, c, 2), int(v > 1)))
+        if v > 1:
+            p = lambda k, n=n, c=c: node(n, c, k)  # noqa: E731
+            if v <= 4:
+                events += [(p(3), 0), (p(4), int(v > 2))] + ([(p(5), v - 3)] if v > 2 else [])
+            elif v <= 10:
+                events += [(p(3), 1), (p(6), 0), (p(7), int(v > 6))]
+                events += [(-159, v - 5)] if v <= 6 else [(-165, (v - 7) >> 1), (-145, (v - 7) & 1)]
+            else:
+                cat = 0 if v < 19 else 1 if v < 35 else 2 if v < 67 else 3
+                extra, tab = v - 3 - (8 << cat), CAT_PROBAS[cat]
+                events += [(p(3), 1), (p(6), 1), (p(8), cat >> 1), (p(9 + (cat >> 1)), cat & 1)]
+                events += [(-prob, (extra >> (len(tab) - 1 - i)) & 1) for i, prob in enumerate(tab)]
+        events.append((-128, int(lev[n] < 0)))
+        n, c = n + 1, (2 if v > 1 else 1)
+    return True
+
+
+def vp8_bytes(img, q=40, filter="normal", level=20, sharpness=0, partitions=1, skip=True, segments=None,
+              lf_delta=None, quant_deltas=(0, 0, 0, 0, 0), version=0, bpred=0.3, seed=0):
+    """A lossy WebP (RIFF + a VP8 key frame) of the (H, W, 3) RGB frame, from a
+    small encoder: BT.601 4:2:0, each macroblock's modes a seeded choice
+    (B_PRED with probability ``bpred`` and then each sub-mode at random, else
+    one of the four 16x16 modes; a chroma mode at random), the residual
+    against the prediction from the writer's own reconstruction through the
+    inverse of the decoder's DCT (and WHT for a 16x16 macroblock's DCs),
+    rounded at quantiser index ``q`` with ``quant_deltas`` (Y1 DC, Y2 DC, Y2
+    AC, UV DC, UV AC). The header: ``filter`` "normal" or "simple" at
+    ``level`` (0-63) and ``sharpness`` (0-7); ``partitions`` token partitions
+    (1, 2, 4 or 8); with ``skip`` the skip probability (macroblocks without a
+    level skipped); ``segments`` None or a dict of "absolute" (bool), "quant"
+    and "strength" (4 values each) and "map" (bool: a seeded segment a
+    macroblock, coded with 3 tree probabilities, else none); ``lf_delta``
+    None or (reference delta 0, B_PRED mode delta 0); the frame tag's
+    ``version`` (0-3). The token probabilities are the defaults, updated
+    where this frame's own counts save bits (at least one update)."""
+    from superslomo_tpu_torch.data import vp8
+
+    rng = np.random.default_rng(seed)
+    H, W, _ = img.shape
+    mb_w, mb_h = (W + 15) // 16, (H + 15) // 16
+    Y, U, V = _vp8_yuv(img)
+    Y = np.pad(Y, ((0, 16 * mb_h - H), (0, 16 * mb_w - W)), mode="edge")
+    U, V = (np.pad(P, ((0, 8 * mb_h - P.shape[0]), (0, 8 * mb_w - P.shape[1])), mode="edge") for P in (U, V))
+    R = (np.zeros_like(Y), np.zeros_like(U), np.zeros_like(V))
+    seg = segments or {}
+    seg_map = rng.integers(0, 4, (mb_h, mb_w)) if seg.get("map") else np.zeros((mb_h, mb_w), np.int64)
+    dqs = []
+    for s in range(4):
+        qs = q if not seg else seg["quant"][s] + (0 if seg.get("absolute") else q)
+        dqs.append(vp8.dequant(qs, quant_deltas))
+    mbs = []
+    for mb_y in range(mb_h):
+        for mb_x in range(mb_w):
+            i4 = rng.random() < bpred
+            mode = None if i4 else int(rng.integers(4))
+            subs = rng.integers(0, VP8_SUB_MODES, 16).tolist() if i4 else None
+            uv_mode = int(rng.integers(4))
+            levels = _vp8_macroblock(Y, U, V, R, mb_x, mb_y, mb_w, mode, subs, uv_mode, dqs[seg_map[mb_y, mb_x]])
+            empty = not any(any(block) for b in levels if b is not None for block in (b if b and isinstance(b[0], list) else [b]))
+            mbs.append((mode, subs, uv_mode, levels, bool(skip and empty)))
+    # the token events of each partition, in the decoder's contexts
+    parts = [[] for _ in range(partitions)]
+    top = [[0] * 9 for _ in range(mb_w)]  # per column: Y2, 4 Y, 2 U, 2 V non-zero flags
+    for mb_y in range(mb_h):
+        left = [0] * 9
+        events = parts[mb_y % partitions]
+        for mb_x in range(mb_w):
+            mode, subs, uv_mode, (y2, ylev, uvlev), skipped = mbs[mb_y * mb_w + mb_x]
+            t = top[mb_x]
+            if skipped:
+                keep = [t[0], left[0]] if mode is None else [0, 0]
+                t[:], left[:] = [keep[0]] + [0] * 8, [keep[1]] + [0] * 8
+                continue
+            first, ytype = 0, 3
+            if mode is not None:
+                t[0] = left[0] = int(_vp8_tokens(events, y2, 0, t[0] + left[0], 1))
+                first, ytype = 1, 0
+            for k in range(16):
+                y, x = divmod(k, 4)
+                t[1 + x] = left[1 + y] = int(_vp8_tokens(events, ylev[k], first, t[1 + x] + left[1 + y], ytype))
+            for k in range(8):
+                base = 5 if k < 4 else 7
+                y, x = divmod(k % 4, 2)
+                t[base + x] = left[base + y] = int(_vp8_tokens(events, uvlev[k], 0, t[base + x] + left[base + y], 2))
+    proba = vp8.COEFF_PROBA.reshape(-1).astype(np.int64).copy()
+    update = vp8.COEFF_UPDATE.reshape(-1).astype(np.int64)
+    changed = {}
+    ids = np.array([e for events in parts for e, _ in events if e >= 0], np.int64)
+    bits = np.array([b for events in parts for e, b in events if e >= 0], np.int64)
+    ones = np.bincount(ids, weights=bits, minlength=proba.size)
+    total = np.bincount(ids, minlength=proba.size)
+    for k in np.flatnonzero(total):
+        p = int(np.clip(round(256 * (total[k] - ones[k]) / total[k]), 1, 255))
+        old, zeros = proba[k], total[k] - ones[k]
+        gain = (zeros * (np.log2(p / 256) - np.log2(old / 256)) +
+                ones[k] * (np.log2(1 - p / 256) - np.log2(1 - old / 256)))
+        if gain > 9 + np.log2(256 / max(256 - update[k], 1)):
+            changed[k] = p
+    if not changed:  # at least one update
+        k = int(np.flatnonzero(total)[0]) if total.any() else 0
+        changed[k] = int(np.clip(proba[k] + 1, 1, 255))
+    for k, p in changed.items():
+        proba[k] = p
+    token_bytes = []
+    for events in parts:
+        bw = BoolWriter()
+        for e, b in events:
+            bw.put(b, int(proba[e]) if e >= 0 else -e)
+        token_bytes.append(bw.finish())
+    # the first partition: the header, then each macroblock's modes
+    bw = BoolWriter()
+    bw.literal(0, 2)  # colour space, clamping type
+    bw.put(int(bool(seg)), 128)
+    seg_probs = (128, 128, 128)
+    if seg:
+        bw.put(int(bool(seg.get("map"))), 128)
+        bw.put(1, 128)  # update the segment data
+        bw.put(int(bool(seg.get("absolute"))), 128)
+        for v in seg["quant"]:
+            bw.flag(v, 7)
+        for v in seg["strength"]:
+            bw.flag(v, 6)
+        if seg.get("map"):
+            for p in seg_probs:
+                bw.put(1, 128)
+                bw.literal(p, 8)
+    bw.put(int(filter == "simple"), 128)
+    bw.literal(level, 6)
+    bw.literal(sharpness, 3)
+    bw.put(int(lf_delta is not None), 128)
+    if lf_delta is not None:
+        bw.put(1, 128)
+        for v in (lf_delta[0], 2, -3, 4):  # reference deltas: a key frame reads the first
+            bw.flag(v, 6)
+        for v in (lf_delta[1], -5, 6, 0):  # mode deltas: the first is B_PRED's
+            bw.flag(v, 6)
+    bw.literal(partitions.bit_length() - 1, 2)
+    bw.literal(q, 7)
+    for v in quant_deltas:
+        bw.flag(v, 4)
+    bw.put(0, 128)  # refresh entropy probabilities
+    for k in range(proba.size):
+        bw.put(int(k in changed), int(update[k]))
+        if k in changed:
+            bw.literal(changed[k], 8)
+    n_skipped = sum(m[4] for m in mbs)
+    skip_p = int(np.clip(round(256 * (len(mbs) - n_skipped) / len(mbs)), 1, 255))
+    bw.put(int(skip), 128)
+    if skip:
+        bw.literal(skip_p, 8)
+    intra_t = [0] * (4 * mb_w)
+    for mb_y in range(mb_h):
+        intra_l = [0] * 4
+        for mb_x in range(mb_w):
+            mode, subs, uv_mode, _, skipped = mbs[mb_y * mb_w + mb_x]
+            if seg.get("map"):
+                s = int(seg_map[mb_y, mb_x])
+                bw.put(int(s >= 2), seg_probs[0])
+                bw.put(s & 1, seg_probs[1 + (s >> 1)])
+            if skip:
+                bw.put(int(skipped), skip_p)
+            bw.put(int(mode is not None), 145)
+            if mode is not None:
+                bw.put(int(mode in (1, 3)), 156)  # TM, H
+                bw.put(int(mode in (1, 2)), 128 if mode in (1, 3) else 163)  # TM of TM / H, V of V / DC
+                intra_t[4 * mb_x:4 * mb_x + 4] = [mode] * 4
+                intra_l[:] = [mode] * 4
+            else:
+                for k, sub in enumerate(subs):
+                    y, x = divmod(k, 4)
+                    p = vp8.BMODES_PROBA[intra_t[4 * mb_x + x], intra_l[y]]
+                    for node, b in zip(_VP8_SUB_NODES[sub], _VP8_SUB_TREE[sub]):
+                        bw.put(int(b), int(p[node]))
+                    intra_t[4 * mb_x + x] = intra_l[y] = sub
+            bw.put(int(uv_mode != 0), 142)
+            if uv_mode:
+                bw.put(int(uv_mode != 2), 114)
+                if uv_mode != 2:
+                    bw.put(int(uv_mode == 1), 183)
+    first = bw.finish()
+    tag = (version << 1) | 0x10 | (len(first) << 5)
+    frame = (bytes([tag & 255, (tag >> 8) & 255, tag >> 16]) + b"\x9d\x01\x2a" + struct.pack("<HH", W, H) + first +
+             b"".join(len(p).to_bytes(3, "little") for p in token_bytes[:-1]) + b"".join(token_bytes))
+    body = b"VP8 " + struct.pack("<I", len(frame)) + frame + bytes(len(frame) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+VP8_FRAME = dict(q=20, bpred=0.1)  # a clip's lossy WebP frame: 720p in about 35 KB; 1 macroblock in 10 B_PRED
+
+
+def _vp8_job(img, kwargs):
+    return vp8_bytes(img, **kwargs)
+
+
+EVAL_VP8_FRAMES = 17  # the lossy eval clip: two 9-frame windows, one batch (phase 5's B=2 shapes)
+VP8_CLIP = sorted(set(range(EVAL_VP8_FRAMES)) | set(range(4, 57, 5)))  # the eval clip; every 5th frame of the lists
+
+
+def raster_frame(H=720, W=1280):
+    """The raster decode phase's panning-texture frame."""
+    return panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
+
+
+class VP8Files:
+    """The lossy WebP files of the data phases, written by ``vp8_bytes`` in 8
+    spawned processes (the writer's per-macroblock Python holds the
+    interpreter lock, so threads would run one at a time) from ``start`` to
+    ``join``: the 57-frame clip of ``write_dataset`` (the same seed) at the
+    indices ``VP8_CLIP`` (``VP8_FRAME``, seeded by index; keys ("clip", i))
+    and the raster phase's ``VP8_CASES`` of ``raster_frame`` at H x W and at
+    ``PLAIN_HW`` (keys (name, (h, w))). ``data`` holds each file's bytes."""
+
+    def __init__(self, H=720, W=1280):
+        clip = panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]
+        frame = raster_frame(H, W)
+        self.jobs = {("clip", i): (clip[i], dict(VP8_FRAME, seed=i)) for i in VP8_CLIP}
+        for name, kw in VP8_CASES.items():
+            for h, w in {(H, W), (min(PLAIN_HW["webp"][0], H), min(PLAIN_HW["webp"][1], W))}:
+                self.jobs[name, (h, w)] = (frame[:h, :w], kw)
+        self.pool, self.futures, self.data, self.t0 = None, None, {}, None
+        self.record = {"phase": "vp8_files_written", "files": len(self.jobs)}
+
+    def start(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.t0 = time.perf_counter()
+        self.pool = ProcessPoolExecutor(8, mp_context=multiprocessing.get_context("spawn"))
+        self.futures = {key: self.pool.submit(_vp8_job, img, kw) for key, (img, kw) in self.jobs.items()}
+        return self
+
+    def join(self):
+        """Wait for every file (starting them first if need be); records the
+        seconds from start to the last file and the wait in ``join``."""
+        if self.futures is None and not self.data:
+            self.start()
+        if self.futures is not None:
+            t0 = time.perf_counter()
+            self.data = {key: f.result() for key, f in self.futures.items()}
+            self.pool.shutdown()
+            self.futures = None
+            now = time.perf_counter()
+            self.record.update(seconds=now - self.t0, join_wait_s=now - t0, bytes_per_clip_frame=statistics.median(
+                len(v) for (kind, _), v in self.data.items() if kind == "clip"))
+            emit(self.record)
+        return self
+
+
+def write_vp8_clip(root, files):
+    """The clip frames of ``files`` (a joined VP8Files) written under
+    ``root``; returns {index: path}."""
+    clip_dir = os.path.join(root, "adobe_vp8", "clip_000")
+    os.makedirs(clip_dir)
+    paths = {i: os.path.join(clip_dir, f"frame_{i:05d}.webp") for i in VP8_CLIP}
+    for i, path in paths.items():
+        with open(path, "wb") as f:
+            f.write(files.data["clip", i])
+    return paths
+
+
 RASTER_CASES = {  # name → (the writer of a 720p frame, what cv2 reads from it, whether a compiled routine runs)
     "bmp_24": (bmp_bytes, lambda f: f, False),
     "bmp_rle8": (lambda f: bmp_bytes(f, rle8=True), lambda f: palette_332()[palette_332_index(f)], True),
@@ -4062,10 +4519,14 @@ PALETTE_CASES = {  # name → the writer of (the file, what cv2 reads from it) f
     "webp_transforms": lambda f: (vp8l_bytes(f), f),
     "webp_colour_indexing": lambda f: (vp8l_bytes(palette_16(f), "palette"), palette_16(f)),
 }
+VP8_CASES = {  # name → the writer's arguments for a 720p frame (what cv2 reads from it is not known on the card)
+    "webp_lossy_bpred": dict(q=24, bpred=0.9, seed=3),
+    "webp_lossy_simple_filter": dict(q=24, filter="simple", level=24, sharpness=2, seed=4),
+}
 PLAIN_HW = {"gif": (720, 1280), "webp": (180, 320)}  # where the plain twin is compared: its decode stays under 5 s
 
 
-def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4):
+def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4, vp8=None):
     """The raster readers (``data/bmp.py``, ``pnm.py``, ``tiff.py``,
     ``sunras.py``, ``hdr.py``, ``gif.py`` and ``webp.py``,
     through ``data/image.py``) on the 720p panning-texture frame written by
@@ -4073,23 +4534,29 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4):
     each decode equals what cv2 reads from the file (the frame, or its
     palette or HDR rounding), and where a routine of csrc/raster_decode.cpp
     or csrc/webp_decode.cpp runs (RLE8, LZW, PackBits, HDR scanlines, GIF's
-    LZW, VP8L) the plain decode equals the compiled one: on the 720p file, or
-    for WebP, whose plain decode takes longer than 5 s there, on the same
-    case written from the frame's top-left 180x320 (``plain_hw``). Then a
+    LZW, VP8L, VP8) the plain decode equals the compiled one: on the 720p
+    file, or for WebP, whose plain decode takes longer than 5 s there, on
+    the same case written from the frame's top-left 180x320 (``plain_hw``).
+    The lossy WebP cases of VP8_CASES (a B_PRED-heavy frame, a frame with the
+    simple filter) have no pixels known to equal: their bytes and PSNR
+    against the frame are recorded. Then a
     q95 progressive 4:2:0 JPEG cut after its third scan (block smoothing):
     the compiled decode equals the plain one. Times: a whole decode (median
     of ``reps``, the file in the page cache) and its ratio to phase 15's PNG
-    Sub decode of the same frame kind, the plain decode (one call)."""
+    Sub decode of the same frame kind, the plain decode (one call). ``vp8``:
+    the VP8Files of the lossy cases (made and joined here when None)."""
     from superslomo_tpu_torch.data import bmp, gif, hdr, image, jpeg, tiff, webp
 
     plains = {"bmp": bmp.decode, "tiff": tiff.decode, "hdr": hdr.decode, "gif": gif.decode, "webp": webp.decode}
-    frame = panning_clips(np.random.default_rng(21), 1, H, W, n=1)[0, 0]
+    frame = raster_frame(H, W)
+    vp8 = (vp8 or VP8Files(H, W)).join()
     png_ms = png_res["filters"]["sub"]["decode_ms"]
     out = {"phase": "raster_decode_vs_plain", "frame_hw": [H, W], "reps": reps, "cases": {},
            "png_sub_decode_ms": png_ms, "jpeg_baseline_420_decode_ms": jpeg_res["cases"]["420"]["decode_ms"]}
     cases = [(name, lambda f, w=write, e=expected: (w(f), e(f)), compiled)
              for name, (write, expected, compiled) in RASTER_CASES.items()]
     cases += [(name, make, True) for name, make in PALETTE_CASES.items()]
+    cases += [(name, lambda f, name=name: (vp8.data[name, f.shape[:2]], None), True) for name in VP8_CASES]
     with tempfile.TemporaryDirectory() as d:
         for name, make, compiled in cases:
             t0 = time.perf_counter()
@@ -4104,9 +4571,12 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4):
                 t0 = time.perf_counter()
                 image.imread(path)
                 times.append((time.perf_counter() - t0) * 1e3)
-            rec = {"file_mib": len(data) / 2**20, "write_s": write_s, "decode_ms": statistics.median(times),
-                   "decode_ms_each": times, "ratio_to_png": statistics.median(times) / png_ms,
-                   "equals_written": bool(np.array_equal(got, want))}
+            rec = {"file_mib": len(data) / 2**20, "file_bytes": len(data), "write_s": write_s,
+                   "decode_ms": statistics.median(times), "decode_ms_each": times,
+                   "ratio_to_png": statistics.median(times) / png_ms,
+                   "equals_written": None if want is None else bool(np.array_equal(got, want))}
+            if want is None:
+                rec["psnr_db"] = float(10 * np.log10(255**2 / np.mean((got.astype(np.float64) - frame) ** 2)))
             if compiled:
                 kind = name.split("_")[0]
                 ph, pw = (min(a, b) for a, b in zip(PLAIN_HW.get(kind, (H, W)), (H, W)))
@@ -4139,7 +4609,8 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4):
                    psnr_db=float(10 * np.log10(255**2 / np.mean((got.astype(np.float64) - frame) ** 2))))
         out["progressive_cut_after_3_scans"] = rec
     emit(out)
-    bad = {k: v for k, v in out["cases"].items() if not (v["equals_written"] and v.get("compiled_equals_plain", True))}
+    bad = {k: v for k, v in out["cases"].items()
+           if v["equals_written"] is False or not v.get("compiled_equals_plain", True)}
     if bad or not rec["compiled_equals_plain"]:
         raise AssertionError(f"a raster decode differs from what cv2 reads or from its plain version: {bad} {rec}")
     return out
@@ -4147,8 +4618,21 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4):
 
 LOADER_FORMATS = {"bmp": bmp_bytes, "ppm": lambda f: pnm_bytes(f, "ppm"),
                   "tif": lambda f: tiff_bytes(f, "lzw_literal", predictor=True), "webp": vp8l_bytes}
+LOADER_KINDS = (*LOADER_FORMATS, "vp8")  # in turn along the clip; "vp8": the frame of ``write_vp8_clip``
 DECODERS = {"png": ("png", "imread"), "jpg": ("jpeg", "imread"), "bmp": ("bmp", "decode"), "ppm": ("pnm", "decode"),
-            "tif": ("tiff", "decode"), "gif": ("gif", "decode"), "webp": ("webp", "decode")}  # ext → the reader's call
+            "tif": ("tiff", "decode"), "gif": ("gif", "decode"), "webp": ("webp", "decode"),
+            "vp8": ("webp", "_vp8_rgb")}  # kind → the reader's call (a lossy WebP is both "webp" and "vp8")
+
+
+def frame_kind(path):
+    """The extension of ``path``, or "vp8" for a simple WebP file whose
+    bitstream is lossy."""
+    ext = os.path.splitext(path)[1][1:]
+    if ext == "webp":
+        with open(path, "rb") as f:
+            if f.read(16)[12:16] == b"VP8 ":
+                return "vp8"
+    return ext
 
 
 def _tagged_decode(decode, tag, ext, *args):
@@ -4193,43 +4677,52 @@ def write_frames(paths, frames, writers):
         list(pool.map(one, zip(paths, frames, writers)))
 
 
-def phase_raster_loader(root, sections, H=720, W=1280, n_batches=2):
+def phase_raster_loader(root, sections, vp8, H=720, W=1280, n_batches=2):
     """The Loader alone (configs/superslomo_original.ini's ADOBE train list,
     12 threads, B=32, 224x224 crops) over an ADOBE list naming the 57-frame
     720p clip of ``write_dataset`` (the same seed) written again with its
     frames in turn as 24-bit BMP, binary PPM, LZW TIFF (predictor 2; 9-bit
-    literal codes, ``lzw_literal``) and lossless WebP (``vp8l_bytes``'
-    transforms case): the first ``n_batches`` batches equal, bit for bit,
-    those of the list over the PNG copies, and each format's decoder ran; ms
-    a batch of each list (each format's decode ms is
-    ``raster_decode_vs_plain``'s)."""
+    literal codes, ``lzw_literal``), lossless WebP (``vp8l_bytes``'
+    transforms case) and lossy WebP (the frames ``vp8``, {index: path}, of
+    ``write_vp8_clip``): the first ``n_batches`` batches equal, bit for bit,
+    those of the list over the PNG frames (PNG copies of the port's decode in
+    place of the lossy ones), and each format's decoder ran; ms a batch of
+    each list (each format's decode ms is ``raster_decode_vs_plain``'s)."""
     from superslomo_tpu_torch import load_config
+    from superslomo_tpu_torch.data import image
 
     frames = panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]
-    lists = {"png": sections["ADOBE_DATA"]["TRAINPATHS"]}
-    with open(lists["png"]) as f:
-        text = f.read()
+    with open(sections["ADOBE_DATA"]["TRAINPATHS"]) as f:
+        text = png_text = f.read()
     png_dir = os.path.join(root, "adobe", "clip_000")
     clip_dir = os.path.join(root, "adobe_raster", "clip_000")
     os.makedirs(clip_dir)
-    kinds = list(LOADER_FORMATS.items())
     t0 = time.perf_counter()
-    paths = [os.path.join(clip_dir, f"frame_{i:05d}.{kinds[i % len(kinds)][0]}") for i in range(len(frames))]
-    write_frames(paths, frames, [kinds[i % len(kinds)][1] for i in range(len(frames))])
+    kind = [LOADER_KINDS[i % len(LOADER_KINDS)] for i in range(len(frames))]
+    paths = [vp8[i] if kind[i] == "vp8" else os.path.join(clip_dir, f"frame_{i:05d}.{kind[i]}")
+             for i in range(len(frames))]
+    own = [i for i in range(len(frames)) if kind[i] != "vp8"]
+    write_frames([paths[i] for i in own], [frames[i] for i in own], [LOADER_FORMATS[kind[i]] for i in own])
     for i, path in enumerate(paths):
-        text = text.replace(os.path.join(png_dir, f"frame_{i:05d}.png"), path)
-    lists["raster"] = os.path.join(root, "adobe_raster_train.txt")
-    with open(lists["raster"], "w") as f:
-        f.write(text)  # the PNG list's entries, each frame in its format
+        original = os.path.join(png_dir, f"frame_{i:05d}.png")
+        text = text.replace(original, path)
+        if kind[i] == "vp8":
+            copy = os.path.join(clip_dir, f"frame_{i:05d}_decoded.png")
+            write_png(copy, image.imread(path))
+            png_text = png_text.replace(original, copy)
+    lists = {name: os.path.join(root, f"adobe_{name}_train.txt") for name in ("png", "raster")}
+    for name, body in (("png", png_text), ("raster", text)):
+        with open(lists[name], "w") as f:
+            f.write(body)  # the PNG list's entries, each frame in its format (or as the PNG of its decode)
     res = {"phase": "raster_loader_vs_png", "batches": n_batches, "frames_by_format": {
-        ext: len(range(k, len(frames), len(kinds))) for k, (ext, _) in enumerate(kinds)},
+        ext: len(range(k, len(frames), len(LOADER_KINDS))) for k, ext in enumerate(LOADER_KINDS)},
         "write_s": time.perf_counter() - t0, "lists": {}}
     ref = None
     for name, path in lists.items():
         ini = write_config(os.path.join(root, f"loader_{name}.ini"), "superslomo_original.ini", sections,
                            {"DATA": {"DATASET": "ADOBE"}, "ADOBE_DATA": {"TRAINPATHS": path}})
         cfg = load_config(ini)
-        with counted_decodes(LOADER_FORMATS) as decodes:
+        with counted_decodes(LOADER_KINDS) as decodes:
             timing, batches = loader_ms(cfg, "TRAIN", n_batches)
         if ref is None:
             ref = batches
@@ -4239,7 +4732,8 @@ def phase_raster_loader(root, sections, H=720, W=1280, n_batches=2):
                               "batch": cfg.getint("TRAIN", "BATCH_SIZE"), "decodes": decodes}
     emit(res)
     if not (res["lists"]["raster"]["equals_png"] and all(res["lists"]["raster"]["decodes"].values())):
-        raise AssertionError(f"the Loader's batches over BMP / PPM / TIFF / WebP frames differ from the PNG list's: "
+        raise AssertionError(f"the Loader's batches over BMP / PPM / TIFF / WebP / lossy WebP frames differ from the "
+                             f"PNG list's: "
                              f"{res}")
     return res
 
@@ -4291,13 +4785,16 @@ def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, n
     }
 
 
-MIXED_FORMATS = {"jpg": lambda f: jpeg_bytes(f, quality=95), "gif": lambda f: gif_frame(f)[0], "webp": vp8l_bytes}
+MIXED_FORMATS = {"jpg": lambda f: jpeg_bytes(f, quality=95), "gif": lambda f: gif_frame(f)[0], "webp": vp8l_bytes,
+                 "png": write_png_bytes, "vp8": None}  # kind → its writer; None: the frame of ``write_vp8_clip``
 
 
-def write_mixed_train_lists(root, sections, H=720, W=1280, entries=280):
+def write_mixed_train_lists(root, sections, vp8, H=720, W=1280, entries=280):
     """The 57-frame 720p clip of ``write_dataset`` (the same seed) written
     again with its frames in turn as q95 4:2:0 JPEG, GIF (``gif_frame``: the
-    3-3-2 palette) and lossless WebP (``vp8l_bytes``' transforms case), and
+    3-3-2 palette), lossless WebP (``vp8l_bytes``' transforms case), PNG and
+    lossy WebP (the frames ``vp8``, {index: path}, of ``write_vp8_clip``: the
+    same every 5th frame as the Loader's raster list), and
     ADOBE and NFS train lists, written by ``utils.make_clips``, naming the
     clip ``entries`` times each; returns ``sections`` with those lists
     (Vimeo's septuplets stay PNG, as the readers name them)."""
@@ -4305,10 +4802,13 @@ def write_mixed_train_lists(root, sections, H=720, W=1280, entries=280):
 
     clip_dir = os.path.join(root, "adobe_mixed", "clip_000")
     os.makedirs(clip_dir)
-    kinds = list(MIXED_FORMATS.items())
+    kinds = list(MIXED_FORMATS)
     frames = panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]
-    paths = [os.path.join(clip_dir, f"frame_{i:05d}.{kinds[i % len(kinds)][0]}") for i in range(len(frames))]
-    write_frames(paths, frames, [kinds[i % len(kinds)][1] for i in range(len(frames))])
+    kind = [kinds[i % len(kinds)] for i in range(len(frames))]
+    paths = [vp8[i] if kind[i] == "vp8" else os.path.join(clip_dir, f"frame_{i:05d}.{kind[i]}")
+             for i in range(len(frames))]
+    own = [i for i in range(len(frames)) if kind[i] != "vp8"]
+    write_frames([paths[i] for i in own], [frames[i] for i in own], [MIXED_FORMATS[kind[i]] for i in own])
     lists = {}
     for name in ("ADOBE_DATA", "NFS_DATA"):
         lists[name] = os.path.join(root, f"{name.lower()}_mixed_train.txt")
@@ -4327,26 +4827,32 @@ def write_small_eval_dataset(root, H=48, W=96, n=17):
                            "VAL_CLIPS": os.path.join(root, "small", "val_clips.pkl")}}
 
 
-def data_phases(norm, scale=False):
+def data_phases(norm, scale=False, vp8_files=None):
     """Phases 15-17 over a made-up dataset in a temporary directory: the PNG
-    unfilter, the JPEG decode, the raster, GIF and WebP decodes and the Loader
-    over a clip list of BMP, PPM, TIFF and WebP frames, the eval CLI, the
-    train CLI in f32 and bf16, and in f32 over clip lists naming JPEG, GIF and
+    unfilter, the JPEG decode, the raster, GIF and WebP (lossless and lossy)
+    decodes and the Loader over a clip list of BMP, PPM, TIFF and WebP
+    frames, the eval CLI over PNG frames and (``eval_cli["vp8"]``) over lossy
+    WebP frames against their PNG copies, the train CLI in f32 and bf16, and
+    in f32 over clip lists naming JPEG, GIF, lossless WebP, PNG and lossy
     WebP frames in turn; with ``scale``, then phase 23 over the same datasets
-    (else None)."""
+    (else None). ``vp8_files``: the VP8Files, started earlier or here."""
+    vp8_files = (vp8_files or VP8Files()).join()
     png = phase_png_unfilter()
     jpeg = phase_jpeg_decode(png)
-    phase_raster_decode(png, jpeg)
+    phase_raster_decode(png, jpeg, vp8=vp8_files)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
-        sections = write_dataset(root, val_repeats=1, val_frames=33)
+        sections = write_dataset(root, val_repeats=1, val_frames=17)
         small = write_small_eval_dataset(root)
+        vp8 = write_vp8_clip(root, vp8_files)
         emit({"phase": "dataset_written", "seconds": time.perf_counter() - t0})
-        phase_raster_loader(root, sections)
-        eval_cli = phase_eval_cli(root, sections, small, n_windows=4)  # 33 frames' 4 windows: one batch
+        phase_raster_loader(root, sections, vp8)
+        # the eval CLI over PNG copies of the lossy clip's decode (2 windows: one batch), then over the lossy clip
+        eval_cli = phase_eval_cli(root, val_clip(root, sections, vp8, "png"), small, n_windows=2)
+        eval_cli["vp8"] = phase_eval_cli_vp8(root, sections, vp8, eval_cli["cli"])
         train_clis = [phase_train_cli(root, sections, norm, dtype) for dtype in ("float32", "bfloat16")]
         t0 = time.perf_counter()
-        mixed_sections = write_mixed_train_lists(root, sections)
+        mixed_sections = write_mixed_train_lists(root, sections, vp8)
         emit({"phase": "mixed_dataset_written", "seconds": time.perf_counter() - t0})
         train_clis.append(phase_train_cli(root, mixed_sections, norm, "float32", steps=4, warmup=2, synthetic_steps=0,
                                           loader_batches=2))
@@ -4430,7 +4936,7 @@ def phase_eval_cli(root, sections, small_sections, n_windows):
     """The eval CLI (``python -m superslomo_tpu_torch.cli.evaluate_interpolation``,
     on the card by default) at configs/superslomo_eval.ini as shipped (ADOBE,
     720p padded to 736, B=8, 12 loader threads, f32, seeded weights) over the
-    made-up dataset (``n_windows`` sliding windows: 4, one batch; the
+    made-up dataset (``n_windows`` sliding windows: 2, one batch; the
     host's scoring takes 0.6-0.9 s an image, so more windows cost minutes).
     The model's fused step takes each batch as slices of ``step_samples``
     samples (2 at 720p: the shapes of phase 5). Its metrics equal Evaluator.run on the same batches given explicitly
@@ -4508,14 +5014,79 @@ def phase_eval_cli(root, sections, small_sections, n_windows):
     return res
 
 
+def val_clip(root, sections, vp8, kind, n_frames=EVAL_VP8_FRAMES):
+    """``sections`` with VAL_CLIPS naming one ADOBE clip of the first
+    ``n_frames`` frames of ``vp8`` ({index: path}, ``write_vp8_clip``): as
+    lossy WebP (``kind`` "vp8") or as PNG copies of the port's decode of
+    them ("png"). The files are named .png either way: the ADOBE eval reader
+    globs *.png in both packages, and the frame reader picks its decoder by
+    the file's bytes."""
+    from superslomo_tpu_torch.data import image
+
+    clip = f"val_{kind}"
+    os.makedirs(os.path.join(sections["ADOBE_DATA"]["ROOTDIR"], clip))
+    for i in range(n_frames):
+        path = os.path.join(sections["ADOBE_DATA"]["ROOTDIR"], clip, f"frame_{i:05d}.png")
+        if kind == "vp8":
+            os.link(vp8[i], path)
+        else:
+            write_png(path, image.imread(vp8[i]))
+    clips = os.path.join(root, f"val_clips_{kind}.pkl")
+    with open(clips, "wb") as f:
+        pickle.dump([clip], f)
+    return {**sections, "ADOBE_DATA": {**sections["ADOBE_DATA"], "VAL_CLIPS": clips}}
+
+
+def phase_eval_cli_vp8(root, sections, vp8, png_metrics, n_frames=EVAL_VP8_FRAMES):
+    """This slice's main path: the eval CLI at configs/superslomo_eval.ini as
+    shipped (ADOBE, 720p padded to 736, B=8, 12 loader threads, f32, seeded
+    weights, on the card) over a clip of the first ``n_frames`` frames as
+    lossy WebP (``val_clip``); PSNR, SSIM and IE equal ``png_metrics``, the
+    eval CLI's over the PNG copies of their decode (``phase_eval_cli``). The
+    multi-flow kernel's launches counted from 0 just before it, 4 a fused
+    step (``_multi_t_planar`` call), none of its backward; the VP8
+    decoder's calls counted, above 0."""
+    from superslomo_tpu_torch import SuperSloMo, ops
+    from superslomo_tpu_torch.cli import evaluate_interpolation as eval_cli
+    from superslomo_tpu_torch.ops.warp_cuda import warp_multiflow_planar_cuda as counter
+
+    ini = write_config(os.path.join(root, "eval_vp8.ini"), "superslomo_eval.ini",
+                       val_clip(root, sections, vp8, "vp8", n_frames))
+    counter.launches = ops._WarpMultiflow.launches = 0
+    t0 = time.perf_counter()
+    with _Recorder(SuperSloMo, "_multi_t_planar") as steps, counted_decodes(["vp8"]) as decodes:
+        metrics = eval_cli.main(["-c", ini, "--expt", "chip_smoke_vp8", "--log", os.path.join(root, "eval_vp8.log")])
+    lossy = {"cli_wall_s": time.perf_counter() - t0, "metrics": metrics, "fused_steps": len(steps.calls),
+             "warp_launches": counter.launches, "decodes": decodes,
+             "warp_multiflow_backward_launches": ops._WarpMultiflow.launches}
+    res = {"phase": "eval_cli_vp8_vs_png_copy", "config": "configs/superslomo_eval.ini", "frames": n_frames,
+           "frame_bytes": [os.path.getsize(vp8[i]) for i in range(n_frames)], "vp8": lossy,
+           "png_copy_metrics": png_metrics, "metrics_equal": metrics == png_metrics,
+           "warp_launches": lossy["warp_launches"],
+           "warp_launches_per_step": lossy["warp_launches"] / max(lossy["fused_steps"], 1)}
+    emit(res)
+    if not res["metrics_equal"]:
+        raise AssertionError(f"the eval CLI over lossy WebP frames scores apart from over their PNG copies: {res}")
+    if lossy["fused_steps"] < 1 or lossy["warp_launches"] != 4 * lossy["fused_steps"] or \
+            lossy["warp_multiflow_backward_launches"]:
+        raise AssertionError(f"{lossy['warp_launches']} multi-flow launches "
+                             f"({lossy['warp_multiflow_backward_launches']} of its backward) over "
+                             f"{lossy['fused_steps']} fused steps, expected 4 a step (none)")
+    if not (decodes["vp8"] and all(np.isfinite([metrics["PSNR"], metrics["SSIM"], metrics["IE"]]))):
+        raise AssertionError(f"eval CLI over lossy WebP: {res}")
+    return res
+
+
 def list_frame_kinds(sections):
-    """The extensions, sorted and joined by "+", of the frames that the first
-    clip of the ADOBE train list of ``sections`` names: "png", or "jpg",
-    "gif+jpg+webp", ... (each a format whose decoder ``DECODERS`` names)."""
+    """The kinds (``frame_kind``), sorted and joined by "+", of the frames
+    that the first clip of the ADOBE train list of ``sections`` names: "png",
+    or "jpg", "gif+jpg+vp8+webp", ... (each a kind whose decoder ``DECODERS``
+    names; a lossy WebP is decoded by both "webp" and "vp8")."""
     with open(sections["ADOBE_DATA"]["TRAINPATHS"]) as f:
         n = int(f.readline())
         paths = [f.readline().strip() for _ in range(n)]
-    return "+".join(sorted({os.path.splitext(p)[1][1:] for p in paths}))
+    kinds = {frame_kind(p) for p in paths}
+    return "+".join(sorted(kinds | ({"webp"} if "vp8" in kinds else set())))
 
 
 def phase_train_cli(root, sections, norm, dtype, steps=5, warmup=2, synthetic_steps=2, loader_batches=3,
@@ -5522,7 +6093,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
     """Every kernel of the paths with its launches on the main paths (the
     SuperSloMo-R ones a step and a window as well, the single-flow kernels'
     a step of each train path in ``trains`` and of each train CLI run in
-    ``train_clis``, the multi-flow kernel's a step of the eval CLI, both
+    ``train_clis``, the multi-flow kernel's a step of the eval CLI (over
+    PNG frames, and over lossy WebP ones: ``eval_cli["vp8"]``), both
     forward kernels' a window of each render CLI run in ``renders`` and the
     single-flow kernel's a sample of the flow-EPE CLI, the single-flow
     kernels' a step of each rank of the DDP Trainer and of the Trainer
@@ -5583,6 +6155,8 @@ def kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream
             r["step_ms"]) for r in ssmr_main},
         "ssmr_slices_per_step": {f"{r['compute_dtype']}_b{r['batch']}": r["slices_per_step"] for r in ssmr_main},
         "eval_cli_launches": eval_cli["warp_launches"], "eval_cli_launches_per_step": eval_cli["warp_launches_per_step"],
+        "eval_cli_vp8_launches": eval_cli["vp8"]["warp_launches"],
+        "eval_cli_vp8_launches_per_step": eval_cli["vp8"]["warp_launches_per_step"],
         "render_cli_launches_per_window": {r["phase"]: r["launches_per_window"]["warp_multiflow"] for r in renders},
         "ddp_eval_cli_launches_per_step_by_rank": scaled["ddp_eval"]["launches_per_step_by_rank"],
         "sharded_launches_per_step_by_rank": {dtype: sharded[dtype]["launches_per_step"]
@@ -5834,7 +6408,8 @@ def main() -> int:
     check_forward_layouts(ssmr_fwd["layouts"], [r for s in ssmr_stream for r in s["forward_layouts_first_window"]])
     ssmr_batches = synthetic_batches(norm, eval_padding_for(720, 1280), n_batches=2, B=2, H=720, W=1280, seed=8,
                                      n_frames=4)
-    ssmr_main = phase_ssmr_main_path(ssmr_batches)
+    vp8_files = VP8Files()  # the data phases' lossy WebP files, written during the SSM-R step's autotuning
+    ssmr_main = phase_ssmr_main_path(ssmr_batches, during_autotune=vp8_files)
     del ssmr_batches
     with tempfile.TemporaryDirectory() as ckpt_dir:
         phase_train_vs_cpu(ckpt_dir, norm)
@@ -5849,7 +6424,7 @@ def main() -> int:
         sharded_train = phase_sharded_train(ckpt_dir, norm)
     trains = [train, ssmr_train, ssmr_remat, bf16_train]
     check_backward_layouts(single["layouts"], [r for t in trains for r in t["backward_layouts_first_step"]])
-    _, _, eval_cli, train_clis, scaled = data_phases(norm, scale=True)
+    _, _, eval_cli, train_clis, scaled = data_phases(norm, scale=True, vp8_files=vp8_files)
     renders, flow_eval, _ = render_phases(render_fwd)
 
     kernels = kernels_line(kern, single, ssmr_fwd, main_f32, main_bf16, train, ssmr_stream, ssmr_main, mf_grad,

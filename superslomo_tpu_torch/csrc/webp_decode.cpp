@@ -86,6 +86,7 @@ struct Entry {
 
 struct Code {  // one prefix code: a root table of 2^8 entries and its subtables
   std::vector<Entry> table;
+  bool single = false;  // one symbol, read with no bits
   int read(Bits& br) const {
     const uint32_t v = br.peek(15);
     const Entry& e = table[v & ((1u << kRootBits) - 1)];
@@ -116,7 +117,8 @@ bool build(const int* lengths, int size, Code& code) {
   }
   if (count[0] == size) return false;
   code.table.assign(1 << kRootBits, Entry{0, 0, 0});
-  if (size - count[0] == 1) {  // one symbol: no bits
+  code.single = size - count[0] == 1;
+  if (code.single) {  // one symbol: no bits
     for (int s = 0; s < size; ++s)
       if (lengths[s]) for (Entry& e : code.table) e.value = static_cast<uint16_t>(s);
     return true;
@@ -289,7 +291,12 @@ struct Decoder {
   Bits br;
   std::vector<Transform> transforms;
   unsigned seen = 0;
-  explicit Decoder(const uint8_t* src, int64_t n) : br(src, n) {}
+  // A lossless ALPH chunk's stream: libwebp decodes one whose only transform
+  // is colour indexing, without a colour cache, whose red, blue and alpha
+  // codes are one symbol each, through its 8-bit path, where the main
+  // image's last symbol may read past the data's end.
+  bool alpha = false;
+  explicit Decoder(const uint8_t* src, int64_t n, bool alpha_stream) : br(src, n), alpha(alpha_stream) {}
 
   int64_t read_code(int alphabet, Code& code) {
     std::vector<int> lengths(alphabet > 256 ? alphabet : 256, 0);
@@ -389,6 +396,8 @@ struct Decoder {
       }
     std::vector<uint32_t> cache(cache_size ? cache_size : 1, 0);
     const int64_t total = static_cast<int64_t>(xsize) * ysize;
+    bool overrun = level0 && alpha && transforms.size() == 1 && transforms[0].type == 3 && !cache_size;
+    for (const Group& g : tree) overrun = overrun && g.codes[1].single && g.codes[2].single && g.codes[3].single;
     out.assign(total, 0);
     uint32_t* px = out.data();
     int64_t i = 0, cached = 0;
@@ -401,9 +410,9 @@ struct Decoder {
       const Group& g = tree[meta_bits ? meta[static_cast<int64_t>(y >> meta_bits) * meta_w + (x >> meta_bits)] : 0];
       const int code = g.codes[0].read(br);
       if (code < 256) {
-        const uint32_t red = g.codes[1].read(br), blue = g.codes[2].read(br), alpha = g.codes[3].read(br);
-        if (br.eos()) return kTruncated;
-        px[i++] = (alpha << 24) | (red << 16) | (static_cast<uint32_t>(code) << 8) | blue;
+        const uint32_t red = g.codes[1].read(br), blue = g.codes[2].read(br), a = g.codes[3].read(br);
+        if (br.eos() && !(overrun && i + 1 == total)) return kTruncated;
+        px[i++] = (a << 24) | (red << 16) | (static_cast<uint32_t>(code) << 8) | blue;
       } else if (code < 256 + 24) {
         auto prefix_value = [&](int sym) -> int64_t {
           if (sym < 4) return sym + 1;
@@ -420,7 +429,7 @@ struct Decoder {
           dist = static_cast<int64_t>(plane >> 4) * xsize + (8 - (plane & 0xf));
           if (dist < 1) dist = 1;
         }
-        if (br.eos()) return kTruncated;
+        if (br.eos() && !(overrun && i + length >= total)) return kTruncated;
         if (i < dist || total - i < length) return kBadCode;
         for (int64_t k = 0; k < length; ++k, ++i) px[i] = px[i - dist];
       } else if (code < 256 + 24 + cache_size) {
@@ -431,7 +440,7 @@ struct Decoder {
       }
       insert_cached();
     }
-    if (br.eos()) return kTruncated;
+    if (br.eos() && !overrun) return kTruncated;
     return 0;
   }
 };
@@ -442,9 +451,11 @@ struct Decoder {
 // x height pixels, 0xAARRGGBB, top row first. Returns 0, kBadCode (a header
 // whose signature, size or version bits libwebp refuses, or a bad stream) or
 // kTruncated.
-extern "C" int64_t vp8l_decode(const uint8_t* src, int64_t n, int64_t width, int64_t height, uint32_t* argb) {
+namespace {
+
+int64_t decode_vp8l(const uint8_t* src, int64_t n, int64_t width, int64_t height, uint32_t* argb, bool alpha) {
   if (n < 5) return kBadCode;
-  Decoder dec(src, n);
+  Decoder dec(src, n, alpha);
   if (dec.br.read(8) != 0x2f) return kBadCode;
   const int w = dec.br.read(14) + 1, h = dec.br.read(14) + 1;
   dec.br.read(1);  // alpha is used: a hint
@@ -455,4 +466,16 @@ extern "C" int64_t vp8l_decode(const uint8_t* src, int64_t n, int64_t width, int
   for (auto t = dec.transforms.rbegin(); t != dec.transforms.rend(); ++t) inverse(*t, px, scratch);
   std::memcpy(argb, px.data(), sizeof(uint32_t) * static_cast<size_t>(width) * height);
   return 0;
+}
+
+}  // namespace
+
+extern "C" int64_t vp8l_decode(const uint8_t* src, int64_t n, int64_t width, int64_t height, uint32_t* argb) {
+  return decode_vp8l(src, n, width, height, argb, false);
+}
+
+// The same, for a lossless ALPH chunk's stream behind a VP8L header made for
+// it (the Decoder's ``alpha``).
+extern "C" int64_t vp8l_decode_alpha(const uint8_t* src, int64_t n, int64_t width, int64_t height, uint32_t* argb) {
+  return decode_vp8l(src, n, width, height, argb, true);
 }

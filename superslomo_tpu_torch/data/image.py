@@ -9,9 +9,10 @@ two of these signatures overlap, so the order picks the same decoder as any
 other would. A JPEG's, PNG's or WebP's EXIF orientation is applied as cv2
 applies it, a TIFF's Orientation tag likewise.
 
-A format that cv2's build reads and the port does not (lossy WebP, refused
-by ``data/webp.py``; AVIF, JPEG 2000, BigTIFF) raises NotImplementedError
-naming the file and the format; any other file raises ValueError naming it."""
+WebP is read lossless (VP8L) and lossy (VP8). A format that cv2's build
+reads and the port does not (AVIF, JPEG 2000, BigTIFF) raises
+NotImplementedError naming the file and the format; any other file raises
+ValueError naming it."""
 
 from __future__ import annotations
 
@@ -48,8 +49,8 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
         return png.imread(path, data)
     for test, name in _NOT_READ:
         if test(data):
-            raise NotImplementedError(f"{path}: {name} is not read; only BMP, GIF, HDR, JPEG, lossless WebP, Sun "
-                                      "raster, PBM, PGM, PPM, PAM, PFM, TIFF and PNG")
+            raise NotImplementedError(f"{path}: {name} is not read; only BMP, GIF, HDR, JPEG, WebP (lossless and "
+                                      "lossy), Sun raster, PBM, PGM, PPM, PAM, PFM, TIFF and PNG")
     raise ValueError(f"{path}: not an image file that cv2 reads")
 
 

@@ -138,10 +138,14 @@ def _prefix_value(br: _Bits, sym: int) -> int:
     return ((2 + (sym & 1)) << extra) + br.read(extra) + 1
 
 
-def _image(br: _Bits, xsize: int, ysize: int, transforms) -> list:
+def _image(br: _Bits, xsize: int, ysize: int, transforms, alpha: bool = False) -> list:
     """One entropy-coded image, as a flat list of ARGB ints; ``transforms``
     (a list) marks the main image, whose transforms it collects as (type,
-    bits, xsize, ysize, data)."""
+    bits, xsize, ysize, data). With ``alpha`` the main image is a lossless
+    ALPH chunk's: libwebp decodes one whose only transform is colour
+    indexing, without a colour cache, whose red, blue and alpha codes are
+    one symbol each, through its 8-bit path, where the last symbol may read
+    past the data's end."""
     if transforms is not None:
         seen = set()
         while br.read(1):
@@ -180,15 +184,18 @@ def _image(br: _Bits, xsize: int, ysize: int, transforms) -> list:
     groups = [[_read_code(br, a) for a in alphabets] for _ in range(max(meta) + 1 if meta else 1)]
     cache = [0] * max(cache_size, 1)
     px, cached, total = [], 0, xsize * ysize
+    overrun = (alpha and [t[0] for t in transforms] == [3] and not cache_size and
+               all(g[k].single is not None for g in groups for k in (1, 2, 3)))  # the last symbol may overrun
     while len(px) < total:
         i = len(px)
         y, x = divmod(i, xsize)
         g = groups[meta[(y >> meta_bits) * meta_w + (x >> meta_bits)] if meta else 0]
         code = g[0].read(br)
         if code < 256:
-            red, blue, alpha = g[1].read(br), g[2].read(br), g[3].read(br)
-            br.check()
-            px.append((alpha << 24) | (red << 16) | (code << 8) | blue)
+            red, blue, a = g[1].read(br), g[2].read(br), g[3].read(br)
+            if not (overrun and i + 1 == total):
+                br.check()
+            px.append((a << 24) | (red << 16) | (code << 8) | blue)
         elif code < 256 + 24:
             length = _prefix_value(br, code - 256)
             dist = _prefix_value(br, g[4].read(br))
@@ -197,7 +204,8 @@ def _image(br: _Bits, xsize: int, ysize: int, transforms) -> list:
             else:
                 dx, dy = DISTANCE_MAP[dist - 1]
                 dist = max(dx + dy * xsize, 1)
-            br.check()
+            if not (overrun and i + length >= total):
+                br.check()
             if i < dist or total - i < length:
                 raise ValueError("a copy from before the image or past its end")
             for k in range(length):
@@ -209,7 +217,8 @@ def _image(br: _Bits, xsize: int, ysize: int, transforms) -> list:
             px.append(cache[code - 256 - 24])
         else:
             raise ValueError("a green symbol past the alphabet")
-    br.check()
+    if not overrun:
+        br.check()
     return px
 
 
@@ -310,9 +319,11 @@ def _inverse(t, px):
     return out
 
 
-def decode(data: bytes, width: int, height: int) -> np.ndarray:
+def decode(data: bytes, width: int, height: int, alpha: bool = False) -> np.ndarray:
     """The VP8L bitstream ``data`` (from its signature byte), whose header
-    must give ``width`` x ``height``, as (height, width) uint32 ARGB."""
+    must give ``width`` x ``height``, as (height, width) uint32 ARGB; with
+    ``alpha``, as libwebp decodes a lossless ALPH chunk's stream behind that
+    header (``_image``)."""
     if len(data) < 5:
         raise ValueError("a VP8L bitstream under 5 bytes")
     br = _Bits(data)
@@ -325,7 +336,7 @@ def decode(data: bytes, width: int, height: int) -> np.ndarray:
     if (w, h) != (width, height):
         raise ValueError(f"a {w}x{h} VP8L bitstream where {width}x{height} is expected")
     transforms = []
-    px = _image(br, w, h, transforms)
+    px = _image(br, w, h, transforms, alpha)
     for t in reversed(transforms):
         px = _inverse(t, px)
     return np.array(px, np.uint32).reshape(height, width)

@@ -1,5 +1,5 @@
 """WebP frame decoder: the counterpart of ``cv2.imread(path)`` (its
-``IMREAD_COLOR`` default) for lossless WebP files, with no cv2.
+``IMREAD_COLOR`` default) for lossless and lossy WebP files, with no cv2.
 
 cv2 5.0 reads a WebP through libwebp: a still image with ``WebPDecode``, an
 animated one through libwebp's animation decoder, whose first frame it
@@ -9,11 +9,22 @@ returns. ``decode(data, path)`` returns the (H, W, 3) uint8 RGB array that
 - the RIFF container: chunks padded to even sizes; the RIFF size must lie
   inside the file (bytes past it are ignored); a file under 32 bytes, which
   cv2 refuses, raises;
-- a simple file (one ``VP8L`` chunk), or a ``VP8X`` file (its flags and
-  24-bit canvas size, which a still image must match) whose ``ALPH``,
+- a simple file (one ``VP8L`` or ``VP8 `` chunk), or a ``VP8X`` file (its
+  flags and 24-bit canvas size, which a still image must match) whose
   ``ICCP``, ``XMP `` and unknown chunks are read past;
 - the alpha channel dropped, the colour channels as stored (including those
-  of pixels whose alpha is 0);
+  of pixels whose alpha is 0); a lossless image's ``ALPH`` chunks are read
+  past, but libwebp decodes a lossy image's ``ALPH`` (a still image's last
+  one before the bitstream, a frame's first) with its colour, so a header
+  it refuses (compression past 1, pre-processing past 1, reserved bits),
+  raw alpha short of the frame, or lossless alpha that fails to decode
+  fails the read;
+- a lossy bitstream (``data/vp8.py``) with the checks of libwebp's
+  ``VP8GetInfo`` (a key frame, version 0-3, shown, a first partition inside
+  its chunk, a size that is not 0); libwebp's decoder is given a still
+  image's data to the end of the file (past the RIFF size too), so its last
+  token partition may run into the bytes after its chunk, and a frame's
+  chunk with its pad byte;
 - the EXIF Orientation of a ``VP8X`` file whose EXIF flag is set (its first
   ``EXIF`` chunk, a TIFF-structured block), applied as cv2 applies it
   (``data/exif.py``);
@@ -21,14 +32,13 @@ returns. ``decode(data, path)`` returns the (H, W, 3) uint8 RGB array that
   bitstream drawn at its offset on a black canvas, whatever its blend and
   dispose flags; every frame must lie inside the canvas.
 
-A lossy bitstream (a ``VP8 `` chunk, or a first frame that is one) raises
-NotImplementedError naming the file and "lossy WebP (VP8)". What cv2 fails on
-(a file cut short, a chunk past the RIFF size, a bad VP8L stream) raises
-ValueError naming the file.
+What cv2 fails on (a file cut short, a chunk past the RIFF size, a bad VP8L
+or VP8 stream) raises ValueError naming the file.
 
-The VP8L decode runs in the host C++ of ``csrc/webp_decode.cpp``, built at
-first use by ``ops/cuda_build.py`` and called through ctypes with the GIL
-released; ``data/vp8l.py`` is its plain Python twin (``plain=True``).
+The VP8L and VP8 decodes run in the host C++ of ``csrc/webp_decode.cpp`` and
+``csrc/vp8_decode.cpp``, built at first use by ``ops/cuda_build.py`` and
+called through ctypes with the GIL released; ``data/vp8l.py`` and
+``data/vp8.py`` are their plain Python twins (``plain=True``).
 """
 
 from __future__ import annotations
@@ -38,22 +48,34 @@ import struct
 
 import numpy as np
 
-from superslomo_tpu_torch.data import vp8l
+from superslomo_tpu_torch.data import vp8, vp8l
 from superslomo_tpu_torch.data.exif import apply_orientation, orientation
 from superslomo_tpu_torch.ops import cuda_build
 
 SOURCE = cuda_build.CSRC / "webp_decode.cpp"
+VP8_SOURCE = cuda_build.CSRC / "vp8_decode.cpp"
 _ERRORS = {-1: "a VP8L bitstream that libwebp refuses", -2: "VP8L data that ends too soon (truncated)"}
+_VP8_ERRORS = {-1: "a VP8 frame that libwebp refuses", -2: "VP8 data that ends too soon (truncated)"}
 _ANIMATION, _EXIF = 0x02, 0x08  # VP8X flags
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.vp8l_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
-    lib.vp8l_decode.restype = ctypes.c_int64
+    for fn in (lib.vp8l_decode, lib.vp8l_decode_alpha):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+        fn.restype = ctypes.c_int64
+
+
+def _declare_vp8(lib: ctypes.CDLL) -> None:
+    lib.vp8_decode.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    lib.vp8_decode.restype = ctypes.c_int64
 
 
 def library() -> ctypes.CDLL:
     return cuda_build.load_library(SOURCE, _declare)
+
+
+def vp8_library() -> ctypes.CDLL:
+    return cuda_build.load_library(VP8_SOURCE, _declare_vp8)
 
 
 def is_webp(data: bytes) -> bool:
@@ -82,40 +104,108 @@ def _vp8l_size(data: bytes, at: int, size: int, path: str) -> tuple:
 
 
 def _vp8_size(data: bytes, at: int, size: int, path: str) -> tuple:
-    """(width, height) of the lossy VP8 key frame at data[at:at + size]."""
-    if size < 10 or data[at] & 1 or data[at + 3:at + 6] != b"\x9d\x01\x2a":
+    """(width, height) of the lossy VP8 key frame at data[at:at + size], with
+    the checks of libwebp's VP8GetInfo."""
+    if size < 10 or data[at + 3:at + 6] != b"\x9d\x01\x2a":
         raise ValueError(f"{path}: a VP8 frame header that libwebp refuses")
-    w, h = struct.unpack_from("<HH", data, at + 6)
-    return w & 0x3FFF, h & 0x3FFF
+    key, version, shown, first, w, h = vp8.frame_header(data[at:at + 10])
+    if not key:
+        raise ValueError(f"{path}: a VP8 frame that is not a key frame")
+    if version > 3:
+        raise ValueError(f"{path}: a VP8 version of {version}, above 3")
+    if not shown:
+        raise ValueError(f"{path}: a VP8 frame that is not shown")
+    if first >= size:
+        raise ValueError(f"{path}: a VP8 first partition of {first} bytes in a {size}-byte chunk")
+    if not w or not h:
+        raise ValueError(f"{path}: a VP8 frame of size {w}x{h}")
+    return w, h
 
 
-def _frame(data: bytes, chunks: list, path: str) -> tuple:
-    """(fourcc, payload start, size, width, height) of the image of ``chunks``:
-    its VP8 or VP8L chunk (an ALPH chunk before it is read past)."""
+def _frame(data: bytes, chunks: list, path: str, first_alpha: bool = False) -> tuple:
+    """(fourcc, payload start, size, width, height, alpha) of the image of
+    ``chunks``: its VP8 or VP8L chunk after any ALPH chunks; ``alpha`` the
+    (payload start, size) of the last ALPH before it, or with
+    ``first_alpha`` the first (an animation frame's), or None."""
+    alpha = None
     for fourcc, at, size in chunks:
         if fourcc == b"VP8L":
-            return (fourcc, at, size, *_vp8l_size(data, at, size, path))
+            return (fourcc, at, size, *_vp8l_size(data, at, size, path), alpha)
         if fourcc == b"VP8 ":
-            return (fourcc, at, size, *_vp8_size(data, at, size, path))
+            return (fourcc, at, size, *_vp8_size(data, at, size, path), alpha)
         if fourcc != b"ALPH":
             break
+        if alpha is None or not first_alpha:
+            alpha = (at, size)
     raise ValueError(f"{path}: a WebP frame without a VP8 or VP8L bitstream")
 
 
-def _refuse_lossy(path: str):
-    raise NotImplementedError(f"{path}: lossy WebP (VP8) is not read; only lossless WebP (VP8L)")
+def _check_alpha(data: bytes, alpha: tuple, w: int, h: int, path: str, plain: bool):
+    """Fail where libwebp fails to decode a lossy image's ALPH chunk: a
+    payload of at most 1 byte, a header whose compression, pre-processing
+    or reserved bits it refuses, raw alpha short of w x h bytes, or lossless
+    alpha (a VP8L image stream without its header, decoded here behind one
+    made for w x h; a stream under 8 bytes reads as 64 bits, as libwebp's
+    does; its 8-bit path's rule, ``vp8l._image``) that fails to decode."""
+    at, size = alpha
+    if size <= 1:
+        raise ValueError(f"{path}: an ALPH chunk of {size} bytes")
+    head = data[at]
+    method, pre, reserved = head & 3, (head >> 4) & 3, head >> 6
+    if method > 1 or pre > 1 or reserved:
+        raise ValueError(f"{path}: an ALPH header ({head:#04x}) that libwebp refuses")
+    if method == 0:
+        if size - 1 < w * h:
+            raise ValueError(f"{path}: raw ALPH data of {size - 1} bytes for a {w}x{h} frame (truncated)")
+        return
+    body = data[at + 1:at + size]
+    stream = b"\x2f" + ((w - 1) | (h - 1) << 14).to_bytes(4, "little") + body + bytes(max(0, 8 - len(body)))
+    try:
+        _argb(stream, 0, len(stream), w, h, path, plain, alpha=True)
+    except ValueError as e:
+        raise ValueError(f"{path}: lossless ALPH data that libwebp fails to decode ({e})") from None
 
 
-def _argb(data: bytes, at: int, size: int, w: int, h: int, path: str, plain: bool) -> np.ndarray:
+def _vp8_rgb(data: bytes, at: int, end: int, w: int, h: int, path: str, plain: bool) -> np.ndarray:
+    """The VP8 key frame at data[at:end] (to where libwebp is given data) as
+    (h, w, 3) uint8 RGB."""
+    if plain:
+        try:
+            return vp8.decode(data[at:end], w, h)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    src = np.frombuffer(data, np.uint8)[at:end]
+    out = np.empty((h, w, 3), np.uint8)
+    err = vp8_library().vp8_decode(src.ctypes.data, src.size, w, h, out.ctypes.data)
+    if err:
+        raise ValueError(f"{path}: {_VP8_ERRORS[err]}")
+    return out
+
+
+def _image(data: bytes, frame: tuple, end: int, path: str, plain: bool) -> np.ndarray:
+    """The (h, w, 3) uint8 RGB of ``_frame``'s image; a lossy one's data runs
+    to ``end``."""
+    kind, at, size, w, h, alpha = frame
+    if kind == b"VP8L":
+        return _rgb(_argb(data, at, size, w, h, path, plain))
+    if alpha is not None:
+        _check_alpha(data, alpha, w, h, path, plain)
+    return _vp8_rgb(data, at, end, w, h, path, plain)
+
+
+def _argb(data: bytes, at: int, size: int, w: int, h: int, path: str, plain: bool, alpha: bool = False) -> np.ndarray:
+    """The VP8L stream at data[at:at + size] as (h, w) uint32 ARGB; with
+    ``alpha``, decoded as libwebp decodes a lossless ALPH chunk's."""
     stream = data[at:at + size]
     if plain:
         try:
-            return vp8l.decode(stream, w, h)
+            return vp8l.decode(stream, w, h, alpha)
         except ValueError as e:
             raise ValueError(f"{path}: {e}") from None
     src = np.frombuffer(stream, np.uint8)
     out = np.empty((h, w), np.uint32)
-    err = library().vp8l_decode(src.ctypes.data, src.size, w, h, out.ctypes.data)
+    lib = library()
+    err = (lib.vp8l_decode_alpha if alpha else lib.vp8l_decode)(src.ctypes.data, src.size, w, h, out.ctypes.data)
     if err:
         raise ValueError(f"{path}: {_ERRORS[err]}")
     return out
@@ -127,8 +217,8 @@ def _rgb(argb: np.ndarray) -> np.ndarray:
 
 
 def decode(data: bytes, path: str = "<bytes>", plain: bool = False) -> np.ndarray:
-    """The lossless WebP ``data`` (its first frame) as (H, W, 3) uint8 RGB,
-    as cv2 reads it; ``plain`` runs the Python twin of the compiled decode."""
+    """The WebP ``data`` (its first frame) as (H, W, 3) uint8 RGB, as cv2
+    reads it; ``plain`` runs the Python twins of the compiled decodes."""
     if not is_webp(data):
         raise ValueError(f"{path}: not a WebP file")
     if len(data) < 32:
@@ -141,10 +231,7 @@ def decode(data: bytes, path: str = "<bytes>", plain: bool = False) -> np.ndarra
         raise ValueError(f"{path}: a WebP file without chunks")
     fourcc, at, size = chunks[0]
     if fourcc != b"VP8X":  # a simple file: the bitstream alone
-        kind, at, size, w, h = _frame(data, chunks[:1], path)
-        if kind == b"VP8 ":
-            _refuse_lossy(path)
-        return _rgb(_argb(data, at, size, w, h, path, plain))
+        return _image(data, _frame(data, chunks[:1], path), len(data), path, plain)
     if size != 10:
         raise ValueError(f"{path}: a VP8X chunk of {size} bytes")
     flags = data[at]
@@ -157,12 +244,10 @@ def decode(data: bytes, path: str = "<bytes>", plain: bool = False) -> np.ndarra
             turn = orientation(data[exif[0][0]:exif[0][0] + exif[0][1]])
     if not flags & _ANIMATION:
         rest = [c for c in chunks[1:] if c[0] in (b"ALPH", b"VP8 ", b"VP8L")]
-        kind, at, size, w, h = _frame(data, rest, path)
-        if (w, h) != (cw, ch):
-            raise ValueError(f"{path}: a {w}x{h} image on a {cw}x{ch} VP8X canvas")
-        if kind == b"VP8 ":
-            _refuse_lossy(path)
-        return apply_orientation(_rgb(_argb(data, at, size, w, h, path, plain)), turn)
+        frame = _frame(data, rest, path)
+        if frame[3:5] != (cw, ch):
+            raise ValueError(f"{path}: a {frame[3]}x{frame[4]} image on a {cw}x{ch} VP8X canvas")
+        return apply_orientation(_image(data, frame, len(data), path, plain), turn)
     # animated: ANIM, then every frame inside the canvas; the first frame drawn on black
     frames, anim = [], False
     for fourcc, at, size in chunks[1:]:
@@ -174,17 +259,17 @@ def decode(data: bytes, path: str = "<bytes>", plain: bool = False) -> np.ndarra
             if not anim or size < 16:
                 raise ValueError(f"{path}: an ANMF frame before the ANIM chunk, or under 16 bytes")
             x, y = (2 * int.from_bytes(data[at + k:at + k + 3], "little") for k in (0, 3))
-            kind, fat, fsize, w, h = _frame(data, _chunks(data, at + 16, at + size, path), path)
+            frame = _frame(data, _chunks(data, at + 16, at + size, path), path, first_alpha=True)
+            w, h = frame[3:5]
             if x + w > cw or y + h > ch:
                 raise ValueError(f"{path}: a {w}x{h} frame at ({x}, {y}) past the {cw}x{ch} canvas")
-            frames.append((kind, fat, fsize, w, h, x, y))
+            frames.append((frame, x, y))
         elif fourcc in (b"ALPH", b"VP8 ", b"VP8L"):
             raise ValueError(f"{path}: a bitstream outside the frames of an animated WebP")
     if not frames:
         raise ValueError(f"{path}: an animated WebP without frames")
-    kind, at, size, w, h, x, y = frames[0]
-    if kind == b"VP8 ":
-        _refuse_lossy(path)
+    frame, x, y = frames[0]
+    at, size, w, h = frame[1:5]
     canvas = np.zeros((ch, cw, 3), np.uint8)
-    canvas[y:y + h, x:x + w] = _rgb(_argb(data, at, size, w, h, path, plain))
+    canvas[y:y + h, x:x + w] = _image(data, frame, min(at + size + (size & 1), len(data)), path, plain)
     return apply_orientation(canvas, turn)

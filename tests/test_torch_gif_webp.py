@@ -10,10 +10,11 @@ qualities, palettes with and without bundling, RGBA with and without
 transforms case and its colour-indexing case) write it, and the container's
 chunks that cv2 reads past. Each compiled routine (``gif_lzw_decode``,
 ``vp8l_decode``) is held against its plain twin on every case. Every file
-that cv2 fails to read raises ValueError naming the file; lossy WebP raises
-NotImplementedError. Then the readers over ADOBE and NFS clip lists of GIF
-and of WebP frames against the JAX package's, item for item, and the
-Loader's batches on four threads."""
+that cv2 fails to read raises ValueError naming the file; lossy WebP, which
+these cases once refused, reads as cv2 reads it (``tests/test_torch_vp8.py``
+holds the lossy decode itself). Then the readers over ADOBE and NFS clip
+lists of GIF, of lossless and of lossy WebP frames against the JAX package's,
+item for item, and the Loader's batches on four threads."""
 
 import io
 import os
@@ -273,13 +274,6 @@ def _refusal_files():
         "gif_background_past_the_table": (chip_smoke.gif_bytes(idx, pal[:4], background=7, min_size=4), ValueError,
                                           "background index"),
         "gif_index_past_the_tables": (chip_smoke.gif_bytes(idx, pal[:4], min_size=4), ValueError, "past the colour"),
-        "webp_lossy": (lossy, NotImplementedError, "lossy WebP"),
-        "webp_lossy_cv2_quality_80": (cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes(),
-                                      NotImplementedError, "lossy WebP"),
-        "webp_lossy_first_frame": (_riff(_vp8x(0x12, 17, 9), _chunk(b"ANIM", bytes(6)),
-                                         _anmf(0, 0, 17, 9, 0, _bitstream(lossy)),
-                                         _anmf(0, 0, 17, 9, 0, _bitstream(lossless))),
-                                   NotImplementedError, "lossy WebP"),
         "webp_cut_short": (lossless[:-10], ValueError, "truncated"),
         "webp_bitstream_cut": (_riff(_chunk(b"VP8L", _payload(lossless)[:-12])), ValueError, "VP8L"),
         "webp_version_bits": (_riff(_chunk(b"VP8L", bytes(version))), ValueError, "refuses"),
@@ -296,17 +290,35 @@ REFUSALS = sorted(_refusal_files())
 @pytest.mark.parametrize("name", REFUSALS)
 def test_gif_webp_refusals_name_the_file(tmp_path, name):
     """A file that cv2 fails to read raises ValueError naming the file and
-    the fault (cv2 returns None for each); lossy WebP, which cv2 reads and the
-    port does not, raises NotImplementedError naming the file and it."""
+    the fault (cv2 returns None for each)."""
     data, kind, words = _refusal_files()[name]
     path = tmp_path / f"{name}.img"
     path.write_bytes(data)
     with pytest.raises(kind, match=rf"{name}\.img.*{words}"):
         image.imread(str(path))
-    if kind is ValueError:
-        assert cv2.imread(str(path)) is None
-    else:
-        assert cv2.imread(str(path)) is not None
+    assert cv2.imread(str(path)) is None
+
+
+def _lossy_files():
+    """The lossy files that the refusal cases named until the port read them."""
+    rng = np.random.default_rng(5)
+    img = _texture(rng, 9, 17, "noise")
+    lossy = _pil(img, "WEBP")
+    return {
+        "webp_lossy": lossy,
+        "webp_lossy_cv2_quality_80": cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, 80])[1].tobytes(),
+        "webp_lossy_first_frame": _riff(_vp8x(0x12, 17, 9), _chunk(b"ANIM", bytes(6)),
+                                        _anmf(0, 0, 17, 9, 0, _bitstream(lossy)),
+                                        _anmf(0, 0, 17, 9, 0, _bitstream(_pil(img, "WEBP", lossless=True)))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_lossy_files()))
+def test_lossy_webp_reads_as_cv2(tmp_path, name):
+    """Lossy WebP (a simple file as PIL and cv2 write it, and an animation
+    whose first frame is lossy) reads as cv2 reads it, and the plain VP8 twin
+    equals the compiled decode."""
+    _check(tmp_path, _lossy_files()[name], f"{name}.webp", lambda data, path: webp.decode(data, path, plain=True))
 
 
 # --------------------------------------------------------------------------- #
@@ -316,11 +328,12 @@ def test_gif_webp_refusals_name_the_file(tmp_path, name):
 FRAME_H, FRAME_W = 20, 28
 
 
-@pytest.fixture(scope="module", params=["gif", "webp"])
+@pytest.fixture(scope="module", params=["gif", "webp", "webp_lossy"])
 def clip_lists(request, tmp_path_factory):
     """ADOBE and NFS train lists of three 12-frame clips whose frames are GIF
-    (cv2's and the writer's, interlaced with a transparent sub-rectangle) or
-    lossless WebP (cv2's, PIL's and the writer's)."""
+    (cv2's and the writer's, interlaced with a transparent sub-rectangle),
+    lossless WebP (cv2's, PIL's and the writer's) or lossy WebP (cv2's, PIL's
+    and the writer's)."""
     kind = request.param
     root = tmp_path_factory.mktemp(f"{kind}_lists")
     rng = np.random.default_rng(31)
@@ -334,11 +347,15 @@ def clip_lists(request, tmp_path_factory):
             if kind == "gif":
                 data = (cv2.imencode(".gif", img[..., ::-1])[1].tobytes() if i % 2 else
                         chip_smoke.gif_window(img)[0])
-            else:
+            elif kind == "webp":
                 data = [lambda: cv2.imencode(".webp", img[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, 101])[1].tobytes(),
                         lambda: _pil(img, "WEBP", lossless=True, method=i % 7),
                         lambda: chip_smoke.vp8l_bytes(img, pred_bits=2, cache_bits=3)][i % 3]()
-            paths.append(str(folder / f"frame_{i:05d}.{kind}"))
+            else:
+                data = [lambda: cv2.imencode(".webp", img[..., ::-1], [cv2.IMWRITE_WEBP_QUALITY, 60])[1].tobytes(),
+                        lambda: _pil(img, "WEBP", quality=80, method=i % 7),
+                        lambda: chip_smoke.vp8_bytes(img, partitions=2, seed=i)][i % 3]()
+            paths.append(str(folder / f"frame_{i:05d}.{kind.split('_')[0]}"))
             with open(paths[-1], "wb") as f:
                 f.write(data)
         clips.append(paths)

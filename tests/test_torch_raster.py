@@ -705,6 +705,15 @@ def test_frame_reader_picks_the_decoder_by_signature(tmp_path):
         _check(tmp_path, data, f"{ext}_named.png")
 
 
+def _webp_cut(data: bytes) -> bytes:
+    """The simple WebP ``data`` with its bitstream's last 24 bytes cut, its
+    chunk and RIFF sizes rewritten."""
+    (size,) = struct.unpack_from("<I", data, 16)
+    cut = data[20:20 + size - 24]
+    chunk = b"VP8 " + struct.pack("<I", len(cut)) + cut + bytes(len(cut) & 1)
+    return b"RIFF" + struct.pack("<I", 4 + len(chunk)) + b"WEBP" + chunk
+
+
 def _refusal_files():
     img = _texture(np.random.default_rng(11), 9, 17, "noise")
     tif = _tiff(img, 8, 2)
@@ -717,7 +726,7 @@ def _refusal_files():
         "tiff_cmyk": (_tiff(np.dstack([img, img[..., :1]]), 8, 5), NotImplementedError, "CMYK"),
         "tiff_lab": (_tiff(img, 8, 8), NotImplementedError, "CIELab"),
         "bigtiff": (b"II+\x00" + tif[4:], NotImplementedError, "BigTIFF"),
-        "webp": (_pil(img, "WEBP"), NotImplementedError, "WebP"),
+        "webp": (_webp_cut(_pil(img, "WEBP")), ValueError, "VP8 data that ends too soon"),
         "avif": (b"\x00\x00\x00\x1cftypavif" + bytes(40), NotImplementedError, "AVIF"),
         "jpeg_2000": (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40), NotImplementedError, "JPEG 2000"),
         "tiff_float": (_tiff(img.astype(np.float32), 32, 2, sample_format=3, predictor=1), ValueError,
