@@ -3280,7 +3280,8 @@ def _ycbcr(rgb):
 
 def jpeg_bytes(img, quality=95, sampling="420", restart=0, orientation=None, colour="ycbcr", scans=None):
     """A JPEG of ``img``: (H, W, 3) uint8 RGB as YCbCr at ``sampling`` (one
-    of JPEG_SAMPLING; chroma averaged over each sample's pixels), as CMYK
+    of JPEG_SAMPLING; chroma averaged over each sample's pixels), as RGB
+    (``colour="rgb"``: 4:4:4, components R, G, B, Adobe transform 0), as CMYK
     (``colour="cmyk"``: 4:4:4:4, Adobe transform 0) or YCCK (``"ycck"``: Y
     and K at ``sampling``, Adobe transform 2), the CMYK samples stored
     inverted as Adobe writes them (K the largest of R, G and B), or (H, W)
@@ -3298,6 +3299,9 @@ def jpeg_bytes(img, quality=95, sampling="420", restart=0, orientation=None, col
         hmax, vmax = JPEG_SAMPLING[sampling]
         if colour == "ycbcr":
             planes, comps = _ycbcr(img), [(1, hmax, vmax, 0), (2, 1, 1, 1), (3, 1, 1, 1)]
+        elif colour == "rgb":
+            hmax = vmax = 1
+            planes, comps, adobe = list(np.moveaxis(img, 2, 0)), [(82, 1, 1, 0), (71, 1, 1, 0), (66, 1, 1, 0)], 0
         else:
             k = img.max(axis=2)
             cmy = 255 - (k[..., None] - img) * 255 / np.maximum(k, 1)[..., None]
@@ -3654,55 +3658,124 @@ def packbits_encode(rows) -> bytes:
                     for row in rows)
 
 
-def tiff_bytes(img, compression="none", predictor=False, tile=None, bits=8, rows_per_strip=16):
-    """A little-endian RGB TIFF of the frame in strips of ``rows_per_strip``
-    or ``tile`` (w, h) tiles; 8 bits, or 16 (each value v * 257);
-    ``compression`` none, lzw, lzw_literal (``lzw_literal``), packbits or
-    deflate, with the horizontal predictor if asked."""
-    h, w = img.shape[:2]
-    samples = img.astype(np.uint16) * 257 if bits == 16 else img
-    cw, ch = tile or (w, rows_per_strip)
-    chunks = []
-    for y in range(0, h, ch):
-        for x in range(0, w, cw) if tile else [0]:
-            block = samples[y:y + ch, x:x + cw]
-            if tile:
-                block = np.pad(block, ((0, ch - block.shape[0]), (0, cw - block.shape[1]), (0, 0)))
-            if predictor:
-                block = np.concatenate([block[:, :1], block[:, 1:] - block[:, :-1]], axis=1)
-            raw = block.astype("<u2" if bits == 16 else np.uint8)
-            data = raw.tobytes()
-            chunks.append({"none": lambda: data, "lzw": lambda: lzw_encode(data),
-                           "lzw_literal": lambda: lzw_literal(data), "deflate": lambda: zlib.compress(data, 6),
-                           "packbits": lambda: packbits_encode(raw.reshape(raw.shape[0], -1))}[compression]())
-    code = {"none": 1, "lzw": 5, "lzw_literal": 5, "deflate": 8, "packbits": 32773}[compression]
-    body = bytearray(b"II*\x00\0\0\0\0")
+def jpeg_abbreviated(data):
+    """A JPEG ``data`` split as libtiff writes a TIFF's JPEG strips: (its
+    DQT and DHT segments, the stream without them and without APPn)."""
+    tables, rest, pos = b"", b"\xff\xd8", 2
+    while data[pos + 1] != 0xDA:
+        length = struct.unpack_from(">H", data, pos + 2)[0] + 2
+        segment = data[pos:pos + length]
+        if data[pos + 1] in (0xDB, 0xC4):
+            tables += segment
+        elif not 0xE0 <= data[pos + 1] <= 0xEF:
+            rest += segment
+        pos += length
+    return tables, rest + data[pos:]
+
+
+def ycbcr_units(block, hs, vs):
+    """(rows, cols, 3) uint8 RGB as TIFF's YCbCr data units: JFIF's Y, Cb,
+    Cr rounded, hs x vs luma samples then the unit's mean Cb and Cr; a unit
+    cut by the edge padded by replication."""
+    rows, cols = block.shape[:2]
+    ur, uc = -(-rows // vs), -(-cols // hs)
+    ycc = np.stack(_ycbcr(np.pad(block, ((0, ur * vs - rows), (0, uc * hs - cols), (0, 0)), mode="edge")
+                          .astype(np.float64)), axis=-1)
+    units = ycc.reshape(ur, vs, uc, hs, 3).transpose(0, 2, 1, 3, 4)
+    luma = np.clip(np.round(units[..., 0].reshape(ur, uc, vs * hs)), 0, 255)
+    chroma = np.clip(np.round(units[..., 1:].reshape(ur, uc, -1, 2).mean(axis=2)), 0, 255)
+    return np.concatenate([luma, chroma], axis=2).astype(np.uint8).tobytes()
+
+
+def _tiff_ifd(chunks, fields, bigtiff, tile, ch):
+    """A little-endian TIFF (classic, or BigTIFF: version 43, 8-byte offsets
+    and counts, 20-byte entries) of ``chunks`` and the IFD ``fields`` {tag:
+    (type, values)}: type 3 SHORT, 4 LONG, 7 UNDEFINED (bytes), 16 LONG8;
+    the chunk offsets and counts added (LONG8 in a BigTIFF)."""
+    body = bytearray(b"II" + (struct.pack("<HHHQ", 43, 8, 0, 0) if bigtiff else struct.pack("<HI", 42, 0)))
     offsets = []
     for c in chunks:
         offsets.append(len(body))
         body += c + bytes(len(c) % 2)
+    kind = 16 if bigtiff else 4
     counts = [len(c) for c in chunks]
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * 3), 259: (3, [code]), 262: (3, [2]), 277: (3, [3]),
-            284: (3, [1])}
-    if predictor:
-        tags[317] = (3, [2])
     if tile:
-        tags.update({322: (4, [cw]), 323: (4, [ch]), 324: (4, offsets), 325: (4, counts)})
+        fields.update({322: (4, [tile[0]]), 323: (4, [tile[1]]), 324: (kind, offsets), 325: (kind, counts)})
     else:
-        tags.update({273: (4, offsets), 278: (4, [ch]), 279: (4, counts)})
+        fields.update({273: (kind, offsets), 278: (4, [ch]), 279: (kind, counts)})
     ifd = len(body)
-    struct.pack_into("<I", body, 4, ifd)
+    struct.pack_into("<Q" if bigtiff else "<I", body, 8 if bigtiff else 4, ifd)
+    entry, inline = (20, 8) if bigtiff else (12, 4)
     blobs, entries = bytearray(), []
-    blob_at = ifd + 2 + 12 * len(tags) + 4
-    for tag in sorted(tags):
-        kind, values = tags[tag]
-        packed = struct.pack("<" + ("H" if kind == 3 else "I") * len(values), *values)
-        if len(packed) <= 4:
-            entries.append(struct.pack("<HHI", tag, kind, len(values)) + packed.ljust(4, b"\0"))
+    blob_at = ifd + (8 if bigtiff else 2) + entry * len(fields) + inline
+    for tag in sorted(fields):
+        kind, values = fields[tag]
+        packed = bytes(values) if kind == 7 else struct.pack("<" + {3: "H", 4: "I", 16: "Q"}[kind] * len(values),
+                                                             *values)
+        head = struct.pack("<HHQ" if bigtiff else "<HHI", tag, kind, len(values))
+        if len(packed) <= inline:
+            entries.append(head + packed.ljust(inline, b"\0"))
         else:
-            entries.append(struct.pack("<HHII", tag, kind, len(values), blob_at + len(blobs)))
-            blobs += packed
-    return bytes(body + struct.pack("<H", len(tags)) + b"".join(entries) + bytes(4) + blobs)
+            entries.append(head + struct.pack("<Q" if bigtiff else "<I", blob_at + len(blobs)))
+            blobs += packed + bytes(len(packed) % 2)
+    count = struct.pack("<Q" if bigtiff else "<H", len(fields))
+    return bytes(body + count + b"".join(entries) + bytes(inline) + blobs)
+
+
+def tiff_bytes(img, compression="none", predictor=False, tile=None, bits=8, rows_per_strip=16, bigtiff=False,
+               photometric="rgb", subsampling=(2, 2), quality=95):
+    """A little-endian TIFF of the frame in strips of ``rows_per_strip``
+    or ``tile`` (w, h) tiles; 8 bits, or 16 (each value v * 257);
+    ``compression`` none, lzw, lzw_literal (``lzw_literal``), packbits,
+    deflate or jpeg (each strip or tile a baseline JPEG of quality
+    ``quality`` from ``jpeg_bytes``, abbreviated: its tables in the
+    JPEGTables field), with the horizontal predictor if asked; a BigTIFF
+    with ``bigtiff``. ``photometric``: "rgb"; "ycbcr" (JPEG at the
+    ``subsampling`` (h, v), or without JPEG as ``ycbcr_units``' data units;
+    the YCbCrSubSampling field); "cmyk" (C, M, Y = 255 - R, G, B and K = 0,
+    which libtiff turns back into the frame exactly)."""
+    h, w = img.shape[:2]
+    spp = 4 if photometric == "cmyk" else 3
+    samples = img.astype(np.uint16) * 257 if bits == 16 else img
+    if photometric == "cmyk":
+        samples = np.dstack([255 - img, np.zeros((h, w, 1), np.uint8)])
+    cw, ch = tile or (w, rows_per_strip)
+    sampling = {v: k for k, v in JPEG_SAMPLING.items()}.get(tuple(subsampling))
+    chunks, tables = [], None
+    for y in range(0, h, ch):
+        for x in range(0, w, cw) if tile else [0]:
+            block = samples[y:y + ch, x:x + cw]
+            if tile:
+                block = np.pad(block, ((0, ch - block.shape[0]), (0, cw - block.shape[1]), (0, 0)),
+                               mode="edge" if compression == "jpeg" else "constant")
+            if compression == "jpeg":
+                colour = {"ycbcr": "ycbcr", "rgb": "rgb"}[photometric]
+                t, stream = jpeg_abbreviated(jpeg_bytes(block, quality=quality, sampling=sampling, colour=colour))
+                assert tables in (None, t), "strips coded with different tables"
+                tables = t
+                chunks.append(stream)
+                continue
+            if photometric == "ycbcr":
+                data = ycbcr_units(block, *subsampling)
+                raw = np.frombuffer(data, np.uint8)[None]
+            else:
+                if predictor:
+                    block = np.concatenate([block[:, :1], block[:, 1:] - block[:, :-1]], axis=1)
+                raw = block.astype("<u2" if bits == 16 else np.uint8)
+                data = raw.tobytes()
+            chunks.append({"none": lambda: data, "lzw": lambda: lzw_encode(data),
+                           "lzw_literal": lambda: lzw_literal(data), "deflate": lambda: zlib.compress(data, 6),
+                           "packbits": lambda: packbits_encode(raw.reshape(raw.shape[0], -1))}[compression]())
+    code = {"none": 1, "lzw": 5, "lzw_literal": 5, "deflate": 8, "packbits": 32773, "jpeg": 7}[compression]
+    fields = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [code]),
+              262: (3, [{"rgb": 2, "ycbcr": 6, "cmyk": 5}[photometric]]), 277: (3, [spp]), 284: (3, [1])}
+    if predictor:
+        fields[317] = (3, [2])
+    if photometric == "ycbcr":
+        fields[530] = (3, list(subsampling))
+    if tables is not None:
+        fields[347] = (7, list(b"\xff\xd8" + tables + b"\xff\xd9"))
+    return _tiff_ifd(chunks, fields, bigtiff, tile, ch)
 
 
 # --------------------------------------------------------------------------- #
@@ -4496,7 +4569,8 @@ def write_vp8_clip(root, files):
     return paths
 
 
-RASTER_CASES = {  # name → (the writer of a 720p frame, what cv2 reads from it, whether a compiled routine runs)
+RASTER_CASES = {  # name → (the writer of a 720p frame, what cv2 reads from it (None: not known on the card, its
+    # PSNR recorded), whether the plain decode is compared: a compiled routine runs, or the case is new)
     "bmp_24": (bmp_bytes, lambda f: f, False),
     "bmp_rle8": (lambda f: bmp_bytes(f, rle8=True), lambda f: palette_332()[palette_332_index(f)], True),
     "ppm": (lambda f: pnm_bytes(f, "ppm"), lambda f: f, False),
@@ -4508,6 +4582,11 @@ RASTER_CASES = {  # name → (the writer of a 720p frame, what cv2 reads from it
     "tiff_packbits": (lambda f: tiff_bytes(f, "packbits"), lambda f: f, True),
     "tiff_deflate_tiled": (lambda f: tiff_bytes(f, "deflate", tile=(256, 256)), lambda f: f, False),
     "tiff_16bit": (lambda f: tiff_bytes(f, bits=16), lambda f: f, False),
+    "tiff_jpeg_ycbcr_420_strips": (lambda f: tiff_bytes(f, "jpeg", photometric="ycbcr"), None, True),
+    "tiff_jpeg_rgb_tiles": (lambda f: tiff_bytes(f, "jpeg", tile=(256, 256)), None, True),
+    "tiff_ycbcr_22_lzw": (lambda f: tiff_bytes(f, "lzw", photometric="ycbcr"), None, True),
+    "tiff_cmyk_deflate": (lambda f: tiff_bytes(f, "deflate", photometric="cmyk"), lambda f: f, True),
+    "bigtiff_lzw_predictor": (lambda f: tiff_bytes(f, "lzw", predictor=True, bigtiff=True), lambda f: f, True),
     "sun_24": (sun_bytes, lambda f: f, False),
     "hdr_rle": (hdr_bytes, hdr_expected, True),
 }
@@ -4534,7 +4613,11 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4, vp8=None):
     each decode equals what cv2 reads from the file (the frame, or its
     palette or HDR rounding), and where a routine of csrc/raster_decode.cpp
     or csrc/webp_decode.cpp runs (RLE8, LZW, PackBits, HDR scanlines, GIF's
-    LZW, VP8L, VP8) the plain decode equals the compiled one: on the 720p
+    LZW, VP8L, VP8), and in the TIFF kinds of BigTIFF, JPEG, YCbCr and CMYK
+    (JPEG-in-TIFF YCbCr 4:2:0 in 16-row strips and RGB in 256x256 tiles,
+    YCbCr 2x2 with LZW, CMYK with Deflate, a BigTIFF of the LZW + predictor
+    case; the JPEG and YCbCr ones lossy, their PSNR recorded), the plain
+    decode equals the compiled one: on the 720p
     file, or for WebP, whose plain decode takes longer than 5 s there, on
     the same case written from the frame's top-left 180x320 (``plain_hw``).
     The lossy WebP cases of VP8_CASES (a B_PRED-heavy frame, a frame with the
@@ -4547,13 +4630,14 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4, vp8=None):
     the VP8Files of the lossy cases (made and joined here when None)."""
     from superslomo_tpu_torch.data import bmp, gif, hdr, image, jpeg, tiff, webp
 
-    plains = {"bmp": bmp.decode, "tiff": tiff.decode, "hdr": hdr.decode, "gif": gif.decode, "webp": webp.decode}
+    plains = {"bmp": bmp.decode, "tiff": tiff.decode, "bigtiff": tiff.decode, "hdr": hdr.decode, "gif": gif.decode,
+              "webp": webp.decode}
     frame = raster_frame(H, W)
     vp8 = (vp8 or VP8Files(H, W)).join()
     png_ms = png_res["filters"]["sub"]["decode_ms"]
     out = {"phase": "raster_decode_vs_plain", "frame_hw": [H, W], "reps": reps, "cases": {},
            "png_sub_decode_ms": png_ms, "jpeg_baseline_420_decode_ms": jpeg_res["cases"]["420"]["decode_ms"]}
-    cases = [(name, lambda f, w=write, e=expected: (w(f), e(f)), compiled)
+    cases = [(name, lambda f, w=write, e=expected: (w(f), e and e(f)), compiled)
              for name, (write, expected, compiled) in RASTER_CASES.items()]
     cases += [(name, make, True) for name, make in PALETTE_CASES.items()]
     cases += [(name, lambda f, name=name: (vp8.data[name, f.shape[:2]], None), True) for name in VP8_CASES]
@@ -4617,21 +4701,47 @@ def phase_raster_decode(png_res, jpeg_res, H=720, W=1280, reps=4, vp8=None):
 
 
 LOADER_FORMATS = {"bmp": bmp_bytes, "ppm": lambda f: pnm_bytes(f, "ppm"),
-                  "tif": lambda f: tiff_bytes(f, "lzw_literal", predictor=True), "webp": vp8l_bytes}
+                  "tif": lambda f: tiff_bytes(f, "lzw_literal", predictor=True), "webp": vp8l_bytes,
+                  "tif_jpeg": lambda f: tiff_bytes(f, "jpeg", photometric="ycbcr"),
+                  "tif_ycbcr": lambda f: tiff_bytes(f, "lzw", photometric="ycbcr")}
 LOADER_KINDS = (*LOADER_FORMATS, "vp8")  # in turn along the clip; "vp8": the frame of ``write_vp8_clip``
+LOSSY_KINDS = ("vp8", "tif_jpeg", "tif_ycbcr")  # what cv2 reads from these is not known on the card
 DECODERS = {"png": ("png", "imread"), "jpg": ("jpeg", "imread"), "bmp": ("bmp", "decode"), "ppm": ("pnm", "decode"),
             "tif": ("tiff", "decode"), "gif": ("gif", "decode"), "webp": ("webp", "decode"),
-            "vp8": ("webp", "_vp8_rgb")}  # kind → the reader's call (a lossy WebP is both "webp" and "vp8")
+            "vp8": ("webp", "_vp8_rgb"), "tif_jpeg": ("tiff", "_jpeg_chunk"),
+            "tif_ycbcr": ("tiff", "_units_chunk")}  # kind → the reader's call (a lossy WebP is both "webp" and "vp8",
+# a JPEG-in-TIFF both "tif" and "tif_jpeg", a subsampled YCbCr TIFF both "tif" and "tif_ycbcr")
+
+
+def clip_kinds(kinds, n):
+    """Each frame's kind along an n-frame clip: "vp8" at every 5th frame
+    (where ``VP8_CLIP`` writes its lossy frames), the other ``kinds`` in turn
+    between."""
+    others = [k for k in kinds if k != "vp8"]
+    out = []
+    for i in range(n):
+        out.append("vp8" if i % 5 == 4 and "vp8" in kinds else others[(len(out) - out.count("vp8")) % len(others)])
+    return out
 
 
 def frame_kind(path):
-    """The extension of ``path``, or "vp8" for a simple WebP file whose
-    bitstream is lossy."""
+    """The extension of ``path``; "vp8" for a simple WebP file whose
+    bitstream is lossy; "tif_jpeg" for a JPEG-compressed TIFF, "tif_ycbcr"
+    for a subsampled YCbCr one."""
     ext = os.path.splitext(path)[1][1:]
     if ext == "webp":
         with open(path, "rb") as f:
             if f.read(16)[12:16] == b"VP8 ":
                 return "vp8"
+    if ext == "tif":
+        from superslomo_tpu_torch.data import tiff
+
+        with open(path, "rb") as f:
+            tags = tiff.read_tags(f.read())[1]
+        if tags.get(259, (1,))[0] == 7:
+            return "tif_jpeg"
+        if tags.get(262, (0,))[0] == 6 and tuple(tags.get(530, (2, 2))) != (1, 1):
+            return "tif_ycbcr"
     return ext
 
 
@@ -4683,11 +4793,13 @@ def phase_raster_loader(root, sections, vp8, H=720, W=1280, n_batches=2):
     720p clip of ``write_dataset`` (the same seed) written again with its
     frames in turn as 24-bit BMP, binary PPM, LZW TIFF (predictor 2; 9-bit
     literal codes, ``lzw_literal``), lossless WebP (``vp8l_bytes``'
-    transforms case) and lossy WebP (the frames ``vp8``, {index: path}, of
+    transforms case), JPEG-in-TIFF (YCbCr 4:2:0 in 16-row strips), YCbCr
+    2x2 TIFF with LZW and lossy WebP (the frames ``vp8``, {index: path}, of
     ``write_vp8_clip``): the first ``n_batches`` batches equal, bit for bit,
     those of the list over the PNG frames (PNG copies of the port's decode in
-    place of the lossy ones), and each format's decoder ran; ms a batch of
-    each list (each format's decode ms is ``raster_decode_vs_plain``'s)."""
+    place of the lossy ones, ``LOSSY_KINDS``), and each format's decoder ran;
+    ms a batch of each list (each format's decode ms is
+    ``raster_decode_vs_plain``'s)."""
     from superslomo_tpu_torch import load_config
     from superslomo_tpu_torch.data import image
 
@@ -4698,15 +4810,15 @@ def phase_raster_loader(root, sections, vp8, H=720, W=1280, n_batches=2):
     clip_dir = os.path.join(root, "adobe_raster", "clip_000")
     os.makedirs(clip_dir)
     t0 = time.perf_counter()
-    kind = [LOADER_KINDS[i % len(LOADER_KINDS)] for i in range(len(frames))]
-    paths = [vp8[i] if kind[i] == "vp8" else os.path.join(clip_dir, f"frame_{i:05d}.{kind[i]}")
+    kind = clip_kinds(LOADER_KINDS, len(frames))
+    paths = [vp8[i] if kind[i] == "vp8" else os.path.join(clip_dir, f"frame_{i:05d}.{kind[i].split('_')[0]}")
              for i in range(len(frames))]
     own = [i for i in range(len(frames)) if kind[i] != "vp8"]
     write_frames([paths[i] for i in own], [frames[i] for i in own], [LOADER_FORMATS[kind[i]] for i in own])
     for i, path in enumerate(paths):
         original = os.path.join(png_dir, f"frame_{i:05d}.png")
         text = text.replace(original, path)
-        if kind[i] == "vp8":
+        if kind[i] in LOSSY_KINDS:
             copy = os.path.join(clip_dir, f"frame_{i:05d}_decoded.png")
             write_png(copy, image.imread(path))
             png_text = png_text.replace(original, copy)
@@ -4715,7 +4827,7 @@ def phase_raster_loader(root, sections, vp8, H=720, W=1280, n_batches=2):
         with open(lists[name], "w") as f:
             f.write(body)  # the PNG list's entries, each frame in its format (or as the PNG of its decode)
     res = {"phase": "raster_loader_vs_png", "batches": n_batches, "frames_by_format": {
-        ext: len(range(k, len(frames), len(LOADER_KINDS))) for k, ext in enumerate(LOADER_KINDS)},
+        ext: kind.count(ext) for ext in LOADER_KINDS},
         "write_s": time.perf_counter() - t0, "lists": {}}
     ref = None
     for name, path in lists.items():
@@ -4732,9 +4844,8 @@ def phase_raster_loader(root, sections, vp8, H=720, W=1280, n_batches=2):
                               "batch": cfg.getint("TRAIN", "BATCH_SIZE"), "decodes": decodes}
     emit(res)
     if not (res["lists"]["raster"]["equals_png"] and all(res["lists"]["raster"]["decodes"].values())):
-        raise AssertionError(f"the Loader's batches over BMP / PPM / TIFF / WebP / lossy WebP frames differ from the "
-                             f"PNG list's: "
-                             f"{res}")
+        raise AssertionError(f"the Loader's batches over BMP / PPM / TIFF / WebP / JPEG-in-TIFF / YCbCr TIFF / lossy "
+                             f"WebP frames differ from the PNG list's: {res}")
     return res
 
 
@@ -4786,15 +4897,17 @@ def write_dataset(root, H=720, W=1280, vimeo_hw=(256, 448), adobe_entries=280, n
 
 
 MIXED_FORMATS = {"jpg": lambda f: jpeg_bytes(f, quality=95), "gif": lambda f: gif_frame(f)[0], "webp": vp8l_bytes,
-                 "png": write_png_bytes, "vp8": None}  # kind → its writer; None: the frame of ``write_vp8_clip``
+                 "png": write_png_bytes, "vp8": None, "tif_jpeg": LOADER_FORMATS["tif_jpeg"],
+                 "tif_ycbcr": LOADER_FORMATS["tif_ycbcr"]}  # kind → its writer; None: the frame of ``write_vp8_clip``
 
 
 def write_mixed_train_lists(root, sections, vp8, H=720, W=1280, entries=280):
     """The 57-frame 720p clip of ``write_dataset`` (the same seed) written
     again with its frames in turn as q95 4:2:0 JPEG, GIF (``gif_frame``: the
-    3-3-2 palette), lossless WebP (``vp8l_bytes``' transforms case), PNG and
-    lossy WebP (the frames ``vp8``, {index: path}, of ``write_vp8_clip``: the
-    same every 5th frame as the Loader's raster list), and
+    3-3-2 palette), lossless WebP (``vp8l_bytes``' transforms case), PNG,
+    lossy WebP (the frames ``vp8``, {index: path}, of ``write_vp8_clip``),
+    JPEG-in-TIFF (YCbCr 4:2:0 in 16-row strips) and YCbCr 2x2 TIFF with LZW,
+    and
     ADOBE and NFS train lists, written by ``utils.make_clips``, naming the
     clip ``entries`` times each; returns ``sections`` with those lists
     (Vimeo's septuplets stay PNG, as the readers name them)."""
@@ -4802,10 +4915,9 @@ def write_mixed_train_lists(root, sections, vp8, H=720, W=1280, entries=280):
 
     clip_dir = os.path.join(root, "adobe_mixed", "clip_000")
     os.makedirs(clip_dir)
-    kinds = list(MIXED_FORMATS)
     frames = panning_clips(np.random.default_rng(31), 1, H, W, n=57)[0]
-    kind = [kinds[i % len(kinds)] for i in range(len(frames))]
-    paths = [vp8[i] if kind[i] == "vp8" else os.path.join(clip_dir, f"frame_{i:05d}.{kind[i]}")
+    kind = clip_kinds(MIXED_FORMATS, len(frames))
+    paths = [vp8[i] if kind[i] == "vp8" else os.path.join(clip_dir, f"frame_{i:05d}.{kind[i].split('_')[0]}")
              for i in range(len(frames))]
     own = [i for i in range(len(frames)) if kind[i] != "vp8"]
     write_frames([paths[i] for i in own], [frames[i] for i in own], [MIXED_FORMATS[kind[i]] for i in own])
@@ -4830,11 +4942,12 @@ def write_small_eval_dataset(root, H=48, W=96, n=17):
 def data_phases(norm, scale=False, vp8_files=None):
     """Phases 15-17 over a made-up dataset in a temporary directory: the PNG
     unfilter, the JPEG decode, the raster, GIF and WebP (lossless and lossy)
-    decodes and the Loader over a clip list of BMP, PPM, TIFF and WebP
-    frames, the eval CLI over PNG frames and (``eval_cli["vp8"]``) over lossy
-    WebP frames against their PNG copies, the train CLI in f32 and bf16, and
-    in f32 over clip lists naming JPEG, GIF, lossless WebP, PNG and lossy
-    WebP frames in turn; with ``scale``, then phase 23 over the same datasets
+    decodes and the Loader over a clip list of BMP, PPM, TIFF (LZW,
+    JPEG-in-TIFF, YCbCr) and WebP frames, the eval CLI over PNG frames and
+    (``eval_cli["vp8"]``) over lossy WebP frames against their PNG copies,
+    the train CLI in f32 and bf16, and in f32 over clip lists naming JPEG,
+    GIF, lossless WebP, PNG, lossy WebP, JPEG-in-TIFF and YCbCr TIFF frames
+    in turn; with ``scale``, then phase 23 over the same datasets
     (else None). ``vp8_files``: the VP8Files, started earlier or here."""
     vp8_files = (vp8_files or VP8Files()).join()
     png = phase_png_unfilter()
@@ -5081,12 +5194,14 @@ def list_frame_kinds(sections):
     """The kinds (``frame_kind``), sorted and joined by "+", of the frames
     that the first clip of the ADOBE train list of ``sections`` names: "png",
     or "jpg", "gif+jpg+vp8+webp", ... (each a kind whose decoder ``DECODERS``
-    names; a lossy WebP is decoded by both "webp" and "vp8")."""
+    names; a lossy WebP is decoded by both "webp" and "vp8", a JPEG-in-TIFF
+    or subsampled YCbCr TIFF by "tif" and its own kind)."""
     with open(sections["ADOBE_DATA"]["TRAINPATHS"]) as f:
         n = int(f.readline())
         paths = [f.readline().strip() for _ in range(n)]
     kinds = {frame_kind(p) for p in paths}
-    return "+".join(sorted(kinds | ({"webp"} if "vp8" in kinds else set())))
+    kinds |= {"webp"} if "vp8" in kinds else set()
+    return "+".join(sorted(kinds | ({"tif"} if kinds & {"tif_jpeg", "tif_ycbcr"} else set())))
 
 
 def phase_train_cli(root, sections, norm, dtype, steps=5, warmup=2, synthetic_steps=2, loader_batches=3,

@@ -335,7 +335,7 @@ void upsample(const uint8_t* src, int64_t sstride, int dh, int dw, int hexp, int
 
 inline uint8_t clamp255(int32_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
-enum Colour { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4 };
+enum Colour { kGrey = 0, kYCbCr = 1, kRGB = 2, kCMYK = 3, kYCCK = 4, kRaw = 5 };
 
 // jdcolor.c's YCbCr to RGB: SCALEBITS 16, the four tables, ONE_HALF rounding
 struct YccTables {
@@ -415,6 +415,12 @@ void finish(int W, int H, int nc, int colour, const Samples* comp, uint8_t* out)
         }
         for (int ch = 0; ch < 3; ++ch) o[3 * x + ch] = static_cast<uint8_t>(k - (((255 - cmy[ch]) * k) >> 8));
       }
+    }
+  } else if (colour == kRaw) {
+    for (int y = 0; y < H; ++y) {
+      uint8_t* o = out + static_cast<int64_t>(y) * W * nc;
+      for (int x = 0; x < W; ++x)
+        for (int c = 0; c < nc; ++c) o[nc * x + c] = rows[c][y * strides[c] + x];
     }
   } else {
     for (int y = 0; y < H; ++y) {
@@ -640,9 +646,9 @@ void smooth_block(const Component& p, const uint16_t* q, int T, int by, int bx, 
 
 // Decodes the scan whose entropy-coded data starts at `scan` (its first
 // `scan_len` bytes hold it, and may run on past it) into `out`, a (height,
-// width, 3) RGB uint8 array.
+// width, 3) RGB uint8 array (for colour 5, (height, width, components)).
 //   frame: width, height, the number of frame components (1, 3 or 4), the
-//          restart interval in MCUs (0: none), colour (0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK);
+//          restart interval in MCUs (0: none), colour (0 grey, 1 YCbCr, 2 RGB, 3 CMYK, 4 YCCK, 5 raw);
 //   comps: per scan component, in scan order: its frame index, h, v, DC table, AC table;
 //   quant: per frame component, in frame order, its 64 quantisation values, natural order;
 //   huff:  the 4 DC then the 4 AC tables, each 16 code counts then 256 symbols (all counts 0: absent).
@@ -732,7 +738,7 @@ extern "C" int64_t jpeg_decode(const uint8_t* scan, int64_t scan_len, const int3
 }
 
 // Decodes a progressive file, or a sequential one in several scans, into
-// `out`, a (height, width, 3) RGB uint8 array: each scan into the components'
+// `out`, a (height, width, 3) RGB uint8 array (as jpeg_decode's): each scan into the components'
 // coefficient buffers, then the output pass over them.
 //   data:     the file;
 //   frame:    width, height, the number of frame components (1, 3 or 4), colour (as jpeg_decode's), progressive;

@@ -9,8 +9,9 @@ two of these signatures overlap, so the order picks the same decoder as any
 other would. A JPEG's, PNG's or WebP's EXIF orientation is applied as cv2
 applies it, a TIFF's Orientation tag likewise.
 
-WebP is read lossless (VP8L) and lossy (VP8). A format that cv2's build
-reads and the port does not (AVIF, JPEG 2000, BigTIFF) raises
+WebP is read lossless (VP8L) and lossy (VP8); TIFF classic and BigTIFF,
+JPEG-compressed too, in grey, RGB, palette, YCbCr and CMYK. A format that
+cv2's build reads and the port does not (AVIF, JPEG 2000) raises
 NotImplementedError naming the file and the format; any other file raises
 ValueError naming it."""
 
@@ -23,7 +24,6 @@ from superslomo_tpu_torch.data import bmp, gif, hdr, jpeg, png, pnm, sunras, tif
 _NOT_READ = (  # (signature test, format): what cv2 reads and the port does not
     (lambda d: d[4:8] == b"ftyp" and d[8:12] in (b"avif", b"avis"), "AVIF"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xff\x4f\xff\x51", "JPEG 2000"),
-    (lambda d: d[:4] in tiff.BIGTIFF, "BigTIFF"),
 )
 
 
@@ -50,7 +50,7 @@ def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
     for test, name in _NOT_READ:
         if test(data):
             raise NotImplementedError(f"{path}: {name} is not read; only BMP, GIF, HDR, JPEG, WebP (lossless and "
-                                      "lossy), Sun raster, PBM, PGM, PPM, PAM, PFM, TIFF and PNG")
+                                      "lossy), Sun raster, PBM, PGM, PPM, PAM, PFM, TIFF (and BigTIFF) and PNG")
     raise ValueError(f"{path}: not an image file that cv2 reads")
 
 

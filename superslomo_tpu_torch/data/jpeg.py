@@ -40,6 +40,12 @@ version (which saturates where ``jidctint.c``'s range-limit table wraps: cv2
 clamps an out-of-range sample), fancy chroma upsampling (``jdsample.c``), and
 the fixed-point YCbCr to RGB of ``jdcolor.c``. ``decode_plain`` is the same
 function in numpy and Python, for the tests.
+
+A TIFF's JPEG strips and tiles come through the same decode
+(``data/tiff.py``): ``with_tables`` puts the JPEGTables field's tables before
+an abbreviated stream, and the caller sets ``Header.colour`` as libtiff sets
+libjpeg's colour space: "ycbcr" (to RGB) or "raw" (the components as
+stored, (H, W, components)), whatever the stream's markers say.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ _REFUSED = {  # SOFn markers that are neither sequential nor progressive Huffman
     **{m: f"hierarchical JPEG (SOF{m - 0xC0})" for m in (0xC5, 0xC6, 0xC7)},
     **{m: f"arithmetic-coded JPEG (SOF{m - 0xC0})" for m in (0xC9, 0xCA, 0xCB, 0xCD, 0xCE, 0xCF)},
 }
-_COLOURS = {"grey": 0, "ycbcr": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
+_COLOURS = {"grey": 0, "ycbcr": 1, "rgb": 2, "cmyk": 3, "ycck": 4, "raw": 5}
 _ERRORS = {1: "the scan ends before its last block (truncated)", 2: "a Huffman code not in its table",
            3: "a missing or misnumbered restart marker",
            4: "a bad Huffman table (more codes than their lengths hold, or a DC symbol past 15)",
@@ -102,7 +108,7 @@ class Header:
     scan: list  # per first-scan component, in scan order: (frame index, DC table, AC table)
     huffman: dict  # (class: 0 DC / 1 AC, table) → (16 code counts, symbols)
     restart: int  # MCUs between restart markers, 0 for none
-    colour: str  # "grey", "ycbcr", "rgb", "cmyk" or "ycck"
+    colour: str  # "grey", "ycbcr", "rgb", "cmyk" or "ycck"; or "raw", set by a caller: the components as stored
     orientation: int  # EXIF orientation, 1-8
     scan_start: int  # the offset of the entropy-coded data
     scans: list  # every Scan, in file order
@@ -461,9 +467,10 @@ def _scan_records(header: Header, data_len: int) -> tuple:
 
 def decode(data: bytes, header: Header, path: str = "<bytes>") -> np.ndarray:
     """The scans of ``data`` decoded by the compiled routine to a (H, W, 3)
-    uint8 RGB array (no orientation applied)."""
+    uint8 RGB array (no orientation applied); for ``header.colour`` "raw",
+    (H, W, components) of the components as stored."""
     buf = np.frombuffer(data, np.uint8)
-    out = np.empty((header.height, header.width, 3), np.uint8)
+    out = np.empty((header.height, header.width, len(header.components) if header.colour == "raw" else 3), np.uint8)
     quant = np.ascontiguousarray(np.stack([q for _, _, q in header.components]), np.uint16)
     lib = cuda_build.load_library(SOURCE, _declare)
     if header.one_pass:
@@ -498,6 +505,47 @@ def imread(path: str, data: bytes | None = None) -> np.ndarray:
             data = f.read()
     header = read_header(data, path)
     return apply_orientation(decode(data, header, path), header.orientation)
+
+
+def with_tables(stream: bytes, tables: bytes | None, path: str = "<bytes>") -> bytes:
+    """A TIFF strip's or tile's JPEG ``stream`` (an abbreviated datastream)
+    preceded by the marker segments of the TIFF's JPEGTables field
+    ``tables``, a tables-only datastream, as libjpeg reads the pair: the
+    tables first, the stream's own markers after them (a table the stream
+    defines again replaces the field's). A field that is not a tables-only
+    datastream (no SOI; a frame or scan header in it) raises ValueError,
+    as libtiff's "Bogus JPEGTables field"; its segments end at its EOI or,
+    as libtiff's source then inserts one, at the field's end; between
+    segments, bytes are passed over as libjpeg's ``next_marker`` passes
+    them."""
+    if stream[:2] != b"\xff\xd8":
+        raise ValueError(f"{path}: a JPEG strip or tile that does not start with SOI")
+    if not tables:
+        return stream
+    if tables[:2] != b"\xff\xd8":
+        raise ValueError(f"{path}: a JPEGTables field that does not start with SOI")
+    segments, pos = [], 2
+    while True:  # libjpeg's next_marker: bytes before a 0xFF skipped, fill bytes too, a stuffed 0 passed
+        while pos < len(tables) and tables[pos] != 0xFF:
+            pos += 1
+        while pos < len(tables) and tables[pos] == 0xFF:
+            pos += 1
+        if pos >= len(tables):
+            break
+        marker = tables[pos]
+        pos += 1
+        if marker == 0xD9:
+            break
+        if marker == 0 or 0xD0 <= marker <= 0xD7 or marker == 0x01:
+            continue
+        if marker in (0xDA, 0xD8) or marker in _FRAMES or marker in _REFUSED:
+            raise ValueError(f"{path}: a JPEGTables field holding marker {marker:#04x}, not tables alone")
+        length = struct.unpack_from(">H", tables, pos)[0] if pos + 2 <= len(tables) else 0
+        if length < 2 or pos + length > len(tables):
+            raise ValueError(f"{path}: a JPEGTables field cut inside a marker segment")
+        segments.append(bytes([0xFF, marker]) + tables[pos:pos + length])
+        pos += length
+    return b"\xff\xd8" + b"".join(segments) + stream[2:]
 
 
 class _ScanError(Exception):
@@ -795,6 +843,8 @@ def decode_plain(data: bytes, header: Header, path: str = "<bytes>") -> np.ndarr
                       [: header.height, : header.width])
     if header.colour == "grey":
         return np.repeat(planes[0][..., None], 3, axis=2)
+    if header.colour == "raw":
+        return np.stack(planes, axis=2)
     if header.colour == "rgb":
         return np.stack(planes, axis=2)
     if header.colour == "ycbcr":

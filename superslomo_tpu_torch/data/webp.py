@@ -27,13 +27,26 @@ returns. ``decode(data, path)`` returns the (H, W, 3) uint8 RGB array that
   chunk with its pad byte;
 - the EXIF Orientation of a ``VP8X`` file whose EXIF flag is set (its first
   ``EXIF`` chunk, a TIFF-structured block), applied as cv2 applies it
-  (``data/exif.py``);
-- an animated file (``ANIM`` before the ``ANMF`` frames): the first frame's
-  bitstream drawn at its offset on a black canvas, whatever its blend and
-  dispose flags; every frame must lie inside the canvas.
+  (``data/exif.py``), where the demuxer below reads the file;
+- a still image's chunks read up to its bitstream, as libwebp's decode reads
+  them: a chunk after the bitstream whose size runs past the data's end does
+  not fail the read (one before it does);
+- an animated file (``ANIM`` before the ``ANMF`` frames) walked as libwebp's
+  demuxer walks it (``_demux``): an ``ANMF`` frame keeps its first ``ALPH``
+  and its first ``VP8``/``VP8L`` chunk, the chunks after those are read as
+  if outside it, and a frame with neither is passed over (its rectangle
+  unchecked); the first frame with a bitstream is drawn at its offset on a
+  black canvas, whatever its blend and dispose flags; every frame with a
+  bitstream must lie inside the canvas, and any fault the demuxer finds (a
+  chunk past the end, fewer than 8 bytes after a chunk, a frame of ``ALPH``
+  alone, ``ALPH`` before ``VP8L``, a bitstream outside the frames, a
+  reserved VP8X flag) fails the read;
+- the EXIF orientation applied only where that demuxer reads the whole file,
+  for a still image too (cv2 reads the EXIF chunk through it).
 
-What cv2 fails on (a file cut short, a chunk past the RIFF size, a bad VP8L
-or VP8 stream) raises ValueError naming the file.
+What cv2 fails on (a file cut short, a chunk past the RIFF size before a
+still image's bitstream, a bad VP8L or VP8 stream) raises ValueError naming
+the file.
 
 The VP8L and VP8 decodes run in the host C++ of ``csrc/webp_decode.cpp`` and
 ``csrc/vp8_decode.cpp``, built at first use by ``ops/cuda_build.py`` and
@@ -56,7 +69,9 @@ SOURCE = cuda_build.CSRC / "webp_decode.cpp"
 VP8_SOURCE = cuda_build.CSRC / "vp8_decode.cpp"
 _ERRORS = {-1: "a VP8L bitstream that libwebp refuses", -2: "VP8L data that ends too soon (truncated)"}
 _VP8_ERRORS = {-1: "a VP8 frame that libwebp refuses", -2: "VP8 data that ends too soon (truncated)"}
-_ANIMATION, _EXIF = 0x02, 0x08  # VP8X flags
+_ALPHA, _ANIMATION, _EXIF = 0x10, 0x02, 0x08  # VP8X flags
+_VALID_FLAGS = 0x3E  # ALPHA, ANIMATION, ICCP, EXIF, XMP
+_BITSTREAMS = (b"VP8 ", b"VP8L")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -83,7 +98,9 @@ def is_webp(data: bytes) -> bool:
 
 
 def _chunks(data: bytes, start: int, end: int, path: str) -> list:
-    """[(fourcc, payload start, payload size)] of the chunks in data[start:end]."""
+    """[(fourcc, payload start, payload size)] of the chunks in data[start:end]
+    up to the first VP8 or VP8L chunk, as libwebp's still-image decode reads
+    them: what follows that bitstream is not read."""
     out = []
     while start + 8 <= end:
         fourcc = data[start:start + 4]
@@ -91,8 +108,123 @@ def _chunks(data: bytes, start: int, end: int, path: str) -> list:
         if start + 8 + size > end:
             raise ValueError(f"{path}: a WebP {fourcc.decode('latin-1')!r} chunk past the data's end (truncated)")
         out.append((fourcc, start + 8, size))
+        if fourcc in _BITSTREAMS:
+            break
         start += 8 + size + (size & 1)
     return out
+
+
+class _DemuxError(ValueError):
+    """Where libwebp's demuxer (``WebPDemux``) refuses the file."""
+
+
+def _demux(data: bytes, flags: int, cw: int, ch: int, end: int) -> tuple:
+    """libwebp's ``WebPDemux`` over the chunks after a VP8X chunk (which ends
+    at byte 30 + its padding) up to the RIFF's ``end``: (its frames, as
+    [(frame, x, y)] with ``_frame``'s tuples, the first EXIF payload's (start,
+    size) or None). The walk is flat, as demux.c's ``ParseVP8XChunks``: an
+    ANMF chunk's 16-byte header is read, ``StoreFrame`` takes its first ALPH
+    and first VP8 / VP8L chunks, and the chunks after those are walked as if
+    they stood outside it; a frame with neither is passed over. Raises
+    _DemuxError where the demuxer fails (a chunk past the end, fewer than 8
+    bytes left, a bitstream outside the frames of an animation, a frame left
+    without its bitstream, a reserved flag, a frame off the canvas)."""
+    animated = bool(flags & _ANIMATION)
+    if cw * ch >= 1 << 32:
+        raise _DemuxError(f"a {cw}x{ch} canvas")
+    (size,) = struct.unpack_from("<I", data, 16)
+    pos = 20 + size + (size & 1)
+    if end - pos < 8:
+        raise _DemuxError("fewer than 8 bytes after the VP8X chunk")
+    frames, exif, anim = [], None, False
+
+    def header(at):
+        fourcc, size = data[at:at + 4], struct.unpack_from("<I", data, at + 4)[0]
+        padded = size + (size & 1)
+        if padded > end - at - 8:
+            raise _DemuxError(f"a {fourcc.decode('latin-1')!r} chunk past the data's end")
+        return fourcc, size, padded
+
+    def store(at, min_size, x, y):
+        """StoreFrame from ``at`` (and ParseSingleImage's alpha rule where
+        the file is not animated): (where it stopped, the frame or None)."""
+        if end - at < max(8, min_size):
+            raise _DemuxError("a frame cut short")
+        alpha = image = None
+        while True:
+            fourcc, size, padded = header(at)
+            if fourcc == b"ALPH" and alpha is None:
+                alpha = (at + 8, size)
+            elif fourcc in _BITSTREAMS and image is None:
+                if fourcc == b"VP8L" and alpha is not None:
+                    raise _DemuxError("an ALPH chunk before a VP8L bitstream")
+                try:
+                    w, h = (_vp8l_size if fourcc == b"VP8L" else _vp8_size)(data, at + 8, size, "")
+                except ValueError as e:
+                    raise _DemuxError(str(e)[2:]) from None
+                image = (fourcc, at + 8, size, w, h)
+            else:
+                break
+            at += 8 + padded
+            if at == end:
+                break
+            if end - at < 8:
+                raise _DemuxError("fewer than 8 bytes after a chunk")
+        if alpha is None and image is None:
+            return at, None
+        if image is None:
+            raise _DemuxError("a frame with an ALPH chunk and no bitstream")
+        if not animated and not flags & _ALPHA:
+            alpha = None
+        if alpha is not None and alpha[0] > image[1]:
+            raise _DemuxError("an ALPH chunk after its bitstream")
+        fourcc, bat, bsize, w, h = image
+        if (x + w > cw or y + h > ch) if animated else (w, h) != (cw, ch):
+            raise _DemuxError(f"a {w}x{h} frame at ({x}, {y}) past the {cw}x{ch} canvas")
+        return at, (fourcc, bat, bsize, w, h, alpha)
+
+    while True:
+        fourcc, size, padded = header(pos)
+        if fourcc == b"VP8X":
+            raise _DemuxError("a second VP8X chunk")
+        if fourcc in (b"ALPH", *_BITSTREAMS):
+            if anim or animated or frames:
+                raise _DemuxError("a bitstream outside the frames of an animated WebP")
+            pos, frame = store(pos, 0, 0, 0)
+            if frame is not None:
+                frames.append((frame, 0, 0))
+        elif fourcc == b"ANMF":
+            if not anim:
+                raise _DemuxError("an ANMF frame before the ANIM chunk")
+            if end - pos - 8 < 16 or padded < 16:
+                raise _DemuxError("an ANMF chunk under 16 bytes")
+            x, y, w, h = (int.from_bytes(data[pos + k:pos + k + 3], "little") for k in (8, 11, 14, 17))
+            if (w + 1) * (h + 1) >= 1 << 32:
+                raise _DemuxError(f"an ANMF frame of {w + 1}x{h + 1}")
+            x, y = 2 * x, 2 * y
+            start = pos + 24
+            pos, frame = store(start, padded - 16, x, y)
+            if pos - start > padded - 16:
+                raise _DemuxError("a frame's chunks past its ANMF chunk")
+            if frame is not None and animated:
+                frames.append((frame, x, y))
+        else:
+            if fourcc == b"ANIM":
+                if padded < 6:
+                    raise _DemuxError(f"an ANIM chunk of {size} bytes")
+                anim = True
+            elif fourcc == b"EXIF" and flags & _EXIF and exif is None:
+                exif = (pos + 8, size)
+            pos += 8 + padded
+        if pos == end:
+            break
+        if end - pos < 8:
+            raise _DemuxError("fewer than 8 bytes after a chunk")
+    if flags & ~_VALID_FLAGS:
+        raise _DemuxError(f"VP8X flags {flags:#04x} with a reserved bit set")
+    if not frames:
+        raise _DemuxError("no frame")
+    return frames, exif
 
 
 def _vp8l_size(data: bytes, at: int, size: int, path: str) -> tuple:
@@ -122,11 +254,10 @@ def _vp8_size(data: bytes, at: int, size: int, path: str) -> tuple:
     return w, h
 
 
-def _frame(data: bytes, chunks: list, path: str, first_alpha: bool = False) -> tuple:
-    """(fourcc, payload start, size, width, height, alpha) of the image of
-    ``chunks``: its VP8 or VP8L chunk after any ALPH chunks; ``alpha`` the
-    (payload start, size) of the last ALPH before it, or with
-    ``first_alpha`` the first (an animation frame's), or None."""
+def _frame(data: bytes, chunks: list, path: str) -> tuple:
+    """(fourcc, payload start, size, width, height, alpha) of the still image
+    of ``chunks``: its VP8 or VP8L chunk after any ALPH chunks; ``alpha`` the
+    (payload start, size) of the last ALPH before it, or None."""
     alpha = None
     for fourcc, at, size in chunks:
         if fourcc == b"VP8L":
@@ -135,8 +266,7 @@ def _frame(data: bytes, chunks: list, path: str, first_alpha: bool = False) -> t
             return (fourcc, at, size, *_vp8_size(data, at, size, path), alpha)
         if fourcc != b"ALPH":
             break
-        if alpha is None or not first_alpha:
-            alpha = (at, size)
+        alpha = (at, size)
     raise ValueError(f"{path}: a WebP frame without a VP8 or VP8L bitstream")
 
 
@@ -237,37 +367,20 @@ def decode(data: bytes, path: str = "<bytes>", plain: bool = False) -> np.ndarra
     flags = data[at]
     cw = 1 + int.from_bytes(data[at + 4:at + 7], "little")
     ch = 1 + int.from_bytes(data[at + 7:at + 10], "little")
-    turn = 1
-    if flags & _EXIF:
-        exif = [(a, s) for c, a, s in chunks if c == b"EXIF"]
-        if exif:
-            turn = orientation(data[exif[0][0]:exif[0][0] + exif[0][1]])
+    try:
+        frames, exif = _demux(data, flags, cw, ch, riff + 8)
+    except _DemuxError as e:
+        if flags & _ANIMATION:
+            raise ValueError(f"{path}: an animated WebP that libwebp's demuxer refuses ({e})") from None
+        frames, exif = None, None  # a still image decodes all the same, without its EXIF
+    turn = orientation(data[exif[0]:exif[0] + exif[1]]) if exif is not None else 1
     if not flags & _ANIMATION:
-        rest = [c for c in chunks[1:] if c[0] in (b"ALPH", b"VP8 ", b"VP8L")]
+        rest = [c for c in chunks[1:] if c[0] in (b"ALPH", *_BITSTREAMS)]
         frame = _frame(data, rest, path)
         if frame[3:5] != (cw, ch):
             raise ValueError(f"{path}: a {frame[3]}x{frame[4]} image on a {cw}x{ch} VP8X canvas")
         return apply_orientation(_image(data, frame, len(data), path, plain), turn)
-    # animated: ANIM, then every frame inside the canvas; the first frame drawn on black
-    frames, anim = [], False
-    for fourcc, at, size in chunks[1:]:
-        if fourcc == b"ANIM":
-            if size < 6:
-                raise ValueError(f"{path}: an ANIM chunk of {size} bytes")
-            anim = True
-        elif fourcc == b"ANMF":
-            if not anim or size < 16:
-                raise ValueError(f"{path}: an ANMF frame before the ANIM chunk, or under 16 bytes")
-            x, y = (2 * int.from_bytes(data[at + k:at + k + 3], "little") for k in (0, 3))
-            frame = _frame(data, _chunks(data, at + 16, at + size, path), path, first_alpha=True)
-            w, h = frame[3:5]
-            if x + w > cw or y + h > ch:
-                raise ValueError(f"{path}: a {w}x{h} frame at ({x}, {y}) past the {cw}x{ch} canvas")
-            frames.append((frame, x, y))
-        elif fourcc in (b"ALPH", b"VP8 ", b"VP8L"):
-            raise ValueError(f"{path}: a bitstream outside the frames of an animated WebP")
-    if not frames:
-        raise ValueError(f"{path}: an animated WebP without frames")
+    # animated: the first frame that holds a bitstream, drawn on a black canvas
     frame, x, y = frames[0]
     at, size, w, h = frame[1:5]
     canvas = np.zeros((ch, cw, 3), np.uint8)

@@ -252,6 +252,9 @@ def _payload(data: bytes) -> bytes:
     return data[20:20 + size]
 
 
+_PAST_END = b"ABCD" + struct.pack("<I", 1000) + b"xyz"  # a chunk whose size runs past the data's end
+
+
 def _refusal_files():
     rng = np.random.default_rng(5)
     img = _texture(rng, 9, 17, "noise")
@@ -281,6 +284,28 @@ def _refusal_files():
         "webp_frame_past_canvas": (_riff(_vp8x(0x12, 17, 9), _chunk(b"ANIM", bytes(6)),
                                          _anmf(2, 0, 17, 9, 0, _bitstream(lossless))), ValueError, "past the"),
         "webp_under_32_bytes": (lossless[:12] + b"VP8L\x05\0\0\0\x2f\0\0\0\0", ValueError, "under the 32"),
+        "webp_chunk_past_the_end_before_the_bitstream": (_riff(_vp8x(0, 17, 9), _PAST_END + _bitstream(lossless)),
+                                                         ValueError, "past the data's end"),
+        "webp_animation_chunk_past_the_end": (_riff(_vp8x(0x02, 17, 9), _chunk(b"ANIM", bytes(6)),
+                                                    _anmf(0, 0, 17, 9, 0, _bitstream(lossless)), _PAST_END),
+                                              ValueError, "past the data's end"),
+        "webp_animation_second_frame_empty": (_riff(_vp8x(0x02, 17, 9), _chunk(b"ANIM", bytes(6)),
+                                                    _anmf(0, 0, 17, 9, 0, _bitstream(lossless)), _anmf(0, 0, 17, 9, 0,
+                                                                                                        b"")),
+                                              ValueError, "frame cut short"),
+        "webp_animation_frame_of_alpha_alone": (_riff(_vp8x(0x12, 17, 9), _chunk(b"ANIM", bytes(6)),
+                                                      _anmf(0, 0, 17, 9, 0, _chunk(b"ALPH", bytes(154))),
+                                                      _anmf(0, 0, 17, 9, 0, _bitstream(lossy))),
+                                                ValueError, "no bitstream"),
+        "webp_animation_alpha_before_vp8l": (_riff(_vp8x(0x12, 17, 9), _chunk(b"ANIM", bytes(6)),
+                                                   _anmf(0, 0, 17, 9, 0, _chunk(b"ALPH", bytes(154))
+                                                         + _bitstream(lossless))), ValueError, "before a VP8L"),
+        "webp_animation_unknown_chunk_before_the_bitstream": (_riff(
+            _vp8x(0x02, 17, 9), _chunk(b"ANIM", bytes(6)),
+            _anmf(0, 0, 17, 9, 0, _chunk(b"ABCD", b"12") + _bitstream(lossless))), ValueError, "outside the frames"),
+        "webp_animation_reserved_flag": (_riff(_vp8x(0x03, 17, 9), _chunk(b"ANIM", bytes(6)),
+                                               _anmf(0, 0, 17, 9, 0, _bitstream(lossless))), ValueError,
+                                         "reserved bit"),
     }
 
 
@@ -297,6 +322,56 @@ def test_gif_webp_refusals_name_the_file(tmp_path, name):
     with pytest.raises(kind, match=rf"{name}\.img.*{words}"):
         image.imread(str(path))
     assert cv2.imread(str(path)) is None
+
+
+def _container_files():
+    """The RIFF container's faults that cv2 reads past: a chunk past the
+    data's end after a still image's bitstream (libwebp's decode stops at
+    the bitstream); an animation whose first frames hold no bitstream (the
+    demuxer passes over them and returns the next frame's image); and the
+    EXIF orientation that cv2 applies only where the demuxer reads the whole
+    file (not with a chunk past the end, nor with bytes too few for a chunk
+    after the last one)."""
+    rng = np.random.default_rng(8)
+    img, img2 = _texture(rng, 9, 17, "noise"), _texture(rng, 9, 17, "smooth")
+    square = _texture(rng, 9, 9, "noise")
+    lossless, lossy = _bitstream(_pil(img, "WEBP", lossless=True)), _bitstream(_pil(img, "WEBP"))
+    second = _bitstream(_pil(img2, "WEBP", lossless=True))
+    exif = Image.Exif()
+    exif[0x0112] = 6
+    rotated = _pil(square, "WEBP", lossless=True, exif=exif.tobytes())
+    at = rotated.find(b"EXIF")
+    exif_chunk = rotated[at:at + 8 + struct.unpack_from("<I", rotated, at + 4)[0]]
+    exif_chunk += bytes(len(exif_chunk) & 1)
+    still = _bitstream(_pil(square, "WEBP", lossless=True))
+    anim = (_vp8x(0x12, 17, 9), _chunk(b"ANIM", bytes(6)))
+    return {
+        "vp8l_then_chunk_past_the_end": _riff(lossless, _PAST_END),
+        "vp8_then_chunk_past_the_end": _riff(lossy, _PAST_END),
+        "vp8x_vp8l_then_chunk_past_the_end": _riff(_vp8x(0, 17, 9), lossless, _PAST_END),
+        "vp8x_alph_vp8_then_chunk_past_the_end": _riff(_vp8x(0x10, 17, 9), _chunk(b"ALPH", bytes(154)), lossy,
+                                                       _PAST_END),
+        "exif_applied": _riff(_vp8x(0x08, 9, 9), still, exif_chunk),
+        "exif_then_chunk_past_the_end": _riff(_vp8x(0x08, 9, 9), still, exif_chunk, _PAST_END),
+        "exif_then_3_bytes": _riff(_vp8x(0x08, 9, 9), still, exif_chunk, b"\x00\x01\x02"),
+        "exif_before_the_bitstream_then_chunk_past_the_end": _riff(_vp8x(0x08, 9, 9), exif_chunk, still, _PAST_END),
+        "first_frame_unknown_chunk_only": _riff(*anim, _anmf(0, 0, 17, 9, 0, _chunk(b"ABCD", b"12")),
+                                                _anmf(0, 0, 17, 9, 0, second)),
+        "first_frame_empty": _riff(*anim, _anmf(0, 0, 17, 9, 0, b""), _anmf(0, 0, 17, 9, 0, second)),
+        "first_two_frames_without_bitstream_off_the_canvas": _riff(
+            *anim, _anmf(8, 2, 17, 9, 0, _chunk(b"ABCD", b"12")), _anmf(0, 0, 3, 3, 0, b""),
+            _anmf(0, 0, 17, 9, 0, second)),
+        "first_frame_without_bitstream_then_lossy": _riff(*anim, _anmf(0, 0, 17, 9, 0, _chunk(b"XYZW", b"1")),
+                                                          _anmf(0, 0, 17, 9, 0, _chunk(b"ALPH", bytes(154)) + lossy)),
+        "second_frame_unknown_chunk_only": _riff(*anim, _anmf(0, 0, 17, 9, 0, lossless),
+                                                 _anmf(0, 0, 17, 9, 0, _chunk(b"ABCD", b"12"))),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_container_files()))
+def test_webp_container_reads_past_what_cv2_reads_past(tmp_path, name):
+    """Each container case reads as cv2 reads it, compiled and plain."""
+    _check(tmp_path, _container_files()[name], f"{name}.webp", lambda data, path: webp.decode(data, path, plain=True))
 
 
 def _lossy_files():

@@ -7,8 +7,10 @@ and a maxval of 1000; TIFF tiles, separate planes, big-endian samples, LSB
 fill order and MinIsWhite; Sun raster colour maps, 1- and 32-bit; HDR
 run-length, flat and mixed scanlines), at odd sizes up to 64x64 and at 200x328; each
 compiled routine of ``csrc/raster_decode.cpp`` against its plain twin; the
-frame reader's choice by signature; and each refusal, which names the file
-and the feature."""
+frame reader's choice by signature; each refusal, which names the file and
+the feature; and one file of each kind that a refusal named until the
+reader read it (BigTIFF, JPEG-in-TIFF, YCbCr and CMYK TIFF, held in full by
+``tests/test_torch_tiff.py``)."""
 
 import io
 import struct
@@ -360,74 +362,113 @@ def _packbits(raw: bytes) -> bytes:
     return bytes(out)
 
 
+def _ycbcr_units(block: np.ndarray, hs: int, vs: int) -> bytes:
+    """(rows, cols, 3) full-size Y, Cb, Cr as TIFF's YCbCr data units of
+    ``hs`` x ``vs`` luma samples, then one Cb and one Cr (the mean of the
+    unit's pixels, rounded); a partial unit at the right or bottom edge
+    padded by replication."""
+    rows, cols = block.shape[:2]
+    ur, uc = -(-rows // vs), -(-cols // hs)
+    full = np.pad(block, ((0, ur * vs - rows), (0, uc * hs - cols), (0, 0)), mode="edge").astype(np.int64)
+    units = full.reshape(ur, vs, uc, hs, 3).transpose(0, 2, 1, 3, 4)  # (ur, uc, vs, hs, 3)
+    luma = units[..., 0].reshape(ur, uc, vs * hs)
+    chroma = (units[..., 1:].reshape(ur, uc, -1, 2).sum(axis=2) + vs * hs // 2) // (vs * hs)
+    return np.concatenate([luma, chroma], axis=2).astype(np.uint8).tobytes()
+
+
 def _tiff(samples: np.ndarray, bits, photometric, order="<", compression=1, tile=None, rows_per_strip=None,
           planar=False, predictor=1, colormap=None, extra=None, orientation=None, fill_lsb=False,
-          sample_format=None, width=None, raw_tags=()):
+          sample_format=None, width=None, raw_tags=(), bigtiff=False, ycbcr=None, chunks=None, tags=None):
     """A TIFF of (h, w, spp) samples, or of (h, row bytes) rows packed MSB
     first where ``bits`` < 8 (then ``width`` pixels): strips of
     ``rows_per_strip`` or ``tile`` (w, h) tiles, separate planes, compression
-    1 (none), 8 (Deflate) or 32773 (PackBits), horizontal differencing
-    (``predictor`` 2) applied here; ``raw_tags`` (tag, SHORT value) last."""
+    1 (none), 5 (LZW), 8 (Deflate) or 32773 (PackBits), horizontal differencing
+    (``predictor`` 2) applied here; ``raw_tags`` (tag, SHORT value) last.
+    ``ycbcr`` (hs, vs): the samples are full-size Y, Cb, Cr, written as
+    YCbCr data units (``_ycbcr_units``). ``chunks``: the strips' or tiles'
+    bytes as given, in place of the samples' (which then give only the
+    size). ``tags``: more fields, {tag: (type, values)}, type 3 SHORT, 4
+    LONG, 5 RATIONAL ((numerator, denominator) pairs), 7 UNDEFINED (bytes)
+    or 16 LONG8. ``bigtiff``: the BigTIFF header and IFD (version 43,
+    8-byte offsets and counts, 20-byte entries)."""
     h, W, spp = samples.shape if bits >= 8 else (samples.shape[0], width, 1)
     sdt = np.dtype(order + {16: "u2", 32: "f4"}.get(bits, "u1"))
     planes = [samples[..., p:p + 1] for p in range(spp)] if planar else [samples]
     cw, ch = tile if tile else (W, rows_per_strip or h)
-    chunks = []
-    for plane in planes:
-        for y in range(0, h, ch):
-            for x in range(0, W, cw) if tile else [0]:
-                block = plane[y:y + ch, x:x + cw] if bits >= 8 else plane[y:y + ch]
-                if tile:  # tiles are padded to their full size
-                    pad = [(0, ch - block.shape[0]), (0, cw - block.shape[1])] + [(0, 0)] * (block.ndim - 2)
-                    block = np.pad(block, pad)
-                if predictor == 2:
-                    block = block.copy()
-                    block[:, 1:] = block[:, 1:] - block[:, :-1]
-                raw = block.astype(sdt).tobytes()
-                if fill_lsb:
-                    raw = tiff._REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
-                chunks.append(zlib.compress(raw) if compression == 8 else _packbits(raw) if compression == 32773
-                              else raw)
-    tags = {256: (4, [W]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]), 262: (3, [photometric]),
-            277: (3, [spp]), 284: (3, [2 if planar else 1])}
+    if chunks is None:
+        chunks = []
+        for plane in planes:
+            for y in range(0, h, ch):
+                for x in range(0, W, cw) if tile else [0]:
+                    block = plane[y:y + ch, x:x + cw] if bits >= 8 else plane[y:y + ch]
+                    if tile:  # tiles are padded to their full size
+                        pad = [(0, ch - block.shape[0]), (0, cw - block.shape[1])] + [(0, 0)] * (block.ndim - 2)
+                        block = np.pad(block, pad)
+                    if ycbcr is not None:
+                        raw = _ycbcr_units(block, *ycbcr)
+                    else:
+                        if predictor == 2:
+                            block = block.copy()
+                            block[:, 1:] = block[:, 1:] - block[:, :-1]
+                        raw = block.astype(sdt).tobytes()
+                    if fill_lsb:
+                        raw = tiff._REVERSED[np.frombuffer(raw, np.uint8)].tobytes()
+                    chunks.append(zlib.compress(raw) if compression == 8 else _packbits(raw) if compression == 32773
+                                  else chip_smoke.lzw_encode(raw) if compression == 5 else raw)
+    fields = {256: (4, [W]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+              262: (3, [photometric]), 277: (3, [spp]), 284: (3, [2 if planar else 1])}
     if predictor != 1:
-        tags[317] = (3, [predictor])
+        fields[317] = (3, [predictor])
     if colormap is not None:
-        tags[320] = (3, list(colormap.T.reshape(-1)))
+        fields[320] = (3, list(colormap.T.reshape(-1)))
     if extra is not None:
-        tags[338] = (3, [extra])
+        fields[338] = (3, [extra])
     if orientation:
-        tags[274] = (3, [orientation])
+        fields[274] = (3, [orientation])
     if fill_lsb:
-        tags[266] = (3, [2])
+        fields[266] = (3, [2])
     if sample_format:
-        tags[339] = (3, [sample_format] * spp)
+        fields[339] = (3, [sample_format] * spp)
+    if ycbcr is not None:
+        fields[530] = (3, list(ycbcr))
     for tag, value in raw_tags:
-        tags[tag] = (3, [value])
-    body = bytearray(b"II*\x00" if order == "<" else b"MM\x00*") + bytes(4)
+        fields[tag] = (3, [value])
+    fields.update(tags or {})
+    body = bytearray(b"II" if order == "<" else b"MM")
+    body += struct.pack(order + "HHHQ", 43, 8, 0, 0) if bigtiff else struct.pack(order + "HI", 42, 0)
     offsets = []
     for c in chunks:
         offsets.append(len(body))
         body += c
+    size = {3: 2, 4: 4, 16: 8}
+    offset_type = 16 if bigtiff else 4
     if tile:
-        tags.update({322: (4, [cw]), 323: (4, [ch]), 324: (4, offsets), 325: (4, [len(c) for c in chunks])})
+        fields.update({322: (4, [cw]), 323: (4, [ch]), 324: (offset_type, offsets),
+                       325: (offset_type, [len(c) for c in chunks])})
     else:
-        tags.update({278: (4, [ch]), 273: (4, offsets), 279: (4, [len(c) for c in chunks])})
+        fields.update({278: (4, [ch]), 273: (offset_type, offsets), 279: (offset_type, [len(c) for c in chunks])})
     ifd = len(body) + len(body) % 2
     body += bytes(len(body) % 2)
-    struct.pack_into(order + "I", body, 4, ifd)
+    struct.pack_into(order + ("Q" if bigtiff else "I"), body, 8 if bigtiff else 4, ifd)
+    entry, inline, count_fmt = (20, 8, "Q") if bigtiff else (12, 4, "I")
     entries, blobs = [], bytearray()
-    blob_at = ifd + 2 + 12 * len(tags) + 4
-    for tag in sorted(tags):
-        kind, values = tags[tag]
-        fmt = order + ("H" if kind == 3 else "I") * len(values)
-        packed = struct.pack(fmt, *values)
-        if len(packed) <= 4:
-            entries.append(struct.pack(order + "HHI", tag, kind, len(values)) + packed.ljust(4, b"\0"))
+    blob_at = ifd + (8 if bigtiff else 2) + entry * len(fields) + inline
+    for tag in sorted(fields):
+        kind, values = fields[tag]
+        if kind == 5:
+            packed, n = struct.pack(order + "I" * 2 * len(values), *[v for pair in values for v in pair]), len(values)
+        elif kind == 7:
+            packed, n = bytes(values), len(values)
         else:
-            entries.append(struct.pack(order + "HHII", tag, kind, len(values), blob_at + len(blobs)))
+            packed = struct.pack(order + {2: "H", 4: "I", 8: "Q"}[size[kind]] * len(values), *values)
+            n = len(values)
+        head = struct.pack(order + "HH" + count_fmt, tag, kind, n)
+        if len(packed) <= inline:
+            entries.append(head + packed.ljust(inline, b"\0"))
+        else:
+            entries.append(head + struct.pack(order + ("Q" if bigtiff else "I"), blob_at + len(blobs)))
             blobs += packed + bytes(len(packed) % 2)
-    body += struct.pack(order + "H", len(tags)) + b"".join(entries) + bytes(4) + blobs
+    body += struct.pack(order + ("Q" if bigtiff else "H"), len(fields)) + b"".join(entries) + bytes(inline) + blobs
     return bytes(body)
 
 
@@ -675,20 +716,24 @@ WRITER_CASES = sorted(chip_smoke.RASTER_CASES) + ["loader_" + ext for ext in sor
 @pytest.mark.parametrize("name", WRITER_CASES)
 def test_chip_smoke_writer_files_decode_as_cv2(tmp_path, name):
     """``chip_smoke.py``'s raster writers (the card's machine has no cv2 or
-    PIL): cv2 reads each file to what the script expects of it, and the
-    frame reader as cv2, on panning frames at odd sizes and at 200x328."""
+    PIL): cv2 reads each file to what the script expects of it (where the
+    script knows it: not for JPEG-in-TIFF and YCbCr TIFF), and the frame
+    reader as cv2, a TIFF's plain decode as its compiled one, on panning
+    frames at odd sizes and at 200x328."""
     rng = np.random.default_rng(len(name))
     for h, w in ((9, 17), (37, 53), (200, 328)):
         frame = chip_smoke.panning_clips(rng, 1, h, w, n=1)[0, 0]
         if name.startswith("loader_"):
-            data, want = chip_smoke.LOADER_FORMATS[name[len("loader_"):]](frame), frame
+            kind = name[len("loader_"):]
+            data, want = chip_smoke.LOADER_FORMATS[kind](frame), None if kind in chip_smoke.LOSSY_KINDS else frame
         else:
             write, expected, _ = chip_smoke.RASTER_CASES[name]
-            data, want = write(frame), expected(frame)
+            data, want = write(frame), expected and expected(frame)
         path = tmp_path / f"{name}_{h}.img"
         path.write_bytes(data)
-        np.testing.assert_array_equal(cv2.imread(str(path))[..., ::-1], want, err_msg=f"{name} {h}x{w}")
-        _check(tmp_path, data, f"{name}_{h}.img")
+        if want is not None:  # the lossy kinds: what cv2 reads is what the port reads (_check)
+            np.testing.assert_array_equal(cv2.imread(str(path))[..., ::-1], want, err_msg=f"{name} {h}x{w}")
+        _check(tmp_path, data, f"{name}_{h}.img", (lambda d: tiff.decode(d, plain=True)) if data[:2] == b"II" else None)
 
 
 # --------------------------------------------------------------------------- #
@@ -716,16 +761,11 @@ def _webp_cut(data: bytes) -> bytes:
 
 def _refusal_files():
     img = _texture(np.random.default_rng(11), 9, 17, "noise")
-    tif = _tiff(img, 8, 2)
     return {
-        "tiff_jpeg": (_tiff(img, 8, 2, raw_tags=((259, 7),)), NotImplementedError, "JPEG compression"),
         "tiff_old_jpeg": (_tiff(img, 8, 2, raw_tags=((259, 6),)), NotImplementedError, "old-style JPEG"),
         "tiff_ccitt": (_tiff(_packed(img[..., 0] >> 7, 1), 1, 0, width=17, raw_tags=((259, 4),)), NotImplementedError,
                        "CCITT"),
-        "tiff_ycbcr": (_tiff(img, 8, 6), NotImplementedError, "YCbCr"),
-        "tiff_cmyk": (_tiff(np.dstack([img, img[..., :1]]), 8, 5), NotImplementedError, "CMYK"),
         "tiff_lab": (_tiff(img, 8, 8), NotImplementedError, "CIELab"),
-        "bigtiff": (b"II+\x00" + tif[4:], NotImplementedError, "BigTIFF"),
         "webp": (_webp_cut(_pil(img, "WEBP")), ValueError, "VP8 data that ends too soon"),
         "avif": (b"\x00\x00\x00\x1cftypavif" + bytes(40), NotImplementedError, "AVIF"),
         "jpeg_2000": (b"\x00\x00\x00\x0cjP  \r\n\x87\n" + bytes(40), NotImplementedError, "JPEG 2000"),
@@ -751,6 +791,29 @@ def _refusal_files():
 
 
 REFUSALS = sorted(_refusal_files())
+
+
+def _former_refusal(name: str) -> bytes:
+    """A valid file of each kind the refusal cases named until the reader
+    read it: a BigTIFF, a JPEG-compressed TIFF (as PIL's libtiff writes it),
+    a YCbCr TIFF (4:2:0 data units) and a CMYK TIFF."""
+    img = _texture(np.random.default_rng(11), 9, 17, "noise")
+    if name == "bigtiff":
+        return _tiff(img, 8, 2, bigtiff=True)
+    if name == "tiff_jpeg":
+        return _pil(img, "TIFF", compression="jpeg")
+    if name == "tiff_ycbcr":
+        return _tiff(img, 8, 6, ycbcr=(2, 2), rows_per_strip=4)
+    assert name == "tiff_cmyk", name
+    return _tiff(np.dstack([img, img[..., :1]]), 8, 5)
+
+
+@pytest.mark.parametrize("name", ["bigtiff", "tiff_cmyk", "tiff_jpeg", "tiff_ycbcr"])
+def test_former_refusals_read_as_cv2(tmp_path, name):
+    """BigTIFF, JPEG compression and the YCbCr and CMYK photometrics, which
+    the refusal cases named, now read as cv2 reads them, compiled and plain
+    (``tests/test_torch_tiff.py`` holds every case of each kind)."""
+    _check(tmp_path, _former_refusal(name), f"{name}.tif", lambda d: tiff.decode(d, plain=True))
 
 
 @pytest.mark.parametrize("name", REFUSALS)
